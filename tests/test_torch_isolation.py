@@ -1,0 +1,94 @@
+"""The torch port stands alone: it imports torch and numpy, never jax and
+nothing of the JAX package ``repro``; and its entry points run on the
+card unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+PKG = os.path.join(SRC, "repro_torch")
+
+
+def _port_files():
+    for dirpath, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", sorted(_port_files()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_repro_import_statement(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{os.path.relpath(path, ROOT)}:{node.lineno} " \
+                        f"imports {bad}"
+
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import repro_torch
+mods = ["repro_torch"]
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+    mods.append(m.name)
+import chip_smoke  # noqa: F401  (phases import the port lazily)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(mods), "modules;", "forbidden:", bad)
+assert not bad, bad
+import torch
+from repro_torch.backend import Backend
+if torch.cuda.is_available():
+    assert Backend.create("torch", fresh=True).device.type == "cuda"
+else:
+    try:
+        Backend.create("torch", fresh=True)
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("Backend.create('torch') ran without a card")
+    assert Backend.create("torch", device="cpu").device.type == "cpu"
+print("ok")
+"""
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(src=SRC, root=ROOT)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_engine_and_serve_refuse_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the CPU-only refusal cannot show")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import EngineConfig, ServeEngine
+    with pytest.raises(RuntimeError, match="not attached"):
+        ServeEngine(get_config("deepseek-7b").reduced(),
+                    EngineConfig(mode="paged"))
