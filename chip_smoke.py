@@ -10,26 +10,40 @@ without printing a result:
 
   1. device   -- the card's name and power limit (nvidia-smi) and torch's
                  name for it;
-  2. build    -- nvcc builds the four Hopper kernels from
-                 src/repro_torch/kernels/csrc/ (sm_90a) at first use;
+  2. build    -- nvcc builds the five Hopper kernels from
+                 src/repro_torch/kernels/csrc/ (sm_90a) at first use, one
+                 process per source, all started together;
   3. kernels  -- each kernel against its plain PyTorch version at the
-                 full-width deepseek-7b shapes of the paged serving path
-                 (bf16, plus one f32 case), with its time, the plain
+                 full-width deepseek-7b shapes of the serving paths
+                 (bf16, plus one f32 case each), with its time, the plain
                  version's, a one-call PyTorch yardstick's where there is
                  one, and the card's bound for the same work;
   4. main     -- ServeEngine(mode="paged") at O2 with the kernels on
                  full-width deepseek-7b (30 layers, d_model 4096, vocab
                  102400, f32 params drawn on the card from a seed):
                  6 greedy requests, two sharing a 32-token prefix, run to
-                 drain; every kernel must have launched on this path and
-                 none may have been refused;
-  5. parity   -- reduced deepseek-7b (d_model 128, d_head 64, d_ff 256)
-                 with the same numpy weights and prompts through the port
-                 on the card (kernels) and on the CPU (plain versions):
-                 greedy tokens must be identical.
+                 drain; the four kernels of this path (its chunked prefill
+                 holds no Attention op) must have launched;
+  5. flash    -- the same model and weights through
+                 ServeEngine(mode="donated"): 4 greedy requests of 128
+                 prompt tokens and 16 new ones, one dense prefill and one
+                 fused 15-step chunk, so flash attention launches once per
+                 layer and step (480 times); then the paged engine with a
+                 dense prefill (prefill_chunk=0) on 2 requests, whose
+                 prefills launch it too.  All five kernels must launch;
+  6. parity   -- reduced deepseek-7b with the same numpy weights and
+                 prompts through the port on the card (kernels) and on the
+                 CPU (plain versions): paged at d_head 64, and lockstep,
+                 donated, continuous and paged with a dense prefill at
+                 d_head 128 (flash attention on the card); f32 greedy
+                 tokens must be identical.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and the result line {"ok": true, "device": {...}}.
+In phases 4 and 5 no kernel may have been refused.  Phase 6 counts its
+refusals but does not gate them: the reduced vocabulary (257) is no
+whole number of 16-byte vectors, so the unembed takes the plain version
+there, as the reference's fallback rule says.  Then one JSON line with
+every kernel's numbers, the card's name and power limit, and the result
+line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -51,13 +65,19 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense tensor core / f32 CUDA core
 TOL = {torch.bfloat16: 3e-2, torch.float16: 3e-2, torch.float32: 1e-4}
-D, F, V, SLOTS, CHUNK = 4096, 11008, 102400, 4, 64
+D, F, V, SLOTS, CHUNK, DH, HEADS = 4096, 11008, 102400, 4, 64, 128, 32
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:20",
     "norm_matmul": "src/repro/kernels/norm_matmul.py:21",
     "swiglu": "src/repro/kernels/swiglu.py:22",
     "rmsnorm": "src/repro/kernels/rmsnorm.py:18",
+    "flash_attention": "src/repro/kernels/flash_attention.py:41",
 }
+# the kernels each serving path must launch: the paged path's chunked
+# prefill attends through an IR composition, every other path holds an
+# Attention op at d_head 128
+PAGED_KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm")
+ALL_KERNELS = PAGED_KERNELS + ("flash_attention",)
 
 
 def say(phase: str, **kw) -> None:
@@ -108,7 +128,9 @@ def _events_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """Median device time of ``fn`` over ``reps`` launches, each timed with
     CUDA events and each preceded by a write of ``flush`` (larger than the
     50 MB L2), so the weights come from device memory as they do on the
-    serving path, where each layer's weights are new."""
+    serving path, where each layer's weights are new.  The write keeps
+    the card busy (~0.15 ms) while the host enqueues the launch, so the
+    events time the device's work, not the wrapper's Python."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -137,11 +159,15 @@ def _rand(shape, dtype, gen, scale=1.0):
 
 def kernel_cases(gen):
     """(kernel, label, kernel_fn, plain_fn, library_fn, bytes, flops, dtype)
-    at the shapes the paged serving path gives each kernel: decode (4
-    slots) first -- the case the result line reports -- then prefill (a
-    64-row chunk) and the f32 case."""
+    at the shapes the serving paths give each kernel: decode (4 slots)
+    first -- the case the result line reports -- then prefill (a 64-row
+    chunk, or a dense prefill for attention) and the f32 case.  Bytes
+    count each input read once and the output written once (for
+    attention, the K/V rows the causal mask lets some query see); flops
+    count what this case's inputs need."""
     from repro_torch.kernels import matmul as km, norm_matmul as kn
     from repro_torch.kernels import rmsnorm as kr, swiglu as ks
+    from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ref
     import torch.nn.functional as Fn
     bf, f32 = torch.bfloat16, torch.float32
@@ -193,15 +219,55 @@ def kernel_cases(gen):
     nm("prefill qkv (64x4096)(4096x4096)", CHUNK, D, bf)
     sw("decode (4x4096) F=11008", SLOTS, bf)
     sw("prefill (64x4096) F=11008", CHUNK, bf)
+    def fa(label, B, Hq, Hkv, Sq, Skv, off, dt):
+        q = _rand((B, Hq, Sq, DH), dt, gen)
+        k = _rand((B, Hkv, Skv, DH), dt, gen)
+        v = _rand((B, Hkv, Skv, DH), dt, gen)
+        o = None if off is None else torch.tensor(off, dtype=torch.int32,
+                                                  device="cuda")
+        # causal on absolute positions: what this case's mask lets through
+        vis = (torch.arange(Skv, device="cuda")[None, :]
+               <= torch.arange(Sq, device="cuda")[:, None] + (off or 0))
+        pairs = int(vis.sum())
+        rows = int(vis.any(0).sum())   # K/V rows some query sees
+        s = q.element_size()
+        # the one-call yardstick: SDPA over repeated kv heads (repeated
+        # here, outside the timed call), is_causal where top-left
+        # alignment is the mask, else the boolean mask
+        kr_, vr_ = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+        if off is None:
+            lib = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
+                q, kr_, vr_, is_causal=True)
+        else:
+            lib = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
+                q, kr_, vr_, attn_mask=vis)
+        cases.append(("flash_attention", label,
+                      lambda: kf.flash_attention(q, k, v, q_offset=o),
+                      lambda: ref.flash_attention_ref(q, k, v, q_offset=o),
+                      lib, (2 * B * Hq * Sq * DH + 2 * B * Hkv * rows * DH) * s,
+                      4 * B * Hq * pairs * DH, dt))
+
     rn("decode pre-MLP (4x4096)", SLOTS, bf)
     rn("prefill final (64x4096) w f32", CHUNK, f32)
+    fa("decode (4x32x1) over 256 keys at pos 255", SLOTS, HEADS, HEADS, 1,
+       256, 255, bf)
+    fa("decode (4x32x1) over 256 keys at pos 63", SLOTS, HEADS, HEADS, 1,
+       256, 63, bf)
+    fa("dense prefill (4x32x128) causal", SLOTS, HEADS, HEADS, 128, 128,
+       None, bf)
+    fa("paged-dense prefill (1x32x100) causal", 1, HEADS, HEADS, 100, 100,
+       None, bf)
+    fa("f32 decode (4x32x1) at pos 255", SLOTS, HEADS, HEADS, 1, 256, 255,
+       f32)
+    fa("GQA decode Hq 64 Hkv 8 (qwen1.5-110b) at pos 255", SLOTS, 64, 8, 1,
+       256, 255, bf)
     return cases
 
 
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
     report = {}
     for name, label, kfn, pfn, lfn, nbytes, flops, dt in kernel_cases(gen):
         out = kfn()
@@ -235,7 +301,7 @@ def phase_kernels() -> dict:
                 "replaces": REPLACES[name], "launches": 0,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms}
+                "library_ms": lib_ms, "launches_by_phase": {}}
     del flush
     torch.cuda.empty_cache()
     return report
@@ -287,7 +353,22 @@ def _dispatch_profile(eng) -> dict:
             "top": [[k[:48], round(ms, 3), n] for ms, n, k in rows[:8]]}
 
 
-def phase_main(report: dict) -> None:
+def _record_launches(report: dict, phase: str, counts: dict,
+                     required) -> None:
+    """Gate one main-path run's counts (set to 0 just before it): every
+    kernel the path runs launched, none refused; and add them to the
+    report."""
+    for name, c in counts.items():
+        require(c["rejected"] == 0,
+                f"{phase}: {name}: {c['rejected']} refusals")
+        if name in required:
+            require(c["launches"] > 0,
+                    f"{phase}: {name}: no launch on this path")
+        report[name]["launches"] += c["launches"]
+        report[name]["launches_by_phase"][phase] = c["launches"]
+
+
+def phase_main(report: dict):
     from repro_torch import kernels
     from repro_torch.backend import CompileOptions
     from repro_torch.configs import get_config
@@ -327,10 +408,7 @@ def phase_main(report: dict) -> None:
     problems = eng.pool.verify()
     require(problems == [], f"pool.verify(): {problems}")
     require(rep.pool.shared_attaches > 0, "no prefix page was shared")
-    for name, c in counts.items():
-        require(c["launches"] > 0, f"{name}: no launch on the main path")
-        require(c["rejected"] == 0, f"{name}: {c['rejected']} refusals")
-        report[name]["launches"] = c["launches"]
+    _record_launches(report, "main", counts, PAGED_KERNELS)
     pipeline_s = eng.cf.report.seconds + sum(
         v[1].report.seconds for v in eng._pf_chunks.values())
     disp = _dispatch_profile(eng)
@@ -352,57 +430,176 @@ def phase_main(report: dict) -> None:
         launches=json.dumps({k: v["launches"] for k, v in counts.items()}))
     say("profile", dispatch="decode chunk (4 steps x 30 layers)",
         device_kernels=disp["n_kernels"], top=json.dumps(disp["top"]))
-    del eng, params
+    del eng
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+# -- 5. the flash-attention path, full width --------------------------------
+def phase_flash(report: dict, cfg, params) -> None:
+    """Donated decode of full-width deepseek-7b on phase 4's weights (the
+    engines map parameters by name), then the paged engine's dense
+    prefill.  Flash attention runs in every dense prefill (one launch
+    per layer) and in every step of the fused decode chunk."""
+    from repro_torch import kernels
+    from repro_torch.backend import CompileOptions
+    from repro_torch.launch.engine import EngineConfig, ServeEngine
+
+    opts = CompileOptions(level="O2", use_pallas=True)
+    P, G, L = 128, 16, cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, EngineConfig(mode="donated", slots=SLOTS,
+                                        max_len=256, device="cuda",
+                                        params=params), options=opts)
+    t_engine = time.perf_counter() - t0
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, P).astype(np.int32)
+               for _ in range(SLOTS)]
+    kernels.reset_counters()
+    rids = [eng.submit(p, G) for p in prompts]
+    rep = eng.run()
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    require(all(rep.statuses[r] == "completed" for r in rids),
+            f"donated: statuses {rep.statuses} {rep.errors}")
+    for r in rids:
+        toks = rep.results[r]
+        require(len(toks) == G and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab, f"donated {r}: {toks}")
+    # one dense prefill (B 4) plus G - 1 fused decode steps, each layer
+    expect = L * (1 + (G - 1))
+    got = counts["flash_attention"]["launches"]
+    require(got == expect, f"donated: {got} flash launches, {expect} "
+            f"expected (a prefill and {G - 1} steps x {L} layers)")
+    _record_launches(report, "flash_donated", counts, ALL_KERNELS)
+    say("flash", path="donated", model="deepseek-7b", requests=len(rids),
+        prompt_len=P, generated=rep.generated_tokens,
+        engine_build_s=f"{t_engine:.2f}",
+        decode_tok_s=f"{rep.decode_tok_s:.2f}",
+        ttft_p50_ms=f"{rep.ttft_p50_ms:.1f}",
+        chunk_ms=f"{rep.p50_ms:.1f}", wall_s=f"{rep.wall_seconds:.2f}",
+        prefill_s=f"{rep.prefill_seconds:.2f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        launches=json.dumps({k: v["launches"] for k, v in counts.items()}))
+    del eng
+    torch.cuda.empty_cache()
+
+    # the repaired path: the paged engine with a dense prefill
+    eng = ServeEngine(cfg, EngineConfig(
+        mode="paged", slots=SLOTS, max_len=256, page_size=16, chunk_steps=4,
+        prefill_chunk=0, device="cuda", params=params), options=opts)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (100, 37)]
+    kernels.reset_counters()
+    rids = [eng.submit(p, 8) for p in prompts]
+    rep = eng.run()
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    require(all(rep.statuses[r] == "completed" for r in rids),
+            f"paged dense prefill: statuses {rep.statuses} {rep.errors}")
+    require(all(len(rep.results[r]) == 8 for r in rids),
+            f"paged dense prefill: {rep.results}")
+    require(rep.pool.pages_in_use == 0 and eng.pool.verify() == [],
+            "paged dense prefill: pool not drained")
+    got = counts["flash_attention"]["launches"]
+    require(got == L * len(rids), f"paged dense prefill: {got} flash "
+            f"launches, {L * len(rids)} expected (one per layer and prompt)")
+    _record_launches(report, "flash_paged_dense", counts, ALL_KERNELS)
+    say("flash", path="paged prefill_chunk=0", requests=len(rids),
+        prompt_lens="100,37", generated=rep.generated_tokens,
+        ttft_p50_ms=f"{rep.ttft_p50_ms:.1f}",
+        decode_tok_s=f"{rep.decode_tok_s:.2f}",
+        launches=json.dumps({k: v["launches"] for k, v in counts.items()}))
+    del eng
     torch.cuda.empty_cache()
 
 
-# -- 5. port on the card vs port on the CPU -----------------------------------------
-def phase_parity() -> None:
+# -- 6. port on the card vs port on the CPU ----------------------------------
+def _serve_both(cfg, params, ecfg, prompts, max_new):
+    """The same engine config, weights and prompts on the card and on the
+    CPU; returns ({device: tokens (requests, max_new)}, card counters)."""
     from repro_torch import kernels
     from repro_torch.backend import CompileOptions
-    from repro_torch.configs import get_config
     from repro_torch.launch.engine import EngineConfig, ServeEngine
-    from repro_torch.models.lm import build_dense_chunk
 
-    base = dataclasses.replace(get_config("deepseek-7b").reduced(),
-                               d_model=128, d_head=64, d_ff=256)
+    results, card = {}, None
+    for dev in ("cuda", "cpu"):
+        kernels.reset_counters()
+        eng = ServeEngine(cfg, EngineConfig(device=dev, params=params,
+                                            **ecfg),
+                          options=CompileOptions(level="O2",
+                                                 use_pallas=True))
+        rids = [eng.submit(p, max_new) for p in prompts]
+        rep = eng.run()
+        mode = ecfg["mode"]
+        require(all(rep.statuses[r] == "completed" for r in rids),
+                f"{mode} {dev}: {rep.statuses} {rep.errors}")
+        if eng.pool is not None:
+            require(eng.pool.verify() == [] and rep.pool.active == 0,
+                    f"{mode} {dev}: pool not drained")
+        results[dev] = np.stack([rep.results[r] for r in rids])
+        if dev == "cuda":
+            card = kernels.counters()
+    return results, card
+
+
+def phase_parity() -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.lm import build_graphs
+
+    base = get_config("deepseek-7b").reduced()
     line = {}
-    for dtype in ("f32", "bf16"):
-        cfg = dataclasses.replace(base, compute_dtype=dtype)
-        ecfg = dict(mode="paged", slots=SLOTS, max_len=64, page_size=8,
-                    chunk_steps=4)
-        params = build_dense_chunk(cfg, 64, SLOTS, 4,
-                                   page_size=8).builder.init_params(0)
-        prompts = _prompts(cfg.vocab, (5, 19, 27, 12, 40), 16, seed=1)
-        results = {}
-        for dev in ("cuda", "cpu"):
-            kernels.reset_counters()
-            eng = ServeEngine(cfg, EngineConfig(device=dev, params=params,
-                                                **ecfg),
-                              options=CompileOptions(level="O2",
-                                                     use_pallas=True))
-            rids = [eng.submit(p, 10) for p in prompts]
-            rep = eng.run()
-            require(all(rep.statuses[r] == "completed" for r in rids),
-                    f"{dev} {dtype}: {rep.statuses}")
-            require(eng.pool.verify() == [] and rep.pool.pages_in_use == 0,
-                    f"{dev} {dtype}: pool not drained")
-            results[dev] = np.stack([rep.results[r] for r in rids])
-            if dev == "cuda":
-                launched = sum(c["launches"]
-                               for c in kernels.counters().values())
-                require(launched > 0, f"{dtype}: no kernel launched on CUDA")
-        agree = float((results["cuda"] == results["cpu"]).mean())
-        line[f"{dtype}_token_agreement"] = f"{agree:.4f}"
-        line[f"{dtype}_cuda_launches"] = launched
-        if dtype == "f32":
-            # f32 logits leave no near-ties for the two summation orders
-            # to split: the greedy tokens must be identical
-            require(agree == 1.0, f"f32 greedy tokens differ: cuda "
-                    f"{results['cuda'].tolist()} cpu "
-                    f"{results['cpu'].tolist()}")
-    say("parity", model="deepseek-7b reduced d_model=128 d_head=64 d_ff=256",
-        **line)
+    # (label, widths, modes): d_head 64 keeps the composed attention, d_head
+    # 128 takes flash attention wherever the graph holds an Attention op
+    configs = [("dh64", dict(d_model=128, d_head=64, d_ff=256), ("paged",)),
+               ("dh128", dict(d_model=256, n_heads=2, n_kv_heads=2,
+                              d_head=128, d_ff=256),
+                ("lockstep", "donated", "continuous", "paged_dense"))]
+    for label, widths, modes in configs:
+        for dtype in ("f32", "bf16"):
+            cfg = dataclasses.replace(base, compute_dtype=dtype, **widths)
+            params = build_graphs(cfg, ShapeConfig("decode", "decode", 64,
+                                                   SLOTS),
+                                  SLOTS).builder.init_params(0)
+            for mode in modes:
+                ecfg = dict(mode=mode, slots=SLOTS, max_len=64)
+                if mode == "paged":
+                    ecfg.update(page_size=8, chunk_steps=4)
+                    prompts = _prompts(cfg.vocab, (5, 19, 27, 12, 40), 16,
+                                       seed=1)
+                elif mode == "paged_dense":
+                    ecfg.update(mode="paged", page_size=8, chunk_steps=4,
+                                prefill_chunk=0)
+                    prompts = _prompts(cfg.vocab, (5, 19, 27, 12, 40), 16,
+                                       seed=1)
+                elif mode == "continuous":
+                    prompts = _prompts(cfg.vocab, (5, 19, 27, 12, 40), 16,
+                                       seed=1)
+                else:   # lockstep, donated: one batch of uniform prompts
+                    prompts = _prompts(cfg.vocab, (24,) * SLOTS, 8, seed=1)
+                results, card = _serve_both(cfg, params, ecfg, prompts, 10)
+                launched = {k: c["launches"] for k, c in card.items()}
+                require(sum(launched.values()) > 0,
+                        f"{label} {mode} {dtype}: no kernel on the card")
+                if label == "dh128":
+                    require(launched["flash_attention"] > 0,
+                            f"{mode} {dtype}: no flash launch on the card")
+                agree = float((results["cuda"] == results["cpu"]).mean())
+                key = f"{label}_{mode}_{dtype}"
+                line[f"{key}_agreement"] = f"{agree:.4f}"
+                line[f"{key}_flash"] = launched["flash_attention"]
+                line[f"{key}_refused"] = sum(c["rejected"]
+                                             for c in card.values())
+                if dtype == "f32":
+                    # f32 logits leave no near-ties for the two summation
+                    # orders to split: the greedy tokens must be identical
+                    require(agree == 1.0, f"{key}: greedy tokens differ: "
+                            f"cuda {results['cuda'].tolist()} cpu "
+                            f"{results['cpu'].tolist()}")
+    say("parity", models="deepseek-7b reduced d_head 64 (d_model 128) and "
+        "d_head 128 (d_model 256, 2 heads)", **line)
 
 
 def main() -> int:
@@ -415,7 +612,10 @@ def main() -> int:
     report = phase_kernels()
     if "--kernels-only" in sys.argv[1:]:
         return 0    # a first check of new kernels: no result line
-    phase_main(report)
+    cfg, params = phase_main(report)
+    phase_flash(report, cfg, params)
+    del params
+    torch.cuda.empty_cache()
     phase_parity()
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

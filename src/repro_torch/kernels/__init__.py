@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from . import flash_attention as _flash_attention
 from . import matmul as _matmul
 from . import norm_matmul as _norm_matmul
 from . import rmsnorm as _rmsnorm
@@ -21,6 +22,7 @@ MODULES = {
     "norm_matmul": _norm_matmul,
     "swiglu": _swiglu,
     "rmsnorm": _rmsnorm,
+    "flash_attention": _flash_attention,
 }
 
 

@@ -48,6 +48,8 @@ SIGNATURES = {
     "repro_norm_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "repro_swiglu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

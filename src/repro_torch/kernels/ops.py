@@ -27,7 +27,7 @@ _WARPS = _THREADS // 32
 
 def vec(dtype: torch.dtype) -> int:
     """Elements in one 16-byte vector load."""
-    return 16 // torch.empty((), dtype=dtype).element_size()
+    return 16 // dtype.itemsize
 
 
 def _ok_dims(*dims: int) -> bool:
@@ -95,3 +95,48 @@ def rmsnorm_supported(shape: Sequence[int], dtype: torch.dtype,
         rows *= int(s)
     return (dtype in KERNEL_DTYPES and w_dtype in KERNEL_DTYPES
             and _ok_dims(rows, d, rows * d))
+
+
+# -- flash attention --------------------------------------------------------------
+# mirrors csrc/flash_attention.cu: 128 threads, a fixed KV tile of 64
+# keys, K and V tiles in shared memory in their own dtype (rows padded by
+# one 16-byte vector), the Q tile and the scores in f32
+FLASH_BK = 64
+FLASH_MAX_D = 256
+
+
+def flash_q_tile(sq: int) -> int:
+    """Query rows per block: 1 for decode, 4 for a few rows, else 16."""
+    return 1 if sq <= 1 else (4 if sq <= 4 else 16)
+
+
+def flash_smem_bytes(sq: int, dk: int, dv: int, dtype: torch.dtype) -> int:
+    size = dtype.itemsize
+    bq, pad = flash_q_tile(sq), vec(dtype)
+    return (FLASH_BK * (dk + pad) * size + FLASH_BK * (dv + pad) * size
+            + bq * dk * 4 + bq * FLASH_BK * 4 + 3 * bq * 4)
+
+
+def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],
+                        v_shape: Sequence[int], dtype: torch.dtype) -> bool:
+    """What the Hopper flash kernel can read: 4-D BHSD operands of one
+    dtype, Hq a multiple of Hkv, head widths in whole 16-byte vectors up
+    to 256, its tiles within one block's shared memory, and every
+    operand within 32-bit indexing.  None of the TPU's 128-lane or
+    Sq/Skv tiling rules: the kernel masks ragged edges itself."""
+    if len(q_shape) != 4 or len(k_shape) != 4 or len(v_shape) != 4:
+        return False
+    B, Hq, Sq, Dk = (int(d) for d in q_shape)
+    B2, Hkv, Skv, Dk2 = (int(d) for d in k_shape)
+    B3, Hkv2, Skv2, Dv = (int(d) for d in v_shape)
+    if dtype not in KERNEL_DTYPES or (B, Dk, Hkv, Skv) != (B2, Dk2, Hkv2,
+                                                          Skv2) or B != B3:
+        return False
+    if not _ok_dims(B, Hq, Sq, Dk, Hkv, Skv, Dv) or Hq % Hkv:
+        return False
+    v_ = vec(dtype)
+    if Dk % v_ or Dv % v_ or Dk > FLASH_MAX_D or Dv > FLASH_MAX_D:
+        return False
+    return (_ok_dims(B * Hq * Sq * Dk, B * Hkv * Skv * Dk,
+                     B * Hkv * Skv * Dv, B * Hq * Sq * Dv)
+            and flash_smem_bytes(Sq, Dk, Dv, dtype) <= _SMEM)

@@ -1,52 +1,69 @@
-"""ServeEngine on torch: the paged serving hot loop on one device.
+"""ServeEngine on torch: the serving hot loop on one device.
 
-The port of ``repro/launch/engine.py``'s ``paged`` mode: continuous
-batching on the paged chunk graph (``build_dense_chunk(page_size=...)``).
-KV lives in a :class:`PagedKVPool` of device tensors -- pages allocated
-lazily as each request's position crosses a page boundary -- and the
-scheduler decodes ``chunk_steps`` tokens per dispatch, admitting and
-retiring only at chunk boundaries.  Prompts prefill in-graph in chunks
-(``build_dense_paged_prefill``) straight into the pool; prefix pages are
-shared across requests by content hash with copy-on-write.  Sampling
-(temperature / top-k / key) is in-graph per row; greedy (temperature 0,
-the default) is the parity baseline against the reference.
+The port of ``repro/launch/engine.py``: four modes, worst to best.
 
-The host logic -- scheduler, page accounting, prefix sharing, cancel,
-deadlines, fault containment, ``verify()`` -- is the reference's.  What
-changed is the device side: the pool buffers are torch tensors on the
-backend's device, every graph runs through ``CompiledFunction.raw`` on
-device tensors, and only token ids (and a prefill's last-row logits)
-cross to the host.
+  * ``lockstep``   -- the legacy hot loop: numpy in and out every step
+                      (through ``CompiledFunction.__call__``), every
+                      request starts together (the baseline).
+  * ``donated``    -- the same lockstep schedule, but the caches stay on
+                      the device and the whole greedy loop (argmax and
+                      token feedback included) runs inside one fused
+                      multi-step graph (``build_dense_chunk``): one
+                      dispatch generates the continuation, token for token
+                      identical to ``lockstep``.
+  * ``continuous`` -- continuous batching on the ``serve`` graph (per-row
+                      positions, in-graph greedy sampling) over a
+                      :class:`KVCachePool` of fixed per-slot cache rows:
+                      finished requests free their slot and queued prompts
+                      are admitted mid-flight by prefilling into it.
+  * ``paged``      -- continuous batching on the paged chunk graph
+                      (``build_dense_chunk(page_size=...)``): KV lives in a
+                      :class:`PagedKVPool` of pages allocated lazily as a
+                      request's position crosses a page boundary, the
+                      scheduler decodes ``chunk_steps`` tokens per dispatch,
+                      prompts prefill in-graph in chunks
+                      (``build_dense_paged_prefill``) or densely
+                      (``prefill_chunk=0``), and prefix pages are shared
+                      across requests by content hash with copy-on-write.
+                      Sampling (temperature / top-k / key) is in-graph per
+                      row; greedy (temperature 0, the default) is the
+                      parity baseline against the reference.
+
+The host logic -- scheduler, slot and page accounting, prefix sharing,
+cancel, deadlines, fault containment, ``verify()`` -- is the reference's.
+What changed is the device side: the pool buffers are torch tensors on
+the backend's device, every graph but lockstep's runs through
+``CompiledFunction.raw`` on device tensors, and only token ids (and a
+prefill's last-row logits) cross to the host.
 
 Ownership: the engine is the only owner of the pool buffers.  After each
-dispatch the pool is repointed at the outputs (:meth:`PagedKVPool.update`)
-and the inputs are dropped, so the allocator reuses their memory (the
-torch spelling of the reference's donation).  Because nothing else holds
-them, the host-side page writes (prefill scatter, copy-on-write) update
-the buffers in place.
+dispatch the pool is repointed at the outputs (``update``) and the
+inputs are dropped, so the allocator reuses their memory (the torch
+spelling of the reference's donation).  Because nothing else holds them,
+the host-side cache writes (prefill scatter, copy-on-write) update the
+buffers in place.
 
-The lockstep, donated and continuous modes, ``tp > 1`` and the
-multimodal prefill inputs come with later slices of the port.
+``tp > 1`` and the multimodal prefill inputs come with later slices of
+the port.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import time
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterator, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from ..backend import Backend, CompileOptions
 from ..configs.base import ModelConfig, ShapeConfig
-from ..devices import as_tensor, to_numpy
+from ..devices import as_tensor, to_numpy, torch_dtype
 from ..models.lm import ModelGraphs, build_graphs
 from .faults import FaultInjector, get_injector
 
-# the serving modes of the reference; this slice ports ``paged``
 MODES = ("lockstep", "donated", "continuous", "paged")
-PORTED_MODES = ("paged",)
 # request terminal statuses — every request ends in exactly one; each is
 # counted in ServeEngine.counters and carried in EngineReport.statuses
 TERMINAL_STATUSES = ("completed", "cancelled", "deadline_exceeded", "failed")
@@ -87,7 +104,8 @@ class EngineConfig:
     max_len: int = 64
     seed: int = 0
     backend: str = "torch"
-    # paged-mode knobs (None = paged default)
+    # paged-mode knobs (None = paged default; setting any of them in a
+    # non-paged mode is an error, never a silent ignore)
     page_size: Optional[int] = None
     chunk_steps: Optional[int] = None
     pages: Optional[int] = None
@@ -102,24 +120,33 @@ class EngineConfig:
         if self.mode not in MODES:
             raise ValueError(
                 f"mode must be one of {MODES}, got {self.mode!r}")
-        if self.mode not in PORTED_MODES:
-            raise NotImplementedError(
-                f"mode {self.mode!r} comes with a later slice of the torch "
-                f"port; this one serves mode='paged'")
         if int(self.slots) < 1:
             raise ValueError(f"slots must be >= 1, got {self.slots}")
         if int(self.max_len) < 1:
             raise ValueError(f"max_len must be >= 1, got {self.max_len}")
-        if self.page_size is not None and int(self.page_size) < 1:
-            raise ValueError(
-                f"page_size must be >= 1, got {self.page_size}")
-        if self.chunk_steps is not None and int(self.chunk_steps) < 1:
-            raise ValueError(
-                f"chunk_steps must be >= 1, got {self.chunk_steps}")
-        if self.prefill_chunk is not None and int(self.prefill_chunk) < 0:
-            raise ValueError(
-                f"prefill_chunk must be >= 0 (0 = dense prefill), "
-                f"got {self.prefill_chunk}")
+        if self.mode == "paged":
+            if self.page_size is not None and int(self.page_size) < 1:
+                raise ValueError(
+                    f"page_size must be >= 1, got {self.page_size}")
+            if self.chunk_steps is not None and int(self.chunk_steps) < 1:
+                raise ValueError(
+                    f"chunk_steps must be >= 1, got {self.chunk_steps}")
+            if self.prefill_chunk is not None and \
+                    int(self.prefill_chunk) < 0:
+                raise ValueError(
+                    f"prefill_chunk must be >= 0 (0 = dense prefill), "
+                    f"got {self.prefill_chunk}")
+        else:
+            ignored = {k: v for k, v in [
+                ("page_size", self.page_size),
+                ("chunk_steps", self.chunk_steps),
+                ("pages", self.pages),
+                ("prefix_sharing", self.prefix_sharing),
+                ("prefill_chunk", self.prefill_chunk)] if v is not None}
+            if ignored:
+                raise ValueError(
+                    f"{sorted(ignored)} need mode='paged'; mode "
+                    f"{self.mode!r} uses fixed per-slot cache rows")
         if int(self.tp) < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
         if int(self.tp) > 1:
@@ -208,6 +235,148 @@ def _host_sample(logits: np.ndarray, temperature: float, top_k: int,
 
 
 @dataclasses.dataclass
+class PoolStats:
+    slots: int
+    active: int
+    bytes_per_slot: int
+    total_bytes: int
+    occupancy: float
+    allocs: int
+    frees: int
+    peak_active: int
+    decode_arena_bytes: int  # compiled step's planned intermediate arena
+
+
+def _zeros(t, device: torch.device) -> torch.Tensor:
+    """A zero device tensor of IR type ``t``."""
+    return torch.zeros(tuple(t.shape), dtype=torch_dtype(t.dtype),
+                       device=device)
+
+
+class KVCachePool:
+    """Slot-addressed, device-resident KV cache pool.
+
+    One device tensor per decode cache input, shaped from the compiled
+    serve graph's input types; the slot dimension is the input spec's
+    ``batch`` axis.  Buffers are allocated once and *reused* across
+    requests: admission overwrites a freed slot's prefix rows in place
+    instead of re-zeroing the pool (the engine is the buffers' sole
+    owner), and the engine repoints the pool at each step's outputs via
+    :meth:`update`.
+    """
+
+    def __init__(self, names: Sequence[str], types: Sequence,
+                 specs: Sequence[Tuple], arena_bytes: int = 0, device=None):
+        self.names = list(names)
+        self.types = list(types)
+        self.device = torch.device(device if device is not None else "cpu")
+        self.batch_dims = []
+        self.seq_dims = []
+        for sp in specs:
+            sp = tuple(sp)
+            self.batch_dims.append(sp.index("batch") if "batch" in sp else 1)
+            self.seq_dims.append(sp.index("kv_seq") if "kv_seq" in sp
+                                 else None)
+        self.buffers = [_zeros(t, self.device) for t in self.types]
+        self.slots = self.types[0].shape[self.batch_dims[0]]
+        self._free = list(range(self.slots - 1, -1, -1))
+        self.allocs = 0
+        self.frees = 0
+        self.peak_active = 0
+        self.total_bytes = sum(t.nbytes for t in self.types)
+        self.bytes_per_slot = self.total_bytes // max(self.slots, 1)
+        self.decode_arena_bytes = int(arena_bytes)
+
+    @property
+    def active(self) -> int:
+        return self.slots - len(self._free)
+
+    @property
+    def has_free(self) -> bool:
+        return bool(self._free)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError("KV pool exhausted")
+        slot = self._free.pop()
+        self.allocs += 1
+        self.peak_active = max(self.peak_active, self.active)
+        return slot
+
+    def free(self, slot: int) -> None:
+        # invalid frees must raise, never silently return -- a slot leak
+        # that only shows up as occupancy drift is the worst kind
+        if not 0 <= slot < self.slots:
+            raise ValueError(
+                f"free of out-of-range slot {slot} (pool has "
+                f"{self.slots} slots)")
+        if slot in self._free:
+            raise ValueError(f"double free of slot {slot}")
+        self._free.append(slot)
+        self.frees += 1
+
+    def write_prefix(self, slot: int, name: str, prefix) -> None:
+        """Write a (batch=1) prefill cache into ``slot``'s prefix rows,
+        in place (the engine is the buffers' sole owner)."""
+        i = self.names.index(name)
+        buf = self.buffers[i]
+        bd, sd = self.batch_dims[i], self.seq_dims[i]
+        upd = as_tensor(prefix, self.device).select(bd, 0)
+        idx: List[Any] = [slice(None)] * buf.ndim
+        idx[bd] = slot
+        if sd is not None:
+            # the update's seq axis shifted down one because bd was dropped
+            idx[sd] = slice(0, upd.shape[sd - 1 if sd > bd else sd])
+        buf[tuple(idx)] = upd.to(buf.dtype)
+
+    def update(self, new_buffers: Sequence) -> None:
+        """Repoint the pool at a step's outputs (the inputs are dropped;
+        the engine held the only reference)."""
+        assert len(new_buffers) == len(self.buffers)
+        self.buffers = list(new_buffers)
+
+    def verify(self) -> List[str]:
+        """Accounting invariants; [] = consistent.  Run by the engine's
+        step-failure containment before deciding whether the pool can be
+        kept or must be rebuilt."""
+        problems = []
+        if len(set(self._free)) != len(self._free):
+            problems.append(f"duplicate slots on the free list: "
+                            f"{sorted(self._free)}")
+        if not all(0 <= s < self.slots for s in self._free):
+            problems.append(f"out-of-range slots on the free list: "
+                            f"{sorted(self._free)}")
+        if self.allocs - self.frees != self.active:
+            problems.append(f"allocs({self.allocs}) - frees({self.frees}) "
+                            f"!= active({self.active})")
+        return problems
+
+    def reset_buffers(self) -> None:
+        """Fresh zero buffers: after a dispatch raises mid-flight the old
+        ones can never be trusted again, so containment always re-arms
+        here."""
+        self.buffers = [_zeros(t, self.device) for t in self.types]
+
+    def rebuild(self) -> None:
+        """Reset to the empty state, reconciling the counters (frees
+        catch up to allocs: every outstanding slot is forcibly returned).
+        The containment path's last resort when :meth:`verify` reports
+        damage."""
+        self._free = list(range(self.slots - 1, -1, -1))
+        self.frees = self.allocs
+        self.reset_buffers()
+
+    def stats(self) -> PoolStats:
+        return PoolStats(
+            slots=self.slots, active=self.active,
+            bytes_per_slot=self.bytes_per_slot, total_bytes=self.total_bytes,
+            occupancy=self.active / max(self.slots, 1),
+            allocs=self.allocs, frees=self.frees,
+            peak_active=self.peak_active,
+            decode_arena_bytes=self.decode_arena_bytes)
+
+
+@dataclasses.dataclass
 class PagedPoolStats:
     slots: int
     active: int
@@ -268,7 +437,7 @@ class PagedKVPool:
         self.names = list(names)
         self.types = list(types)
         self.device = torch.device(device if device is not None else "cpu")
-        self.buffers = [self._zeros(t) for t in self.types]
+        self.buffers = [_zeros(t, self.device) for t in self.types]
         self.n_pages = self.types[0].shape[1]     # (L, P, Hkv, ps, D)
         self.page_size = int(page_size)
         self.max_pages = int(max_pages)
@@ -659,14 +828,10 @@ class PagedKVPool:
                                 f"the page table")
         return problems
 
-    def _zeros(self, t) -> torch.Tensor:
-        return as_tensor(np.zeros((), t.dtype), self.device).new_zeros(
-            t.shape)
-
     def reset_buffers(self) -> None:
         """Fresh zero buffers: a dispatch that raised mid-flight leaves
         the old ones untrustworthy."""
-        self.buffers = [self._zeros(t) for t in self.types]
+        self.buffers = [_zeros(t, self.device) for t in self.types]
 
     def rebuild(self) -> None:
         """Reset to the empty state, reconciling counters (frees/
@@ -722,7 +887,7 @@ class EngineReport:
     steps: int
     prefill_seconds: float
     late_admissions: int
-    pool: Optional[object]   # PagedPoolStats
+    pool: Optional[object]   # PoolStats | PagedPoolStats | None
     # time-to-first-token: submit -> first emitted token, per request —
     # the serving SLO headline (distinct from per-token p50/p95, which
     # sample steady-state decode dispatches)
@@ -748,7 +913,7 @@ class EngineReport:
 
 
 class ServeEngine:
-    """Owns compilation, KV memory, and the paged decode hot loop.
+    """Owns compilation, KV memory, and the decode hot loop.
 
     ``submit()`` queues requests; ``run()`` drives them to completion and
     returns an :class:`EngineReport`; ``stream()`` yields ``(rid, token)``
@@ -762,8 +927,8 @@ class ServeEngine:
         """``ServeEngine(cfg, EngineConfig(...))``; the legacy keyword
         spelling (``ServeEngine(cfg, mode="paged", slots=...)``) routes
         through :class:`EngineConfig`.  Every graph the engine compiles
-        (the decode chunk, the paged prefill chunks, the dense prefill
-        fallback) goes through ``options`` -- ``CompileOptions(level="O2",
+        (the decode step or chunk, the paged prefill chunks, the dense
+        prefill) goes through ``options`` -- ``CompileOptions(level="O2",
         use_pallas=True)`` runs the Hopper kernels."""
         if config is None:
             config = EngineConfig(**legacy_kw)
@@ -797,51 +962,74 @@ class ServeEngine:
             else CompileOptions()
         self._graph_options = self.base_options
 
-        # paged mode always dispatches the fused chunk graph -- one
-        # dispatch decodes chunk_steps tokens per row
-        self.page_size = int(config.page_size
-                             if config.page_size is not None else 8)
-        self.chunk_steps = int(config.chunk_steps
-                               if config.chunk_steps is not None else 4)
-        # content-hash prefix sharing across requests (on by default --
-        # greedy parity is preserved by exact-value COW semantics) and
-        # in-graph chunked prefill (0 = the dense (1, P) prefill + host
-        # scatter).  The default chunk spans four pages per dispatch.
-        self.prefix_sharing = (True if config.prefix_sharing is None
-                               else bool(config.prefix_sharing))
-        self.prefill_chunk = (4 * self.page_size
-                              if config.prefill_chunk is None
-                              else int(config.prefill_chunk))
-        mp = -(-self.max_len // self.page_size)
-        # default pool: the worst case (every slot at max_len) plus the
-        # trash page -- `pages` shrinks it to create admission pressure
-        self.n_pages = int(config.pages) if config.pages is not None \
-            else 1 + self.slots * mp
-        if self.n_pages < 2:
-            raise ValueError(
-                f"pages must be >= 2 (trash page + 1), got {self.n_pages}")
-        from ..models.lm import build_dense_chunk
-        self.graphs = build_dense_chunk(
-            cfg, self.max_len, self.slots, self.chunk_steps,
-            page_size=self.page_size, n_pages=self.n_pages)
+        if mode == "paged":
+            # paged mode always dispatches the fused chunk graph -- one
+            # dispatch decodes chunk_steps tokens per row
+            self.page_size = int(config.page_size
+                                 if config.page_size is not None else 8)
+            self.chunk_steps = int(config.chunk_steps
+                                   if config.chunk_steps is not None else 4)
+            # content-hash prefix sharing across requests (on by default
+            # -- greedy parity is preserved by exact-value COW semantics)
+            # and in-graph chunked prefill (0 = the dense (1, P) prefill +
+            # host scatter).  The default chunk spans four pages per
+            # dispatch.
+            self.prefix_sharing = (True if config.prefix_sharing is None
+                                   else bool(config.prefix_sharing))
+            self.prefill_chunk = (4 * self.page_size
+                                  if config.prefill_chunk is None
+                                  else int(config.prefill_chunk))
+            mp = -(-self.max_len // self.page_size)
+            # default pool: the worst case (every slot at max_len) plus
+            # the trash page -- `pages` shrinks it to create admission
+            # pressure
+            self.n_pages = int(config.pages) if config.pages is not None \
+                else 1 + self.slots * mp
+            if self.n_pages < 2:
+                raise ValueError(
+                    f"pages must be >= 2 (trash page + 1), got "
+                    f"{self.n_pages}")
+            from ..models.lm import build_dense_chunk
+            self.graphs = build_dense_chunk(
+                cfg, self.max_len, self.slots, self.chunk_steps,
+                page_size=self.page_size, n_pages=self.n_pages)
+        else:
+            self.prefix_sharing = False
+            self.prefill_chunk = 0
+            kind = "serve" if mode == "continuous" else "decode"
+            self.graphs = build_graphs(
+                cfg, ShapeConfig(kind, kind, self.max_len, self.slots),
+                self.slots)
         b = self.graphs.builder
-        self._step_inputs = _PAGED_STEP_INPUTS
+        self._step_inputs = (_PAGED_STEP_INPUTS if mode == "paged"
+                             else _STEP_INPUTS)
         self.cache_names = [n.name for n in b.inputs
                             if n.name not in self._step_inputs]
         # decode outputs 1..N map to the cache inputs they update, by
-        # name (aux["state_out_names"])
+        # name (aux["state_out_names"]); inputs absent from the list are
+        # step constants carried over unchanged between steps
         out_names = self.graphs.aux.get("state_out_names",
                                         self.cache_names)
         self._recycle = [out_names.index(n) if n in out_names else None
                          for n in self.cache_names]
         cache_ix = [i for i, n in enumerate(b.inputs)
                     if n.name not in self._step_inputs]
+        # donate only the inputs an output recycles into, and nothing in
+        # lockstep mode, whose caches are the caller's numpy arrays
         donate = tuple(ix for ix, j in zip(cache_ix, self._recycle)
-                       if j is not None)
+                       if j is not None) if mode != "lockstep" else ()
         self.options = self._graph_options.replace(donate_argnums=donate)
-        self.cf = self.backend.compile(self.graphs.fn, self.options)
+        # donated mode compiles fused multi-step chunk graphs lazily (the
+        # step count is a workload property); the decode graph above
+        # still provides the cache layout and the parameter registry
+        self.cf = (self.backend.compile(self.graphs.fn, self.options)
+                   if mode != "donated" else None)
         # weights: the caller's (numpy or tensors), else the builder's
-        # seeded numpy init, as device tensors by name
+        # seeded numpy init, as device tensors by name.  Every mode keeps
+        # them on the device -- lockstep too, where the reference passes
+        # numpy weights on every step (27.6 GB a step at deepseek-7b's
+        # full width); lockstep's numpy round trip is its token, logits
+        # and caches.
         given = config.params
         if given is None:
             given = b.init_params(self.seed)
@@ -849,21 +1037,31 @@ class ServeEngine:
             n: as_tensor(given[n], self.device) for n in b.param_names()}
         self.tparams = [self._param_map[n] for n in b.param_names()]
 
-        cache_nodes = [n for n in b.inputs
-                       if n.name not in self._step_inputs]
-        self.pool = PagedKVPool(
-            [n.name for n in cache_nodes],
-            [n.out_types[0] for n in cache_nodes],
-            slots=self.slots, page_size=self.page_size,
-            max_pages=self.graphs.aux["max_pages"],
-            arena_bytes=self.cf.memory_plan.arena_bytes,
-            device=self.device)
-        self._temp = np.zeros((self.slots,), np.float32)
-        self._topk = np.zeros((self.slots,), np.int32)
-        self._key = np.zeros((self.slots,), np.int32)
-        self._tok = np.zeros((self.slots, 1), np.int32)
-        self._pos = np.zeros((self.slots,), np.int32)
-        self._slot_req: List[Optional[int]] = [None] * self.slots
+        self.pool = None  # KVCachePool | PagedKVPool
+        if mode in ("continuous", "paged"):
+            cache_nodes = [n for n in b.inputs
+                           if n.name not in self._step_inputs]
+            if mode == "continuous":
+                self.pool = KVCachePool(
+                    [n.name for n in cache_nodes],
+                    [n.out_types[0] for n in cache_nodes],
+                    [b.input_specs[n.name] for n in cache_nodes],
+                    arena_bytes=self.cf.memory_plan.arena_bytes,
+                    device=self.device)
+            else:
+                self.pool = PagedKVPool(
+                    [n.name for n in cache_nodes],
+                    [n.out_types[0] for n in cache_nodes],
+                    slots=self.slots, page_size=self.page_size,
+                    max_pages=self.graphs.aux["max_pages"],
+                    arena_bytes=self.cf.memory_plan.arena_bytes,
+                    device=self.device)
+                self._temp = np.zeros((self.slots,), np.float32)
+                self._topk = np.zeros((self.slots,), np.int32)
+                self._key = np.zeros((self.slots,), np.int32)
+            self._tok = np.zeros((self.slots, 1), np.int32)
+            self._pos = np.zeros((self.slots,), np.int32)
+            self._slot_req: List[Optional[int]] = [None] * self.slots
 
         self._requests: Dict[int, Request] = {}
         self._queue: List[int] = []
@@ -887,8 +1085,11 @@ class ServeEngine:
         self._kv_byte_steps = 0.0
         self._kv_token_steps = 0
         self._t0_work: Optional[float] = None  # first dispatched work
-        # prompt-length -> (ModelGraphs, CompiledFunction, ordered params)
-        # for the dense prefill fallback (prefill_chunk=0)
+        # steps -> (ModelGraphs, CompiledFunction, ordered device params)
+        # of donated mode's fused chunks
+        self._chunks: Dict[int, Tuple] = {}
+        # (prompt length, batch) -> (ModelGraphs, CompiledFunction,
+        # ordered params) of the dense prefill
         self._prefill: Dict[Tuple[int, int], Tuple] = {}
         # chunk-length -> (ModelGraphs, CompiledFunction, ordered device
         # params) for the in-graph paged prefill; one entry per
@@ -912,16 +1113,17 @@ class ServeEngine:
             raise ValueError(
                 f"prompt({prompt_len}) + max_new({max_new}) exceeds "
                 f"max_len={self.max_len}")
-        # a request that outsizes the whole (possibly user-shrunk) page
-        # pool would wait in the queue forever — reject now
-        usable = self.pool.n_pages - 1   # page 0 is the trash page
-        need = self.pool.pages_for(prompt_len + max_new)
-        if need > usable:
-            raise ValueError(
-                f"request needs {need} pages ({prompt_len} prompt + "
-                f"{max_new} new tokens at page_size "
-                f"{self.pool.page_size}) but the pool only has "
-                f"{usable} usable pages — it could never be admitted")
+        if self.mode == "paged":
+            # a request that outsizes the whole (possibly user-shrunk)
+            # page pool would wait in the queue forever — reject now
+            usable = self.pool.n_pages - 1   # page 0 is the trash page
+            need = self.pool.pages_for(prompt_len + max_new)
+            if need > usable:
+                raise ValueError(
+                    f"request needs {need} pages ({prompt_len} prompt + "
+                    f"{max_new} new tokens at page_size "
+                    f"{self.pool.page_size}) but the pool only has "
+                    f"{usable} usable pages — it could never be admitted")
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         if top_k < 0:
@@ -931,6 +1133,10 @@ class ServeEngine:
             # are exact only up to 2^24 — larger keys would silently
             # collide with neighbours instead of drawing distinct streams
             raise ValueError(f"key must be in [0, 2^24), got {key}")
+        if self.mode != "paged" and (temperature or top_k or key):
+            raise ValueError(
+                f"stochastic sampling (temperature/top_k/key) needs "
+                f"mode='paged'; mode {self.mode!r} decodes greedily")
         if deadline_s is not None and not deadline_s > 0:
             raise ValueError(
                 f"deadline_s must be > 0 seconds, got {deadline_s}")
@@ -948,15 +1154,20 @@ class ServeEngine:
         scheduler will consume at the next step boundary, so the free
         slots/pages it is about to claim are discounted — this is the
         admission predicate a bounded front-door wait queue maps onto.
-        With ``prompt`` given (prefix sharing on), prefix
+        With ``prompt`` given (paged mode, prefix sharing on), prefix
         pages the request would attach instead of allocate are credited:
         a shared-prefix request can be admitted into a pool that could
         not hold it privately."""
+        if self.mode not in ("continuous", "paged"):
+            raise RuntimeError(
+                "can_admit() is only available in continuous/paged modes")
         if self.health == "halted":
             return False
         if self.faults.fire("admit.reject"):
             return False
         queued = [self._requests[r] for r in self._queue]
+        if self.mode == "continuous":
+            return self.pool.slots - self.pool.active - len(queued) >= 1
         held = sum(self.pool.pages_for(len(r.prompt) + r.max_new)
                    for r in queued)
         shared = 0
@@ -1020,11 +1231,15 @@ class ServeEngine:
     # -- request lifecycle --------------------------------------------
     def cancel(self, rid: int, reason: str = "cancelled by caller") -> bool:
         """Retire request ``rid``: immediately while it is still queued,
-        else at the next chunk boundary (the only point where a slot can
-        be returned safely).  Its slot and KV pages verifiably go back to
-        the pool and any tokens already generated are kept.  Returns False
-        when the request had already reached a terminal status (nothing
-        to do); raises ``KeyError`` for an unknown rid."""
+        else at the next step/chunk boundary (continuous/paged modes --
+        the only points where a slot can be returned safely).  Its slot
+        and KV pages verifiably go back to the pool and any tokens
+        already generated are kept.  Returns False when the request had
+        already reached a terminal status (nothing to do); raises
+        ``KeyError`` for an unknown rid.
+
+        lockstep/donated admit their whole batch inside :meth:`run`, so
+        cancellation there reaches only still-queued requests."""
         req = self._requests.get(rid)
         if req is None:
             raise KeyError(f"unknown request id {rid}")
@@ -1035,7 +1250,9 @@ class ServeEngine:
             self._queue.remove(rid)
             self._retire(req, "cancelled", error=reason)
             return True
-        return True                 # active: reaped at the next boundary
+        if self.mode in ("continuous", "paged"):
+            return True             # active: reaped at the next boundary
+        return False                # lockstep/donated mid-run: too late
 
     def drain_events(self) -> List[Tuple[int, str, Optional[str]]]:
         """Terminal events ``(rid, status, error)`` since the last call —
@@ -1151,15 +1368,17 @@ class ServeEngine:
                 pin.append((rng.normal(size=t.shape) * 0.02).astype(t.dtype))
         return pin
 
-    # -- dense prefill (prefill_chunk=0) -------------------------------------
+    # -- dense prefill (continuous; paged with prefill_chunk=0) ---------------
     def _admit(self, req: Request, slot: int) -> int:
-        """Prefill ``req`` densely and scatter its caches into ``slot``'s
-        pages; returns its first token.
+        """Prefill ``req`` densely into pool ``slot``; returns its first
+        token.
 
         The first token is host-sampled with the same (key, pos) hash
         the graph uses for decode steps, at pos = last prompt position
-        — plain argmax for greedy rows.  The slot grows its pages before
-        the scatter and records the rows actually cached."""
+        — plain argmax for greedy rows, i.e. every non-paged request.
+        Shared by the continuous and paged schedulers (the pools expose
+        the same ``write_prefix`` contract); paged slots grow their
+        pages before the scatter and record the rows actually cached."""
         t0 = time.perf_counter()
         P = len(req.prompt)
         g, cf, pvals = self._prefill_for(P, 1)
@@ -1167,18 +1386,23 @@ class ServeEngine:
                       *pvals)
         first = _host_sample(to_numpy(outs[0]), req.temperature,
                              req.top_k, req.key, P - 1)
-        # attach matching prefix pages, then scatter only from the first
-        # non-shared page (COW-copying the tail page first when the whole
-        # prompt matched)
         start = 0
-        if self.prefix_sharing:
-            covered = self.pool.share_prefix(slot, req.prompt)
-            start = min(covered, P - 1)
-        self.pool.ensure_pages(slot, P - 1)
-        self.pool.prepare_writes(slot, start, P - 1)
+        if self.mode == "paged":
+            if self.prefix_sharing:
+                # attach matching prefix pages, then scatter only from
+                # the first non-shared page (COW-copying the tail page
+                # first when the whole prompt matched)
+                covered = self.pool.share_prefix(slot, req.prompt)
+                start = min(covered, P - 1)
+            self.pool.ensure_pages(slot, P - 1)
+            self.pool.prepare_writes(slot, start, P - 1)
         for i, name in enumerate(g.aux.get("cache_names", [])):
-            self.pool.write_prefix(slot, name, outs[1 + i], start_tok=start)
-        if self.prefix_sharing:
+            if self.mode == "paged":
+                self.pool.write_prefix(slot, name, outs[1 + i],
+                                       start_tok=start)
+            else:
+                self.pool.write_prefix(slot, name, outs[1 + i])
+        if self.mode == "paged" and self.prefix_sharing:
             self.pool.publish_prefix(slot, req.prompt)
         req.slot = slot
         req.pos = P
@@ -1190,7 +1414,8 @@ class ServeEngine:
         self._slot_req[slot] = req.rid
         self._tok[slot, 0] = first
         self._pos[slot] = P
-        self.pool.note_used(slot, P)
+        if self.mode == "paged":
+            self.pool.note_used(slot, P)
         self.prefill_seconds += time.perf_counter() - t0
         return first
 
@@ -1312,15 +1537,69 @@ class ServeEngine:
 
     def step(self) -> List[Tuple[int, int]]:
         """One engine step: admit what fits, then one batched decode
-        dispatch of ``chunk_steps`` tokens per row.  Cancellations and
-        expired deadlines are honoured first — the step boundary is the
-        only point a slot can be returned safely.  Returns the
-        ``(rid, token)`` pairs emitted."""
+        dispatch (one token per row in continuous mode, ``chunk_steps``
+        tokens per row in paged mode).  Cancellations and expired
+        deadlines are honoured first — the step boundary is the only
+        point a slot can be returned safely.
+
+        Returns the ``(rid, token)`` pairs emitted.  Only available in
+        continuous/paged modes — lockstep/donated run whole workloads via
+        :meth:`run`."""
         if self.health == "halted":
             raise RuntimeError(
                 "engine is halted after an unrecoverable step failure; "
                 "build a fresh engine to serve again")
-        return self._step_paged()
+        if self.mode == "paged":
+            return self._step_paged()
+        if self.mode != "continuous":
+            raise RuntimeError(
+                "step() is only available in continuous/paged modes")
+        if self._t0_work is None:
+            self._t0_work = time.perf_counter()
+        self._reap()
+        emitted: List[Tuple[int, int]] = []
+        while self._queue and self.pool.has_free:
+            req = self._requests[self._queue.pop(0)]
+            slot = self.pool.alloc()
+            if self._steps > 0:
+                self.late_admissions += 1
+            emitted.append((req.rid, self._admit(req, slot)))
+            if req.done:  # max_new == 1: done straight out of prefill
+                self._finish(req)
+        active = [(s, self._requests[rid])
+                  for s, rid in enumerate(self._slot_req) if rid is not None]
+        if not active:
+            return emitted
+        self._kv_sample(len(active) * self.pool.bytes_per_slot,
+                        sum(r.pos for _, r in active))
+        t0 = time.perf_counter()
+        try:
+            self.faults.delay("dispatch.delay")
+            self.faults.check("dispatch.raise")
+            outs = self.cf.raw(self._tok, self._pos, *self.pool.buffers,
+                               *self.tparams)
+            sample = to_numpy(outs[0])  # (B, 1) -- syncs the chain
+            self.pool.update([self.pool.buffers[k] if j is None
+                              else outs[1 + j]
+                              for k, j in enumerate(self._recycle)])
+        except Exception as exc:
+            self._contain_step_failure(exc)
+            return emitted
+        dt = time.perf_counter() - t0
+        self._steps += 1
+        self.step_seconds.append(dt)
+        self._decode_tokens += len(active)
+        self.lat_ms.extend([dt * 1e3] * len(active))
+        for slot, req in active:
+            tok = int(sample[slot, 0])
+            req.tokens.append(tok)
+            req.pos += 1
+            self._tok[slot, 0] = tok
+            self._pos[slot] = req.pos
+            emitted.append((req.rid, tok))
+            if req.done:
+                self._finish(req)
+        return emitted
 
     # -- paged chunked scheduling --------------------------------------------
     def _step_paged(self) -> List[Tuple[int, int]]:
@@ -1460,10 +1739,164 @@ class ServeEngine:
             self._kv_token_steps += int(active_tokens)
 
     def stream(self) -> Iterator[Tuple[int, int]]:
-        """Yield ``(rid, token)`` pairs until all submitted work drains."""
+        """Yield ``(rid, token)`` pairs until all submitted work drains
+        (continuous/paged modes)."""
         while self._queue or any(r is not None for r in self._slot_req):
             for pair in self.step():
                 yield pair
+
+    # -- lockstep / donated (uniform workloads) ------------------------------
+    def _chunk_for(self, steps: int):
+        """Fused ``steps``-step decode graph (donated caches)."""
+        if steps not in self._chunks:
+            from ..models.lm import build_dense_chunk
+            g = build_dense_chunk(self.cfg, self.max_len, self.slots, steps)
+            cache_ix = [i for i, n in enumerate(g.builder.inputs)
+                        if n.name not in _STEP_INPUTS]
+            cf = self.backend.compile(g.fn, self.base_options.replace(
+                donate_argnums=tuple(cache_ix)))
+            pvals = [self._param_map[n] for n in g.builder.param_names()]
+            self._chunks[steps] = (g, cf, pvals)
+        return self._chunks[steps]
+
+    def _run_lockstep(self) -> None:
+        reqs = [self._requests[rid] for rid in self._queue]
+        self._queue = []
+        if not reqs:
+            return
+        if len(reqs) > self.slots:
+            raise ValueError(f"{len(reqs)} requests > {self.slots} slots "
+                             f"({self.mode} admits everything up front)")
+        P = len(reqs[0].prompt)
+        if any(len(r.prompt) != P for r in reqs):
+            raise ValueError(f"{self.mode} requires uniform prompt lengths")
+        B = self.slots
+        prompts = np.zeros((B, P), np.int32)
+        for i, r in enumerate(reqs):
+            prompts[i] = r.prompt
+            r.status = "active"
+        try:
+            self.faults.delay("dispatch.delay")
+            self.faults.check("dispatch.raise")
+            g, cf, pvals = self._prefill_for(P, B)
+            pin = self._prefill_inputs(g, prompts)
+            t0 = time.perf_counter()
+            if self.mode == "lockstep":
+                outs = cf(*pin, *pvals)
+            else:
+                outs = cf.raw(*pin, *pvals)
+            logits = to_numpy(outs[0]).reshape(B, -1)
+            tok = np.argmax(logits, axis=-1).astype(np.int32).reshape(B, 1)
+            t_first = time.perf_counter()
+            for i, r in enumerate(reqs):
+                r.pos = P
+                r.tokens = [int(tok[i, 0])]
+                r.t_admit = r.t_first = t_first
+            # decode caches: zero-filled, prefill prefix copied in by
+            # *name* (ModelGraphs.aux["cache_names"] -- prefill output i
+            # is the decode input named cache_names[i])
+            caches = self._init_caches(g, outs[1:])
+            del outs
+            self.prefill_seconds += time.perf_counter() - t0
+            n_steps = max(r.max_new for r in reqs) - 1
+            if n_steps <= 0:
+                for r in reqs:
+                    self._retire(r, "completed")
+                return
+            if self.mode == "donated":
+                self._decode_donated(reqs, tok, P, caches, n_steps)
+            else:
+                self._decode_lockstep(reqs, tok, P, caches, n_steps)
+        except Exception as exc:
+            # same containment contract as step(): the batch fails with a
+            # structured error, the engine stays alive (no pool to verify
+            # in these modes -- caches are per-run locals)
+            self.counters["engine_errors"] += 1
+            msg = f"dispatch failed: {type(exc).__name__}: {exc}"
+            for r in reqs:
+                if not r.finished:
+                    self._retire(r, "failed", error=msg)
+            self.health = "degraded"
+
+    def _decode_lockstep(self, reqs, tok, P, caches, n_steps) -> None:
+        """The legacy hot loop: token, logits and caches make a numpy
+        round trip every step (``CompiledFunction.__call__``)."""
+        B = self.slots
+        for step in range(n_steps):
+            pos = np.int32(P + step)
+            t0 = time.perf_counter()
+            outs = self.cf(tok, pos, *caches, *self.tparams)
+            logits = np.asarray(outs[0]).reshape(B, -1)
+            caches = [caches[k] if j is None else outs[1 + j]
+                      for k, j in enumerate(self._recycle)]
+            tok = np.argmax(logits, axis=-1).astype(np.int32).reshape(B, 1)
+            dt = time.perf_counter() - t0
+            emitted = 0
+            for i, r in enumerate(reqs):
+                if not r.done:
+                    r.tokens.append(int(tok[i, 0]))
+                    r.pos += 1
+                    emitted += 1
+                if r.done and not r.finished:
+                    self._retire(r, "completed")
+            self._steps += 1
+            self.step_seconds.append(dt)
+            self._decode_tokens += emitted
+            self.lat_ms.extend([dt * 1e3] * emitted)
+            if all(r.done for r in reqs):
+                break
+
+    def _decode_donated(self, reqs, tok, P, caches, n_steps) -> None:
+        """Device-resident hot loop: one dispatch runs all ``n_steps``
+        greedy steps inside the graph; the caches never come back to the
+        host, only the (steps, B, 1) token ids do."""
+        g, cf, pvals = self._chunk_for(n_steps)
+        t0 = time.perf_counter()
+        outs = cf.raw(tok, np.int32(P), *caches, *pvals)
+        toks = to_numpy(outs[0])    # (steps, B, 1) -- syncs the chain
+        del outs
+        dt = time.perf_counter() - t0
+        self._steps += 1
+        self.step_seconds.append(dt)
+        # every token of the fused chunk becomes visible only when the
+        # dispatch returns, so the honest per-token latency sample is the
+        # whole chunk duration -- donated mode trades time-to-token for
+        # throughput (decode_tok_s is the amortized rate)
+        for i, r in enumerate(reqs):
+            take = min(r.max_new - 1, n_steps)
+            r.tokens.extend(int(t) for t in toks[:take, i, 0])
+            r.pos += take
+            self._retire(r, "completed")
+            self._decode_tokens += take
+            self.lat_ms.extend([dt * 1e3] * take)
+
+    def _init_caches(self, prefill_graphs: ModelGraphs, prefill_caches):
+        """The decode caches for a lockstep/donated run: zeros on the
+        device with each prefill cache copied in by name, along its
+        ``kv_seq`` axis, on the device (no host round trip of the
+        cache).  Lockstep gets numpy copies, the caches its numpy loop
+        passes around."""
+        name_map = {name: prefill_caches[i] for i, name in
+                    enumerate(prefill_graphs.aux.get("cache_names", []))}
+        b = self.graphs.builder
+        caches = []
+        for node in b.inputs:
+            if node.name in self._step_inputs:
+                continue
+            buf = _zeros(node.out_types[0], self.device)
+            pc = name_map.get(node.name)
+            if pc is not None:  # unmapped inputs stay zero
+                pc = as_tensor(pc, self.device)
+                sl: List[Any] = [slice(None)] * buf.ndim
+                spec = tuple(b.input_specs[node.name])
+                if "kv_seq" in spec:
+                    sd = spec.index("kv_seq")
+                    sl[sd] = slice(0, pc.shape[sd])
+                buf[tuple(sl)] = pc.to(buf.dtype)
+            caches.append(buf)
+        if self.mode == "lockstep":
+            return [to_numpy(c) for c in caches]
+        return caches
 
     def cache_stats(self):
         """The engine backend's compile-cache counters (memory + disk +
@@ -1485,9 +1918,11 @@ class ServeEngine:
                 self._retire(self._requests[rid], "failed",
                              error="engine halted")
             self._queue = []
-        else:
+        elif self.mode in ("continuous", "paged"):
             for _ in self.stream():
                 pass
+        else:
+            self._run_lockstep()
         wall = time.perf_counter() - self._t0_work
         results = {rid: np.asarray(r.tokens, np.int32)
                    for rid, r in self._requests.items()}

@@ -1,5 +1,5 @@
 """Serving CLI on torch: a thin driver over
-:class:`repro_torch.launch.engine.ServeEngine` (paged mode), the port of
+:class:`repro_torch.launch.engine.ServeEngine`, the port of
 ``repro/launch/serve.py``'s local-request path.
 
 Usage (on the card; ``--device cpu`` runs on the CPU):
@@ -7,7 +7,10 @@ Usage (on the card; ``--device cpu`` runs on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
       --device cuda --level O2 --kernels
 
-``--level O2 --kernels`` runs the fused compounds through the
+``--mode {lockstep,donated,continuous,paged}`` picks the engine mode
+(paged by default; lockstep and donated take one batch of uniform
+prompts, so ``--requests`` must not exceed ``--batch``).  ``--level O2
+--kernels`` runs the fused compounds and attention through the
 hand-written Hopper kernels (``CompileOptions(level="O2",
 use_pallas=True)``).  The workload is synthetic: ``--requests`` prompts
 of ``--prompt-len`` tokens (``--shared-prefix-len`` of them identical, a
@@ -30,6 +33,9 @@ import numpy as np
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--mode", default="paged",
+                    choices=("lockstep", "donated", "continuous", "paged"),
+                    help="engine mode (default: paged)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4, help="KV pool slots")
     ap.add_argument("--requests", type=int, default=0,
@@ -87,18 +93,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(
             f"--shared-prefix-len {args.shared_prefix_len} must be in "
             f"[0, --prompt-len {P}]")
+    paged = args.mode == "paged"
     try:
         econf = EngineConfig(
-            mode="paged", slots=args.batch, max_len=max_len, seed=args.seed,
-            page_size=args.page_size, chunk_steps=args.chunk_steps,
-            pages=args.pages, device=args.device,
+            mode=args.mode, slots=args.batch, max_len=max_len,
+            seed=args.seed, page_size=args.page_size,
+            chunk_steps=args.chunk_steps, pages=args.pages,
+            device=args.device,
             prefix_sharing=(False if args.no_prefix_sharing else None),
             prefill_chunk=args.prefill_chunk)
         params = None
         if not args.reduced:   # full width: draw the weights on the device
-            g = build_dense_chunk(
-                cfg, max_len, args.batch, econf.chunk_steps or 4,
-                page_size=econf.page_size or 8)
+            # every mode's graphs declare the same parameter names
+            g = build_dense_chunk(cfg, max_len, args.batch, 1)
             params = init_params_on_device(g.builder, args.seed, args.device)
         engine = ServeEngine(cfg, dataclasses.replace(econf, params=params),
                              options=CompileOptions(level=args.level,
@@ -137,12 +144,18 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"p95 {rep.ttft_p95_ms:.1f}ms, {rep.steps} steps, late admissions "
           f"{rep.late_admissions})")
     p = rep.pool
-    print(f"[kv-pool:paged] slots={p.slots} pages={p.pages} "
-          f"page_size={p.page_size} bytes/page={p.bytes_per_page} "
-          f"in_use={p.pages_in_use} peak={p.peak_pages_in_use} "
-          f"frag={p.fragmentation:.3f} page_allocs={p.page_allocs} "
-          f"page_frees={p.page_frees} cow={p.cow_copies} "
-          f"attach={p.shared_attaches} arena={p.decode_arena_bytes}B")
+    if paged:
+        print(f"[kv-pool:paged] slots={p.slots} pages={p.pages} "
+              f"page_size={p.page_size} bytes/page={p.bytes_per_page} "
+              f"in_use={p.pages_in_use} peak={p.peak_pages_in_use} "
+              f"frag={p.fragmentation:.3f} page_allocs={p.page_allocs} "
+              f"page_frees={p.page_frees} cow={p.cow_copies} "
+              f"attach={p.shared_attaches} arena={p.decode_arena_bytes}B")
+    elif p is not None:
+        print(f"[kv-pool:{rep.mode}] slots={p.slots} "
+              f"bytes/slot={p.bytes_per_slot} allocs={p.allocs} "
+              f"frees={p.frees} peak_active={p.peak_active} "
+              f"arena={p.decode_arena_bytes}B")
     if rep.kv_bytes_per_active_token is not None:
         print(f"[kv-bytes/active-token] {rep.kv_bytes_per_active_token:.1f}")
     print("[kernels] " + " ".join(
@@ -157,16 +170,26 @@ def main(argv: Optional[List[str]] = None) -> int:
         assert rep.tok_s > 0, "tok/s must be positive"
         assert all(len(rep.results[r]) == G for r in rids), \
             "every request must generate all tokens"
-        assert p.allocs == n_req and p.frees == n_req, \
-            f"allocs/frees must match requests ({p.allocs}/{p.frees})"
-        assert p.active == 0 and p.pages_in_use == 0, \
-            "paged pool must return every page when requests finish"
-        assert p.page_allocs == p.page_frees and p.ref_allocs == p.ref_frees
-        bad = engine.pool.verify()
-        assert not bad, f"pool.verify() found: {bad}"
+        if p is not None:
+            assert p.allocs == n_req and p.frees == n_req, \
+                f"allocs/frees must match requests ({p.allocs}/{p.frees})"
+            assert p.active == 0, "the pool must return every slot"
+            bad = engine.pool.verify()
+            assert not bad, f"pool.verify() found: {bad}"
+        if paged:
+            assert p.pages_in_use == 0, \
+                "paged pool must return every page when requests finish"
+            assert p.page_allocs == p.page_frees and \
+                p.ref_allocs == p.ref_frees
         if args.kernels and engine.device.type == "cuda":
-            assert all(c["launches"] > 0 and c["rejected"] == 0
-                       for c in counts.values()), counts
+            # flash attention runs where the graphs hold an Attention op
+            # (every dense prefill, the lockstep/donated decode) at a
+            # head width of a multiple of 128
+            flash = cfg.head_dim % 128 == 0 and not (
+                paged and engine.prefill_chunk)
+            assert all(c["rejected"] == 0 for c in counts.values()), counts
+            assert all(c["launches"] > 0 for k, c in counts.items()
+                       if k != "flash_attention" or flash), counts
         print("[smoke] ok")
     if args.report_json:
         doc = dataclasses.asdict(rep)
@@ -182,7 +205,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                            "top_k": args.top_k, "shared_prefix_len": S,
                            "prefix_sharing": engine.prefix_sharing,
                            "prefill_chunk": engine.prefill_chunk}
-        doc["pool_verify"] = engine.pool.verify()
+        doc["pool_verify"] = (engine.pool.verify()
+                              if engine.pool is not None else [])
         with open(args.report_json, "w") as fh:
             json.dump(doc, fh, indent=2, sort_keys=True, default=str)
             fh.write("\n")

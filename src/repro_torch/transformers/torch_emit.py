@@ -16,10 +16,12 @@ The kernel-selection points mirror the reference: ``DotGeneral``,
 ``RMSNorm``, ``SwiGLU``, ``NormMatmul`` (and ``RotaryQKV``'s projections)
 go to the hand-written Hopper kernels (:mod:`repro_torch.kernels`) under
 ``use_pallas`` when the reference's dtype conditions and the kernel's
-shape predicate hold.  ``Attention`` runs its plain composition where
-the reference would too, and raises where the reference would select
-its flash-attention kernel or the chunked XLA attention: both come with
-the flash-attention slice of the port.  Collectives come with the
+shape predicate hold.  ``Attention`` goes to the flash-attention kernel
+under ``use_pallas`` where the kernel takes the shapes and the head
+width is a multiple of 128 (the reference's rule, so a model gets flash
+numerics in the port exactly where it gets them in the reference), else
+to the chunked composition where the reference selects its chunked XLA
+attention, else to the plain composition.  Collectives come with the
 tensor-parallel slice.
 """
 from __future__ import annotations
@@ -34,14 +36,16 @@ from ..core.function import Function
 from ..core.node import Node
 from ..core.types import is_float
 from ..devices import as_tensor, numpy_dtype, torch_dtype
+from ..kernels import flash_attention as _k_flash
 from ..kernels import matmul as _k_matmul
 from ..kernels import norm_matmul as _k_norm_matmul
 from ..kernels import rmsnorm as _k_rmsnorm
 from ..kernels import swiglu as _k_swiglu
+from ..kernels.ref import attention_mask
+from ..kernels.xla_attention import chunked_attention
 
 EMIT: Dict[str, Callable] = {}
 
-_LATER_FLASH = "the flash-attention slice of the torch port"
 _LATER_TP = "the tensor-parallel slice of the torch port"
 
 
@@ -518,30 +522,6 @@ def _(node, args, ctx):
     return [_outcast(node, q, 0), _outcast(node, k, 1), _outcast(node, v, 2)]
 
 
-def _flash_selected(q_shape, k_shape) -> bool:
-    """Would the reference select its Pallas flash-attention kernel
-    (``repro/kernels/ops.py:attention_supported``)?"""
-    if len(q_shape) != 4 or len(k_shape) != 4:
-        return False
-    _B, Hq, Sq, Dk = q_shape
-    Hkv, Skv = k_shape[1], k_shape[2]
-    if Hkv == 0 or Hq % Hkv or Dk % 128:
-        return False
-
-    def tiles(size, target):
-        if size <= 128:
-            return True
-        b = min(target, size)
-        b -= b % 128
-        while b >= 128:
-            if size % b == 0:
-                return True
-            b -= 128
-        return size % 128 == 0
-
-    return tiles(Sq, 256) and tiles(Skv, 512)
-
-
 def reference_attention(q, k, v, *, causal, window, scale, q_offset=None):
     """Plain attention (BHSD, GQA by head repeat, f32 scores and softmax,
     probabilities cast to v's dtype), the reference's
@@ -552,15 +532,8 @@ def reference_attention(q, k, v, *, causal, window, scale, q_offset=None):
         k = torch.repeat_interleave(k, Hq // Hkv, dim=1)
         v = torch.repeat_interleave(v, Hq // Hkv, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", _f32up(q), _f32up(k)) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    if q_offset is not None:
-        qpos = qpos + q_offset.to(torch.int64)
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
     scores = torch.where(mask, scores, torch.full((), -1e30,
                                                   device=q.device))
     probs = torch.softmax(scores, dim=-1)
@@ -573,16 +546,18 @@ def _(node, args, ctx):
     at = node.attrs
     q, k, v = args[:3]
     q_offset = args[3] if at["has_offset"] else None
-    if ctx.use_pallas and _flash_selected(tuple(q.shape), tuple(k.shape)):
-        raise NotImplementedError(
-            f"Attention {tuple(q.shape)} x {tuple(k.shape)} selects the "
-            f"flash-attention kernel, which comes with {_LATER_FLASH}")
+    if ctx.use_pallas and q.ndim == 4 and q.shape[-1] % 128 == 0 and \
+            _k_flash.supported(q, k, v):
+        return [_outcast(node, _k_flash.flash_attention(
+            q, k, v, causal=at["causal"], window=at["window"],
+            scale=at["scale"], q_offset=q_offset))]
     Sq, Skv = q.shape[2], k.shape[2]
     if ctx.attn_impl == "chunked" or (
             ctx.attn_impl == "auto" and Sq > 1 and Skv > 2048
             and Skv % ctx.attn_chunk == 0):
-        raise NotImplementedError(
-            f"chunked attention (Skv={Skv}) comes with {_LATER_FLASH}")
+        return [_outcast(node, chunked_attention(
+            q, k, v, causal=at["causal"], window=at["window"],
+            scale=at["scale"], q_offset=q_offset, bk=ctx.attn_chunk))]
     return [_outcast(node, reference_attention(
         q, k, v, causal=at["causal"], window=at["window"],
         scale=at["scale"], q_offset=q_offset))]

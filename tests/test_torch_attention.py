@@ -1,0 +1,306 @@
+"""The port's flash attention and chunked attention against the JAX
+package: the plain version (and the wrapper on CPU tensors) against the
+Pallas flash kernel in interpret mode (as ``tests/test_kernels.py`` runs
+it) and against the jnp oracle ``attention_ref`` at shapes the TPU
+kernel refuses; the torch ``chunked_attention`` against the XLA one;
+the emitter's attention routes; and -- on a card only -- the CUDA kernel
+against its plain version.
+
+Tolerances are the repo's (``scripts/check_kernel_parity.py:69``): 1e-4
+of scale in f32, 3e-2 in bf16.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
+
+from repro.backend import Backend as JBackend  # noqa: E402
+from repro.backend import CompileOptions as JOptions  # noqa: E402
+from repro.core import ops as j_ops  # noqa: E402
+from repro.core.function import Function as JFunction  # noqa: E402
+from repro.kernels import ops as jk  # noqa: E402
+from repro.kernels.ref import attention_ref as j_attention_ref  # noqa: E402
+from repro.kernels.xla_attention import \
+    chunked_attention as j_chunked  # noqa: E402
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.backend import Backend as TBackend  # noqa: E402
+from repro_torch.backend import CompileOptions as TOptions  # noqa: E402
+from repro_torch.core import ops as t_ops  # noqa: E402
+from repro_torch.core.function import Function as TFunction  # noqa: E402
+from repro_torch.devices import as_tensor, to_numpy  # noqa: E402
+from repro_torch.kernels import flash_attention as kf  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.xla_attention import chunked_attention  # noqa: E402
+
+BF16 = np.dtype(ml_dtypes.bfloat16)
+DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 1e-4),
+          "bf16": (BF16, jnp.bfloat16, torch.bfloat16, 3e-2)}
+CPU = torch.device("cpu")
+
+# B, Hq, Hkv, Sq, Skv, Dk, Dv, causal, window, offset: the reference's
+# ATTN_CASES (tests/test_kernels.py:44-51) plus decode at 0, 100, 255
+ATTN_CASES = [
+    (1, 2, 2, 128, 128, 128, 128, True, None, None),
+    (2, 4, 2, 256, 256, 128, 128, True, None, None),
+    (1, 2, 1, 128, 512, 128, 128, True, None, 384),
+    (1, 4, 4, 256, 256, 128, 128, True, 64, None),
+    (1, 2, 2, 128, 128, 128, 256, False, None, None),
+    (1, 8, 1, 128, 256, 128, 128, True, 100, 128),
+    (2, 4, 2, 1, 256, 128, 128, True, None, 0),
+    (2, 4, 2, 1, 256, 128, 128, True, None, 100),
+    (2, 4, 2, 1, 256, 128, 128, True, None, 255),
+]
+
+
+def _qkv(case, np_dt, seed):
+    B, Hq, Hkv, Sq, Skv, Dk, Dv = case[:7]
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32).astype(np_dt)
+            for s in ((B, Hq, Sq, Dk), (B, Hkv, Skv, Dk), (B, Hkv, Skv, Dv))]
+
+
+def _close(a, b, tol):
+    a = np.asarray(a).astype(np.float64)
+    b = np.asarray(b).astype(np.float64)
+    assert a.shape == b.shape
+    scale = max(float(np.abs(b).max()), 1.0)
+    diff = float(np.abs(a - b).max())
+    assert diff <= tol * scale, f"max diff {diff} > {tol * scale}"
+
+
+def _t(x):
+    return as_tensor(x, CPU)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_flash_plain_matches_the_pallas_kernel(case, dt):
+    np_dt, j_dt, _, tol = DTYPES[dt]
+    causal, window, offset = case[7:]
+    q, k, v = _qkv(case, np_dt, seed=sum(case[:7]))
+    assert jk.attention_supported(q.shape, k.shape)
+    jout = jk.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, q_offset=None if offset is None else jnp.int32(offset),
+        interpret=True)
+    off = None if offset is None else torch.tensor(offset, dtype=torch.int32)
+    plain = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal,
+                                    window=window, q_offset=off)
+    kernels.reset_counters()
+    wrapped = kf.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                                 window=window, q_offset=off)
+    assert torch.equal(wrapped, plain)
+    assert kf.launches == 0          # CPU tensors take the plain version
+    assert plain.dtype == _t(q).dtype
+    _close(to_numpy(plain.float()),
+           np.asarray(jnp.asarray(jout, jnp.float32)), tol)
+
+
+# shapes the TPU kernel refuses (Dk not 128-aligned, Sq and Skv not
+# tileable), no row fully masked
+ODD_CASES = [
+    (1, 4, 2, 100, 300, 64, 128, True, None, 200),
+    (2, 2, 1, 100, 300, 192, 128, True, 64, 150),
+    (1, 2, 2, 7, 300, 64, 64, False, None, None),
+]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ODD_CASES, ids=str)
+def test_flash_plain_matches_attention_ref_where_the_tpu_refuses(case, dt):
+    np_dt, _, _, tol = DTYPES[dt]
+    B, Hq, Hkv, Sq, Skv, Dk, Dv, causal, window, offset = case
+    assert not jk.attention_supported((B, Hq, Sq, Dk), (B, Hkv, Skv, Dk))
+    assert kops.attention_supported((B, Hq, Sq, Dk), (B, Hkv, Skv, Dk),
+                                    (B, Hkv, Skv, Dv), DTYPES[dt][2])
+    q, k, v = _qkv(case, np_dt, seed=Sq + Skv + Dk)
+    jout = j_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, window=window,
+                           q_offset=None if offset is None else offset)
+    out = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal,
+                                  window=window, q_offset=offset)
+    _close(to_numpy(out.float()), np.asarray(jnp.asarray(jout, jnp.float32)),
+           tol)
+
+
+def test_fully_masked_rows_are_exactly_zero():
+    rng = np.random.default_rng(3)
+    q, k, v = (_t(rng.normal(size=(1, 2, 16, 128)).astype(np.float32))
+               for _ in range(3))
+    # every row masked: the window cannot reach back to the keys
+    out = ref.flash_attention_ref(q, k, v, causal=True, window=1,
+                                  q_offset=4096)
+    assert torch.equal(out, torch.zeros_like(out))
+    jout = jk.flash_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                              jnp.asarray(v.numpy()), causal=True, window=1,
+                              q_offset=jnp.int32(4096), interpret=True)
+    np.testing.assert_allclose(np.asarray(jout), 0.0, atol=1e-6)
+    # a negative offset hides every key from the first three rows only
+    out = ref.flash_attention_ref(q, k, v, causal=True,
+                                  q_offset=torch.tensor(-3))
+    assert torch.equal(out[:, :, :3], torch.zeros_like(out[:, :, :3]))
+    assert bool((out[:, :, 3:].abs().sum(-1) > 0).all())
+    chunked = chunked_attention(q, k, v, causal=True, q_offset=-3, bk=8)
+    assert torch.equal(chunked[:, :, :3], out[:, :, :3])
+
+
+def test_flash_predicate_takes_what_the_kernel_can_read():
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def ok(q, k, v, dt=bf):
+        return kops.attention_supported(q, k, v, dt)
+
+    # decode, prefill, paged-dense prefill, GQA, Dv != Dk, ragged lengths
+    assert ok((4, 32, 1, 128), (4, 32, 256, 128), (4, 32, 256, 128))
+    assert ok((4, 32, 128, 128), (4, 32, 128, 128), (4, 32, 128, 128))
+    assert ok((1, 32, 100, 128), (1, 32, 100, 128), (1, 32, 100, 128))
+    assert ok((4, 64, 1, 128), (4, 8, 256, 128), (4, 8, 256, 128))
+    assert ok((1, 2, 128, 192), (1, 2, 128, 192), (1, 2, 128, 128), f32)
+    assert ok((1, 2, 7, 64), (1, 2, 301, 64), (1, 2, 301, 256))
+    assert ok((1, 2, 3, 8), (1, 2, 5, 8), (1, 2, 5, 8))
+    # refused: rank, heads, 16-byte vectors, widths, dtype, mismatched
+    # operands, 32-bit indexing
+    assert not ok((32, 1, 128), (32, 256, 128), (32, 256, 128))
+    assert not ok((1, 6, 4, 128), (1, 4, 4, 128), (1, 4, 4, 128))
+    assert not ok((1, 2, 4, 100), (1, 2, 4, 100), (1, 2, 4, 100))
+    assert not ok((1, 2, 4, 6), (1, 2, 4, 6), (1, 2, 4, 6), f32)
+    assert not ok((1, 2, 4, 512), (1, 2, 4, 512), (1, 2, 4, 512))
+    assert not ok((1, 2, 4, 128), (1, 2, 4, 128), (1, 2, 4, 264))
+    assert not ok((1, 2, 4, 64), (1, 2, 4, 64), (1, 2, 4, 64),
+                  torch.float64)
+    assert not ok((1, 2, 4, 64), (2, 2, 4, 64), (2, 2, 4, 64))
+    assert not ok((1, 2, 4, 64), (1, 2, 4, 64), (1, 2, 5, 64))
+    assert not ok((1, 1, 1 << 24, 256), (1, 1, 8, 256), (1, 1, 8, 256))
+    assert kops.flash_q_tile(1) == 1 and kops.flash_q_tile(3) == 4
+    assert kops.flash_q_tile(100) == 16
+    # the f32 worst case still fits one block's shared memory
+    assert kops.flash_smem_bytes(128, 256, 256, f32) <= 232448
+    # a CPU refusal is no "rejected" CUDA call
+    kernels.reset_counters()
+    z = torch.zeros((1, 2, 4, 6))
+    assert not kf.supported(z, z, z) and kf.rejected == 0
+
+
+@pytest.mark.parametrize("case", ATTN_CASES[:6], ids=str)
+def test_chunked_attention_matches_jax(case):
+    causal, window, offset = case[7:]
+    q, k, v = _qkv(case, np.float32, seed=7)
+    jout = j_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, window=window,
+                     q_offset=None if offset is None else jnp.int32(offset),
+                     bk=128)
+    out = chunked_attention(_t(q), _t(k), _t(v), causal=causal, window=window,
+                            q_offset=None if offset is None
+                            else torch.tensor(offset, dtype=torch.int32),
+                            bk=128)
+    _close(out.numpy(), np.asarray(jout), 1e-4)
+    plain = ref.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal,
+                                    window=window, q_offset=offset)
+    _close(out.numpy(), plain.numpy(), 1e-4)
+    with pytest.raises(ValueError, match="not divisible"):
+        chunked_attention(_t(q), _t(k), _t(v), bk=100)
+
+
+def _attention_graph(ops, Function, sq, skv, d, offset):
+    q = ops.parameter((1, 2, sq, d), "f32", "q")
+    k = ops.parameter((1, 2, skv, d), "f32", "k")
+    v = ops.parameter((1, 2, skv, d), "f32", "v")
+    params = [q, k, v]
+    off = None
+    if offset:
+        pos = ops.parameter((), "i32", "pos")
+        params.append(pos)
+        off = pos.out()
+    out = ops.attention(q.out(), k.out(), v.out(), causal=True, q_offset=off)
+    return Function(params, [out], "att")
+
+
+@pytest.mark.parametrize("offset", [False, True])
+def test_o1_attention_over_a_long_cache_runs_chunked(offset):
+    """Sq > 1 over Skv > 2048 takes the chunked composition at O1 (it
+    raised before the port had one) and gives the JAX emitter's
+    output."""
+    sq, skv, d = 4, 4096, 16
+    rng = np.random.default_rng(11)
+    args = [rng.normal(size=s).astype(np.float32)
+            for s in ((1, 2, sq, d), (1, 2, skv, d), (1, 2, skv, d))]
+    if offset:
+        args.append(np.int32(skv - sq))
+    tfn = _attention_graph(t_ops, TFunction, sq, skv, d, offset)
+    jfn = _attention_graph(j_ops, JFunction, sq, skv, d, offset)
+    tout = TBackend.create("torch", device="cpu").compile(
+        tfn, TOptions(level="O1"))(*args)[0]
+    jout = JBackend.create("jax").compile(jfn, JOptions(level="O1"))(*args)[0]
+    _close(tout, jout, 1e-4)
+
+
+# -- the CUDA kernel (skips without a card) ------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# B, Hq, Hkv, Sq, Skv, Dk, Dv, causal, window, offset
+CUDA_ATTN_CASES = [
+    (4, 32, 32, 1, 256, 128, 128, True, None, 255),    # decode
+    (4, 32, 32, 128, 128, 128, 128, True, None, None),  # prefill
+    (2, 8, 2, 37, 300, 128, 128, True, None, 263),     # GQA, ragged
+    (1, 4, 4, 100, 300, 64, 64, True, 48, 200),        # window, ragged
+    (1, 2, 1, 70, 70, 192, 128, False, None, None),    # Dv != Dk, MQA
+    (1, 2, 2, 3, 130, 256, 256, True, 16, 127),        # widest heads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", CUDA_ATTN_CASES, ids=str)
+def test_cuda_flash_matches_plain(cuda_device, case, dt):
+    _, _, t_dt, tol = DTYPES[dt]
+    B, Hq, Hkv, Sq, Skv, Dk, Dv, causal, window, offset = case
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(sum(case[:7]))
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(t_dt)
+               for s in ((B, Hq, Sq, Dk), (B, Hkv, Skv, Dk),
+                         (B, Hkv, Skv, Dv)))
+    # the offset is read from a tensor on the card
+    off = None if offset is None else torch.tensor(
+        offset, dtype=torch.int32, device=cuda_device)
+    before = kf.launches
+    out = kf.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=off)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 1
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=off)
+    assert kf.launches == before + 1
+    _close(to_numpy(out.float()), to_numpy(expect.float()), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_row_independent_of_query_tile(cuda_device):
+    """A row's reduction order depends only on Skv and the mask: decode
+    at position p gives row p of the causal prefill bit for bit, and a
+    permuted (non-contiguous) view gives the same result."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    q, k, v = (torch.randn((2, 4, 200, 128), generator=gen,
+                           device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    full = kf.flash_attention(q, k, v, causal=True)
+    for p in (0, 63, 64, 130, 199):
+        one = kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
+                                 q_offset=p)
+        assert torch.equal(one, full[:, :, p:p + 1]), p
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not qt.is_contiguous() or qt.data_ptr() != q.data_ptr()
+    assert torch.equal(kf.flash_attention(qt, k, v, causal=True), full)
+    # fully-masked rows are exactly 0 on the card too
+    dead = kf.flash_attention(q, k, v, causal=True, window=1, q_offset=4096)
+    assert torch.equal(dead, torch.zeros_like(dead))

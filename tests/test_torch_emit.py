@@ -233,21 +233,37 @@ def test_scan_honours_reverse(reverse):
 
 
 def test_attention_raises_where_the_flash_kernel_would_run():
-    """The flash-attention kernel is a later slice: where the reference
-    would select it, the torch emitter refuses instead of running a
-    plain stand-in."""
-    q = t_ops.parameter((1, 2, 4, 128), "f32", "q")
-    k = t_ops.parameter((1, 2, 4, 128), "f32", "k")
-    v = t_ops.parameter((1, 2, 4, 128), "f32", "v")
-    fn = TFunction([q, k, v], [t_ops.attention(q.out(), k.out(), v.out(),
-                                               causal=True)], "att")
+    """Where the reference selects its flash kernel (d_head 128 under
+    ``use_pallas``) the torch emitter, which raised there before the
+    port had the kernel, now runs it -- on the CPU its plain version --
+    and gives the JAX emitter's output (the Pallas kernel, interpret
+    mode); without ``use_pallas`` both take the plain composition."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels.ref import flash_attention_ref
+    shape = (1, 2, 4, 128)
+
+    def build(ops, Function):
+        q, k, v = (ops.parameter(shape, "f32", n) for n in "qkv")
+        pos = ops.parameter((), "i32", "pos")
+        out = ops.attention(q.out(), k.out(), v.out(), causal=True,
+                            q_offset=pos.out())
+        return Function([q, k, v, pos], [out], "att")
+
+    rng = np.random.default_rng(0)
+    args = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+    args.append(np.int32(2))
     be = TBackend.create("torch", device="cpu")
-    zeros = [np.zeros((1, 2, 4, 128), np.float32)] * 3
-    plain = be.compile(fn, TOptions(level="O0"))
-    assert plain(*zeros)[0].shape == (1, 2, 4, 128)
-    kernel = be.compile(fn, TOptions(level="O0", use_pallas=True))
-    with pytest.raises(NotImplementedError, match="flash-attention"):
-        kernel(*zeros)
+    tfn, jfn = build(t_ops, TFunction), build(j_ops, JFunction)
+    kernel = be.compile(tfn, TOptions(level="O0", use_pallas=True))
+    out = kernel(*args)[0]
+    expect = flash_attention_ref(*(torch.from_numpy(a) for a in args[:3]),
+                                 causal=True, q_offset=2)
+    assert np.array_equal(out, expect.numpy()) and kf.launches == 0
+    jout = JBackend.create("jax").compile(jfn, JOptions(
+        level="O0", use_pallas=True, interpret_pallas=True))(*args)[0]
+    _close("flash", out, jout)
+    plain = be.compile(tfn, TOptions(level="O0"))(*args)[0]
+    _close("plain", plain, jout)
 
 
 def test_kernel_selection_counts_no_launch_on_cpu():

@@ -21,6 +21,7 @@ from repro.kernels.swiglu import swiglu as j_swiglu  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.devices import as_tensor, to_numpy  # noqa: E402
+from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import matmul as km  # noqa: E402
 from repro_torch.kernels import norm_matmul as kn  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
@@ -175,7 +176,10 @@ def cuda_device():
 CUDA_CASES = [("matmul", (4, 4096, 4096)), ("matmul", (5, 96, 24)),
               ("norm_matmul", (4, 4096, 1024)), ("norm_matmul", (3, 40, 16)),
               ("swiglu", (4, 512, 1024, 256)), ("swiglu", (3, 64, 40, 24)),
-              ("rmsnorm", (4, 4096)), ("rmsnorm", (3, 40))]
+              ("rmsnorm", (4, 4096)), ("rmsnorm", (3, 40)),
+              # (B, Hq, Hkv, Sq, Skv, D, decode offset or None)
+              ("flash_attention", (4, 32, 32, 1, 256, 128, 255)),
+              ("flash_attention", (2, 8, 2, 45, 70, 64, None))]
 
 
 @pytest.mark.cuda
@@ -208,12 +212,20 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, shape, dt):
                 r(f, do, scale=f ** -0.5))
         mod, plain = ks, ref.swiglu_ref
         out = ks.swiglu(*args)
-    else:
+    elif kernel == "rmsnorm":
         m, d = shape
         args = (r(m, d), 1 + 0.1 * torch.randn(d, generator=gen,
                                                device=cuda_device))
         mod, plain = kr, ref.rmsnorm_ref
         out = kr.rmsnorm(*args)
+    else:
+        b, hq, hkv, sq, skv, d, off = shape
+        args = (r(b, hq, sq, d), r(b, hkv, skv, d), r(b, hkv, skv, d))
+        mod = kf
+
+        def plain(q, k, v):
+            return ref.flash_attention_ref(q, k, v, q_offset=off)
+        out = kf.flash_attention(*args, q_offset=off)
     torch.cuda.synchronize()
     before = mod.launches
     expect = plain(*args)

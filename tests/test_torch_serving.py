@@ -128,11 +128,18 @@ def test_pool_drains_after_a_cancel_storm():
 
 
 def test_engine_config_refuses_later_slices():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        EngineConfig(mode="continuous")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        EngineConfig(mode="paged", tp=2)
+    """Every serving mode is ported; tensor-parallel serving (tp > 1) is
+    the one later slice the config still refuses."""
+    for mode in ("lockstep", "donated", "continuous", "paged"):
+        assert EngineConfig(mode=mode).mode == mode
+        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+            EngineConfig(mode=mode, tp=2)
+    with pytest.raises(ValueError, match="need mode='paged'"):
+        EngineConfig(mode="continuous", prefill_chunk=0)
+    with pytest.raises(ValueError, match="mode must be one of"):
+        EngineConfig(mode="warp")
     assert EngineConfig().backend == "torch"
+    assert EngineConfig().mode == "paged"
 
 
 def test_device_init_uses_the_builders_distributions():
