@@ -17,7 +17,11 @@ without printing a result:
                  full-width deepseek-7b shapes of the serving paths
                  (bf16, plus one f32 case each), with its time, the plain
                  version's, a one-call PyTorch yardstick's where there is
-                 one, and the card's bound for the same work;
+                 one, and the card's bound for the same work; then the
+                 determinism checks of matmul and rmsnorm (bf16 and f32):
+                 two launches on the same inputs give the same bits, and a
+                 probe row gives the same bits alone and inside batches of
+                 4, 64 and 512 rows;
   4. main     -- ServeEngine(mode="paged") at O2 with the kernels on
                  full-width deepseek-7b (30 layers, d_model 4096, vocab
                  102400, f32 params drawn on the card from a seed):
@@ -66,6 +70,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense tensor core / f32 CUDA core
 TOL = {torch.bfloat16: 3e-2, torch.float16: 3e-2, torch.float32: 1e-4}
 D, F, V, SLOTS, CHUNK, DH, HEADS = 4096, 11008, 102400, 4, 64, 128, 32
+DENSE = 512   # rows of the donated dense prefill (4 prompts x 128)
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:20",
     "norm_matmul": "src/repro/kernels/norm_matmul.py:21",
@@ -213,6 +218,7 @@ def kernel_cases(gen):
     mm("decode wo (4x4096)@(4096x4096)", SLOTS, D, D, bf)
     mm("prefill wo (64x4096)@(4096x4096)", CHUNK, D, D, bf)
     mm("prefill unembed (1x4096)@(4096x102400)", 1, D, V, bf)
+    mm("dense prefill (512x4096)@(4096x4096)", DENSE, D, D, bf)
     mm("f32 (4x4096)@(4096x4096)", SLOTS, D, D, f32)
     nm("decode qkv (4x4096)(4096x4096)", SLOTS, D, bf)
     nm("decode final+unembed (4x4096)(4096x102400) g f32", SLOTS, V, f32)
@@ -249,6 +255,7 @@ def kernel_cases(gen):
 
     rn("decode pre-MLP (4x4096)", SLOTS, bf)
     rn("prefill final (64x4096) w f32", CHUNK, f32)
+    rn("dense prefill (512x4096)", DENSE, bf)
     fa("decode (4x32x1) over 256 keys at pos 255", SLOTS, HEADS, HEADS, 1,
        256, 255, bf)
     fa("decode (4x32x1) over 256 keys at pos 63", SLOTS, HEADS, HEADS, 1,
@@ -304,7 +311,58 @@ def phase_kernels() -> dict:
                 "library_ms": lib_ms, "launches_by_phase": {}}
     del flush
     torch.cuda.empty_cache()
+    check_determinism(gen)
     return report
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def check_determinism(gen) -> None:
+    """The determinism the serving contracts rest on (chunked == dense
+    prefill, batched == alone): two launches on the same inputs give the
+    same bits, and a fixed probe row gives the same bits in batches of
+    every size the serving paths use, at a different position in each."""
+    from repro_torch.kernels import matmul as km, rmsnorm as kr
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def probe_rows(kernel, label, sizes, run, make):
+        probe = make(1)
+        rows = {}
+        for m, pos in sizes.items():
+            batch = make(m)
+            batch[pos] = probe[0]
+            out = run(batch)
+            require(_bitwise(out, run(batch)),
+                    f"{kernel} {label}: two launches at {m} rows differ")
+            rows[m] = out[pos:pos + 1]
+        first = rows[min(rows)]
+        for m, r in rows.items():
+            require(_bitwise(r, first), f"{kernel} {label}: the probe row "
+                    f"at {m} rows differs from it alone: max |diff| "
+                    f"{float((r.double() - first.double()).abs().max())}")
+        say("determinism", kernel=kernel, dtype=label, runs="bitwise",
+            rows=",".join(map(str, sizes)),
+            positions=",".join(map(str, sizes.values())), probe="bitwise")
+
+    def name(dt):
+        return str(dt).split(".")[-1]
+
+    for dt in (bf, f32):
+        b = _rand((D, D), dt, gen, D ** -0.5)
+        probe_rows("matmul", name(dt),
+                   {1: 0, SLOTS: 2, CHUNK: 45, DENSE: 300},
+                   lambda a: km.matmul(a, b),
+                   lambda m: _rand((m, D), dt, gen))
+    for dt, w_dt in ((bf, bf), (bf, f32), (f32, f32)):
+        w = (1 + 0.1 * _rand((D,), f32, gen)).to(w_dt)
+        probe_rows("rmsnorm", f"{name(dt)}/w {name(w_dt)}",
+                   {1: 0, SLOTS: 3, CHUNK: 17, DENSE: 400},
+                   lambda x: kr.rmsnorm(x, w, 1e-6),
+                   lambda m: _rand((m, D), dt, gen))
 
 
 # -- 4. main path, full width --------------------------------------------------

@@ -4,21 +4,38 @@
 // Replaces: src/repro/kernels/matmul.py:_matmul_kernel (the Pallas TPU
 // tiled matmul behind kernels/ops.py:matmul).
 //
-// Bound on the H100: at the serving shapes M is the decode slot count (4)
-// or a prefill chunk (64) while B is a weight of 16-400 MB, so the kernel
-// moves B's bytes once and does ~2*M flops per byte -- far below the
-// ~295 flop/byte where the tensor cores would bind.  It is bound by
-// device-memory bandwidth (3.35 TB/s).
+// Bound on the H100.  At decode (M = 4), a prefill chunk (M = 64) and the
+// unembed of a prefill's last row (M = 1, N = 102400) B is a weight of
+// 32-840 MB read once for at most 64 flops per byte, far below the ~295
+// where the tensor cores would bind: device-memory bandwidth (3.35 TB/s)
+// bounds these cases, and the kernel has to keep enough of B in flight
+// on every SM to hide DRAM latency.  The dense prefill (M = 512) does
+// 17 GFLOP for 40 MB: there the tensor-core rate (989 TFLOP/s) bounds it.
 //
-// Design: one block owns a BM x (4*16/sizeof(T)) output tile and its
-// whole K sweep.  Threads read B rows as 16-byte vectors (4 column
-// groups x 64 k-lanes, so a warp reads 8 rows x 64 contiguous bytes),
-// accumulate in f32 registers, and the k-lanes are summed in one fixed
-// order (common.cuh) -- deterministic and independent of M.  Narrow
-// column tiles give N=4096 128 blocks and the unembed (N=102400) 3200,
-// enough to keep the SMs busy without splitting K.  The ragged M and N
-// edges are masked.  No tensor cores yet (wgmma/TMA is later work).
-#include "common.cuh"
+// Design, bf16 and f16: the tensor-core mainloop of tc_gemm.cuh.  A block
+// owns a tile of 16 rows (M <= 16), 64 rows (M <= 64) or 64 x 64 (more
+// rows), 32 columns wide, or 128 at decode when N >= 8192, and its whole K
+// sweep: N = 4096 gives 128 blocks at decode, the unembed 800, so no split
+// of K is needed to fill 132 SMs.  B and A stream through a ring of three
+// or four 256-deep cp.async stages (48-128 KB of B in flight per block
+// while one stage is multiplied); each warp multiplies its fixed 32-wide k
+// slice of a stage with mma.sync m16n8k16 into f32 registers.  Each output
+// is thus reduced in one order fixed by K alone -- per warp ascending k and
+// stage, then the 8 warp partials in warp order -- so a row of A gives
+// bitwise the same output at any M and any position in its batch; padding
+// rows are zeros in shared memory and are never stored.  Every tile uses
+// the same instruction shape and the same k slices: decode and prefill rows
+// go through the same arithmetic.  B's copies carry an evict-first L2
+// policy when B is at most 256 MB: a weight read once then evicts itself
+// rather than the activations, or dirty lines whose write-back would share
+// the memory bus with the stream.  A B many times L2's 50 MB (the unembed)
+// streams with the evict-normal policy, where evict-first measured slower.
+//
+// Design, f32: CUDA-core FMAs (no TF32: f32 means f32).  A
+// block owns a BM x 16 output tile; threads read B rows as 16-byte vectors
+// (4 column groups x 64 k-lanes) and the k-lanes are summed in one fixed
+// order (common.cuh gemm_partial / reduce_k_lanes).
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -46,12 +63,77 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int BM>
-void launch(const T* A, const T* B, T* C, int M, int K, int N,
-            cudaStream_t s) {
-  constexpr int BN = CG * kVec<T>;
+template <int BM>
+cudaError_t launch_f32(const float* A, const float* B, float* C, int M,
+                       int K, int N, cudaStream_t s) {
+  constexpr int BN = CG * kVec<float>;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  matmul_kernel<T, BM><<<grid, kThreads, 0, s>>>(A, B, C, M, K, N);
+  matmul_kernel<float, BM><<<grid, kThreads, 0, s>>>(A, B, C, M, K, N);
+  return cudaSuccess;
+}
+
+template <typename T, class TL>
+__global__ void __launch_bounds__(kThreads)
+    matmul_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                     T* __restrict__ C, int M, int K, int N, bool b_first) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int BN = TL::BN;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * TL::BM;
+  const float* sum =
+      tc::gemm_tc<T, TL>(A, K, B, M, K, N, m0, n0, b_first, smem);
+  // two adjacent columns per store (N % 8 == 0: both in or both out)
+  for (int e = threadIdx.x; e < TL::BM * BN / 2; e += kThreads) {
+    const int m = e / (BN / 2), n = (e % (BN / 2)) * 2;
+    if (m0 + m < M && n0 + n < N) {
+      const float* p = sum + m * TL::RED_PITCH + n;
+      __align__(4) T pair[2] = {from_f32<T>(p[0]), from_f32<T>(p[1])};
+      *reinterpret_cast<unsigned*>(C + (size_t)(m0 + m) * N + n0 + n) =
+          *reinterpret_cast<const unsigned*>(pair);
+    }
+  }
+}
+
+template <typename T, class TL>
+cudaError_t launch_tc(const T* A, const T* B, T* C, int M, int K, int N,
+                      cudaStream_t s) {
+  // raise the instantiation's dynamic shared memory limit once, off the
+  // per-launch path
+  static const cudaError_t limit = cudaFuncSetAttribute(
+      matmul_tc_kernel<T, TL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TL::SMEM);
+  if (limit != cudaSuccess) return limit;
+  // a B of up to 256 MB (every weight of the main path but the unembed)
+  // streams as L2's first victims; a larger one gains nothing from it
+  const bool b_first = (size_t)K * N * sizeof(T) <= (256u << 20);
+  dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
+  matmul_tc_kernel<T, TL><<<grid, kThreads, TL::SMEM, s>>>(A, B, C, M, K, N,
+                                                           b_first);
+  return cudaSuccess;
+}
+
+// The tensor-core tiles, mirrored by kernels/ops.py:matmul_plan.  Up to 16
+// rows: 32 columns a block (128 blocks at N = 4096), or 128 where N is
+// wide enough (N >= 8192: the unembed, 800 blocks) for 256-byte rows of B
+// to stream faster; up to 64 rows, one 64-row tile of 32 columns; more
+// rows, 64 x 64 tiles, which halve the re-reads of A from L2 (three
+// stages fit 227 KB).
+using TileDecode = tc::Tile<16, 32, 4>;
+using TileWide = tc::Tile<16, 128, 3>;
+using TileChunk = tc::Tile<64, 32, 4>;
+using TileDense = tc::Tile<64, 64, 3>;
+
+template <typename T>
+cudaError_t launch_16bit(const void* a, const void* b, void* c, int M, int K,
+                         int N, cudaStream_t s) {
+  const T* A = static_cast<const T*>(a);
+  const T* B = static_cast<const T*>(b);
+  T* C = static_cast<T*>(c);
+  if (M <= 16)
+    return N >= 8192 ? launch_tc<T, TileWide>(A, B, C, M, K, N, s)
+                     : launch_tc<T, TileDecode>(A, B, C, M, K, N, s);
+  if (M <= 64) return launch_tc<T, TileChunk>(A, B, C, M, K, N, s);
+  return launch_tc<T, TileDense>(A, B, C, M, K, N, s);
 }
 
 }  // namespace
@@ -59,15 +141,22 @@ void launch(const T* A, const T* B, T* C, int M, int K, int N,
 extern "C" int repro_matmul(const void* a, const void* b, void* c, int M,
                             int K, int N, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_DTYPE(dtype, T, {
-    const T* A = static_cast<const T*>(a);
-    const T* B = static_cast<const T*>(b);
-    T* C = static_cast<T*>(c);
-    switch (pick_bm(M)) {
-      case 1: launch<T, 1>(A, B, C, M, K, N, s); break;
-      case 4: launch<T, 4>(A, B, C, M, K, N, s); break;
-      default: launch<T, 16>(A, B, C, M, K, N, s); break;
-    }
-  });
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32: {
+      const float* A = static_cast<const float*>(a);
+      const float* B = static_cast<const float*>(b);
+      float* C = static_cast<float*>(c);
+      switch (pick_bm(M)) {
+        case 1: err = launch_f32<1>(A, B, C, M, K, N, s); break;
+        case 4: err = launch_f32<4>(A, B, C, M, K, N, s); break;
+        default: err = launch_f32<16>(A, B, C, M, K, N, s); break;
+      }
+    } break;
+    case kBF16: err = launch_16bit<__nv_bfloat16>(a, b, c, M, K, N, s); break;
+    case kF16: err = launch_16bit<__half>(a, b, c, M, K, N, s); break;
+    default: break;
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

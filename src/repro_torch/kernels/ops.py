@@ -12,7 +12,7 @@ normalized row fits in shared memory.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +44,54 @@ def row_tile(m: int) -> int:
 def matmul_supported(m: int, k: int, n: int, dtype: torch.dtype) -> bool:
     return (dtype in KERNEL_DTYPES and _ok_dims(m, k, n, m * k, k * n, m * n)
             and n % vec(dtype) == 0)
+
+
+# mirrors csrc/tc_gemm.cuh and csrc/matmul.cu: stages of 256 k, each
+# warp a fixed 32-wide k slice of every stage, the warps summed in order
+TC_KS = 256
+TC_WARP_K = TC_KS // _WARPS
+TC_EVICT_FIRST_BYTES = 256 << 20
+
+
+class MatmulPlan(NamedTuple):
+    route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
+    bm: int           # rows per block
+    bn: int           # columns per block
+    grid: Tuple[int, int]   # (column tiles, row tiles)
+    stages: int       # cp.async ring depth (0: no ring)
+    k_stage: int      # k per stage
+    smem: int         # dynamic shared-memory bytes per block
+    b_evict_first: bool     # B's copies carry L2's evict-first policy
+
+
+def tc_tile(m: int, n: int) -> Tuple[int, int, int]:
+    """(rows, columns, stages) of the tensor-core block for ``m`` rows of
+    output ``n`` wide."""
+    if m <= 16:
+        return (16, 128, 3) if n >= 8192 else (16, 32, 4)
+    return (64, 32, 4) if m <= 64 else (64, 64, 3)
+
+
+def tc_smem_bytes(bm: int, bn: int, stages: int) -> int:
+    """The ring of 16-bit B and A stages, or the epilogue's f32 warp
+    partials that reuse it (``tc::Tile::SMEM``)."""
+    ring = stages * (TC_KS * bn + bm * TC_KS) * 2
+    return max(ring, _WARPS * bm * (bn + 8) * 4)
+
+
+def matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
+    """How csrc/matmul.cu launches ``(m, k) @ (k, n)``.  The K order of
+    the tensor-core route -- warp ``k // TC_WARP_K % 8`` of stage
+    ``k // TC_KS``, stages in order, then the warps in order -- is a
+    function of ``k`` alone; ``m`` and ``n`` pick only the tile."""
+    if dtype == torch.float32:
+        bm, bn = row_tile(m), 4 * vec(dtype)
+        return MatmulPlan("cuda_core", bm, bn, (-(-n // bn), -(-m // bm)),
+                          0, 0, 0, False)
+    bm, bn, stages = tc_tile(m, n)
+    return MatmulPlan("tensor_core", bm, bn, (-(-n // bn), -(-m // bm)),
+                      stages, TC_KS, tc_smem_bytes(bm, bn, stages),
+                      k * n * dtype.itemsize <= TC_EVICT_FIRST_BYTES)
 
 
 # -- fused norm + matmul ----------------------------------------------------------
@@ -85,6 +133,33 @@ def swiglu_supported(m: int, d: int, f: int, do: int,
 
 
 # -- rmsnorm ------------------------------------------------------------------------
+# mirrors csrc/rmsnorm.cu: one block per row; a thread holds 4 units of
+# the row per round, a unit a 16-byte vector of x -- or, when d is no
+# whole number of vectors, 4 x 16 bytes' worth of single elements -- in
+# whole warps, at most 512 threads
+NORM_VEC_UNITS, NORM_MAX_THREADS = 4, 512
+
+
+class RMSNormPlan(NamedTuple):
+    vector: bool      # units are 16-byte vectors
+    units: int        # units per row
+    per_thread: int   # units a thread holds per round
+    threads: int      # threads per block (one block per row)
+    rounds: int       # passes of threads x per_thread units over the row
+
+
+def rmsnorm_plan(d: int, dtype: torch.dtype) -> RMSNormPlan:
+    """How csrc/rmsnorm.cu launches rows of width ``d``: a function of
+    ``d`` and the dtype alone, so the sum of squares has one order."""
+    vector = d % vec(dtype) == 0
+    units = d // vec(dtype) if vector else d
+    per_thread = NORM_VEC_UNITS * (1 if vector else vec(dtype))
+    want = -(-units // per_thread)
+    threads = min(max(-(-want // 32) * 32, 32), NORM_MAX_THREADS)
+    return RMSNormPlan(vector, units, per_thread, threads,
+                       -(-units // (threads * per_thread)))
+
+
 def rmsnorm_supported(shape: Sequence[int], dtype: torch.dtype,
                       w_dtype: torch.dtype) -> bool:
     if len(shape) < 1:

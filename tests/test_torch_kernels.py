@@ -31,7 +31,8 @@ from repro_torch.kernels import swiglu as ks  # noqa: E402
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
 DTYPES = {"f32": (np.float32, torch.float32, 1e-4),
-          "bf16": (BF16, torch.bfloat16, 3e-2)}
+          "bf16": (BF16, torch.bfloat16, 3e-2),
+          "f16": (np.float16, torch.float16, 3e-2)}
 
 
 def _rand(rng, shape, np_dt, scale=1.0):
@@ -165,6 +166,80 @@ def test_predicates_refuse_what_the_kernels_cannot_read():
     assert kops.swiglu_slices(11008, bf) == 172
 
 
+# -- the kernels' launch plans (mirrors of csrc/) ---------------------------------------
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 65, 512])
+@pytest.mark.parametrize("n", [4096, 102400])
+def test_matmul_plan_fits_and_fills_the_card(m, n, dt):
+    plan = kops.matmul_plan(m, 4096, n, dt)
+    assert plan.route == "tensor_core"
+    assert plan.smem <= 232448
+    assert plan.stages >= 3
+    # at least 48 KB of B in flight per block while one stage is used
+    assert (plan.stages - 1) * plan.k_stage * plan.bn * 2 >= 48 * 1024
+    assert plan.grid[0] * plan.grid[1] >= 128
+    assert plan.grid[1] * plan.bm >= m and plan.grid[0] * plan.bn >= n
+    assert plan.bm % 16 == 0     # whole m16n8k16 fragments
+
+
+@pytest.mark.parametrize("k", [40, 256, 1000, 4096, 11008])
+def test_matmul_plan_k_order_does_not_depend_on_m(k):
+    """The tensor-core route reduces each output over stages of k_stage,
+    each split among the 8 warps in fixed slices: nothing of that may
+    change with the row count."""
+    plans = [kops.matmul_plan(m, k, 4096, torch.bfloat16)
+             for m in (1, 4, 64, 512)]
+    assert {p.route for p in plans} == {"tensor_core"}
+    assert {p.k_stage for p in plans} == {kops.TC_KS}
+    assert kops.TC_WARP_K * 8 == kops.TC_KS and kops.TC_WARP_K % 16 == 0
+    # the tiles differ; the order they reduce in does not
+    assert [(p.bm, p.bn) for p in plans] == [(16, 32), (16, 32), (64, 32),
+                                             (64, 64)]
+    assert kops.matmul_plan(1, k, 102400, torch.bfloat16).k_stage == \
+        kops.TC_KS
+
+
+def test_matmul_plan_streams_weights_evict_first():
+    """A weight read once per step streams as L2's first victims; the
+    839 MB unembed, many times L2, streams without the policy."""
+    bf = torch.bfloat16
+    assert kops.matmul_plan(4, 4096, 4096, bf).b_evict_first
+    assert kops.matmul_plan(512, 4096, 4096, bf).b_evict_first
+    unembed = kops.matmul_plan(1, 4096, 102400, bf)
+    assert not unembed.b_evict_first
+    assert (unembed.bm, unembed.bn, unembed.grid) == (16, 128, (800, 1))
+
+
+def test_matmul_plan_keeps_f32_on_the_cuda_cores():
+    for m in (1, 4, 64):
+        plan = kops.matmul_plan(m, 4096, 4096, torch.float32)
+        assert plan.route == "cuda_core" and plan.stages == 0
+        assert plan.bm == kops.row_tile(m) and plan.bn == 16
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [3, 40, 4096, 4100, 8192, 16384, 65536])
+def test_rmsnorm_plan_covers_the_row(d, dt):
+    plan = kops.rmsnorm_plan(d, dt)
+    assert plan.vector == (d % kops.vec(dt) == 0)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+    assert plan.threads * plan.per_thread * plan.rounds >= plan.units
+    assert plan.threads * plan.per_thread * (plan.rounds - 1) < plan.units
+    # a thread holds 64 bytes of x per round on either path
+    unit_bytes = 16 if plan.vector else dt.itemsize
+    assert plan.per_thread * unit_bytes == 64
+    if d * dt.itemsize <= 512 * 64:
+        assert plan.rounds == 1    # one round trip: the row in registers
+
+
+def test_rmsnorm_plan_spreads_decode_rows():
+    """One block per row with the threads set by d: 4 decode rows of
+    4096 get 4 blocks of 128 threads (the old kernel put 8 rows in one
+    block)."""
+    plan = kops.rmsnorm_plan(4096, torch.bfloat16)
+    assert (plan.threads, plan.rounds, plan.units) == (128, 1, 512)
+
+
 # -- the CUDA kernels (skip without a card) ----------------------------------------------
 @pytest.fixture
 def cuda_device():
@@ -174,6 +249,11 @@ def cuda_device():
 
 
 CUDA_CASES = [("matmul", (4, 4096, 4096)), ("matmul", (5, 96, 24)),
+              # a K tail that is no whole stage and no multiple of 16; a
+              # K whose A rows are not 16-byte aligned; the dense prefill
+              ("matmul", (65, 40, 8)), ("matmul", (3, 44, 16)),
+              ("matmul", (512, 4096, 4096)),
+              ("rmsnorm", (4, 4100)), ("rmsnorm", (512, 4096)),
               ("norm_matmul", (4, 4096, 1024)), ("norm_matmul", (3, 40, 16)),
               ("swiglu", (4, 512, 1024, 256)), ("swiglu", (3, 64, 40, 24)),
               ("rmsnorm", (4, 4096)), ("rmsnorm", (3, 40)),
@@ -183,7 +263,7 @@ CUDA_CASES = [("matmul", (4, 4096, 4096)), ("matmul", (5, 96, 24)),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("kernel,shape", CUDA_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, kernel, shape, dt):
     _, t_dt, tol = DTYPES[dt]
@@ -231,3 +311,42 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, shape, dt):
     expect = plain(*args)
     assert mod.launches == before
     _close(to_numpy(out.float()), to_numpy(expect.float()), tol)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("kernel,shape", [("matmul", (1000, 256)),
+                                          ("matmul", (4096, 64)),
+                                          ("rmsnorm", (4096,)),
+                                          ("rmsnorm", (4100,))])
+def test_cuda_row_alone_equals_row_in_batch(cuda_device, kernel, shape, dt):
+    """A row computed alone and inside batches of 4, 64 and 512 rows, at
+    a different position in each, gives the same bits: the order of every
+    reduction depends on the contraction length alone."""
+    _, t_dt, _ = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=gen, device=cuda_device)
+                * scale).to(t_dt)
+
+    k = shape[0]
+    if kernel == "matmul":
+        w = r(k, shape[1], scale=k ** -0.5)
+        run = lambda a: km.matmul(a, w)  # noqa: E731
+    else:
+        w = 1 + 0.1 * torch.randn(k, generator=gen, device=cuda_device)
+        run = lambda a: kr.rmsnorm(a, w)  # noqa: E731
+    probe = r(1, k)
+    alone = run(probe)
+    for m, pos in ((4, 3), (64, 37), (512, 300)):
+        batch = r(m, k)
+        batch[pos] = probe[0]
+        out = run(batch)
+        assert torch.equal(_bits(out[pos:pos + 1]), _bits(alone)), (m, pos)
+        assert torch.equal(_bits(out), _bits(run(batch)))
