@@ -18,10 +18,12 @@ without printing a result:
                  (bf16, plus one f32 case each), with its time, the plain
                  version's, a one-call PyTorch yardstick's where there is
                  one, and the card's bound for the same work; then the
-                 determinism checks of matmul and rmsnorm (bf16 and f32):
-                 two launches on the same inputs give the same bits, and a
-                 probe row gives the same bits alone and inside batches of
-                 4, 64 and 512 rows;
+                 determinism checks: two launches on the same inputs give
+                 the same bits, and a probe row gives the same bits alone
+                 and inside batches of 4, 64 and 512 rows (matmul, rmsnorm, norm_matmul); for flash attention
+                 two launches, a probe (slot, head) alone and inside 4
+                 slots, and decode at position p against row p of the
+                 dense prefill, for p in 0, 63, 64, 127;
   4. main     -- ServeEngine(mode="paged") at O2 with the kernels on
                  full-width deepseek-7b (30 layers, d_model 4096, vocab
                  102400, f32 params drawn on the card from a seed):
@@ -51,8 +53,10 @@ line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -68,7 +72,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}  # dense tensor core / f32 CUDA core
-TOL = {torch.bfloat16: 3e-2, torch.float16: 3e-2, torch.float32: 1e-4}
+# a kernel's max |kernel - plain| over the scale max(max |plain|, 1):
+# 16-bit, two units in the last place at the scale (a kernel whose f32
+# sum differs from the plain version's only in order rounds at most one
+# unit apart); f32, 1e-4
+TOL = {torch.bfloat16: 2 * 2.0 ** -7, torch.float16: 2 * 2.0 ** -10,
+       torch.float32: 1e-4}
 D, F, V, SLOTS, CHUNK, DH, HEADS = 4096, 11008, 102400, 4, 64, 128, 32
 DENSE = 512   # rows of the donated dense prefill (4 prompts x 128)
 REPLACES = {
@@ -223,6 +232,7 @@ def kernel_cases(gen):
     nm("decode qkv (4x4096)(4096x4096)", SLOTS, D, bf)
     nm("decode final+unembed (4x4096)(4096x102400) g f32", SLOTS, V, f32)
     nm("prefill qkv (64x4096)(4096x4096)", CHUNK, D, bf)
+    nm("dense prefill qkv (512x4096)(4096x4096)", DENSE, D, bf)
     sw("decode (4x4096) F=11008", SLOTS, bf)
     sw("prefill (64x4096) F=11008", CHUNK, bf)
     def fa(label, B, Hq, Hkv, Sq, Skv, off, dt):
@@ -268,6 +278,9 @@ def kernel_cases(gen):
        f32)
     fa("GQA decode Hq 64 Hkv 8 (qwen1.5-110b) at pos 255", SLOTS, 64, 8, 1,
        256, 255, bf)
+    # more (slot, kv head) pairs than SMs: 512 decode blocks
+    fa("decode (16x32x1) over 256 keys at pos 255", 16, HEADS, HEADS, 1, 256,
+       255, bf)
     return cases
 
 
@@ -327,6 +340,7 @@ def check_determinism(gen) -> None:
     same bits, and a fixed probe row gives the same bits in batches of
     every size the serving paths use, at a different position in each."""
     from repro_torch.kernels import matmul as km, rmsnorm as kr
+    from repro_torch.kernels import norm_matmul as kn
     bf, f32 = torch.bfloat16, torch.float32
 
     def probe_rows(kernel, label, sizes, run, make):
@@ -363,6 +377,47 @@ def check_determinism(gen) -> None:
                    {1: 0, SLOTS: 3, CHUNK: 17, DENSE: 400},
                    lambda x: kr.rmsnorm(x, w, 1e-6),
                    lambda m: _rand((m, D), dt, gen))
+    w = _rand((D, D), bf, gen, D ** -0.5)
+    for g_dt in (bf, f32):
+        g = (1 + 0.1 * _rand((D,), f32, gen)).to(g_dt)
+        probe_rows("norm_matmul", f"bfloat16/g {name(g_dt)}",
+                   {1: 0, SLOTS: 1, CHUNK: 33, DENSE: 200},
+                   lambda x: kn.norm_matmul(x, g, w, 1e-6),
+                   lambda m: _rand((m, D), bf, gen))
+    check_flash_determinism(gen)
+
+
+def check_flash_determinism(gen) -> None:
+    """Flash attention (bf16, deepseek-7b's heads): two launches give the
+    same bits; a probe (slot, head) gives the same bits alone and inside
+    4 slots; decode at position p gives row p of the causal dense prefill
+    bit for bit (a row's reduction order depends only on the keys it can
+    see, never on the query tile or the batch)."""
+    from repro_torch.kernels import flash_attention as kf
+    P = 128
+    q, k, v = (_rand((SLOTS, HEADS, P, DH), torch.bfloat16, gen)
+               for _ in range(3))
+    full = kf.flash_attention(q, k, v, causal=True)
+    require(_bitwise(full, kf.flash_attention(q, k, v, causal=True)),
+            "flash_attention: two launches of the dense prefill differ")
+    alone = kf.flash_attention(q[2:3, 7:8], k[2:3, 7:8], v[2:3, 7:8],
+                               causal=True)
+    require(_bitwise(alone, full[2:3, 7:8]), "flash_attention: slot 2 head "
+            "7 alone differs from it inside 4 slots")
+    for p in (0, 63, 64, 127):
+        off = torch.tensor(p, dtype=torch.int32, device="cuda")
+        one = kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
+                                 q_offset=off)
+        require(_bitwise(one, kf.flash_attention(q[:, :, p:p + 1], k, v,
+                                                 causal=True, q_offset=off)),
+                f"flash_attention: two decode launches at {p} differ")
+        row = full[:, :, p:p + 1]
+        require(_bitwise(one, row), f"flash_attention: decode at {p} "
+                f"differs from row {p} of the prefill: max |diff| "
+                f"{float((one.double() - row.double()).abs().max())}")
+    say("determinism", kernel="flash_attention", dtype="bfloat16",
+        runs="bitwise", slot_alone_vs_batch="bitwise",
+        decode_vs_prefill_rows="0,63,64,127", decode_vs_prefill="bitwise")
 
 
 # -- 4. main path, full width --------------------------------------------------
@@ -405,9 +460,19 @@ def _dispatch_profile(eng) -> dict:
             rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    # the port's kernels by name (norm_matmul before matmul: a substring)
+    ours = {}
+    for ms, n, key in rows:
+        for name in ("norm_matmul", "matmul", "swiglu", "rmsnorm", "flash"):
+            if name in key:
+                t = ours.setdefault(name, [0.0, 0])
+                t[0] += ms
+                t[1] += n
+                break
     return {"host_ms": (h1 - h0) * 1e3, "wall_ms": (h2 - h0) * 1e3,
             "busy_ms": f"{busy:.1f}" if rows else "not measured",
             "n_kernels": sum(r[1] for r in rows),
+            "ours": {k: [round(v[0], 3), v[1]] for k, v in ours.items()},
             "top": [[k[:48], round(ms, 3), n] for ms, n, k in rows[:8]]}
 
 
@@ -487,7 +552,9 @@ def phase_main(report: dict):
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         launches=json.dumps({k: v["launches"] for k, v in counts.items()}))
     say("profile", dispatch="decode chunk (4 steps x 30 layers)",
-        device_kernels=disp["n_kernels"], top=json.dumps(disp["top"]))
+        device_kernels=disp["n_kernels"],
+        port_kernels_ms_launches=json.dumps(disp["ours"]),
+        top=json.dumps(disp["top"]))
     del eng
     torch.cuda.empty_cache()
     return cfg, params
@@ -602,6 +669,96 @@ def _serve_both(cfg, params, ecfg, prompts, max_new):
     return results, card
 
 
+def _ulp(x: float, dtype: torch.dtype) -> float:
+    """One unit in the last place of a value of magnitude ``|x|`` in
+    ``dtype`` (normal range)."""
+    mant = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}[dtype]
+    return 2.0 ** (math.floor(math.log2(max(abs(float(x)), 2.0 ** -14)))
+                   - mant)
+
+
+@contextlib.contextmanager
+def _kernels_held_to_plain(readings: dict):
+    """While open, every kernel wrapper also runs its plain version on the
+    same card inputs and records in ``readings[kernel]`` the largest
+    |kernel - plain| in units in the last place of the output's scale
+    (max |plain|).  The kernel's output is what the caller gets."""
+    from repro_torch.kernels import MODULES, ref
+    plain = {"matmul": ref.matmul_ref, "norm_matmul": ref.norm_matmul_ref,
+             "swiglu": ref.swiglu_ref, "rmsnorm": ref.rmsnorm_ref,
+             "flash_attention": ref.flash_attention_ref}
+    saved = {name: getattr(mod, name) for name, mod in MODULES.items()}
+
+    def held(name, fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            p = plain[name](*args, **kw).double()
+            err = float((out.double() - p).abs().max())
+            ulps = err / _ulp(float(p.abs().max()), out.dtype)
+            readings[name] = max(readings.get(name, 0.0), ulps)
+            return out
+        return run
+
+    for name, mod in MODULES.items():
+        setattr(mod, name, held(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name, mod in MODULES.items():
+            setattr(mod, name, saved[name])
+
+
+def _prefill_logits(cfg, params, dev: str, tokens) -> np.ndarray:
+    """The next-token logits after ``tokens`` from the dense (1, P) prefill
+    graph at O2 with the kernels on ``dev`` -- the graph continuous and
+    paged-dense serving admit a request with -- as f32."""
+    from repro_torch.backend import Backend, CompileOptions
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.lm import build_graphs
+    P = len(tokens)
+    g = build_graphs(cfg, ShapeConfig("prefill", "prefill", P, 1), 1)
+    cf = Backend.create("torch", device=dev).compile(
+        g.fn, CompileOptions(level="O2", use_pallas=True))
+    outs = cf(np.asarray(tokens, np.int32).reshape(1, P),
+              *[params[n] for n in g.builder.param_names()])
+    return np.asarray(outs[0], np.float32).reshape(-1)
+
+
+def _divergence_witness(cfg, params, prompts, results) -> list:
+    """For each request whose card tokens differ from the CPU's: the first
+    step that differs, and that step's logits from a dense prefill of the
+    prompt plus the tokens both devices agree on -- the CPU's top two and
+    their gap in bf16 units in the last place, the card's logits for the
+    same two -- with every kernel of the card's prefill held against its
+    plain version on the same inputs (in units in the last place of its
+    output's scale)."""
+    found = []
+    for r, (card_t, cpu_t) in enumerate(zip(results["cuda"],
+                                            results["cpu"])):
+        differ = np.nonzero(card_t != cpu_t)[0]
+        if not len(differ):
+            continue
+        j = int(differ[0])
+        seq = np.concatenate([prompts[r], cpu_t[:j]])
+        cpu = _prefill_logits(cfg, params, "cpu", seq)
+        readings = {}
+        with _kernels_held_to_plain(readings):
+            card = _prefill_logits(cfg, params, "cuda", seq)
+        a, b = (int(t) for t in np.argsort(-cpu, kind="stable")[:2])
+        found.append({
+            "request": r, "prompt_len": len(prompts[r]), "step": j,
+            "card_token": int(card_t[j]), "cpu_token": int(cpu_t[j]),
+            "cpu_top2": [a, b],
+            "cpu_top2_logits": [float(cpu[a]), float(cpu[b])],
+            "cpu_gap_ulps": float(cpu[a] - cpu[b]) / _ulp(cpu[a],
+                                                          torch.bfloat16),
+            "card_logits_at_cpu_top2": [float(card[a]), float(card[b])],
+            "card_pick": int(np.argmax(card)),
+            "kernel_vs_plain_ulps": {k: round(v, 3)
+                                     for k, v in readings.items()}})
+    return found
+
+
 def phase_parity() -> None:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -656,6 +813,20 @@ def phase_parity() -> None:
                     require(agree == 1.0, f"{key}: greedy tokens differ: "
                             f"cuda {results['cuda'].tolist()} cpu "
                             f"{results['cpu'].tolist()}")
+                elif agree < 1.0:
+                    # a bf16 divergence must be a near-tie the kernels'
+                    # rounding split, not a kernel off its plain version
+                    found = _divergence_witness(cfg, params, prompts,
+                                                results)
+                    say("parity-witness", case=key,
+                        divergent=json.dumps(found))
+                    for w in found:
+                        worst = max(w["kernel_vs_plain_ulps"].values(),
+                                    default=0.0)
+                        require(w["cpu_gap_ulps"] <= 2 and worst <= 2,
+                                f"{key}: request {w['request']} diverges "
+                                f"at step {w['step']} without a near-tie: "
+                                f"{w}")
     say("parity", models="deepseek-7b reduced d_head 64 (d_model 128) and "
         "d_head 128 (d_model 256, 2 heads)", **line)
 

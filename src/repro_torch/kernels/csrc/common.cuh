@@ -47,6 +47,21 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// two values rounded to T and packed in one 32-bit register, the first in
+// the low half (one cvt.rn.*x2 instruction)
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float a, float b);
+template <>
+__device__ __forceinline__ unsigned pack2<__nv_bfloat16>(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+template <>
+__device__ __forceinline__ unsigned pack2<__half>(float a, float b) {
+  const __half2 v = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 // one 16-byte load holds kVec<T> elements
 template <typename T> constexpr int kVec = 16 / sizeof(T);
 

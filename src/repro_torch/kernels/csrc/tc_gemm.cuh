@@ -29,6 +29,16 @@
 // blocks, no atomics.  So a row of A gives bitwise the same output alone
 // or inside any batch.  (Splitting K across warps keeps eight independent
 // mma chains in flight per block, which is what the small-M cases need.)
+//
+// A transform.  gemm_tc takes an optional functor applied to A on its way
+// into the products (the fused norm of norm_matmul.cu scales each element
+// by its row's inverse RMS and g[k], rounding to A's dtype).  A 16-byte
+// aligned A still arrives raw by cp.async; each warp rewrites the A
+// fragments it has just read with ldmatrix, in registers, so every
+// element is transformed once per block, off the copy ring's critical
+// path and with no shared-memory round trip.  An unaligned A is
+// transformed as it is loaded.  The default, IdentityA, compiles to the
+// plain GEMM.
 #pragma once
 
 #include "common.cuh"
@@ -136,6 +146,23 @@ __device__ __forceinline__ void mma16816<__half>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The identity A transform (the plain GEMM).  A transform class has
+// kIdentity = false and provides
+//   void prepare() const            -- run by every thread once, before
+//                                      stage 0 is multiplied; ends with
+//                                      a block barrier
+//   T operator()(T a, int m, int k) const      -- one element, row m of
+//                                                 the tile, column k
+//   void load(int s) const          -- cp.async of what stage s's
+//                                      fragments read besides A, in the
+//                                      stage's copy group
+//   void frag(unsigned (&a)[4], int m, int k, int s) const
+//                                   -- an m16k16 A fragment of rows m..,
+//                                      columns k.. of stage s, in place
+struct IdentityA {
+  static constexpr bool kIdentity = true;
+};
+
 // Element offset of 16-byte chunk ``c`` of row ``r`` in a stage whose
 // rows hold W elements: the chunk is XOR-swizzled so that 8 consecutive
 // rows at one logical chunk lie in 8 distinct bank quads.
@@ -146,12 +173,13 @@ __device__ __forceinline__ int swz(int r, int c) {
 
 // Copy stage ``s`` (k from s * KS) of A's rows [m0, m0 + BM) and B's
 // columns [n0, n0 + BN) into ``bs`` / ``as``; everything outside the
-// matrices is zero.
-template <typename T, class TL>
+// matrices is zero.  An unaligned A goes through ``ax`` as it is loaded.
+template <typename T, class TL, class AX = IdentityA>
 __device__ __forceinline__ void load_stage(T* bs, T* as, const T* A, int lda,
                                            const T* B, int M, int K, int N,
                                            int m0, int n0, int s,
-                                           bool a_vec, uint64_t b_policy) {
+                                           bool a_vec, uint64_t b_policy,
+                                           const AX& ax = AX()) {
   constexpr int BM = TL::BM, BN = TL::BN, KS = kKS;
   constexpr int CB = BN / 8, CA = KS / 8;   // 16-byte chunks per row
   static_assert(KS * CB % kThreads == 0 && BM * CA % kThreads == 0, "");
@@ -173,12 +201,19 @@ __device__ __forceinline__ void load_stage(T* bs, T* as, const T* A, int lda,
       cp_async16(as + swz<KS>(m, c),
                  ok ? A + (size_t)(m0 + m) * lda + k0 + c * 8 : A, ok);
     }
+    if constexpr (!AX::kIdentity) ax.load(s);
   } else {   // rows of A not 16-byte aligned: plain loads and stores
     for (int e = threadIdx.x; e < BM * KS; e += kThreads) {
       const int m = e / KS, k = e % KS;
       const bool ok = m0 + m < M && k0 + k < K;
-      as[swz<KS>(m, k >> 3) + (k & 7)] =
-          ok ? A[(size_t)(m0 + m) * lda + k0 + k] : from_f32<T>(0.f);
+      if constexpr (AX::kIdentity) {
+        as[swz<KS>(m, k >> 3) + (k & 7)] =
+            ok ? A[(size_t)(m0 + m) * lda + k0 + k] : from_f32<T>(0.f);
+      } else {
+        as[swz<KS>(m, k >> 3) + (k & 7)] =
+            ok ? ax(A[(size_t)(m0 + m) * lda + k0 + k], m, k0 + k)
+               : from_f32<T>(0.f);
+      }
     }
   }
 }
@@ -187,11 +222,13 @@ __device__ __forceinline__ void load_stage(T* bs, T* as, const T* A, int lda,
 // (f32, row pitch TL::RED_PITCH) at the returned pointer and the block is
 // synchronised; ``smem`` is the dynamic shared memory of TL::SMEM bytes.
 // ``b_first``: B's lines are the first L2 evicts (a weight read once).
-template <typename T, class TL>
+// ``ax``: the A transform (see the header).
+template <typename T, class TL, class AX = IdentityA>
 __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
                                           const T* __restrict__ B, int M,
                                           int K, int N, int m0, int n0,
-                                          bool b_first, unsigned char* smem) {
+                                          bool b_first, unsigned char* smem,
+                                          const AX& ax = AX()) {
   constexpr int MF = TL::MF, NF = TL::NF, BN = TL::BN;
   constexpr int STAGES = TL::STAGES, STAGE = TL::STAGE;
   constexpr int PITCH = TL::RED_PITCH;
@@ -210,12 +247,21 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
 #pragma unroll
       for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
 
+  // an unaligned A is transformed as it is loaded: prepare first
+  if constexpr (!AX::kIdentity) {
+    if (!a_vec) ax.prepare();
+  }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nst)
-      load_stage<T, TL>(ring + s * STAGE, ring + s * STAGE + kKS * BN, A,
-                        lda, B, M, K, N, m0, n0, s, a_vec, b_policy);
+      load_stage<T, TL, AX>(ring + s * STAGE, ring + s * STAGE + kKS * BN,
+                            A, lda, B, M, K, N, m0, n0, s, a_vec, b_policy,
+                            ax);
     cp_async_commit();
+  }
+  // an aligned A: prepare while the first stages are in flight
+  if constexpr (!AX::kIdentity) {
+    if (a_vec) ax.prepare();
   }
   for (int s = 0; s < nst; ++s) {
     cp_async_wait<STAGES - 2>();    // stage s has landed
@@ -223,8 +269,8 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
     const int nxt = s + STAGES - 1;
     if (nxt < nst) {
       T* slot = ring + (nxt % STAGES) * STAGE;
-      load_stage<T, TL>(slot, slot + kKS * BN, A, lda, B, M, K, N, m0, n0,
-                        nxt, a_vec, b_policy);
+      load_stage<T, TL, AX>(slot, slot + kKS * BN, A, lda, B, M, K, N, m0,
+                            n0, nxt, a_vec, b_policy, ax);
     }
     cp_async_commit();
     const T* bs = ring + (s % STAGES) * STAGE;
@@ -245,6 +291,9 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
         unsigned a[4];
         const int mr = i * 16 + (lane & 15);
         ldmatrix_x4(a, as + swz<kKS>(mr, (k >> 3) + (lane >> 4)));
+        if constexpr (!AX::kIdentity) {
+          if (a_vec) ax.frag(a, i * 16, k, s);
+        }
 #pragma unroll
         for (int j = 0; j < NF; ++j)
           mma16816<T>(acc[i][j], a, b[j >> 1][(j & 1) * 2],

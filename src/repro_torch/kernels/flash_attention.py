@@ -14,13 +14,20 @@ Decode (Sq 1) does about one flop per byte of K and V: at deepseek-7b's
 width, 4 slots at position 255 read 16.8 MB of cache, ~5 us at 3.35
 TB/s.  A 128-token prefill of 4 prompts moves 16.8 MB of q, k, v and
 out for 0.54 GFLOP under the causal mask (0.55 us at the bf16 tensor
-rate): the bytes again.  The design keeps the reads to what the mask
-needs -- the kernel bounds its KV loop by the causal and window limits,
-so decode at position p reads only the first p + 1 rows of the cache --
-and reads each K and V tile once per query tile through shared memory
-(decode wastes no query rows: the tile height follows Sq).  The offset
-is a device pointer: in the fused decode chunk the position is a carry
-on the card, and reading it on the host would stall every step.
+rate): the bytes again.  For bf16 and f16 the design keeps the cache
+streaming and the arithmetic off the critical path: a ring of up to 4
+64-key K/V tiles in flight (``cp.async``), scores and p.V on the tensor
+cores (``mma.sync``) with the scores in registers and p kept at f32
+precision as two 16-bit halves, 16 query rows per warp (64 per block in
+prefill; at decode the query heads that share a kv head fill one
+fragment, so K and V are read once for all of them).  The loop is
+bounded by the causal and window limits, so decode at position p reads
+only the first p + 1 rows of the cache.  A row's reduction order
+depends only on Dk, Dv, Skv and the mask: decode at p gives row p of
+the causal prefill bit for bit.  f32 stays on the CUDA cores.  The
+offset is a device pointer: in the fused decode chunk the position is a
+carry on the card, and reading it on the host would stall every step.
+``ops.flash_plan`` mirrors the launch.
 """
 from __future__ import annotations
 

@@ -7,8 +7,8 @@ The TPU kernels needed (8, 128)-tiled shapes: rows a multiple of 8 or
 so any row count M >= 1 is taken -- decode's 4 slots, a 64-row prefill
 chunk, the 1-row unembed of a prefill's last position.  What they do
 need is that each weight row splits into 16-byte vectors (the output
-width N a multiple of 16 / itemsize) and, for the fused norm, that a
-normalized row fits in shared memory.
+width N a multiple of 16 / itemsize) and, for the f32 fused norm, that
+a normalized row fits in shared memory.
 """
 from __future__ import annotations
 
@@ -95,25 +95,61 @@ def matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
 
 
 # -- fused norm + matmul ----------------------------------------------------------
-def norm_matmul_tile(m: int, d: int, dtype: torch.dtype) -> Optional[int]:
-    """Row-tile height for the fused norm: the GEMM tile for ``m``,
-    lowered until ``tile`` normalized rows of width ``d`` plus the
-    block's reduction scratch fit in shared memory; None if one row
-    does not fit."""
-    size = torch.empty((), dtype=dtype).element_size()
-    bn = 4 * vec(dtype)
+class NormMatmulPlan(NamedTuple):
+    route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
+    bm: int           # rows per block
+    bn: int           # columns per block
+    grid: Tuple[int, int]   # (column tiles, row tiles)
+    stages: int       # cp.async ring depth (0: no ring)
+    k_stage: int      # k per stage
+    smem: int         # dynamic shared-memory bytes per block
+    w_evict_first: bool     # W's copies carry L2's evict-first policy
+
+
+def _norm_f32_tile(m: int, d: int) -> Optional[int]:
+    """The f32 route's row tile: the GEMM tile for ``m``, lowered until
+    ``tile`` normalized f32 rows of width ``d`` plus the block's
+    reduction scratch fit in shared memory; None if one row does not."""
+    bn = 4 * vec(torch.float32)
     for bm in (16, 4, 1):
         if bm > row_tile(m):
             continue
         static = _WARPS * bm * bn * 4 + bm * 4
-        if bm * d * size + static <= _SMEM:
+        if bm * d * 4 + static <= _SMEM:
             return bm
     return None
 
 
+def norm_matmul_plan(m: int, d: int, n: int, dtype: torch.dtype,
+                     g_dtype: Optional[torch.dtype] = None
+                     ) -> Optional[NormMatmulPlan]:
+    """How csrc/norm_matmul.cu launches ``rmsnorm(x (m, d), g) @ w (d,
+    n)``, or None where the f32 route's normalized rows do not fit.  The
+    16-bit route's GEMM (after a small kernel that computes the rows'
+    inverse RMS) is matmul's tensor-core launch (``matmul_plan``) with
+    the norm applied to A's fragments and g's slice of each stage in the
+    ring beside it (``g_dtype``, x's dtype when None), so nothing of it
+    grows with ``d``; its K order is matmul's, a function of ``d``
+    alone.  The f32 route keeps whole normalized rows in shared memory
+    (``bm * d * 4`` bytes)."""
+    if dtype == torch.float32:
+        bm = _norm_f32_tile(m, d)
+        if bm is None:
+            return None
+        bn = 4 * vec(dtype)
+        return NormMatmulPlan("cuda_core", bm, bn,
+                              (-(-n // bn), -(-m // bm)), 0, 0, bm * d * 4,
+                              False)
+    p = matmul_plan(m, d, n, dtype)
+    g_size = (g_dtype or dtype).itemsize
+    return NormMatmulPlan("tensor_core", p.bm, p.bn, p.grid, p.stages,
+                          p.k_stage, p.smem + p.stages * TC_KS * g_size,
+                          p.b_evict_first)
+
+
 def norm_matmul_supported(m: int, d: int, n: int, dtype: torch.dtype) -> bool:
     return (matmul_supported(m, d, n, dtype)
-            and norm_matmul_tile(m, d, dtype) is not None)
+            and norm_matmul_plan(m, d, n, dtype) is not None)
 
 
 # -- fused swiglu -----------------------------------------------------------------
@@ -173,23 +209,63 @@ def rmsnorm_supported(shape: Sequence[int], dtype: torch.dtype,
 
 
 # -- flash attention --------------------------------------------------------------
-# mirrors csrc/flash_attention.cu: 128 threads, a fixed KV tile of 64
-# keys, K and V tiles in shared memory in their own dtype (rows padded by
-# one 16-byte vector), the Q tile and the scores in f32
+# mirrors csrc/flash_attention.cu: 128 threads (4 warps), a fixed KV tile
+# of 64 keys, heads up to 256 wide
 FLASH_BK = 64
 FLASH_MAX_D = 256
+FLASH_WARPS = 4
 
 
-def flash_q_tile(sq: int) -> int:
-    """Query rows per block: 1 for decode, 4 for a few rows, else 16."""
-    return 1 if sq <= 1 else (4 if sq <= 4 else 16)
+class FlashPlan(NamedTuple):
+    route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
+    bq: int           # query rows per block
+    row_frags: int    # 16-row mma fragments per block (0: CUDA cores)
+    col_groups: int   # warps that split one fragment's output columns
+    width: int        # head-width class sizing the registers (0: f32)
+    grid: Tuple[int, int, int]   # (row tiles, heads, batch)
+    stages: int       # K/V tiles in the cp.async ring
+    smem: int         # dynamic shared-memory bytes per block
+    packed: bool      # decode: the rows are the query heads of a kv head
 
 
-def flash_smem_bytes(sq: int, dk: int, dv: int, dtype: torch.dtype) -> int:
-    size = dtype.itemsize
-    bq, pad = flash_q_tile(sq), vec(dtype)
-    return (FLASH_BK * (dk + pad) * size + FLASH_BK * (dv + pad) * size
-            + bq * dk * 4 + bq * FLASH_BK * 4 + 3 * bq * 4)
+def _round16(d: int) -> int:
+    return -(-int(d) // 16) * 16
+
+
+def flash_plan(q_shape: Sequence[int], k_shape: Sequence[int],
+               v_shape: Sequence[int], dtype: torch.dtype) -> FlashPlan:
+    """How csrc/flash_attention.cu launches BHSD operands of these shapes.
+    bf16/f16: tensor cores, 4 warps of 16 query rows (2 row fragments
+    and 2 column halves past width 128), or -- for at most 16 rows --
+    one fragment whose output columns the 4 warps split; at decode
+    (Sq 1) the rows are the query heads that share a kv head.  A ring of
+    up to 4 64-key K/V stages (3 past width 128, and for one fragment at
+    width 128), all in flight at once, never more than the cache has
+    tiles.  f32: the CUDA-core kernel with
+    1, 4 or 16 rows a block and one K/V tile at a time."""
+    B, Hq, Sq, Dk = (int(d) for d in q_shape)
+    Hkv, Skv, Dv = int(k_shape[1]), int(k_shape[2]), int(v_shape[3])
+    tiles = -(-Skv // FLASH_BK)
+    if dtype == torch.float32:
+        bq, pad = (1 if Sq <= 1 else (4 if Sq <= 4 else 16)), vec(dtype)
+        smem = (FLASH_BK * (Dk + pad) * 4 + FLASH_BK * (Dv + pad) * 4
+                + bq * Dk * 4 + bq * FLASH_BK * 4 + 3 * bq * 4)
+        return FlashPlan("cuda_core", bq, 0, 0, 0, (-(-Sq // bq), Hq, B), 1,
+                         smem, False)
+    dkp, dvp = _round16(Dk), _round16(Dv)
+    w = max(dkp, dvp)
+    width = 64 if w <= 64 else (128 if w <= 128 else 256)
+    frags, stages = (2, 3) if width == 256 else (4, 4)
+    packed = Sq == 1
+    nrows = Hq // Hkv if packed else Sq
+    if nrows <= 16:   # one fragment; two such blocks share an SM at 128
+        frags, stages = 1, (3 if width >= 128 else 4)
+    bq = 16 * frags
+    ns = min(stages, tiles)
+    smem = (bq * (dkp + 8) + ns * FLASH_BK * (dkp + 8 + dvp + 8)) * 2
+    return FlashPlan("tensor_core", bq, frags, FLASH_WARPS // frags, width,
+                     (-(-nrows // bq), Hkv if packed else Hq, B), ns, smem,
+                     packed)
 
 
 def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],
@@ -214,4 +290,4 @@ def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],
         return False
     return (_ok_dims(B * Hq * Sq * Dk, B * Hkv * Skv * Dk,
                      B * Hkv * Skv * Dv, B * Hq * Sq * Dv)
-            and flash_smem_bytes(Sq, Dk, Dv, dtype) <= _SMEM)
+            and flash_plan(q_shape, k_shape, v_shape, dtype).smem <= _SMEM)

@@ -39,7 +39,8 @@ from repro_torch.kernels.xla_attention import chunked_attention  # noqa: E402
 
 BF16 = np.dtype(ml_dtypes.bfloat16)
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 1e-4),
-          "bf16": (BF16, jnp.bfloat16, torch.bfloat16, 3e-2)}
+          "bf16": (BF16, jnp.bfloat16, torch.bfloat16, 3e-2),
+          "f16": (np.float16, jnp.float16, torch.float16, 3e-2)}
 CPU = torch.device("cpu")
 
 # B, Hq, Hkv, Sq, Skv, Dk, Dv, causal, window, offset: the reference's
@@ -176,14 +177,127 @@ def test_flash_predicate_takes_what_the_kernel_can_read():
     assert not ok((1, 2, 4, 64), (2, 2, 4, 64), (2, 2, 4, 64))
     assert not ok((1, 2, 4, 64), (1, 2, 4, 64), (1, 2, 5, 64))
     assert not ok((1, 1, 1 << 24, 256), (1, 1, 8, 256), (1, 1, 8, 256))
-    assert kops.flash_q_tile(1) == 1 and kops.flash_q_tile(3) == 4
-    assert kops.flash_q_tile(100) == 16
-    # the f32 worst case still fits one block's shared memory
-    assert kops.flash_smem_bytes(128, 256, 256, f32) <= 232448
+    # the f32 route's query tile follows Sq: 1, 4 or 16 rows
+    assert kops.flash_plan((1, 2, 1, 64), (1, 2, 8, 64), (1, 2, 8, 64),
+                           f32).bq == 1
+    assert kops.flash_plan((1, 2, 3, 64), (1, 2, 8, 64), (1, 2, 8, 64),
+                           f32).bq == 4
+    assert kops.flash_plan((1, 2, 100, 64), (1, 2, 100, 64),
+                           (1, 2, 100, 64), f32).bq == 16
+    # the f32 and 16-bit worst cases still fit one block's shared memory
+    for dt in (f32, bf):
+        assert kops.flash_plan((1, 2, 128, 256), (1, 2, 128, 256),
+                               (1, 2, 128, 256), dt).smem <= 232448
     # a CPU refusal is no "rejected" CUDA call
     kernels.reset_counters()
     z = torch.zeros((1, 2, 4, 6))
     assert not kf.supported(z, z, z) and kf.rejected == 0
+
+
+def _plan(q, k, v, dt=torch.bfloat16):
+    return kops.flash_plan(q, k, v, dt)
+
+
+def test_flash_plan_tensor_core_tiles():
+    """The 16-bit launch: 16 query rows per warp, 64 rows a block in
+    prefill (32 and two column halves past width 128), one 16-row
+    fragment for Sq <= 16 with the 4 warps on column groups, and at
+    decode the query heads of one kv head packed into the rows."""
+    bf = torch.bfloat16
+    # dense prefill 4x32x128: 2 row tiles x 32 heads x 4 slots
+    p = _plan((4, 32, 128, 128), (4, 32, 128, 128), (4, 32, 128, 128))
+    assert p.route == "tensor_core" and (p.bq, p.row_frags, p.col_groups,
+                                         p.width) == (64, 4, 1, 128)
+    assert p.grid == (2, 32, 4) and p.stages == 2 and not p.packed
+    # decode at 256 keys: 3 of the 4 tiles in flight, two blocks an SM
+    p = _plan((4, 32, 1, 128), (4, 32, 256, 128), (4, 32, 256, 128))
+    assert (p.bq, p.row_frags, p.col_groups) == (16, 1, 4)
+    assert p.grid == (1, 32, 4) and p.stages == 3 and p.packed
+    assert 2 * (p.smem + 1024) <= 228 * 1024
+    # GQA decode, Hq 64 over Hkv 8: 8 heads share a fragment and K/V
+    p = _plan((4, 64, 1, 128), (4, 8, 256, 128), (4, 8, 256, 128))
+    assert p.grid == (1, 8, 4) and p.bq == 16 and p.packed
+    # more than 16 heads on one kv head: prefill-shaped row tiles
+    p = _plan((1, 32, 1, 128), (1, 1, 300, 128), (1, 1, 300, 128))
+    assert p.grid == (1, 1, 1) and p.bq == 64
+    # a few query rows: one fragment, per head
+    p = _plan((2, 4, 3, 64), (2, 4, 130, 64), (2, 4, 130, 64))
+    assert (p.bq, p.width, p.grid, p.stages) == (16, 64, (1, 4, 2), 3)
+    # the widest heads: 32 rows, 2 column halves, 3 stages
+    p = _plan((1, 2, 100, 256), (1, 2, 300, 256), (1, 2, 300, 256))
+    assert (p.bq, p.row_frags, p.col_groups, p.width, p.stages) == \
+        (32, 2, 2, 256, 3)
+    # MLA widths Dk 192, Dv 128 take the 256 class; Dk 40 pads to 48
+    assert _plan((1, 2, 70, 192), (1, 2, 70, 192),
+                 (1, 2, 70, 128)).width == 256
+    p = _plan((1, 2, 17, 40), (1, 2, 64, 40), (1, 2, 64, 40), torch.float16)
+    assert p.width == 64 and p.smem == (64 * 56 + 1 * 64 * (56 + 56)) * 2
+    # f32 keeps the CUDA cores
+    assert _plan((4, 32, 1, 128), (4, 32, 256, 128), (4, 32, 256, 128),
+                 torch.float32).route == "cuda_core"
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sq", [1, 3, 16, 17, 64, 100, 128])
+@pytest.mark.parametrize("dk,dv", [(8, 8), (40, 40), (64, 64), (128, 128),
+                                   (192, 128), (256, 256), (248, 136)])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 1), (32, 4)])
+def test_flash_plan_covers_every_row_and_fits(hq, hkv, dk, dv, sq, dt):
+    """Every query row lies in exactly one block, the ring holds 1-4
+    stages, and the launch fits one block's shared memory, for every
+    width the predicate takes (16-byte vectors up to 256)."""
+    for skv in (1, 64, 65, 256, 4096):
+        q, k, v = (2, hq, sq, dk), (2, hkv, skv, dk), (2, hkv, skv, dv)
+        assert kops.attention_supported(q, k, v, dt)
+        p = kops.flash_plan(q, k, v, dt)
+        rows = hq // hkv if sq == 1 else sq
+        assert p.grid[0] * p.bq >= rows > (p.grid[0] - 1) * p.bq
+        assert p.grid[1] == (hkv if sq == 1 else hq) and p.grid[2] == 2
+        assert p.row_frags * p.col_groups == kops.FLASH_WARPS
+        assert p.bq == 16 * p.row_frags
+        assert p.width >= max(dk, dv) and p.width % 64 == 0
+        assert p.width // p.col_groups % 16 == 0
+        assert 1 <= p.stages <= 4 and p.smem <= 232448
+        # the whole ring in flight, never more stages than tiles
+        ring = 3 if p.width == 256 or (p.width == 128 and
+                                       p.row_frags == 1) else 4
+        assert p.stages == min(ring, -(-skv // kops.FLASH_BK))
+
+
+def test_p_split_keeps_f32_precision():
+    """The p.V of the 16-bit flash kernel: p = hi + lo, hi = bf16(p), lo =
+    bf16(p - hi), each half multiplied by v exactly and summed in f32.
+    Emulated here on f32 tensors, it stays within 1e-4 of scale of the
+    f32-p plain version (the Pallas kernel's function), where rounding p
+    to bf16 alone (attention_ref's function) is an order of magnitude
+    further off at the same inputs."""
+    rng = np.random.default_rng(21)
+    B, H, Sq, Skv, D = 1, 4, 64, 256, 128
+    q = _t((3 * rng.normal(size=(B, H, Sq, D))).astype(np.float32)
+           .astype(BF16))
+    k, v = (_t(rng.normal(size=(B, H, Skv, D)).astype(np.float32)
+               .astype(BF16)) for _ in range(2))
+    qf, kf_, vf = q.float(), k.float(), v.float()
+    expect = ref.flash_attention_ref(qf, kf_, vf, causal=True, q_offset=192)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf_) * D ** -0.5
+    mask = ref.attention_mask(Sq, Skv, causal=True, window=None,
+                              q_offset=192, device=CPU)
+    s = torch.where(mask, s, torch.full((), ref.NEG_INF))
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.zeros(()))
+    l = p.sum(-1, keepdim=True)
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    split = (hi @ vf + lo @ vf) / l
+    single = (hi @ vf) / l
+    scale = max(float(expect.abs().max()), 1.0)
+    err_split = float((split - expect).abs().max())
+    err_single = float((single - expect).abs().max())
+    print(f"p split: max err {err_split:.3e}, bf16(p) alone {err_single:.3e}, "
+          f"scale {scale:.3e}")
+    assert err_split <= 1e-4 * scale, err_split
+    # bf16(p) alone: err_single is about 2e-3 of scale at these inputs
+    assert err_single > 10 * err_split, (err_single, err_split)
 
 
 @pytest.mark.parametrize("case", ATTN_CASES[:6], ids=str)
@@ -304,3 +418,74 @@ def test_cuda_flash_row_independent_of_query_tile(cuda_device):
     # fully-masked rows are exactly 0 on the card too
     dead = kf.flash_attention(q, k, v, causal=True, window=1, q_offset=4096)
     assert torch.equal(dead, torch.zeros_like(dead))
+
+
+# the 16-bit tensor-core route: B, Hq, Hkv, Sq, Skv, Dk, Dv, causal,
+# window, offset -- every head-width class, MLA widths, widths that are no
+# multiple of 16 (zero-padded in shared memory), GQA rep 8 at decode
+# (heads packed into one fragment) and in prefill, windows, and Sq of 1,
+# 3, 16, 17, 64, 100 and 128
+CUDA_TC_CASES = [
+    (2, 4, 4, 1, 256, 64, 64, True, None, 255),
+    (2, 4, 4, 3, 130, 128, 128, True, None, 127),
+    (1, 2, 2, 16, 300, 256, 256, True, 40, 200),
+    (1, 2, 1, 17, 70, 192, 128, False, None, None),
+    (1, 2, 2, 64, 64, 40, 40, True, None, None),
+    (2, 16, 2, 1, 256, 128, 128, True, None, 200),
+    (1, 16, 2, 100, 100, 128, 128, True, None, None),
+    (1, 4, 4, 128, 128, 128, 128, True, 32, None),
+    (1, 2, 2, 128, 256, 72, 56, True, None, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f16"])
+@pytest.mark.parametrize("case", CUDA_TC_CASES, ids=str)
+def test_cuda_flash_tensor_core_route(cuda_device, case, dt):
+    _, _, t_dt, tol = DTYPES[dt]
+    B, Hq, Hkv, Sq, Skv, Dk, Dv, causal, window, offset = case
+    shapes = ((B, Hq, Sq, Dk), (B, Hkv, Skv, Dk), (B, Hkv, Skv, Dv))
+    assert kops.flash_plan(*shapes, t_dt).route == "tensor_core"
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(sum(case[:7]))
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(t_dt)
+               for s in shapes)
+    off = None if offset is None else torch.tensor(
+        offset, dtype=torch.int32, device=cuda_device)
+    out = kf.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=off)
+    torch.cuda.synchronize()
+    expect = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=off)
+    _close(to_numpy(out.float()), to_numpy(expect.float()), tol)
+    again = kf.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=off)
+    assert torch.equal(out.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f16"])
+@pytest.mark.parametrize("sq,off", [(1, 255), (1, 63), (128, None),
+                                    (100, None)])
+def test_cuda_flash_slot_alone_equals_slot_in_batch(cuda_device, sq, off,
+                                                    dt):
+    """A (slot, head) gives the same bits alone and inside a batch of 4,
+    and fully masked rows are exactly 0 on the tensor-core route."""
+    t_dt = DTYPES[dt][2]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(sq)
+    skv = sq if off is None else 256
+    q = torch.randn((4, 8, sq, 128), generator=gen,
+                    device=cuda_device).to(t_dt)
+    k, v = (torch.randn((4, 8, skv, 128), generator=gen,
+                        device=cuda_device).to(t_dt) for _ in range(2))
+    full = kf.flash_attention(q, k, v, causal=True, q_offset=off)
+    alone = kf.flash_attention(q[2:3, 5:6], k[2:3, 5:6], v[2:3, 5:6],
+                               causal=True, q_offset=off)
+    assert torch.equal(full[2:3, 5:6].view(torch.int16),
+                       alone.view(torch.int16))
+    dead = kf.flash_attention(q, k, v, causal=True, window=1, q_offset=4096)
+    assert torch.equal(dead, torch.zeros_like(dead))
+    part = kf.flash_attention(q, k, v, causal=True,
+                              q_offset=torch.tensor(-3, device=cuda_device))
+    assert torch.equal(part[:, :, :3], torch.zeros_like(part[:, :, :3]))

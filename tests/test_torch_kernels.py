@@ -158,11 +158,16 @@ def test_predicates_refuse_what_the_kernels_cannot_read():
     assert not kops.swiglu_supported(4, 64, 100, 64, bf)
     assert not kops.matmul_supported(4, 64, 64, torch.float64)
     assert not kops.matmul_supported(0, 64, 64, bf)
-    # a normalized row must fit in shared memory
-    assert kops.norm_matmul_tile(4, 4096, bf) == 4
-    assert kops.norm_matmul_tile(64, 4096, bf) == 16
-    assert kops.norm_matmul_tile(64, 16384, f32) == 1
+    # an f32 normalized row must fit in shared memory; the 16-bit route
+    # holds no whole row
+    assert kops.norm_matmul_plan(4, 4096, 4096, bf).bm == 16
+    assert kops.norm_matmul_plan(64, 4096, 4096, bf).bm == 64
+    assert kops.norm_matmul_plan(64, 16384, 4096, f32).bm == 1
+    assert kops.norm_matmul_plan(4, 4096, 4096, f32).bm == 4
+    assert kops.norm_matmul_plan(64, 4096, 4096, f32).bm == 4
+    assert kops.norm_matmul_plan(64, 2048, 4096, f32).bm == 16
     assert not kops.norm_matmul_supported(1, 1 << 16, 8, f32)
+    assert kops.norm_matmul_supported(1, 1 << 16, 8, bf)
     assert kops.swiglu_slices(11008, bf) == 172
 
 
@@ -217,6 +222,49 @@ def test_matmul_plan_keeps_f32_on_the_cuda_cores():
         assert plan.bm == kops.row_tile(m) and plan.bn == 16
 
 
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m", [1, 3, 4, 17, 64, 512])
+@pytest.mark.parametrize("n", [8, 200, 4096, 102400])
+def test_norm_matmul_plan_is_the_matmul_launch(m, n, dt):
+    """The 16-bit fused norm runs matmul's tensor-core launch: the same
+    tile, ring, K order and L2 policy, whatever the width D -- no
+    normalized row is held whole, so M = 64 takes the 64-row tile."""
+    for d in (40, 1000, 4096, 1 << 16):
+        mm = kops.matmul_plan(m, d, n, dt)
+        for g_dt in (dt, torch.float32):
+            plan = kops.norm_matmul_plan(m, d, n, dt, g_dt)
+            assert plan.route == "tensor_core"
+            assert (plan.bm, plan.bn, plan.grid, plan.stages,
+                    plan.k_stage) == (mm.bm, mm.bn, mm.grid, mm.stages,
+                                      mm.k_stage)
+            # the ring's stages of W and x, and g's slice of each stage
+            assert plan.smem == mm.smem + plan.stages * kops.TC_KS * \
+                g_dt.itemsize
+            assert plan.w_evict_first == mm.b_evict_first
+            # with the norm's 64-row inverse RMS in static shared memory
+            assert plan.smem + 64 * 4 <= 232448 and plan.stages >= 3
+        assert plan.grid[1] * plan.bm >= m and plan.grid[0] * plan.bn >= n
+    # the final norm + unembed streams evict-normal in 128-column tiles,
+    # the qkv projections evict-first
+    unembed = kops.norm_matmul_plan(4, 4096, 102400, dt)
+    assert (unembed.bm, unembed.bn, unembed.w_evict_first) == (16, 128,
+                                                               False)
+    assert kops.norm_matmul_plan(64, 4096, 4096, dt).w_evict_first
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64])
+@pytest.mark.parametrize("d", [40, 4096, 11008, 16384])
+def test_norm_matmul_plan_keeps_f32_on_the_cuda_cores(m, d):
+    """f32 keeps the CUDA-core kernel and its tile rule: the GEMM row tile
+    for m, lowered until the normalized f32 rows fit one block."""
+    plan = kops.norm_matmul_plan(m, d, 4096, torch.float32)
+    assert plan.route == "cuda_core" and plan.stages == 0
+    assert plan.bn == 16 and plan.bm <= kops.row_tile(m)
+    assert plan.smem == plan.bm * d * 4
+    assert plan.smem + 8 * plan.bm * 16 * 4 + plan.bm * 4 <= 232448
+    assert kops.norm_matmul_supported(m, d, 4096, torch.float32)
+
+
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [3, 40, 4096, 4100, 8192, 16384, 65536])
 def test_rmsnorm_plan_covers_the_row(d, dt):
@@ -255,6 +303,11 @@ CUDA_CASES = [("matmul", (4, 4096, 4096)), ("matmul", (5, 96, 24)),
               ("matmul", (512, 4096, 4096)),
               ("rmsnorm", (4, 4100)), ("rmsnorm", (512, 4096)),
               ("norm_matmul", (4, 4096, 1024)), ("norm_matmul", (3, 40, 16)),
+              # the tensor-core route: a 64-row tile, a D tail that is no
+              # whole stage, an unaligned D, N = 8, N no whole tile
+              ("norm_matmul", (64, 4096, 4096)),
+              ("norm_matmul", (17, 1000, 200)), ("norm_matmul", (4, 44, 8)),
+              ("norm_matmul", (512, 256, 64)),
               ("swiglu", (4, 512, 1024, 256)), ("swiglu", (3, 64, 40, 24)),
               ("rmsnorm", (4, 4096)), ("rmsnorm", (3, 40)),
               # (B, Hq, Hkv, Sq, Skv, D, decode offset or None)
@@ -322,7 +375,9 @@ def _bits(t):
 @pytest.mark.parametrize("kernel,shape", [("matmul", (1000, 256)),
                                           ("matmul", (4096, 64)),
                                           ("rmsnorm", (4096,)),
-                                          ("rmsnorm", (4100,))])
+                                          ("rmsnorm", (4100,)),
+                                          ("norm_matmul", (4096, 64)),
+                                          ("norm_matmul", (1000, 200))])
 def test_cuda_row_alone_equals_row_in_batch(cuda_device, kernel, shape, dt):
     """A row computed alone and inside batches of 4, 64 and 512 rows, at
     a different position in each, gives the same bits: the order of every
@@ -339,6 +394,10 @@ def test_cuda_row_alone_equals_row_in_batch(cuda_device, kernel, shape, dt):
     if kernel == "matmul":
         w = r(k, shape[1], scale=k ** -0.5)
         run = lambda a: km.matmul(a, w)  # noqa: E731
+    elif kernel == "norm_matmul":
+        g = 1 + 0.1 * torch.randn(k, generator=gen, device=cuda_device)
+        w = r(k, shape[1], scale=k ** -0.5)
+        run = lambda a: kn.norm_matmul(a, g, w)  # noqa: E731
     else:
         w = 1 + 0.1 * torch.randn(k, generator=gen, device=cuda_device)
         run = lambda a: kr.rmsnorm(a, w)  # noqa: E731
@@ -350,3 +409,33 @@ def test_cuda_row_alone_equals_row_in_batch(cuda_device, kernel, shape, dt):
         out = run(batch)
         assert torch.equal(_bits(out[pos:pos + 1]), _bits(alone)), (m, pos)
         assert torch.equal(_bits(out), _bits(run(batch)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f16"])
+@pytest.mark.parametrize("g_f32", [False, True])
+@pytest.mark.parametrize("m", [1, 3, 4, 17, 64, 512])
+@pytest.mark.parametrize("d,n", [(4096, 1024), (1000, 200), (44, 8),
+                                 (4096, 8192)])
+def test_cuda_norm_matmul_tensor_core_route(cuda_device, d, n, m, g_f32, dt):
+    """The 16-bit fused norm on the tensor-core mainloop: within the
+    16-bit tolerance of the plain version for g in x's dtype and in f32,
+    across M, a D tail (1000), an unaligned D (44) and narrow or ragged
+    N; two launches bitwise equal; and a probe row gives the same bits
+    alone and at another position in the batch."""
+    _, t_dt, tol = DTYPES[dt]
+    assert kops.norm_matmul_plan(m, d, n, t_dt).route == "tensor_core"
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m + d + n)
+    x = torch.randn((m, d), generator=gen, device=cuda_device).to(t_dt)
+    g = 1 + 0.1 * torch.randn(d, generator=gen, device=cuda_device)
+    g = g if g_f32 else g.to(t_dt)
+    w = (torch.randn((d, n), generator=gen, device=cuda_device)
+         * d ** -0.5).to(t_dt)
+    out = kn.norm_matmul(x, g, w)
+    torch.cuda.synchronize()
+    _close(to_numpy(out.float()), to_numpy(ref.norm_matmul_ref(x, g, w)
+                                           .float()), tol)
+    assert torch.equal(_bits(out), _bits(kn.norm_matmul(x, g, w)))
+    alone = kn.norm_matmul(x[m - 1:], g, w)
+    assert torch.equal(_bits(out[m - 1:]), _bits(alone))
