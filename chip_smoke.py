@@ -20,7 +20,9 @@ without printing a result:
                  one, and the card's bound for the same work; then the
                  determinism checks: two launches on the same inputs give
                  the same bits, and a probe row gives the same bits alone
-                 and inside batches of 4, 64 and 512 rows (matmul, rmsnorm, norm_matmul); for flash attention
+                 and inside batches of 4, 64 and 512 rows (matmul,
+                 rmsnorm, norm_matmul, swiglu); swiglu called on two
+                 inputs in turn gives each its own bits; for flash attention
                  two launches, a probe (slot, head) alone and inside 4
                  slots, and decode at position p against row p of the
                  dense prefill, for p in 0, 63, 64, 127;
@@ -235,6 +237,8 @@ def kernel_cases(gen):
     nm("dense prefill qkv (512x4096)(4096x4096)", DENSE, D, bf)
     sw("decode (4x4096) F=11008", SLOTS, bf)
     sw("prefill (64x4096) F=11008", CHUNK, bf)
+    sw("dense prefill (512x4096) F=11008", DENSE, bf)
+    sw("f32 decode (4x4096) F=11008", SLOTS, f32)
     def fa(label, B, Hq, Hkv, Sq, Skv, off, dt):
         q = _rand((B, Hq, Sq, DH), dt, gen)
         k = _rand((B, Hkv, Skv, DH), dt, gen)
@@ -340,7 +344,7 @@ def check_determinism(gen) -> None:
     same bits, and a fixed probe row gives the same bits in batches of
     every size the serving paths use, at a different position in each."""
     from repro_torch.kernels import matmul as km, rmsnorm as kr
-    from repro_torch.kernels import norm_matmul as kn
+    from repro_torch.kernels import norm_matmul as kn, swiglu as ks
     bf, f32 = torch.bfloat16, torch.float32
 
     def probe_rows(kernel, label, sizes, run, make):
@@ -384,7 +388,44 @@ def check_determinism(gen) -> None:
                    {1: 0, SLOTS: 1, CHUNK: 33, DENSE: 200},
                    lambda x: kn.norm_matmul(x, g, w, 1e-6),
                    lambda m: _rand((m, D), bf, gen))
+    for dt in (bf, f32):
+        wg = _rand((D, F), dt, gen, D ** -0.5)
+        wu = _rand((D, F), dt, gen, D ** -0.5)
+        wd = _rand((F, D), dt, gen, F ** -0.5)
+        probe_rows("swiglu", name(dt),
+                   {1: 0, SLOTS: 2, CHUNK: 45, DENSE: 300},
+                   lambda x: ks.swiglu(x, wg, wu, wd),
+                   lambda m: _rand((m, D), dt, gen))
+        check_swiglu_alternation(name(dt), wg, wu, wd, gen)
     check_flash_determinism(gen)
+
+
+def check_swiglu_alternation(label, wg, wu, wd, gen) -> None:
+    """swiglu's down launch must read h only after the gate/up launch has
+    written all of it (griddepcontrol.wait): called on two inputs in turn,
+    each call gives the bits of the first call on its input and stays
+    within phase 3's limit of the plain version -- a copy of h issued
+    early would read the other input's h, which the allocator tends to
+    hand back at the same address."""
+    from repro_torch.kernels import ref, swiglu as ks
+    for m in (SLOTS, CHUNK):
+        xs = [_rand((m, D), wg.dtype, gen) for _ in range(2)]
+        firsts = [ks.swiglu(x, wg, wu, wd) for x in xs]
+        for i, x in enumerate(xs):
+            p = ref.swiglu_ref(x, wg, wu, wd).double()
+            err = float((firsts[i].double() - p).abs().max())
+            require(err <= TOL[wg.dtype] * max(float(p.abs().max()), 1.0),
+                    f"swiglu {label} alternation at {m} rows: input {i} "
+                    f"off its plain version by {err}")
+        require(not _bitwise(firsts[0], firsts[1]),
+                f"swiglu {label}: two inputs gave the same bits")
+        for i in range(6):
+            out = ks.swiglu(xs[i % 2], wg, wu, wd)
+            require(_bitwise(out, firsts[i % 2]),
+                    f"swiglu {label} alternation at {m} rows: call {i} "
+                    f"differs from the first call on its input")
+    say("determinism", kernel="swiglu", dtype=label,
+        alternating_inputs="bitwise", rows=f"{SLOTS},{CHUNK}")
 
 
 def check_flash_determinism(gen) -> None:
@@ -434,7 +475,11 @@ def _dispatch_profile(eng) -> dict:
     (``host_ms``) against its wall time to the tokens (``wall_ms``).  The
     second runs under ``torch.profiler`` (CUDA activity only) and sums
     the kernels' device time (``busy_ms``): busy well below wall means
-    the card waits on the host."""
+    the card waits on the host.  ``union_ms`` is the time at least one
+    kernel ran (their intervals merged): the sum books a programmatic
+    dependent's blocks that wait at griddepcontrol.wait while the kernel
+    before it finishes (norm_matmul's GEMM, swiglu's down product) as
+    busy, and two overlapping kernels twice."""
     from repro_torch.devices import to_numpy
 
     def dispatch():
@@ -460,6 +505,16 @@ def _dispatch_profile(eng) -> dict:
             rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    from torch.autograd import DeviceType
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.time_range.end > ev.time_range.start)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
     # the port's kernels by name (norm_matmul before matmul: a substring)
     ours = {}
     for ms, n, key in rows:
@@ -471,6 +526,7 @@ def _dispatch_profile(eng) -> dict:
                 break
     return {"host_ms": (h1 - h0) * 1e3, "wall_ms": (h2 - h0) * 1e3,
             "busy_ms": f"{busy:.1f}" if rows else "not measured",
+            "union_ms": f"{union / 1e3:.1f}" if spans else "not measured",
             "n_kernels": sum(r[1] for r in rows),
             "ours": {k: [round(v[0], 3), v[1]] for k, v in ours.items()},
             "top": [[k[:48], round(ms, 3), n] for ms, n, k in rows[:8]]}
@@ -547,6 +603,7 @@ def phase_main(report: dict):
         dispatch_host_ms=f"{disp['host_ms']:.1f}",
         dispatch_wall_ms=f"{disp['wall_ms']:.1f}",
         dispatch_device_busy_ms=disp["busy_ms"],
+        dispatch_device_union_ms=disp["union_ms"],
         shared_attaches=rep.pool.shared_attaches,
         cow_copies=rep.pool.cow_copies,
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",

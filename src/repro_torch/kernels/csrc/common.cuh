@@ -164,6 +164,26 @@ __device__ __forceinline__ float row_sumsq(const T* x, int d) {
 // row-tile heights the GEMM kernels are instantiated for
 inline int pick_bm(int m) { return m <= 1 ? 1 : (m <= 4 ? 4 : 16); }
 
+// Launch ``kern`` (kThreads a block) as the programmatic dependent of the
+// kernel before it on ``s``: it may start once every block of that kernel
+// has run griddepcontrol.launch_dependents (or ended), and must run
+// griddepcontrol.wait before it reads what that kernel writes.
+template <typename... P, typename... A>
+cudaError_t launch_dependent(void (*kern)(P...), dim3 grid, int smem,
+                             cudaStream_t s, A... args) {
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
 }  // namespace repro
 
 #define REPRO_DISPATCH_DTYPE(code, T, ...)       \

@@ -103,37 +103,23 @@ cudaError_t launch_tc(const T* A, const T* B, T* C, int M, int K, int N,
       matmul_tc_kernel<T, TL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       TL::SMEM);
   if (limit != cudaSuccess) return limit;
-  // a B of up to 256 MB (every weight of the main path but the unembed)
-  // streams as L2's first victims; a larger one gains nothing from it
-  const bool b_first = (size_t)K * N * sizeof(T) <= (256u << 20);
+  const bool b_first = tc::b_evict_first((size_t)K * N * sizeof(T));
   dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
   matmul_tc_kernel<T, TL><<<grid, kThreads, TL::SMEM, s>>>(A, B, C, M, K, N,
                                                            b_first);
   return cudaSuccess;
 }
 
-// The tensor-core tiles, mirrored by kernels/ops.py:matmul_plan.  Up to 16
-// rows: 32 columns a block (128 blocks at N = 4096), or 128 where N is
-// wide enough (N >= 8192: the unembed, 800 blocks) for 256-byte rows of B
-// to stream faster; up to 64 rows, one 64-row tile of 32 columns; more
-// rows, 64 x 64 tiles, which halve the re-reads of A from L2 (three
-// stages fit 227 KB).
-using TileDecode = tc::Tile<16, 32, 4>;
-using TileWide = tc::Tile<16, 128, 3>;
-using TileChunk = tc::Tile<64, 32, 4>;
-using TileDense = tc::Tile<64, 64, 3>;
-
+// the tensor-core tiles of tc_gemm.cuh's with_matmul_tile (ops.py:tc_tile)
 template <typename T>
 cudaError_t launch_16bit(const void* a, const void* b, void* c, int M, int K,
                          int N, cudaStream_t s) {
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
   T* C = static_cast<T*>(c);
-  if (M <= 16)
-    return N >= 8192 ? launch_tc<T, TileWide>(A, B, C, M, K, N, s)
-                     : launch_tc<T, TileDecode>(A, B, C, M, K, N, s);
-  if (M <= 64) return launch_tc<T, TileChunk>(A, B, C, M, K, N, s);
-  return launch_tc<T, TileDense>(A, B, C, M, K, N, s);
+  return tc::with_matmul_tile(M, N, [&](auto tile) {
+    return launch_tc<T, decltype(tile)>(A, B, C, M, K, N, s);
+  });
 }
 
 }  // namespace

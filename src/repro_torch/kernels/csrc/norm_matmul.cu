@@ -263,40 +263,20 @@ int launch_tc(const T* X, const TG* G, const T* W, T* C, float* inv, int M,
       X, inv, M, D, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // matmul.cu's rule: a W of up to 256 MB streams as L2's first victims
-  const bool b_first = (size_t)D * N * sizeof(T) <= (256u << 20);
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kern, X, G, W, C,
-                                 static_cast<const float*>(inv), M, D, N,
-                                 b_first);
+  return (int)launch_dependent(
+      kern, dim3((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM),
+      smem, s, X, G, W, C, static_cast<const float*>(inv), M, D, N,
+      tc::b_evict_first((size_t)D * N * sizeof(T)));
 }
 
-// matmul.cu's tiles, mirrored by kernels/ops.py:norm_matmul_plan
-using TileDecode = tc::Tile<16, 32, 4>;
-using TileWide = tc::Tile<16, 128, 3>;
-using TileChunk = tc::Tile<64, 32, 4>;
-using TileDense = tc::Tile<64, 64, 3>;
-
+// matmul.cu's tiles (tc_gemm.cuh's with_matmul_tile), mirrored by
+// kernels/ops.py:norm_matmul_plan
 template <typename T, typename TG>
 int launch_16bit(const T* X, const TG* G, const T* W, T* C, float* inv,
                  int M, int D, int N, float eps, cudaStream_t s) {
-  if (M <= 16)
-    return N >= 8192
-               ? launch_tc<T, TG, TileWide>(X, G, W, C, inv, M, D, N, eps, s)
-               : launch_tc<T, TG, TileDecode>(X, G, W, C, inv, M, D, N, eps,
-                                              s);
-  if (M <= 64)
-    return launch_tc<T, TG, TileChunk>(X, G, W, C, inv, M, D, N, eps, s);
-  return launch_tc<T, TG, TileDense>(X, G, W, C, inv, M, D, N, eps, s);
+  return tc::with_matmul_tile(M, N, [&](auto tile) {
+    return launch_tc<T, TG, decltype(tile)>(X, G, W, C, inv, M, D, N, eps, s);
+  });
 }
 
 }  // namespace

@@ -8,148 +8,265 @@
 //
 // Replaces: src/repro/kernels/swiglu.py:_swiglu_kernel.
 //
-// Bound on the H100: the three weights (3 * 4096 * 11008 bf16 = 270 MB
-// per layer at deepseek-7b's width) are read once per call and M is 4
-// (decode) or 64 (prefill): device-memory bandwidth.
+// Bound on the H100.  At decode (M = 4) and in a prefill chunk (M = 64)
+// the three weights (3 * 4096 * 11008 bf16 = 270 MB per layer at
+// deepseek-7b's width) are read once for at most 64 flops per byte:
+// device-memory bandwidth.  The dense prefill (M = 512) does 139 GFLOP
+// for 279 MB, about 500 flops per byte: there the tensor-core rate
+// bounds it.
 //
-// Design: the TPU kernel keeps a (bm, D) row tile resident and, for each
-// Do tile, sweeps F sequentially in one core, re-reading wg and wu for
-// every Do tile.  On the H100 that re-read (once per Do tile, 64x at
-// Do=4096) would dominate, and one block per Do tile gives too few
-// blocks at decode shapes.  So the F axis is split instead: block f
-// owns an F slice of 64 (bf16) columns, computes the slice's gate and up
-// products for its rows, forms the hidden slice h in shared memory --
-// the (M, F) hidden activation never reaches device memory, as in the
-// TPU kernel -- and multiplies it by its 64 rows of wd into an f32
-// partial (M, Do) tile.  A second kernel sums the partials over the
-// slices in slice order.  Every weight byte is read once, F=11008 gives
-// 172 blocks, and each output is reduced in one fixed order (no
-// atomics): deterministic and independent of M.
-#include "common.cuh"
+// Design, bf16 and f16: two kernels, the second launched as a
+// programmatic dependent of the first.
+//   swiglu_gate_up_kernel is the tensor-core mainloop of tc_gemm.cuh on
+//   A = x with a paired B: a block's BN-wide B tile holds BN/2 columns of
+//   wg and the same BN/2 columns of wu, so each A fragment read feeds both
+//   products.  In the epilogue the block's f32 sums sit in shared memory,
+//   g at column j and u at column j + BN/2; each thread forms h with the
+//   rounding chain above and writes it in x's dtype to an (M, F)
+//   workspace -- 88 KB at decode, 11 MB at M = 512, so it stays in the
+//   50 MB L2 for the next launch.  Tiles: 16 rows (M <= 16) by 64 F
+//   columns of each weight with a ring of 3 stages (172 blocks at F =
+//   11008, 128 KB of B in flight per block, 256-byte rows: on the H100
+//   faster than 344 blocks of 32 columns with 96 KB in flight), else
+//   64 rows by 32 F columns with 3 stages.  The grid walks
+//   the row tiles fastest, so the blocks of one F tile run together and
+//   read its wg and wu columns from device memory once (at M = 512 the
+//   other order re-reads all 180 MB for each of the 8 row tiles, and is
+//   slower on the H100).
+//   swiglu_down_kernel is matmul.cu's tensor-core GEMM (same tiles, same
+//   L2 rule) on A = h, B = wd, K = F.  It starts while the first kernel's
+//   last blocks run, puts its first wd stages in flight, and copies h
+//   only after griddepcontrol.wait, once h is complete.
+// So each weight is read once (the TPU kernel re-reads wg and wu once per
+// Do tile), the (M, F) activation makes one trip through L2, and nothing
+// is reduced across blocks.
+//
+// Design, f32: CUDA-core FMAs (no TF32: f32 means f32), split the same
+// way.  swiglu_gate_up_f32_kernel computes a 32-column F slice of g, then
+// of u, with common.cuh's gemm_partial / reduce_k_lanes and writes h;
+// swiglu_down_f32_kernel is matmul.cu's f32 kernel on h and wd.
+//
+// Reduction order: g and u each in matmul's order for K = D, the down
+// product in matmul's order for K = F (tensor cores: tc_gemm.cuh's warp
+// slices; f32: gemm_partial's k-lanes).  Neither depends on M, the row's
+// position or the run: no split of K across blocks, no atomics.
+#include "tc_gemm.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int CG = 8;   // gate/up column groups: BF = 8 * 16/sizeof(T)
+// h = round(silu(g) * u) from the f32 sums of g and u, rounded op by op as
+// XLA computes jax.nn.silu (expf and an IEEE division, as the reference)
+template <typename T>
+__device__ __forceinline__ float silu_mul(float g_sum, float u_sum) {
+  const float g = round_to<T>(g_sum);
+  const float u = round_to<T>(u_sum);
+  const float e = round_to<T>(expf(-g));
+  const float sig = round_to<T>(1.f / round_to<T>(1.f + e));
+  const float sg = round_to<T>(g * sig);
+  return sg * u;   // the caller rounds
+}
 
-template <typename T, int BM>
+// -- f32: CUDA cores -----------------------------------------------------------
+constexpr int CG_GU = 8;   // gate/up column groups: 32 F columns
+constexpr int CG_DN = 4;   // down column groups: matmul.cu's 16 columns
+
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
-    swiglu_partial_kernel(const T* __restrict__ X, const T* __restrict__ WG,
-                          const T* __restrict__ WU, const T* __restrict__ WD,
-                          float* __restrict__ P, int M, int D, int F,
-                          int Do) {
-  constexpr int V = kVec<T>;
-  constexpr int BF = CG * V;
+    swiglu_gate_up_f32_kernel(const float* __restrict__ X,
+                              const float* __restrict__ WG,
+                              const float* __restrict__ WU,
+                              float* __restrict__ H, int M, int D, int F) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  constexpr int BF = CG_GU * kVec<float>;
   __shared__ float red[kWarps * BM * BF];
-  __shared__ float gs[BM * BF];   // gate, then the hidden slice h
-  const int slice = blockIdx.x;
-  const int f0 = slice * BF;
-  const int f_valid = min(BF, F - f0);
+  __shared__ float gs[BM * BF];
+  const int f0 = blockIdx.x * BF;
   const int m0 = blockIdx.y * BM;
   const int m_valid = min(BM, M - m0);
-  const T* Xt = X + (size_t)m0 * D;
-  float acc[BM][V];
-
-  // gate slice: round(x @ wg[:, f0:f0+BF]) to x.dtype
-  gemm_partial<T, BM, CG>(Xt, D, m_valid, WG, F, D, f0, F, acc);
-  reduce_k_lanes<T, BM, CG>(acc, red);
-  for (int i = threadIdx.x; i < BM * BF; i += kThreads)
-    gs[i] = round_to<T>(red[i]);
+  const float* Xt = X + (size_t)m0 * D;
+  float acc[BM][kVec<float>];
+  gemm_partial<float, BM, CG_GU>(Xt, D, m_valid, WG, F, D, f0, F, acc);
+  reduce_k_lanes<float, BM, CG_GU>(acc, red);
+  for (int i = threadIdx.x; i < BM * BF; i += kThreads) gs[i] = red[i];
   __syncthreads();
-
-  // up slice, then h = round(silu(g) * round(u)) with silu rounded op
-  // by op as above
-  gemm_partial<T, BM, CG>(Xt, D, m_valid, WU, F, D, f0, F, acc);
-  reduce_k_lanes<T, BM, CG>(acc, red);
+  gemm_partial<float, BM, CG_GU>(Xt, D, m_valid, WU, F, D, f0, F, acc);
+  reduce_k_lanes<float, BM, CG_GU>(acc, red);
   for (int i = threadIdx.x; i < BM * BF; i += kThreads) {
-    const float g = gs[i];
-    const float u = round_to<T>(red[i]);
-    const float e = round_to<T>(expf(-g));
-    const float sig = round_to<T>(1.f / round_to<T>(1.f + e));
-    const float sg = round_to<T>(g * sig);
-    gs[i] = round_to<T>(sg * u);
-  }
-  __syncthreads();
-
-  // partial down projection of this slice: P[slice, m, :] =
-  // sum over the slice's f, in ascending order, of h[m, f] * wd[f, :]
-  for (int c0 = threadIdx.x * V; c0 < Do; c0 += kThreads * V) {
-#pragma unroll
-    for (int m = 0; m < BM; ++m)
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[m][v] = 0.f;
-    for (int f = 0; f < f_valid; ++f) {
-      float w[V];
-      load_vec(WD + (size_t)(f0 + f) * Do + c0, w);
-#pragma unroll
-      for (int m = 0; m < BM; ++m) {
-        if (m < m_valid) {
-          const float h = gs[m * BF + f];
-#pragma unroll
-          for (int v = 0; v < V; ++v) acc[m][v] = fmaf(h, w[v], acc[m][v]);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < BM; ++m) {
-      if (m < m_valid) {
-        float* dst = P + ((size_t)slice * M + m0 + m) * Do + c0;
-#pragma unroll
-        for (int v = 0; v < V; ++v) dst[v] = acc[m][v];
-      }
-    }
+    const int m = i / BF, f = f0 + i % BF;
+    if (m < m_valid && f < F)
+      H[(size_t)(m0 + m) * F + f] = silu_mul<float>(gs[i], red[i]);
   }
 }
 
-// out[i] = sum over slices s = 0, 1, ... of P[s, i], rounded to x.dtype
-template <typename T>
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
-    swiglu_reduce_kernel(const float* __restrict__ P, T* __restrict__ out,
-                         int slices, long long n) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < slices; ++k) s += P[(size_t)k * n + i];
-  out[i] = from_f32<T>(s);
+    swiglu_down_f32_kernel(const float* __restrict__ H,
+                           const float* __restrict__ WD,
+                           float* __restrict__ C, int M, int F, int Do) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  constexpr int BN = CG_DN * kVec<float>;
+  __shared__ float red[kWarps * BM * BN];
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int m_valid = min(BM, M - m0);
+  float acc[BM][kVec<float>];
+  gemm_partial<float, BM, CG_DN>(H + (size_t)m0 * F, F, m_valid, WD, Do, F,
+                                 n0, Do, acc);
+  reduce_k_lanes<float, BM, CG_DN>(acc, red);
+  for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
+    const int m = i / BN, n = n0 + i % BN;
+    if (m < m_valid && n < Do) C[(size_t)(m0 + m) * Do + n] = red[i];
+  }
 }
 
-template <typename T, int BM>
-void launch_partial(const T* X, const T* WG, const T* WU, const T* WD,
-                    float* P, int M, int D, int F, int Do, cudaStream_t s) {
-  constexpr int BF = CG * kVec<T>;
-  dim3 grid((F + BF - 1) / BF, (M + BM - 1) / BM);
-  swiglu_partial_kernel<T, BM><<<grid, kThreads, 0, s>>>(X, WG, WU, WD, P, M,
-                                                          D, F, Do);
+template <int BM>
+cudaError_t launch_f32(const float* X, const float* WG, const float* WU,
+                       const float* WD, float* H, float* C, int M, int D,
+                       int F, int Do, cudaStream_t s) {
+  constexpr int BF = CG_GU * kVec<float>, BN = CG_DN * kVec<float>;
+  const unsigned row_tiles = (M + BM - 1) / BM;
+  swiglu_gate_up_f32_kernel<BM><<<dim3((F + BF - 1) / BF, row_tiles),
+                                  kThreads, 0, s>>>(X, WG, WU, H, M, D, F);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dependent(swiglu_down_f32_kernel<BM>,
+                          dim3((Do + BN - 1) / BN, row_tiles), 0, s,
+                          static_cast<const float*>(H), WD, C, M, F, Do);
+}
+
+// -- bf16, f16: tensor cores ---------------------------------------------------
+template <typename T, class TL>
+__global__ void __launch_bounds__(kThreads)
+    swiglu_gate_up_kernel(const T* __restrict__ X, const T* __restrict__ WG,
+                          const T* __restrict__ WU, T* __restrict__ H, int M,
+                          int D, int F, bool b_first) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int BF = TL::BN / 2;
+  const int m0 = blockIdx.x * TL::BM;   // row tiles fastest (see the header)
+  const int f0 = blockIdx.y * BF;
+  const float* sum = tc::gemm_tc<T, TL, tc::IdentityA, tc::PairB>(
+      X, D, WG, M, D, F, m0, f0, b_first, smem, tc::IdentityA(), WU);
+  // g at column j, u at column BF + j; two adjacent columns per store
+  // (F % 8 == 0: both in or both out)
+  for (int e = threadIdx.x; e < TL::BM * BF / 2; e += kThreads) {
+    const int m = e / (BF / 2), j = (e % (BF / 2)) * 2;
+    if (m0 + m < M && f0 + j < F) {
+      const float* p = sum + m * TL::RED_PITCH + j;
+      *reinterpret_cast<unsigned*>(H + (size_t)(m0 + m) * F + f0 + j) =
+          pack2<T>(silu_mul<T>(p[0], p[BF]), silu_mul<T>(p[1], p[BF + 1]));
+    }
+  }
+}
+
+template <typename T, class TL>
+__global__ void __launch_bounds__(kThreads)
+    swiglu_down_kernel(const T* __restrict__ H, const T* __restrict__ WD,
+                       T* __restrict__ C, int M, int F, int Do,
+                       bool b_first) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n0 = blockIdx.x * TL::BN;
+  const int m0 = blockIdx.y * TL::BM;
+  const float* sum = tc::gemm_tc<T, TL, tc::IdentityA, tc::WaitA>(
+      H, F, WD, M, F, Do, m0, n0, b_first, smem);
+  // matmul.cu's epilogue: two adjacent columns per store
+  for (int e = threadIdx.x; e < TL::BM * TL::BN / 2; e += kThreads) {
+    const int m = e / (TL::BN / 2), n = (e % (TL::BN / 2)) * 2;
+    if (m0 + m < M && n0 + n < Do)
+      *reinterpret_cast<unsigned*>(C + (size_t)(m0 + m) * Do + n0 + n) =
+          pack2<T>(sum[m * TL::RED_PITCH + n],
+                   sum[m * TL::RED_PITCH + n + 1]);
+  }
+}
+
+template <typename T, class TL>
+cudaError_t launch_gate_up(const T* X, const T* WG, const T* WU, T* H, int M,
+                           int D, int F, cudaStream_t s) {
+  // raise the instantiation's dynamic shared memory limit once, off the
+  // per-launch path
+  static const cudaError_t limit = cudaFuncSetAttribute(
+      swiglu_gate_up_kernel<T, TL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  if (limit != cudaSuccess) return limit;
+  constexpr int BF = TL::BN / 2;
+  dim3 grid((M + TL::BM - 1) / TL::BM, (F + BF - 1) / BF);
+  swiglu_gate_up_kernel<T, TL><<<grid, kThreads, TL::SMEM, s>>>(
+      X, WG, WU, H, M, D, F,
+      tc::b_evict_first((size_t)2 * D * F * sizeof(T)));   // wg + wu
+  return cudaGetLastError();
+}
+
+template <typename T, class TL>
+cudaError_t launch_down(const T* H, const T* WD, T* C, int M, int F, int Do,
+                        cudaStream_t s) {
+  static const cudaError_t limit = cudaFuncSetAttribute(
+      swiglu_down_kernel<T, TL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TL::SMEM);
+  if (limit != cudaSuccess) return limit;
+  dim3 grid((Do + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
+  return launch_dependent(swiglu_down_kernel<T, TL>, grid, TL::SMEM, s, H,
+                          WD, C, M, F, Do,
+                          tc::b_evict_first((size_t)F * Do * sizeof(T)));
+}
+
+template <typename T>
+cudaError_t launch_16bit(const void* x, const void* wg, const void* wu,
+                         const void* wd, void* h, void* c, int M, int D,
+                         int F, int Do, cudaStream_t s) {
+  const T* X = static_cast<const T*>(x);
+  const T* WG = static_cast<const T*>(wg);
+  const T* WU = static_cast<const T*>(wu);
+  T* H = static_cast<T*>(h);
+  // the gate/up tiles, mirrored by kernels/ops.py:swiglu_tile: BN/2 F
+  // columns of each of wg and wu
+  auto gate_up = [&](auto tile) {
+    return launch_gate_up<T, decltype(tile)>(X, WG, WU, H, M, D, F, s);
+  };
+  const cudaError_t err = M <= 16 ? gate_up(tc::Tile<16, 128, 3>())
+                                  : gate_up(tc::Tile<64, 64, 3>());
+  if (err != cudaSuccess) return err;
+  const T* WD = static_cast<const T*>(wd);
+  T* C = static_cast<T*>(c);
+  return tc::with_matmul_tile(M, Do, [&](auto tile) {
+    return launch_down<T, decltype(tile)>(H, WD, C, M, F, Do, s);
+  });
 }
 
 }  // namespace
 
-// ``partial`` is f32 scratch of slices(F) * M * Do elements, where
-// slices(F) = ceil(F / (8 * 16 / sizeof(x))) -- see swiglu.py.
+// ``h`` is the (M, F) workspace of the hidden activation, in x's dtype.
 extern "C" int repro_swiglu(const void* x, const void* wg, const void* wu,
-                            const void* wd, void* partial, void* out, int M,
-                            int D, int F, int Do, int dtype, void* stream) {
+                            const void* wd, void* h, void* out, int M, int D,
+                            int F, int Do, int dtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_DTYPE(dtype, T, {
-    const T* X = static_cast<const T*>(x);
-    const T* WG = static_cast<const T*>(wg);
-    const T* WU = static_cast<const T*>(wu);
-    const T* WD = static_cast<const T*>(wd);
-    float* P = static_cast<float*>(partial);
-    switch (pick_bm(M)) {
-      case 1: launch_partial<T, 1>(X, WG, WU, WD, P, M, D, F, Do, s); break;
-      case 4: launch_partial<T, 4>(X, WG, WU, WD, P, M, D, F, Do, s); break;
-      default: launch_partial<T, 16>(X, WG, WU, WD, P, M, D, F, Do, s); break;
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    constexpr int BF = CG * kVec<T>;
-    const int slices = (F + BF - 1) / BF;
-    const long long n = (long long)M * Do;
-    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-    swiglu_reduce_kernel<T><<<blocks, kThreads, 0, s>>>(
-        P, static_cast<T*>(out), slices, n);
-  });
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32: {
+      const float* X = static_cast<const float*>(x);
+      const float* WG = static_cast<const float*>(wg);
+      const float* WU = static_cast<const float*>(wu);
+      const float* WD = static_cast<const float*>(wd);
+      float* H = static_cast<float*>(h);
+      float* C = static_cast<float*>(out);
+      switch (pick_bm(M)) {
+        case 1: err = launch_f32<1>(X, WG, WU, WD, H, C, M, D, F, Do, s); break;
+        case 4: err = launch_f32<4>(X, WG, WU, WD, H, C, M, D, F, Do, s); break;
+        default:
+          err = launch_f32<16>(X, WG, WU, WD, H, C, M, D, F, Do, s);
+          break;
+      }
+    } break;
+    case kBF16:
+      err = launch_16bit<__nv_bfloat16>(x, wg, wu, wd, h, out, M, D, F, Do,
+                                        s);
+      break;
+    case kF16:
+      err = launch_16bit<__half>(x, wg, wu, wd, h, out, M, D, F, Do, s);
+      break;
+    default: break;
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

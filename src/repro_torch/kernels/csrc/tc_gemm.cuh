@@ -39,6 +39,19 @@
 // path and with no shared-memory round trip.  An unaligned A is
 // transformed as it is loaded.  The default, IdentityA, compiles to the
 // plain GEMM.
+//
+// B source and prologue order.  gemm_tc's last template parameter (the
+// default, PlainB, is the plain GEMM) may ask for
+//   - a paired B (kPair): the tile's columns [0, BN/2) are columns
+//     [n0, n0 + BN/2) of B, its columns [BN/2, BN) the same columns of a
+//     second (K, N) matrix B2, so one pass of A's fragments feeds two
+//     products (swiglu.cu's gate and up).  Only the copy's source
+//     changes: the swizzle, the fragments and the K order are the plain
+//     GEMM's.
+//   - A after the primary grid (kWaitA): A is written by the kernel this
+//     one is a programmatic dependent launch of.  The prologue puts B's
+//     first stages in flight, waits for that kernel (griddepcontrol.wait)
+//     and only then copies A.
 #pragma once
 
 #include "common.cuh"
@@ -171,27 +184,53 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * W + ((W == 32 ? c ^ ((r >> 1) & 3) : c ^ (r & 7)) << 3);
 }
 
-// Copy stage ``s`` (k from s * KS) of A's rows [m0, m0 + BM) and B's
-// columns [n0, n0 + BN) into ``bs`` / ``as``; everything outside the
-// matrices is zero.  An unaligned A goes through ``ax`` as it is loaded.
-template <typename T, class TL, class AX = IdentityA>
-__device__ __forceinline__ void load_stage(T* bs, T* as, const T* A, int lda,
-                                           const T* B, int M, int K, int N,
-                                           int m0, int n0, int s,
-                                           bool a_vec, uint64_t b_policy,
-                                           const AX& ax = AX()) {
-  constexpr int BM = TL::BM, BN = TL::BN, KS = kKS;
-  constexpr int CB = BN / 8, CA = KS / 8;   // 16-byte chunks per row
-  static_assert(KS * CB % kThreads == 0 && BM * CA % kThreads == 0, "");
+// B's source and the prologue's order (see the header).
+struct PlainB {
+  static constexpr bool kPair = false, kWaitA = false;
+};
+struct PairB {
+  static constexpr bool kPair = true, kWaitA = false;
+};
+struct WaitA {
+  static constexpr bool kPair = false, kWaitA = true;
+};
+
+// Copy stage ``s`` (k from s * KS) of B's columns [n0, n0 + BN) into
+// ``bs`` (paired: BN/2 columns of B, then the same of B2); everything
+// outside the matrix is zero.
+template <typename T, class TL, class BX>
+__device__ __forceinline__ void load_b(T* bs, const T* B, const T* B2, int K,
+                                       int N, int n0, int s,
+                                       uint64_t b_policy) {
+  constexpr int BN = TL::BN, KS = kKS;
+  constexpr int CB = BN / 8;                     // 16-byte chunks per row
+  constexpr int HALF = BX::kPair ? CB / 2 : CB;  // chunks per source
+  static_assert(KS * CB % kThreads == 0, "");
   const int k0 = s * KS;
 #pragma unroll
   for (int i = 0; i < KS * CB / kThreads; ++i) {
     const int e = threadIdx.x + i * kThreads;
     const int k = e / CB, c = e % CB;
-    const bool ok = k0 + k < K && n0 + c * 8 < N;
+    const int cn = BX::kPair ? c % HALF : c;     // chunk in its source
+    const T* src = BX::kPair && c >= HALF ? B2 : B;
+    const bool ok = k0 + k < K && n0 + cn * 8 < N;
     cp_async16(bs + swz<BN>(k, c),
-               ok ? B + (size_t)(k0 + k) * N + n0 + c * 8 : B, ok, b_policy);
+               ok ? src + (size_t)(k0 + k) * N + n0 + cn * 8 : B, ok,
+               b_policy);
   }
+}
+
+// Copy stage ``s`` of A's rows [m0, m0 + BM) into ``as``; everything
+// outside the matrix is zero.  An unaligned A goes through ``ax`` as it
+// is loaded.
+template <typename T, class TL, class AX = IdentityA>
+__device__ __forceinline__ void load_a(T* as, const T* A, int lda, int M,
+                                       int K, int m0, int s, bool a_vec,
+                                       const AX& ax = AX()) {
+  constexpr int BM = TL::BM, KS = kKS;
+  constexpr int CA = KS / 8;   // 16-byte chunks per row
+  static_assert(BM * CA % kThreads == 0, "");
+  const int k0 = s * KS;
   if (a_vec) {
 #pragma unroll
     for (int i = 0; i < BM * CA / kThreads; ++i) {
@@ -222,13 +261,15 @@ __device__ __forceinline__ void load_stage(T* bs, T* as, const T* A, int lda,
 // (f32, row pitch TL::RED_PITCH) at the returned pointer and the block is
 // synchronised; ``smem`` is the dynamic shared memory of TL::SMEM bytes.
 // ``b_first``: B's lines are the first L2 evicts (a weight read once).
-// ``ax``: the A transform (see the header).
-template <typename T, class TL, class AX = IdentityA>
+// ``ax``: the A transform; ``BX``: B's source and the prologue's order,
+// ``B2`` the second matrix of a paired B (see the header).
+template <typename T, class TL, class AX = IdentityA, class BX = PlainB>
 __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
                                           const T* __restrict__ B, int M,
                                           int K, int N, int m0, int n0,
                                           bool b_first, unsigned char* smem,
-                                          const AX& ax = AX()) {
+                                          const AX& ax = AX(),
+                                          const T* __restrict__ B2 = nullptr) {
   constexpr int MF = TL::MF, NF = TL::NF, BN = TL::BN;
   constexpr int STAGES = TL::STAGES, STAGE = TL::STAGE;
   constexpr int PITCH = TL::RED_PITCH;
@@ -251,13 +292,32 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
   if constexpr (!AX::kIdentity) {
     if (!a_vec) ax.prepare();
   }
+  if constexpr (BX::kWaitA) {
+    // B's first stages in flight, then the wait for A's writer; commit
+    // group s holds A's stage s (group 0 also every B stage of this
+    // prologue), so the mainloop's count of groups is unchanged
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nst)
-      load_stage<T, TL, AX>(ring + s * STAGE, ring + s * STAGE + kKS * BN,
-                            A, lda, B, M, K, N, m0, n0, s, a_vec, b_policy,
-                            ax);
-    cp_async_commit();
+    for (int s = 0; s < STAGES - 1; ++s)
+      if (s < nst)
+        load_b<T, TL, BX>(ring + s * STAGE, B, B2, K, N, n0, s, b_policy);
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nst)
+        load_a<T, TL, AX>(ring + s * STAGE + kKS * BN, A, lda, M, K, m0, s,
+                          a_vec, ax);
+      cp_async_commit();
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nst) {
+        load_b<T, TL, BX>(ring + s * STAGE, B, B2, K, N, n0, s, b_policy);
+        load_a<T, TL, AX>(ring + s * STAGE + kKS * BN, A, lda, M, K, m0, s,
+                          a_vec, ax);
+      }
+      cp_async_commit();
+    }
   }
   // an aligned A: prepare while the first stages are in flight
   if constexpr (!AX::kIdentity) {
@@ -269,8 +329,8 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
     const int nxt = s + STAGES - 1;
     if (nxt < nst) {
       T* slot = ring + (nxt % STAGES) * STAGE;
-      load_stage<T, TL, AX>(slot, slot + kKS * BN, A, lda, B, M, K, N, m0,
-                            n0, nxt, a_vec, b_policy, ax);
+      load_b<T, TL, BX>(slot, B, B2, K, N, n0, nxt, b_policy);
+      load_a<T, TL, AX>(slot + kKS * BN, A, lda, M, K, m0, nxt, a_vec, ax);
     }
     cp_async_commit();
     const T* bs = ring + (s % STAGES) * STAGE;
@@ -325,6 +385,27 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
   }
   __syncthreads();
   return red;
+}
+
+// Host side.  A B of up to 256 MB (every weight of the serving path but
+// the unembed) streams as L2's first victims; a larger one gains nothing
+// from it.
+inline bool b_evict_first(size_t b_bytes) { return b_bytes <= (256u << 20); }
+
+// matmul's tensor-core tiles for an (M, K) @ (K, N) product, mirrored by
+// kernels/ops.py:tc_tile, and taken by every GEMM that is matmul's
+// launch (norm_matmul.cu's, swiglu.cu's down product).  Up to 16 rows: 32
+// columns a block (128 blocks at N = 4096), or 128 where N is wide enough
+// (N >= 8192: the unembed, 800 blocks) for 256-byte rows of B to stream
+// faster; up to 64 rows, one 64-row tile of 32 columns; more rows, 64 x 64
+// tiles, which halve the re-reads of A from L2 (three stages fit 227 KB).
+// Returns ``launch(tile)`` for a value of the tile's type.
+template <class F>
+auto with_matmul_tile(int M, int N, F&& launch) {
+  if (M <= 16)
+    return N >= 8192 ? launch(Tile<16, 128, 3>()) : launch(Tile<16, 32, 4>());
+  if (M <= 64) return launch(Tile<64, 32, 4>());
+  return launch(Tile<64, 64, 3>());
 }
 
 }  // namespace tc

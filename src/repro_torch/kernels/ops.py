@@ -66,7 +66,7 @@ class MatmulPlan(NamedTuple):
 
 def tc_tile(m: int, n: int) -> Tuple[int, int, int]:
     """(rows, columns, stages) of the tensor-core block for ``m`` rows of
-    output ``n`` wide."""
+    output ``n`` wide (csrc/tc_gemm.cuh's ``with_matmul_tile``)."""
     if m <= 16:
         return (16, 128, 3) if n >= 8192 else (16, 32, 4)
     return (64, 32, 4) if m <= 64 else (64, 64, 3)
@@ -153,18 +153,57 @@ def norm_matmul_supported(m: int, d: int, n: int, dtype: torch.dtype) -> bool:
 
 
 # -- fused swiglu -----------------------------------------------------------------
-def swiglu_slices(f: int, dtype: torch.dtype) -> int:
-    """F slices the fused MLP splits its hidden width into (one block
-    each; 8 column vectors per slice, as csrc/swiglu.cu)."""
-    bf = 8 * vec(dtype)
-    return -(-int(f) // bf)
+class SwigluPlan(NamedTuple):
+    route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
+    bm: int           # gate/up: rows per block
+    bf: int           # gate/up: F columns per block, of each of wg and wu
+    grid: Tuple[int, int]   # gate/up: (row tiles, F tiles), rows fastest
+    stages: int       # gate/up: cp.async ring depth (0: no ring)
+    k_stage: int      # gate/up: k per stage
+    smem: int         # gate/up: dynamic shared-memory bytes per block
+    b_evict_first: bool     # gate/up: wg and wu carry L2's evict-first
+    down: MatmulPlan  # the down launch: matmul's, on h (m, f) and wd
+
+
+def swiglu_tile(m: int) -> Tuple[int, int, int]:
+    """(rows, B columns, stages) of the tensor-core gate/up block: its B
+    tile holds half its columns from wg and half from wu."""
+    return (16, 128, 3) if m <= 16 else (64, 64, 3)
+
+
+def swiglu_plan(m: int, d: int, f: int, do: int,
+                dtype: torch.dtype) -> SwigluPlan:
+    """How csrc/swiglu.cu launches ``silu(x (m, d) @ wg) * (x @ wu) @ wd
+    (f, do)``: a gate/up kernel that writes h (m, f) to a workspace in
+    x's dtype, then the down product as its programmatic dependent --
+    which is matmul's launch ``matmul_plan(m, f, do)``.  The 16-bit
+    gate/up runs matmul's tensor-core mainloop on x with B tiles of
+    ``bf`` columns of wg beside the same columns of wu, so g and u are
+    each reduced in matmul's K order for ``d``, a function of ``d``
+    alone.  Its grid walks the row tiles fastest, so the row tiles of one
+    F tile share that tile's weight columns through L2.  f32 stays on the
+    CUDA cores (common.cuh's k-lanes; grid (F tiles, row tiles))."""
+    down = matmul_plan(m, f, do, dtype)
+    if dtype == torch.float32:
+        # 8 column vectors an F slice, as common.cuh's gemm_partial reads
+        bm, bf = row_tile(m), 8 * vec(dtype)
+        return SwigluPlan("cuda_core", bm, bf, (-(-f // bf), -(-m // bm)),
+                          0, 0, 0, False, down)
+    bm, bn, stages = swiglu_tile(m)
+    bf = bn // 2
+    return SwigluPlan("tensor_core", bm, bf, (-(-m // bm), -(-f // bf)),
+                      stages, TC_KS, tc_smem_bytes(bm, bn, stages),
+                      2 * d * f * dtype.itemsize <= TC_EVICT_FIRST_BYTES,
+                      down)
 
 
 def swiglu_supported(m: int, d: int, f: int, do: int,
                      dtype: torch.dtype) -> bool:
+    """F and Do in whole 16-byte vectors (h's and out's rows, and wg's,
+    wu's and wd's); D may be anything (the tensor-core mainloop reads an
+    unaligned A element by element)."""
     return (dtype in KERNEL_DTYPES
-            and _ok_dims(m, d, f, do, m * d, d * f, f * do, m * do,
-                         swiglu_slices(f, dtype) * m * do)
+            and _ok_dims(m, d, f, do, m * d, d * f, f * do, m * f, m * do)
             and f % vec(dtype) == 0 and do % vec(dtype) == 0)
 
 

@@ -1,7 +1,9 @@
 """Fused SwiGLU MLP: (silu(x @ wg) * (x @ wu)) @ wd with the reference's
 roundings (each product accumulated in f32 and rounded to x's dtype, the
-down projection accumulated in f32); the (M, F) hidden activation never
-reaches device memory.
+down projection accumulated in f32).  Two kernels: gate and up in one
+pass that writes the (M, F) hidden activation h to a workspace small
+enough to stay in L2, then the down product as its programmatic
+dependent (``ops.swiglu_plan``).
 
 Replaces ``repro/kernels/swiglu.py:swiglu``; the CUDA source is
 ``csrc/swiglu.cu``.  CPU tensors take the plain version
@@ -50,14 +52,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     w_gate = _build.operand(w_gate, "swiglu", dev)
     w_up = _build.operand(w_up, "swiglu", dev)
     w_down = _build.operand(w_down, "swiglu", dev)
-    # per-slice f32 partials of the down projection, summed in slice
-    # order by the kernel's second pass (no atomics: deterministic)
-    partial = torch.empty((ops.swiglu_slices(F, x.dtype), M, Do),
-                          dtype=torch.float32, device=dev)
+    # the hidden activation, written by the first kernel, read by the
+    # second
+    h = torch.empty((M, F), dtype=x.dtype, device=dev)
     out = torch.empty((M, Do), dtype=x.dtype, device=dev)
     rc = _build.lib().repro_swiglu(
         x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), M, D, F, Do,
+        h.data_ptr(), out.data_ptr(), M, D, F, Do,
         _build.dtype_code(x, "swiglu"), _build.stream(x))
     _build.check(rc, "swiglu")
     launches += 1

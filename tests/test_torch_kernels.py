@@ -168,7 +168,9 @@ def test_predicates_refuse_what_the_kernels_cannot_read():
     assert kops.norm_matmul_plan(64, 2048, 4096, f32).bm == 16
     assert not kops.norm_matmul_supported(1, 1 << 16, 8, f32)
     assert kops.norm_matmul_supported(1, 1 << 16, 8, bf)
-    assert kops.swiglu_slices(11008, bf) == 172
+    # swiglu's gate/up grid at decode: 64 F columns of each of wg and wu
+    # a block
+    assert kops.swiglu_plan(4, 4096, 11008, 4096, bf).grid == (1, 172)
 
 
 # -- the kernels' launch plans (mirrors of csrc/) ---------------------------------------
@@ -265,6 +267,102 @@ def test_norm_matmul_plan_keeps_f32_on_the_cuda_cores(m, d):
     assert kops.norm_matmul_supported(m, d, 4096, torch.float32)
 
 
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m", [1, 3, 4, 16, 17, 64, 100, 512])
+@pytest.mark.parametrize("d,f,do", [(4096, 11008, 4096), (1000, 200, 24),
+                                    (44, 40, 16), (4096, 11008, 102400)])
+def test_swiglu_plan_down_is_the_matmul_launch(m, d, f, do, dt):
+    """The 16-bit down product is matmul's tensor-core launch on h (m, f)
+    and wd (f, do): the same tile, ring, K order for f and L2 policy."""
+    plan = kops.swiglu_plan(m, d, f, do, dt)
+    assert plan.route == "tensor_core"
+    assert plan.down == kops.matmul_plan(m, f, do, dt)
+    assert plan.down.route == "tensor_core"
+    assert plan.down.k_stage == kops.TC_KS
+
+
+@pytest.mark.parametrize("d", [40, 1000, 4096, 11008])
+def test_swiglu_plan_gate_up_k_order_does_not_depend_on_m(d):
+    """g and u are reduced in matmul's K order for d: stages of TC_KS, each
+    split among the 8 warps in fixed slices, whatever the row count picks
+    for the tile."""
+    plans = [kops.swiglu_plan(m, d, 11008, 4096, torch.bfloat16)
+             for m in (1, 4, 16, 17, 64, 512)]
+    assert {p.route for p in plans} == {"tensor_core"}
+    assert {p.k_stage for p in plans} == {kops.TC_KS}
+    assert kops.TC_WARP_K * 8 == kops.TC_KS
+    # the tiles differ; the order they reduce in does not
+    assert [(p.bm, p.bf) for p in plans] == [(16, 64)] * 3 + [(64, 32)] * 3
+    # the same K order as matmul's for (m, d) @ (d, f)
+    assert all(p.k_stage == kops.matmul_plan(m, d, 11008, torch.bfloat16)
+               .k_stage for p, m in zip(plans, (1, 4, 16, 17, 64, 512)))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 65, 512, 1000])
+@pytest.mark.parametrize("f", [8, 40, 200, 1000, 11008])
+def test_swiglu_plan_fits_and_covers(m, f, dt):
+    """The gate/up block fits one SM's shared memory (its ring of x and of
+    wg + wu stages, or the epilogue's warp partials), keeps at least 48 KB
+    of B in flight, and the grid covers every (row, F column); its B
+    tile is bf columns of wg beside bf of wu."""
+    plan = kops.swiglu_plan(m, 4096, f, 4096, dt)
+    bn = 2 * plan.bf
+    assert plan.smem == kops.tc_smem_bytes(plan.bm, bn, plan.stages)
+    assert plan.smem <= 232448 and plan.down.smem <= 232448
+    assert plan.stages >= 3 and plan.bm % 16 == 0
+    assert (plan.stages - 1) * plan.k_stage * bn * 2 >= 48 * 1024
+    # row tiles fastest: the row tiles of one F tile run together
+    assert plan.grid[0] * plan.bm >= m > (plan.grid[0] - 1) * plan.bm
+    assert plan.grid[1] * plan.bf >= f > (plan.grid[1] - 1) * plan.bf
+    # wg + wu (2 x 4096 x f) stream evict-first, as matmul's B up to 256 MB
+    assert plan.b_evict_first
+
+
+def test_swiglu_plan_at_deepseek_widths():
+    """At deepseek-7b's widths the decode gate/up launch has 172 blocks of
+    16 rows, each with 128 KB of wg + wu in flight, and the down launch is
+    matmul's 128 blocks; the dense prefill's gate/up grid walks its 8 row
+    tiles fastest."""
+    plan = kops.swiglu_plan(4, 4096, 11008, 4096, torch.bfloat16)
+    assert (plan.bm, plan.bf, plan.stages) == (16, 64, 3)
+    assert (plan.stages - 1) * plan.k_stage * 2 * plan.bf * 2 == 128 << 10
+    assert plan.grid == (1, 172)
+    assert plan.down.grid == (128, 1)
+    dense = kops.swiglu_plan(512, 4096, 11008, 4096, torch.bfloat16)
+    assert dense.grid == (8, 344) and dense.down.grid == (64, 8)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 512])
+@pytest.mark.parametrize("d,f,do", [(4096, 11008, 4096), (44, 40, 16)])
+def test_swiglu_plan_keeps_f32_on_the_cuda_cores(m, d, f, do):
+    """f32 keeps the CUDA cores for both launches (no TF32): the gate/up
+    kernel on common.cuh's k-lanes in the GEMM row tile for m, and the
+    down product as matmul's f32 launch."""
+    plan = kops.swiglu_plan(m, d, f, do, torch.float32)
+    assert plan.route == "cuda_core" and plan.stages == 0
+    assert plan.smem == 0 and not plan.b_evict_first
+    assert plan.bm == kops.row_tile(m) and plan.bf == 32
+    assert plan.grid == (-(-f // 32), -(-m // plan.bm))
+    assert plan.down == kops.matmul_plan(m, f, do, torch.float32)
+    assert plan.down.route == "cuda_core"
+
+
+def test_swiglu_predicate_takes_an_unaligned_d():
+    """F and Do must split into 16-byte vectors; D need not (the
+    mainloop reads an unaligned x element by element)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert kops.swiglu_supported(3, 44, 40, 16, bf)
+    assert kops.swiglu_supported(3, 45, 40, 16, bf)
+    assert kops.swiglu_supported(3, 45, 40, 16, f32)
+    assert not kops.swiglu_supported(3, 64, 36, 16, bf)
+    assert kops.swiglu_supported(3, 64, 36, 16, f32)
+    assert not kops.swiglu_supported(3, 64, 40, 12, bf)
+    assert not kops.swiglu_supported(3, 64, 40, 16, torch.float64)
+    # h is (m, f): its elements must be 32-bit indexable too
+    assert not kops.swiglu_supported(1 << 17, 64, 1 << 15, 16, bf)
+
+
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [3, 40, 4096, 4100, 8192, 16384, 65536])
 def test_rmsnorm_plan_covers_the_row(d, dt):
@@ -309,6 +407,11 @@ CUDA_CASES = [("matmul", (4, 4096, 4096)), ("matmul", (5, 96, 24)),
               ("norm_matmul", (17, 1000, 200)), ("norm_matmul", (4, 44, 8)),
               ("norm_matmul", (512, 256, 64)),
               ("swiglu", (4, 512, 1024, 256)), ("swiglu", (3, 64, 40, 24)),
+              # (M, D, F, Do): the prefill chunk; an F tail that is no
+              # whole tile; an unaligned D; 8 row tiles of the dense tile
+              ("swiglu", (64, 4096, 11008, 4096)),
+              ("swiglu", (17, 1000, 200, 24)), ("swiglu", (3, 44, 40, 16)),
+              ("swiglu", (512, 256, 1000, 64)),
               ("rmsnorm", (4, 4096)), ("rmsnorm", (3, 40)),
               # (B, Hq, Hkv, Sq, Skv, D, decode offset or None)
               ("flash_attention", (4, 32, 32, 1, 256, 128, 255)),
@@ -377,7 +480,9 @@ def _bits(t):
                                           ("rmsnorm", (4096,)),
                                           ("rmsnorm", (4100,)),
                                           ("norm_matmul", (4096, 64)),
-                                          ("norm_matmul", (1000, 200))])
+                                          ("norm_matmul", (1000, 200)),
+                                          ("swiglu", (4096, 11008, 4096)),
+                                          ("swiglu", (1000, 200, 24))])
 def test_cuda_row_alone_equals_row_in_batch(cuda_device, kernel, shape, dt):
     """A row computed alone and inside batches of 4, 64 and 512 rows, at
     a different position in each, gives the same bits: the order of every
@@ -398,6 +503,11 @@ def test_cuda_row_alone_equals_row_in_batch(cuda_device, kernel, shape, dt):
         g = 1 + 0.1 * torch.randn(k, generator=gen, device=cuda_device)
         w = r(k, shape[1], scale=k ** -0.5)
         run = lambda a: kn.norm_matmul(a, g, w)  # noqa: E731
+    elif kernel == "swiglu":
+        f, do = shape[1], shape[2]
+        wg, wu = r(k, f, scale=k ** -0.5), r(k, f, scale=k ** -0.5)
+        wd = r(f, do, scale=f ** -0.5)
+        run = lambda a: ks.swiglu(a, wg, wu, wd)  # noqa: E731
     else:
         w = 1 + 0.1 * torch.randn(k, generator=gen, device=cuda_device)
         run = lambda a: kr.rmsnorm(a, w)  # noqa: E731
@@ -439,3 +549,38 @@ def test_cuda_norm_matmul_tensor_core_route(cuda_device, d, n, m, g_f32, dt):
     assert torch.equal(_bits(out), _bits(kn.norm_matmul(x, g, w)))
     alone = kn.norm_matmul(x[m - 1:], g, w)
     assert torch.equal(_bits(out[m - 1:]), _bits(alone))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("m,d,f,do", [(4, 4096, 11008, 4096),
+                                      (64, 4096, 11008, 4096),
+                                      (512, 256, 1000, 64),
+                                      (17, 1000, 200, 24)])
+def test_cuda_swiglu_alternating_inputs(cuda_device, m, d, f, do, dt):
+    """The down launch reads h only after griddepcontrol.wait: called on
+    two different inputs in turn, each call gives its own input's output
+    (within tolerance of the plain version, and bitwise the same as the
+    first call on that input), never one built from the other call's h,
+    which the allocator tends to hand back at the same address."""
+    _, t_dt, tol = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m + f)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=gen, device=cuda_device)
+                * scale).to(t_dt)
+
+    wg, wu = r(d, f, scale=d ** -0.5), r(d, f, scale=d ** -0.5)
+    wd = r(f, do, scale=f ** -0.5)
+    xs = [r(m, d), r(m, d)]
+    plain = [ref.swiglu_ref(x, wg, wu, wd) for x in xs]
+    first = [None, None]
+    for i in range(8):
+        out = ks.swiglu(xs[i % 2], wg, wu, wd)
+        torch.cuda.synchronize()
+        _close(to_numpy(out.float()), to_numpy(plain[i % 2].float()), tol)
+        if first[i % 2] is None:
+            first[i % 2] = out
+        assert torch.equal(_bits(out), _bits(first[i % 2])), i
+    assert not torch.equal(_bits(first[0]), _bits(first[1]))
