@@ -25,20 +25,38 @@ without printing a result:
                  inputs in turn gives each its own bits; for flash attention
                  two launches, a probe (slot, head) alone and inside 4
                  slots, and decode at position p against row p of the
-                 dense prefill, for p in 0, 63, 64, 127;
+                 dense prefill, for p in 0, 63, 64, 127; then the same
+                 inside CUDA graphs: swiglu and norm_matmul (whose second
+                 launch is the first one's programmatic dependent) on two
+                 inputs in turn, and flash's prefill and decode rows,
+                 replayed, give the eager bits; and the emitter's CumSum
+                 (4 x 102400 f32, 20 runs) and ScatterAdd (10^5 updates
+                 onto one row, 2 runs) give the same bits every run;
   4. main     -- ServeEngine(mode="paged") at O2 with the kernels on
                  full-width deepseek-7b (30 layers, d_model 4096, vocab
                  102400, f32 params drawn on the card from a seed):
                  6 greedy requests, two sharing a 32-token prefix, run to
-                 drain; the four kernels of this path (its chunked prefill
-                 holds no Attention op) must have launched;
+                 drain, once eagerly (static_jit=False) and once with the
+                 dispatch captured as CUDA graphs (the default): the same
+                 tokens bit for bit; the four kernels of this path (its
+                 chunked prefill holds no Attention op) must have
+                 launched, and a replay's profile (the decode chunk and
+                 a prefill chunk) must show each of them by name as often
+                 as its counter says;
   5. flash    -- the same model and weights through
                  ServeEngine(mode="donated"): 4 greedy requests of 128
                  prompt tokens and 16 new ones, one dense prefill and one
                  fused 15-step chunk, so flash attention launches once per
                  layer and step (480 times); then the paged engine with a
                  dense prefill (prefill_chunk=0) on 2 requests, whose
-                 prefills launch it too.  All five kernels must launch;
+                 prefills launch it too.  Each eagerly, then three times
+                 captured (first calls, capture, replays): the same
+                 tokens, and a replay's profile of the donated chunk and
+                 of a dense prefill as in phase 4.  All five kernels must
+                 launch;
+     sampled  -- 4 keyed requests at temperature 0.8 over the whole
+                 vocabulary through the captured paged graphs, twice:
+                 the same tokens;
   6. parity   -- reduced deepseek-7b with the same numpy weights and
                  prompts through the port on the card (kernels) and on the
                  CPU (plain versions): paged at d_head 64, and lockstep,
@@ -130,7 +148,7 @@ def phase_build() -> None:
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
         elif "spill" in ln and not ln.strip().startswith("0 bytes"):
-            spills.append(f"{entry[:60]}: {ln.strip()}")
+            spills.append(f"{entry[:160]}: {ln.strip()}")
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with open(os.path.join(_build.BUILD_DIR, "ptxas.log"), "w") as f:
         f.write(log)
@@ -398,6 +416,8 @@ def check_determinism(gen) -> None:
                    lambda m: _rand((m, D), dt, gen))
         check_swiglu_alternation(name(dt), wg, wu, wd, gen)
     check_flash_determinism(gen)
+    check_in_capture(gen)
+    check_fixed_order_scans(gen)
 
 
 def check_swiglu_alternation(label, wg, wu, wd, gen) -> None:
@@ -461,6 +481,122 @@ def check_flash_determinism(gen) -> None:
         decode_vs_prefill_rows="0,63,64,127", decode_vs_prefill="bitwise")
 
 
+def check_fixed_order_scans(gen) -> None:
+    """The emitter's CumSum (the sampler's cumulative distribution: a
+    4 x 102400 f32 softmax row, 20 runs) and ScatterAdd (10^5 f32
+    updates onto one row, 2 runs) give the same bits on every run, and
+    the fixed-order guard hands the caller's setting back."""
+    from repro_torch.core import ops
+    from repro_torch.transformers.torch_emit import EMIT, EmitCtx
+    ctx = EmitCtx(torch.device("cuda"))
+    p = torch.softmax(torch.randn((SLOTS, V), generator=gen, device="cuda"),
+                      dim=-1)
+    node = ops.cumsum(ops.parameter((SLOTS, V), "f32", "p").out(), 1).node
+    first = EMIT["CumSum"](node, [p], ctx)[0]
+    for i in range(19):
+        require(_bitwise(EMIT["CumSum"](node, [p], ctx)[0], first),
+                f"cumsum: run {i + 2} differs from run 1")
+    n = 100_000
+    upd = torch.randn((n, 64), generator=gen, device="cuda")
+    idx = torch.full((n,), 2, dtype=torch.int32, device="cuda")
+    op = torch.zeros((4, 64), device="cuda")
+    node = ops.scatter_add(ops.parameter((4, 64), "f32", "op").out(),
+                           ops.parameter((n,), "i32", "i").out(),
+                           ops.parameter((n, 64), "f32", "u").out()).node
+    a = EMIT["ScatterAdd"](node, [op, idx, upd], ctx)[0]
+    b = EMIT["ScatterAdd"](node, [op, idx, upd], ctx)[0]
+    require(_bitwise(a, b), "scatter_add: two runs differ")
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "the fixed-order guard leaked its setting")
+    # what the guard buys: torch.cumsum without it (a reading, no gate)
+    plain = {torch.cumsum(p, 1).cpu().numpy().tobytes() for _ in range(20)}
+    say("determinism", kernel="CumSum", shape=f"{SLOTS}x{V}",
+        dtype="float32", runs=20, result="bitwise",
+        unguarded_distinct_results=len(plain))
+    say("determinism", kernel="ScatterAdd", updates=n, rows=1,
+        dtype="float32", runs=2, result="bitwise")
+
+
+def _captured(fn):
+    """``fn()`` (which returns a list of tensors) captured as a CUDA graph
+    after one eager warm-up call; returns (graph, its output tensors)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    return graph, outs
+
+
+def check_in_capture(gen) -> None:
+    """The programmatic-dependent launches keep their order inside a CUDA
+    graph, and flash attention keeps its bits there: a graph of six
+    calls alternating two inputs (swiglu, bf16 and f32; norm_matmul,
+    whose GEMM follows its inverse-RMS kernel the same way), replayed
+    twice, gives each call the bits of the eager first call on its input
+    -- a dependent that read its producer's output early would read the
+    other input's, from the same pool address; and flash's dense prefill
+    and decode at p = 0, 63, 64, 127, replayed, give the eager bits, and
+    decode at p gives row p of the prefill."""
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import norm_matmul as kn, swiglu as ks
+    bf, f32 = torch.bfloat16, torch.float32
+    for label, dt, m in (("swiglu bfloat16", bf, SLOTS),
+                         ("swiglu bfloat16", bf, CHUNK),
+                         ("swiglu float32", f32, SLOTS),
+                         ("norm_matmul bfloat16", bf, SLOTS),
+                         ("norm_matmul bfloat16", bf, CHUNK)):
+        xs = [_rand((m, D), dt, gen) for _ in range(2)]
+        if label.startswith("swiglu"):
+            wg = _rand((D, F), dt, gen, D ** -0.5)
+            wu = _rand((D, F), dt, gen, D ** -0.5)
+            wd = _rand((F, D), dt, gen, F ** -0.5)
+            call = lambda x: ks.swiglu(x, wg, wu, wd)  # noqa: E731
+        else:
+            g = (1 + 0.1 * _rand((D,), f32, gen)).to(bf)
+            w = _rand((D, D), bf, gen, D ** -0.5)
+            call = lambda x: kn.norm_matmul(x, g, w, 1e-6)  # noqa: E731
+        firsts = [call(x) for x in xs]
+        require(not _bitwise(firsts[0], firsts[1]),
+                f"{label} in a graph: two inputs gave the same bits")
+        graph, outs = _captured(lambda: [call(xs[i % 2]) for i in range(6)])
+        for rep in range(2):
+            for o in outs:
+                o.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            for i, o in enumerate(outs):
+                require(_bitwise(o, firsts[i % 2]),
+                        f"{label} at {m} rows, replay {rep}: call {i} "
+                        f"differs from the eager call on its input")
+        say("determinism", kernel=label.split()[0], dtype=label.split()[1],
+            in_graph="alternating inputs bitwise", rows=m, replays=2)
+    P = 128
+    q, k, v = (_rand((SLOTS, HEADS, P, DH), bf, gen) for _ in range(3))
+    offs = {p: torch.full((1,), p, dtype=torch.int32, device="cuda")
+            for p in (0, 63, 64, 127)}
+
+    def attend():
+        return [kf.flash_attention(q, k, v, causal=True)] + [
+            kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
+                               q_offset=o) for p, o in offs.items()]
+
+    eager = attend()
+    graph, outs = _captured(attend)
+    for rep in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (o, e) in enumerate(zip(outs, eager)):
+            require(_bitwise(o, e), f"flash_attention replay {rep}: "
+                    f"output {i} differs from the eager launch")
+        for p, o in zip(offs, outs[1:]):
+            require(_bitwise(o, outs[0][:, :, p:p + 1]),
+                    f"flash_attention in a graph: decode at {p} differs "
+                    f"from row {p} of the prefill")
+    say("determinism", kernel="flash_attention", dtype="bfloat16",
+        in_graph="prefill and decode at 0,63,64,127 bitwise", replays=2)
+
+
 # -- 4. main path, full width --------------------------------------------------
 def _prompts(vocab: int, lengths, shared: int, seed: int = 0):
     rng = np.random.default_rng(seed)
@@ -469,17 +605,79 @@ def _prompts(vocab: int, lengths, shared: int, seed: int = 0):
     return ps
 
 
+# each wrapper's device kernels (bf16 route) and how many one call
+# launches: norm_matmul's GEMM follows its inverse-RMS kernel, swiglu's
+# down product its gate/up kernel
+KERNEL_FUNCS = {
+    "matmul": (("matmul_kernel", "matmul_tc_kernel"), 1),
+    "norm_matmul": (("norm_matmul_kernel", "norm_matmul_inv_kernel",
+                     "norm_matmul_tc_kernel"), 2),
+    "swiglu": (("swiglu_gate_up_kernel", "swiglu_down_kernel",
+                "swiglu_gate_up_f32_kernel", "swiglu_down_f32_kernel"), 2),
+    "rmsnorm": (("rmsnorm_kernel",), 1),
+    "flash_attention": (("flash_kernel", "flash_tc_kernel"), 1),
+}
+
+
+def _port_kernel(key: str):
+    """The wrapper whose device kernel the profiler row ``key`` names."""
+    import re
+    for name, (funcs, _) in KERNEL_FUNCS.items():
+        for f in funcs:
+            if re.search(rf"(?<![A-Za-z0-9_]){f}(?![A-Za-z0-9_])", key):
+                return name
+    return None
+
+
+def _profile(call) -> tuple:
+    """Run ``call`` once under ``torch.profiler`` (CUDA activity only).
+    Returns its kernel rows (ms, count, name) by time, the merged span of
+    their intervals in us (None with no interval), and the port's device
+    kernels by wrapper (``{name: [ms, count]}``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.time_range.end > ev.time_range.start)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    ours = {}
+    for ms, n, key in rows:
+        name = _port_kernel(key)
+        if name is not None:
+            t = ours.setdefault(name, [0.0, 0])
+            t[0] += ms
+            t[1] += n
+    return rows, (union if spans else None), ours
+
+
 def _dispatch_profile(eng) -> dict:
     """Two more decode dispatches, outside the counted run.  The first
-    times the host: how long the emitter takes to enqueue the dispatch
-    (``host_ms``) against its wall time to the tokens (``wall_ms``).  The
-    second runs under ``torch.profiler`` (CUDA activity only) and sums
-    the kernels' device time (``busy_ms``): busy well below wall means
-    the card waits on the host.  ``union_ms`` is the time at least one
-    kernel ran (their intervals merged): the sum books a programmatic
-    dependent's blocks that wait at griddepcontrol.wait while the kernel
-    before it finishes (norm_matmul's GEMM, swiglu's down product) as
-    busy, and two overlapping kernels twice."""
+    times the host: how long the call takes to return (``host_ms``: the
+    emitter's enqueue when eager; the host inputs' copies, the replay
+    and the outputs' clones when captured) against its wall time to the
+    tokens (``wall_ms``).  The second runs under ``torch.profiler`` and
+    sums the kernels' device time (``busy_ms``): busy well below wall
+    means the card waits on the host.  ``union_ms`` is the time at least
+    one kernel ran (their intervals merged): the sum books a
+    programmatic dependent's blocks that wait at griddepcontrol.wait
+    while the kernel before it finishes (norm_matmul's GEMM, swiglu's
+    down product) as busy, and two overlapping kernels twice.  ``ours``
+    counts the port's device kernels by wrapper."""
     from repro_torch.devices import to_numpy
 
     def dispatch():
@@ -494,207 +692,369 @@ def _dispatch_profile(eng) -> dict:
     to_numpy(outs[0])
     h2 = time.perf_counter()
     del outs
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        to_numpy(dispatch()[0])
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows, union, ours = _profile(lambda: to_numpy(dispatch()[0]))
     busy = sum(r[0] for r in rows)
-    from torch.autograd import DeviceType
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA
-                   and ev.time_range.end > ev.time_range.start)
-    union, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            union += b - max(a, end)
-            end = b
-    # the port's kernels by name (norm_matmul before matmul: a substring)
-    ours = {}
-    for ms, n, key in rows:
-        for name in ("norm_matmul", "matmul", "swiglu", "rmsnorm", "flash"):
-            if name in key:
-                t = ours.setdefault(name, [0.0, 0])
-                t[0] += ms
-                t[1] += n
-                break
     return {"host_ms": (h1 - h0) * 1e3, "wall_ms": (h2 - h0) * 1e3,
             "busy_ms": f"{busy:.1f}" if rows else "not measured",
-            "union_ms": f"{union / 1e3:.1f}" if spans else "not measured",
+            "union_ms": (f"{union / 1e3:.1f}" if union is not None
+                         else "not measured"),
             "n_kernels": sum(r[1] for r in rows),
             "ours": {k: [round(v[0], 3), v[1]] for k, v in ours.items()},
             "top": [[k[:48], round(ms, 3), n] for ms, n, k in rows[:8]]}
 
 
+def _require_replay_profile(label: str, cf, pvals) -> None:
+    """One replay of a captured engine graph, profiled: every kernel of
+    the port shows by name as often as the counter delta that the
+    replays add says (``KERNEL_FUNCS``' device kernels per call).  The
+    graph runs on zeros: host zeros for its step inputs, fresh card zeros
+    for the caches it donates (a graph of its own, captured by the call
+    before the profiled one) and the engine's weights."""
+    from repro_torch.devices import torch_dtype
+    prog = cf.raw
+    types = cf.function.in_types
+    n = len(types) - len(pvals)
+    donated = set(cf.options.donate_argnums)
+    args = [torch.zeros(t.shape, dtype=torch_dtype(t.dtype), device="cuda")
+            if i in donated else np.zeros(t.shape, t.dtype)
+            for i, t in enumerate(types[:n])] + list(pvals)
+    prog(*args)
+    torch.cuda.synchronize()
+    captures, replays = prog.captures, prog.replays
+    rows, union, ours = _profile(lambda: prog(*args))
+    require((prog.captures, prog.replays) == (captures, replays + 1),
+            f"{label}: the profiled call was not one replay")
+    seen = {}
+    for name, c in prog.launches.items():
+        want = c["launches"] * KERNEL_FUNCS[name][1]
+        got = ours.get(name, [0.0, 0])[1]
+        require(got == want, f"{label}: {name}: {got} device kernels in "
+                f"a replay's profile, the counters say {c['launches']} "
+                f"calls ({want} kernels)")
+        seen[name] = got
+    say("replay_profile", graph=label, name=prog.name,
+        device_busy_ms=f"{sum(r[0] for r in rows):.1f}",
+        device_union_ms=(f"{union / 1e3:.1f}" if union is not None
+                         else "not measured"),
+        device_kernels=sum(r[1] for r in rows),
+        port_kernels_by_wrapper=json.dumps(seen))
+    del args
+
+
 def _record_launches(report: dict, phase: str, counts: dict,
-                     required) -> None:
-    """Gate one main-path run's counts (set to 0 just before it): every
-    kernel the path runs launched, none refused; and add them to the
-    report."""
+                     required, main: bool = True) -> None:
+    """Gate one run's counts (set to 0 just before it): every kernel the
+    path runs launched, none refused; and add them to the report (to
+    ``launches`` only for a main-path run, the one a user makes)."""
     for name, c in counts.items():
         require(c["rejected"] == 0,
                 f"{phase}: {name}: {c['rejected']} refusals")
         if name in required:
             require(c["launches"] > 0,
                     f"{phase}: {name}: no launch on this path")
-        report[name]["launches"] += c["launches"]
+        if main:
+            report[name]["launches"] += c["launches"]
         report[name]["launches_by_phase"][phase] = c["launches"]
 
 
-def phase_main(report: dict):
+def _graphs(eng) -> list:
+    """The engine's compiled functions that were captured as CUDA graphs."""
+    from repro_torch.backend.graphed import GraphedProgram
+    cfs = [eng.cf] if eng.cf is not None else []
+    cfs += [v[1] for v in eng._pf_chunks.values()]
+    cfs += [v[1] for v in eng._prefill.values()]
+    cfs += [v[1] for v in eng._chunks.values()]
+    return [cf.raw for cf in cfs
+            if isinstance(cf.raw, GraphedProgram) and cf.raw.captured]
+
+
+def _per_replay(prog) -> dict:
+    return {k: c["launches"] for k, c in prog.launches.items()}
+
+
+def _serve_main(cfg, params, prompts, static_jit: bool):
+    """Phase 4's paged workload on a fresh engine; returns (engine,
+    report, counters of the run, peak GB of the run)."""
     from repro_torch import kernels
     from repro_torch.backend import CompileOptions
-    from repro_torch.configs import get_config
     from repro_torch.launch.engine import EngineConfig, ServeEngine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, EngineConfig(params=params, **MAIN_ENGINE),
+                      options=CompileOptions(level="O2", use_pallas=True,
+                                             static_jit=static_jit))
+    t_engine = time.perf_counter() - t0
+    kernels.reset_counters()
+    rids = [eng.submit(p, 16) for p in prompts]
+    rep = eng.run()
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    what = "captured" if static_jit else "eager"
+    require(all(rep.statuses[r] == "completed" for r in rids),
+            f"{what}: statuses {rep.statuses} {rep.errors}")
+    for r in rids:
+        toks = rep.results[r]
+        require(len(toks) == 16 and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab, f"request {r}: {toks}")
+    require(rep.pool.pages_in_use == 0, f"{what}: pages leaked: {rep.pool}")
+    problems = eng.pool.verify()
+    require(problems == [], f"{what}: pool.verify(): {problems}")
+    require(rep.pool.shared_attaches > 0, "no prefix page was shared")
+    return eng, rep, counts, peak, t_engine
+
+
+MAIN_ENGINE = dict(mode="paged", slots=SLOTS, max_len=256, page_size=16,
+                   chunk_steps=4, device="cuda")
+
+
+def phase_main(report: dict, smi: str):
+    """Paged serving of full-width deepseek-7b, eager (``static_jit=False``)
+    and then captured (the default), on the same weights: the same
+    greedy tokens bit for bit, and each run's dispatch numbers."""
+    from repro_torch.configs import get_config
     from repro_torch.models.lm import build_dense_chunk
     from repro_torch.models.weights import init_params_on_device
 
     cfg = get_config("deepseek-7b")
     require((cfg.n_layers, cfg.d_model, cfg.vocab) == (30, D, V),
             f"deepseek-7b config changed: {cfg}")
-    ecfg = dict(mode="paged", slots=SLOTS, max_len=256, page_size=16,
-                chunk_steps=4, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     builder = build_dense_chunk(cfg, 256, SLOTS, 4, page_size=16).builder
     params = init_params_on_device(builder, 0, "cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_bytes = sum(t.numel() * t.element_size() for t in params.values())
-    t0 = time.perf_counter()
-    eng = ServeEngine(cfg, EngineConfig(params=params, **ecfg),
-                      options=CompileOptions(level="O2", use_pallas=True))
-    t_engine = time.perf_counter() - t0
     prompts = _prompts(cfg.vocab, (17, 33, 48, 64, 81, 100), 32)
-    kernels.reset_counters()
-    rids = [eng.submit(p, 16) for p in prompts]
-    rep = eng.run()
-    torch.cuda.synchronize()
-    counts = kernels.counters()
-    require(all(rep.statuses[r] == "completed" for r in rids),
-            f"statuses {rep.statuses}")
-    for r, p in zip(rids, prompts):
-        toks = rep.results[r]
-        require(len(toks) == 16 and int(toks.min()) >= 0
-                and int(toks.max()) < cfg.vocab, f"request {r}: {toks}")
-    require(rep.pool.pages_in_use == 0, f"pages leaked: {rep.pool}")
-    problems = eng.pool.verify()
-    require(problems == [], f"pool.verify(): {problems}")
-    require(rep.pool.shared_attaches > 0, "no prefix page was shared")
-    _record_launches(report, "main", counts, PAGED_KERNELS)
-    pipeline_s = eng.cf.report.seconds + sum(
-        v[1].report.seconds for v in eng._pf_chunks.values())
-    disp = _dispatch_profile(eng)
-    say("main", model="deepseek-7b", params_gb=f"{n_bytes / 1e9:.2f}",
-        init_s=f"{t_init:.2f}", engine_build_s=f"{t_engine:.2f}",
-        pipeline_s=f"{pipeline_s:.3f}", requests=len(rids),
-        generated=rep.generated_tokens, decode_dispatches=rep.steps,
-        decode_tok_s=f"{rep.decode_tok_s:.2f}",
-        ttft_p50_ms=f"{rep.ttft_p50_ms:.1f}",
-        ttft_p95_ms=f"{rep.ttft_p95_ms:.1f}",
-        p50_ms=f"{rep.p50_ms:.1f}", wall_s=f"{rep.wall_seconds:.2f}",
-        prefill_s=f"{rep.prefill_seconds:.2f}",
-        dispatch_host_ms=f"{disp['host_ms']:.1f}",
-        dispatch_wall_ms=f"{disp['wall_ms']:.1f}",
-        dispatch_device_busy_ms=disp["busy_ms"],
-        dispatch_device_union_ms=disp["union_ms"],
-        shared_attaches=rep.pool.shared_attaches,
-        cow_copies=rep.pool.cow_copies,
-        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-        launches=json.dumps({k: v["launches"] for k, v in counts.items()}))
-    say("profile", dispatch="decode chunk (4 steps x 30 layers)",
-        device_kernels=disp["n_kernels"],
-        port_kernels_ms_launches=json.dumps(disp["ours"]),
-        top=json.dumps(disp["top"]))
-    del eng
+    tokens = {}
+    for static_jit in (False, True):
+        what = "captured" if static_jit else "eager"
+        eng, rep, counts, peak, t_engine = _serve_main(cfg, params, prompts,
+                                                       static_jit)
+        tokens[what] = [rep.results[r].tolist() for r in sorted(rep.results)]
+        _record_launches(report, "main" if static_jit else "main_eager",
+                         counts, PAGED_KERNELS, main=static_jit)
+        pipeline_s = eng.cf.report.seconds + sum(
+            v[1].report.seconds for v in eng._pf_chunks.values())
+        graphs = _graphs(eng)
+        per_replay = (_per_replay(eng.cf.raw) if eng.cf.raw in graphs
+                      else None)
+        require(not static_jit or per_replay is not None,
+                "captured: the decode chunk was never captured")
+        disp = _dispatch_profile(eng)
+        if static_jit:
+            # the kernels sit in the graph: one replay's profile shows
+            # each of them by name, as often as the counters say
+            for name in PAGED_KERNELS:
+                want = per_replay[name] * KERNEL_FUNCS[name][1]
+                got = disp["ours"].get(name, [0.0, 0])[1]
+                require(got == want, f"captured: {name}: {got} device "
+                        f"kernels in a replay's profile, the counters "
+                        f"say {per_replay[name]} calls ({want} kernels)")
+            C = max(eng._pf_chunks)
+            _, pcf, pvals, _ = eng._pf_chunks[C]
+            _require_replay_profile(f"paged_prefill_chunk_{C}", pcf, pvals)
+            report_graphs = {g.name: _per_replay(g) for g in graphs}
+            for name in report:
+                report[name].setdefault("launches_per_replay", {})
+                report[name]["launches_per_replay"]["paged_chunk"] = \
+                    per_replay[name]
+        say("main", dispatch=what, model="deepseek-7b",
+            params_gb=f"{n_bytes / 1e9:.2f}", init_s=f"{t_init:.2f}",
+            engine_build_s=f"{t_engine:.2f}",
+            pipeline_s=f"{pipeline_s:.3f}", requests=len(prompts),
+            generated=rep.generated_tokens, decode_dispatches=rep.steps,
+            decode_tok_s=f"{rep.decode_tok_s:.2f}",
+            ttft_p50_ms=f"{rep.ttft_p50_ms:.1f}",
+            ttft_p95_ms=f"{rep.ttft_p95_ms:.1f}",
+            p50_ms=f"{rep.p50_ms:.1f}", wall_s=f"{rep.wall_seconds:.2f}",
+            prefill_s=f"{rep.prefill_seconds:.2f}",
+            dispatch_host_ms=f"{disp['host_ms']:.2f}",
+            dispatch_wall_ms=f"{disp['wall_ms']:.2f}",
+            dispatch_device_busy_ms=disp["busy_ms"],
+            dispatch_device_union_ms=disp["union_ms"],
+            shared_attaches=rep.pool.shared_attaches,
+            cow_copies=rep.pool.cow_copies, peak_gb=f"{peak:.2f}",
+            steady_decode_tok_s=f"{SLOTS * 4 / disp['wall_ms'] * 1e3:.2f}",
+            dispatch_s=json.dumps([round(t, 4) for t in eng.step_seconds]),
+            captured_graphs=len(graphs),
+            launches_per_replay=json.dumps(per_replay),
+            launches=json.dumps({k: v["launches"]
+                                 for k, v in counts.items()}),
+            card=repr(smi))
+        say("profile", dispatch=f"decode chunk (4 steps x 30 layers), "
+            f"{what}", device_kernels=disp["n_kernels"],
+            port_kernels_ms_launches=json.dumps(disp["ours"]),
+            top=json.dumps(disp["top"]))
+        if static_jit:
+            say("graphs", captured=json.dumps(report_graphs))
+        del eng
+    require(tokens["captured"] == tokens["eager"],
+            "main: captured greedy tokens differ from eager: "
+            f"{tokens['captured']} vs {tokens['eager']}")
+    say("main", captured_vs_eager="bitwise", requests=len(prompts))
     torch.cuda.empty_cache()
     return cfg, params
 
 
 # -- 5. the flash-attention path, full width --------------------------------
+def _flash_run(cfg, params, ecfg, prompts, max_new, static_jit):
+    """One flash-path workload on a fresh engine; returns (engine, report,
+    counters, peak GB, engine build seconds)."""
+    from repro_torch import kernels
+    from repro_torch.backend import CompileOptions
+    from repro_torch.launch.engine import EngineConfig, ServeEngine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, EngineConfig(device="cuda", params=params,
+                                        **ecfg),
+                      options=CompileOptions(level="O2", use_pallas=True,
+                                             static_jit=static_jit))
+    t_engine = time.perf_counter() - t0
+    kernels.reset_counters()
+    rids = [eng.submit(p, max_new) for p in prompts]
+    rep = eng.run()
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    require(all(rep.statuses[r] == "completed" for r in rids),
+            f"{ecfg['mode']}: statuses {rep.statuses} {rep.errors}")
+    for r in rids:
+        toks = rep.results[r]
+        require(len(toks) == max_new and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab, f"{ecfg['mode']} {r}: {toks}")
+    return (eng, rep, counts, torch.cuda.max_memory_allocated() / 1e9,
+            t_engine)
+
+
 def phase_flash(report: dict, cfg, params) -> None:
     """Donated decode of full-width deepseek-7b on phase 4's weights (the
     engines map parameters by name), then the paged engine's dense
     prefill.  Flash attention runs in every dense prefill (one launch
-    per layer) and in every step of the fused decode chunk."""
-    from repro_torch import kernels
-    from repro_torch.backend import CompileOptions
-    from repro_torch.launch.engine import EngineConfig, ServeEngine
-
-    opts = CompileOptions(level="O2", use_pallas=True)
+    per layer) and in every step of the fused decode chunk.  Each path
+    runs eagerly (``static_jit=False``) and then three times with capture
+    on: the first of those runs each graph eagerly (its first call), the
+    second captures and replays it, the third replays it where its
+    caches come back at the same addresses (``captures_replays`` shows
+    which); all four give the same tokens."""
     P, G, L = 128, 16, cfg.n_layers
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = ServeEngine(cfg, EngineConfig(mode="donated", slots=SLOTS,
-                                        max_len=256, device="cuda",
-                                        params=params), options=opts)
-    t_engine = time.perf_counter() - t0
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab, P).astype(np.int32)
                for _ in range(SLOTS)]
-    kernels.reset_counters()
-    rids = [eng.submit(p, G) for p in prompts]
-    rep = eng.run()
-    torch.cuda.synchronize()
-    counts = kernels.counters()
-    require(all(rep.statuses[r] == "completed" for r in rids),
-            f"donated: statuses {rep.statuses} {rep.errors}")
-    for r in rids:
-        toks = rep.results[r]
-        require(len(toks) == G and int(toks.min()) >= 0
-                and int(toks.max()) < cfg.vocab, f"donated {r}: {toks}")
+    donated = dict(mode="donated", slots=SLOTS, max_len=256)
     # one dense prefill (B 4) plus G - 1 fused decode steps, each layer
     expect = L * (1 + (G - 1))
-    got = counts["flash_attention"]["launches"]
-    require(got == expect, f"donated: {got} flash launches, {expect} "
-            f"expected (a prefill and {G - 1} steps x {L} layers)")
-    _record_launches(report, "flash_donated", counts, ALL_KERNELS)
-    say("flash", path="donated", model="deepseek-7b", requests=len(rids),
-        prompt_len=P, generated=rep.generated_tokens,
-        engine_build_s=f"{t_engine:.2f}",
-        decode_tok_s=f"{rep.decode_tok_s:.2f}",
-        ttft_p50_ms=f"{rep.ttft_p50_ms:.1f}",
-        chunk_ms=f"{rep.p50_ms:.1f}", wall_s=f"{rep.wall_seconds:.2f}",
-        prefill_s=f"{rep.prefill_seconds:.2f}",
-        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-        launches=json.dumps({k: v["launches"] for k, v in counts.items()}))
-    del eng
-    torch.cuda.empty_cache()
+    # eager; then with capture on: each graph's first call (eager), its
+    # capture (and first replay), and a run of replays alone
+    runs = [("eager", False), ("first", True), ("captured", True),
+            ("replayed", True)]
+    toks = {}
+    for what, sj in runs:
+        eng, rep, counts, peak, t_engine = _flash_run(
+            cfg, params, donated, prompts, G, sj)
+        toks[what] = [rep.results[r].tolist() for r in sorted(rep.results)]
+        got = counts["flash_attention"]["launches"]
+        require(got == expect, f"donated {what}: {got} flash launches, "
+                f"{expect} expected (a prefill and {G - 1} steps x {L} "
+                f"layers)")
+        graphs = _graphs(eng)
+        require(not sj or what == "first" or len(graphs) == 2,
+                f"donated: {len(graphs)} graphs captured, 2 expected "
+                f"(the prefill and the 15-step chunk)")
+        _record_launches(report, f"flash_donated_{what}", counts,
+                         ALL_KERNELS, main=what == "replayed")
+        if what == "replayed":
+            for key, (_, cf, pvals) in list(eng._chunks.items()) + \
+                    list(eng._prefill.items()):
+                _require_replay_profile(f"donated_{key}", cf, pvals)
+            (chunk,) = [g for g in graphs if "chunk" in g.name]
+            for name in report:
+                report[name].setdefault("launches_per_replay", {})
+                report[name]["launches_per_replay"]["donated_chunk"] = \
+                    chunk.launches[name]["launches"]
+        say("flash", path="donated", dispatch=what, model="deepseek-7b",
+            requests=len(prompts), prompt_len=P,
+            generated=rep.generated_tokens,
+            engine_build_s=f"{t_engine:.2f}",
+            decode_tok_s=f"{rep.decode_tok_s:.2f}",
+            ttft_p50_ms=f"{rep.ttft_p50_ms:.1f}",
+            chunk_ms=f"{rep.p50_ms:.1f}", wall_s=f"{rep.wall_seconds:.2f}",
+            prefill_s=f"{rep.prefill_seconds:.2f}", peak_gb=f"{peak:.2f}",
+            captured_graphs=len(graphs),
+            captures_replays=json.dumps({g.name: [g.captures, g.replays]
+                                         for g in graphs}),
+            launches=json.dumps({k: v["launches"]
+                                 for k, v in counts.items()}))
+        del eng
+    require(all(t == toks["eager"] for t in toks.values()),
+            f"donated: captured tokens differ from eager: {toks}")
 
     # the repaired path: the paged engine with a dense prefill
-    eng = ServeEngine(cfg, EngineConfig(
-        mode="paged", slots=SLOTS, max_len=256, page_size=16, chunk_steps=4,
-        prefill_chunk=0, device="cuda", params=params), options=opts)
+    dense = dict(mode="paged", slots=SLOTS, max_len=256, page_size=16,
+                 chunk_steps=4, prefill_chunk=0)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (100, 37)]
-    kernels.reset_counters()
-    rids = [eng.submit(p, 8) for p in prompts]
-    rep = eng.run()
-    torch.cuda.synchronize()
-    counts = kernels.counters()
-    require(all(rep.statuses[r] == "completed" for r in rids),
-            f"paged dense prefill: statuses {rep.statuses} {rep.errors}")
-    require(all(len(rep.results[r]) == 8 for r in rids),
-            f"paged dense prefill: {rep.results}")
-    require(rep.pool.pages_in_use == 0 and eng.pool.verify() == [],
-            "paged dense prefill: pool not drained")
-    got = counts["flash_attention"]["launches"]
-    require(got == L * len(rids), f"paged dense prefill: {got} flash "
-            f"launches, {L * len(rids)} expected (one per layer and prompt)")
-    _record_launches(report, "flash_paged_dense", counts, ALL_KERNELS)
-    say("flash", path="paged prefill_chunk=0", requests=len(rids),
-        prompt_lens="100,37", generated=rep.generated_tokens,
-        ttft_p50_ms=f"{rep.ttft_p50_ms:.1f}",
-        decode_tok_s=f"{rep.decode_tok_s:.2f}",
-        launches=json.dumps({k: v["launches"] for k, v in counts.items()}))
-    del eng
+    toks = {}
+    for what, sj in runs:
+        eng, rep, counts, peak, _ = _flash_run(cfg, params, dense, prompts,
+                                               8, sj)
+        toks[what] = [rep.results[r].tolist() for r in sorted(rep.results)]
+        require(rep.pool.pages_in_use == 0 and eng.pool.verify() == [],
+                f"paged dense prefill {what}: pool not drained")
+        got = counts["flash_attention"]["launches"]
+        require(got == L * len(prompts), f"paged dense prefill {what}: "
+                f"{got} flash launches, {L * len(prompts)} expected (one "
+                f"per layer and prompt)")
+        _record_launches(report, f"flash_paged_dense_{what}", counts,
+                         ALL_KERNELS, main=what == "replayed")
+        if what == "replayed":
+            key, (_, cf, pvals) = next(iter(eng._prefill.items()))
+            _require_replay_profile(f"paged_dense_prefill_{key}", cf, pvals)
+        say("flash", path="paged prefill_chunk=0", dispatch=what,
+            requests=len(prompts), prompt_lens="100,37",
+            generated=rep.generated_tokens,
+            ttft_p50_ms=f"{rep.ttft_p50_ms:.1f}",
+            decode_tok_s=f"{rep.decode_tok_s:.2f}", peak_gb=f"{peak:.2f}",
+            captured_graphs=len(_graphs(eng)),
+            launches=json.dumps({k: v["launches"]
+                                 for k, v in counts.items()}))
+        del eng
+    require(all(t == toks["eager"] for t in toks.values()),
+            f"paged dense prefill: captured tokens differ from eager: "
+            f"{toks}")
+    say("flash", captured_vs_eager="bitwise", paths="donated,paged-dense")
     torch.cuda.empty_cache()
+
+
+# -- 5b. sampling at full vocabulary, and the fixed-order scans ---------------
+def phase_sampled(cfg, params) -> None:
+    """Four keyed requests sampled at temperature 0.8 over the whole
+    vocabulary (top_k 0) through phase 4's captured paged graphs, served
+    twice: the same tokens."""
+    from repro_torch.backend import CompileOptions
+    from repro_torch.launch.engine import EngineConfig, ServeEngine
+
+    prompts = _prompts(cfg.vocab, (21, 40, 9, 64), 8, seed=3)
+    runs = []
+    for _ in range(2):
+        eng = ServeEngine(cfg, EngineConfig(params=params, **MAIN_ENGINE),
+                          options=CompileOptions(level="O2",
+                                                 use_pallas=True))
+        rids = [eng.submit(p, 12, temperature=0.8, top_k=0, key=100 + i)
+                for i, p in enumerate(prompts)]
+        rep = eng.run()
+        require(all(rep.statuses[r] == "completed" for r in rids),
+                f"sampled: {rep.statuses} {rep.errors}")
+        require(eng.cf.raw.captured, "sampled: the chunk ran uncaptured")
+        runs.append([rep.results[r].tolist() for r in rids])
+        del eng
+    require(runs[0] == runs[1], f"sampled: two runs differ: {runs}")
+    say("sampled", requests=len(prompts), temperature=0.8, top_k=0,
+        tokens_per_request=12, two_runs="identical",
+        distinct_tokens=len({t for r in runs[0] for t in r}))
 
 
 # -- 6. port on the card vs port on the CPU ----------------------------------
@@ -768,14 +1128,16 @@ def _kernels_held_to_plain(readings: dict):
 def _prefill_logits(cfg, params, dev: str, tokens) -> np.ndarray:
     """The next-token logits after ``tokens`` from the dense (1, P) prefill
     graph at O2 with the kernels on ``dev`` -- the graph continuous and
-    paged-dense serving admit a request with -- as f32."""
+    paged-dense serving admit a request with -- as f32.  Eager
+    (``static_jit=False``): the witness holds every kernel call of it
+    against its plain version on the host, which a replay would skip."""
     from repro_torch.backend import Backend, CompileOptions
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.lm import build_graphs
     P = len(tokens)
     g = build_graphs(cfg, ShapeConfig("prefill", "prefill", P, 1), 1)
     cf = Backend.create("torch", device=dev).compile(
-        g.fn, CompileOptions(level="O2", use_pallas=True))
+        g.fn, CompileOptions(level="O2", use_pallas=True, static_jit=False))
     outs = cf(np.asarray(tokens, np.int32).reshape(1, P),
               *[params[n] for n in g.builder.param_names()])
     return np.asarray(outs[0], np.float32).reshape(-1)
@@ -898,8 +1260,9 @@ def main() -> int:
     report = phase_kernels()
     if "--kernels-only" in sys.argv[1:]:
         return 0    # a first check of new kernels: no result line
-    cfg, params = phase_main(report)
+    cfg, params = phase_main(report, smi)
     phase_flash(report, cfg, params)
+    phase_sampled(cfg, params)
     del params
     torch.cuda.empty_cache()
     phase_parity()

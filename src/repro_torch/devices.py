@@ -85,11 +85,12 @@ def as_tensor(x: Any, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if x.device == device else x.to(device)
     arr = np.asarray(x)
+    if not arr.flags.c_contiguous:   # (a 0-d array is; ascontiguousarray
+        arr = np.ascontiguousarray(arr)   # would make it 1-d)
     if arr.dtype == bfloat16:
-        t = torch.from_numpy(
-            np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(arr)
     return t.to(device)
 
 

@@ -36,3 +36,27 @@ def reset_counters() -> None:
     for m in MODULES.values():
         m.launches = 0
         m.rejected = 0
+
+
+def set_counters(counts: Dict[str, Dict[str, int]]) -> None:
+    """Put the counters back to a :func:`counters` snapshot."""
+    for k, c in counts.items():
+        MODULES[k].launches = c["launches"]
+        MODULES[k].rejected = c["rejected"]
+
+
+def counter_delta(before: Dict[str, Dict[str, int]],
+                  after: Dict[str, Dict[str, int]]
+                  ) -> Dict[str, Dict[str, int]]:
+    """``after - before`` per kernel and counter (two :func:`counters`)."""
+    return {k: {c: after[k][c] - before[k][c] for c in after[k]}
+            for k in after}
+
+
+def add_counts(delta: Dict[str, Dict[str, int]]) -> None:
+    """Add a :func:`counter_delta` to the counters: a CUDA-graph replay
+    runs the launches its capture recorded without passing through the
+    wrappers, so the replayer adds the capture's delta each time."""
+    for k, d in delta.items():
+        MODULES[k].launches += d["launches"]
+        MODULES[k].rejected += d["rejected"]

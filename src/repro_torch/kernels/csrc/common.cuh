@@ -21,6 +21,9 @@ enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 constexpr int kThreads = 256;                 // every kernel: 8 warps
 constexpr int kWarps = kThreads / 32;
+// dynamic shared memory a block may opt into on sm_90 (227 KB; mirrored
+// by ops._SMEM)
+constexpr int kMaxDynamicSmem = 232448;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {

@@ -98,9 +98,18 @@ int launch_f32(const float* X, const TG* G, const float* W, float* C, int M,
   constexpr int BN = CG * kVec<float>;
   const size_t smem = (size_t)BM * D * sizeof(float);
   auto kern = norm_matmul_kernel<float, TG, BM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  // once per instantiation, at the card's opt-in limit less the static
+  // arrays (the row tile's size depends on D): no runtime call on the
+  // launch path, which a CUDA-graph capture may run
+  static const cudaError_t limit = [kern] {
+    cudaFuncAttributes fa;
+    const cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxDynamicSmem - (int)fa.sharedSizeBytes);
+  }();
+  if (limit != cudaSuccess) return (int)limit;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kern<<<grid, kThreads, smem, s>>>(X, G, W, C, M, D, N, eps);
   return 0;

@@ -58,7 +58,9 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 def _offset(q_offset: Union[None, int, torch.Tensor],
             device: torch.device) -> Optional[torch.Tensor]:
     """The decode offset as a 1-element int32 tensor on ``device`` (or
-    None for 0), without a host read of a device value."""
+    None for 0), without a host read of a device value.  An int becomes
+    a fill kernel with the value as its argument, not a copy from host
+    memory, so the call can be captured in a CUDA graph."""
     if q_offset is None:
         return None
     if isinstance(q_offset, torch.Tensor):
@@ -67,7 +69,7 @@ def _offset(q_offset: Union[None, int, torch.Tensor],
                              f"value, got shape {tuple(q_offset.shape)}")
         return q_offset.reshape(1).to(device=device,
                                       dtype=torch.int32).contiguous()
-    return torch.tensor([int(q_offset)], dtype=torch.int32, device=device)
+    return torch.full((1,), int(q_offset), dtype=torch.int32, device=device)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

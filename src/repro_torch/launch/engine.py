@@ -253,6 +253,23 @@ def _zeros(t, device: torch.device) -> torch.Tensor:
                        device=device)
 
 
+def _check_donation(cf, cache_ix: Sequence[int],
+                    recycle: Sequence[Optional[int]],
+                    donated: Sequence[int]) -> None:
+    """The backend writes each donated input back from the output it
+    pairs it with (in order, by shape and dtype, as XLA pairs them);
+    each donated cache must pair with the output the engine recycles
+    into it (output ``1 + j`` for ``recycle[k] == j``), or a captured
+    graph would write one cache's update into another."""
+    want = {ix: 1 + j for ix, j in zip(cache_ix, recycle)
+            if j is not None and ix in donated}
+    got = {ix: cf.raw.donation.get(ix) for ix in want}
+    if got != want:
+        raise RuntimeError(
+            f"{cf.function.name}: donated inputs pair with outputs {got}, "
+            f"the engine recycles them from {want}")
+
+
 class KVCachePool:
     """Slot-addressed, device-resident KV cache pool.
 
@@ -1024,6 +1041,8 @@ class ServeEngine:
         # still provides the cache layout and the parameter registry
         self.cf = (self.backend.compile(self.graphs.fn, self.options)
                    if mode != "donated" else None)
+        if self.cf is not None:
+            _check_donation(self.cf, cache_ix, self._recycle, donate)
         # weights: the caller's (numpy or tensors), else the builder's
         # seeded numpy init, as device tensors by name.  Every mode keeps
         # them on the device -- lockstep too, where the reference passes
@@ -1465,6 +1484,7 @@ class ServeEngine:
             out_names = g.aux["state_out_names"]
             recycle = [out_names.index(n) if n in out_names else None
                        for n in self.pool.names]
+            _check_donation(cf, cache_ix, recycle, cache_ix)
             self._pf_chunks[C] = (g, cf, pvals, recycle)
         return self._pf_chunks[C]
 
@@ -1755,6 +1775,8 @@ class ServeEngine:
                         if n.name not in _STEP_INPUTS]
             cf = self.backend.compile(g.fn, self.base_options.replace(
                 donate_argnums=tuple(cache_ix)))
+            _check_donation(cf, cache_ix, list(range(len(cache_ix))),
+                            cache_ix)
             pvals = [self._param_map[n] for n in g.builder.param_names()]
             self._chunks[steps] = (g, cf, pvals)
         return self._chunks[steps]

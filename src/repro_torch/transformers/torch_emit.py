@@ -9,8 +9,14 @@ and products and the result cast to the node's type (``_f32up`` /
 ``Divide`` floors, ``DynamicSlice``/``DynamicUpdateSlice`` clamp their
 starts as ``lax`` does, and ``Gather``/``ScatterAdd`` treat out-of-range
 indices as ``jnp.take`` (fill) and ``.at[].add`` (drop) do.  No emitter
-reads a device value back to the host, so a dispatch runs without a
-synchronisation.
+reads a device value back to the host or copies host memory to the
+device, so a dispatch runs without a synchronisation and can be
+captured as a CUDA graph (:mod:`repro_torch.backend.graphed`).
+``CumSum`` and ``ScatterAdd`` run on the card under
+:func:`deterministic_algorithms`, so their sums keep one order from run
+to run, as the reference's do.  A ``Scan`` evaluates the body nodes that
+depend only on its loop constants once, before the loop (see
+:class:`ScanBody`).
 
 The kernel-selection points mirror the reference: ``DotGeneral``,
 ``RMSNorm``, ``SwiGLU``, ``NormMatmul`` (and ``RotaryQKV``'s projections)
@@ -26,7 +32,8 @@ tensor-parallel slice.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+import contextlib
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,12 +74,12 @@ class EmitCtx:
         self.use_pallas = use_pallas
         self.attn_impl = attn_impl
         self.attn_chunk = attn_chunk
-        self._body_cache: Dict[int, Callable] = {}
+        self._body_cache: Dict[Tuple[int, int], "ScanBody"] = {}
 
-    def body_callable(self, body: Function) -> Callable:
-        key = id(body)
+    def scan_body(self, body: Function, n_variant: int) -> "ScanBody":
+        key = (id(body), n_variant)
         if key not in self._body_cache:
-            self._body_cache[key] = emit_callable(body, self)
+            self._body_cache[key] = ScanBody(body, self, n_variant)
         return self._body_cache[key]
 
 
@@ -89,6 +96,31 @@ def _outcast(node: Node, x: torch.Tensor, i: int = 0) -> torch.Tensor:
 
 def _np_dtype(x: torch.Tensor) -> np.dtype:
     return numpy_dtype(x.dtype)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms() -> Iterator[None]:
+    """``torch.use_deterministic_algorithms(True)`` for the ops inside the
+    block, then the caller's setting (and its ``warn_only``) back.  On
+    CUDA, float ``cumsum`` and ``index_add_`` then take PyTorch's
+    fixed-order kernels instead of a scan whose look-back and an
+    accumulation whose atomics change the order from run to run.  The
+    flag is process-wide while the block runs; the engine thread is the
+    only thread that calls torch."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
+def _fixed_order(x: torch.Tensor):
+    """The deterministic guard on the card; nothing on the CPU, whose
+    kernels keep one order already."""
+    return deterministic_algorithms() if x.is_cuda \
+        else contextlib.nullcontext()
 
 
 # -- leaves (computed once, at emit time; see emit_callable) --------------------
@@ -259,7 +291,8 @@ EMIT["ReduceMin"] = _emit_reduce(torch.amin)
 @_em("CumSum")
 def _(node, args, ctx):
     x = _f32up(args[0])
-    out = torch.cumsum(x, dim=node.attrs["axis"])
+    with _fixed_order(x):
+        out = torch.cumsum(x, dim=node.attrs["axis"])
     if node.attrs["exclusive"]:
         out = out - x
     return [_outcast(node, out)]
@@ -385,7 +418,8 @@ def _(node, args, ctx):
     keep = valid.reshape((-1,) + (1,) * (op.ndim - 1))
     upd = torch.where(keep, upd, torch.zeros((), dtype=op.dtype,
                                              device=op.device))
-    return [op.clone().index_add_(0, safe, upd)]
+    with _fixed_order(op):
+        return [op.clone().index_add_(0, safe, upd)]
 
 
 def _clamped_index(start: torch.Tensor, dim: int, size: int,
@@ -590,19 +624,21 @@ EMIT["LinearRecurrence"] = _later(
 def _(node, args, ctx):
     """``lax.scan`` as a Python loop: xs are sliced along axis 0, ys are
     stacked at the step's index (``reverse`` walks the steps backwards
-    and still stores step t's y at index t)."""
+    and still stores step t's y at index t).  The body's loop-invariant
+    nodes run once, before the first step (:class:`ScanBody`)."""
     at = node.attrs
     nc, nx = at["n_carry"], at["n_xs"]
     carries = list(args[:nc])
     xs = list(args[nc:nc + nx])
     consts = list(args[nc + nx:])
-    body = ctx.body_callable(at["body"])
+    body = ctx.scan_body(at["body"], nc + nx)
     length = at["length"]
     n_ys = len(node.out_types) - nc
     ys: List[List[Any]] = [[None] * length for _ in range(n_ys)]
     order = range(length - 1, -1, -1) if at["reverse"] else range(length)
+    base = body.prologue(consts) if length else None
     for t in order:
-        outs = body(*carries, *[x[t] for x in xs], *consts)
+        outs = body.step(base, carries + [x[t] for x in xs])
         carries = list(outs[:nc])
         for j in range(n_ys):
             ys[j][t] = outs[nc + j]
@@ -618,6 +654,125 @@ def _(node, args, ctx):
 
 
 # ---------------------------------------------------------------------------
+# (emit, node, input slots, first output slot, slots dead after the step)
+_Step = Tuple[Callable, Node, List[int], int, List[int]]
+
+
+class _Slots:
+    """An optimized Function's values as integer slots: each node's
+    outputs take consecutive slots; Constant and Iota become device
+    tensors once, here."""
+
+    def __init__(self, fn: Function, ctx: EmitCtx):
+        self.nodes = fn.nodes()
+        for n in self.nodes:
+            if n.op != "Parameter" and n.op not in EMIT \
+                    and n.op not in _LEAVES:
+                raise NotImplementedError(
+                    f"torch backend: no emitter for {n.op}")
+        self.of: Dict[int, int] = {}   # id(node) -> first slot of its outputs
+        self.n = 0
+        for n in self.nodes:
+            self.of[id(n)] = self.n
+            self.n += len(n.out_types)
+        self.params = [self.of[id(p)] for p in fn.parameters]
+        self.results = [self.of[id(r.node)] + r.index for r in fn.results]
+        self.leaves: Dict[int, torch.Tensor] = {
+            self.of[id(n)]: _LEAVES[n.op](n, ctx)
+            for n in self.nodes if n.op in _LEAVES}
+
+    def plan(self, nodes: List[Node], keep) -> List[_Step]:
+        """``nodes`` (in order) as steps that drop each slot right after
+        its last use, except the slots in ``keep`` and the leaves."""
+        steps = []
+        last_use: Dict[int, int] = {}
+        for n in nodes:
+            ins = [self.of[id(v.node)] + v.index for v in n.inputs]
+            for s in ins:
+                last_use[s] = len(steps)
+            steps.append((EMIT[n.op], n, ins, self.of[id(n)]))
+        frees: List[List[int]] = [[] for _ in steps]
+        for s, i in last_use.items():
+            if s not in keep and s not in self.leaves:
+                frees[i].append(s)
+        return [(emit, n, ins, out0, frees[i])
+                for i, (emit, n, ins, out0) in enumerate(steps)]
+
+
+def _execute(plan: List[_Step], env: List[Any], ctx: EmitCtx,
+             name: str) -> None:
+    """Run ``plan`` over ``env`` in place.  An exception leaves with a
+    note naming the op it came from (a capture that fails names it)."""
+    try:
+        for emit, node, ins, out0, dead in plan:
+            outs = emit(node, [env[s] for s in ins], ctx)
+            for j, o in enumerate(outs):
+                env[out0 + j] = o
+            for s in dead:
+                env[s] = None
+    except Exception as exc:
+        exc.add_note(f"while running {node.op} {node.name!r} in {name}")
+        raise
+
+
+class ScanBody:
+    """A Scan body split at its loop invariants.
+
+    The first ``n_variant`` parameters change every step (carries, then
+    xs); the rest are the Scan's consts.  A node is invariant when every
+    input is a const, a leaf or another invariant node: ``prologue``
+    evaluates those once per Scan execution, and ``step`` runs the rest
+    for one step.  A hoisted op is the same op on the same values, so
+    every output is bitwise the one a plain per-step walk gives; the IR
+    is unchanged.  (XLA's while-loop invariant code motion does this for
+    the reference, so an f32 weight a chunk step converts to bf16 is
+    converted once per dispatch on both sides.)"""
+
+    def __init__(self, fn: Function, ctx: EmitCtx, n_variant: int):
+        self.ctx = ctx
+        self.name = fn.name
+        sl = self.slots = _Slots(fn, ctx)
+        inv = {id(p) for p in fn.parameters[n_variant:]}
+        hoisted, rest = [], []
+        for n in sl.nodes:
+            if n.op == "Parameter" or n.op in _LEAVES:
+                continue
+            if all(id(v.node) in inv or v.node.op in _LEAVES
+                   for v in n.inputs):
+                inv.add(id(n))
+                hoisted.append(n)
+            else:
+                rest.append(n)
+        # the base environment each step starts from: leaves, consts and
+        # the hoisted values a step or a result reads
+        needed = set(sl.results)
+        for n in rest:
+            for v in n.inputs:
+                if id(v.node) in inv:
+                    needed.add(sl.of[id(v.node)] + v.index)
+        self.const_slots = sl.params[n_variant:]
+        self.variant_slots = sl.params[:n_variant]
+        self.pro_plan = sl.plan(hoisted, needed)
+        # a step frees slots in its own copy of the base only
+        self.step_plan = sl.plan(rest, set(sl.results))
+
+    def prologue(self, consts: List[Any]) -> List[Any]:
+        env: List[Any] = [None] * self.slots.n
+        for s, t in self.slots.leaves.items():
+            env[s] = t
+        for s, a in zip(self.const_slots, consts):
+            env[s] = a
+        _execute(self.pro_plan, env, self.ctx, self.name)
+        return env
+
+    def step(self, base: List[Any], variant: List[Any]) -> List[Any]:
+        env = list(base)
+        for s, a in zip(self.variant_slots, variant):
+            env[s] = a
+        _execute(self.step_plan, env, self.ctx, self.name)
+        return [env[s] for s in self.slots.results]
+
+
 def emit_callable(fn: Function, ctx: EmitCtx) -> Callable:
     """Emit ``fn`` as a Python callable over torch tensors on
     ``ctx.device``.
@@ -627,37 +782,10 @@ def emit_callable(fn: Function, ctx: EmitCtx) -> Callable:
     is dropped from the slot table right after its last use, so a
     dispatch holds only the live intermediates (and a donated input the
     caller no longer references can be reused by the allocator)."""
-    nodes = fn.nodes()
-    for n in nodes:
-        if n.op != "Parameter" and n.op not in EMIT and n.op not in _LEAVES:
-            raise NotImplementedError(f"torch backend: no emitter for {n.op}")
-    slot_of: Dict[int, int] = {}   # id(node) -> first slot of its outputs
-    n_slots = 0
-    for n in nodes:
-        slot_of[id(n)] = n_slots
-        n_slots += len(n.out_types)
-    param_slots = [slot_of[id(p)] for p in fn.parameters]
-    result_slots = [slot_of[id(r.node)] + r.index for r in fn.results]
-    leaves: Dict[int, torch.Tensor] = {}
-    steps = []
-    last_use: Dict[int, int] = {}
-    for n in nodes:
-        if n.op == "Parameter":
-            continue
-        if n.op in _LEAVES:
-            leaves[slot_of[id(n)]] = _LEAVES[n.op](n, ctx)
-            continue
-        ins = [slot_of[id(v.node)] + v.index for v in n.inputs]
-        for s in ins:
-            last_use[s] = len(steps)
-        steps.append((EMIT[n.op], n, ins, slot_of[id(n)]))
-    keep = set(result_slots)
-    frees = [[] for _ in steps]
-    for s, i in last_use.items():
-        if s not in keep and s not in leaves:
-            frees[i].append(s)
-    plan = [(emit, n, ins, out0, frees[i])
-            for i, (emit, n, ins, out0) in enumerate(steps)]
+    sl = _Slots(fn, ctx)
+    plan = sl.plan([n for n in sl.nodes
+                    if n.op != "Parameter" and n.op not in _LEAVES],
+                   set(sl.results))
     dev = ctx.device
     name = fn.name
     n_params = len(fn.parameters)
@@ -666,19 +794,14 @@ def emit_callable(fn: Function, ctx: EmitCtx) -> Callable:
         if len(args) != n_params:
             raise TypeError(f"{name}: expected {n_params} args, "
                             f"got {len(args)}")
-        env: List[Any] = [None] * n_slots
-        for s, a in zip(param_slots, args):
+        env: List[Any] = [None] * sl.n
+        for s, a in zip(sl.params, args):
             env[s] = a if isinstance(a, torch.Tensor) and a.device == dev \
                 else as_tensor(a, dev)
-        for s, t in leaves.items():
+        for s, t in sl.leaves.items():
             env[s] = t
-        for emit, node, ins, out0, dead in plan:
-            outs = emit(node, [env[s] for s in ins], ctx)
-            for j, o in enumerate(outs):
-                env[out0 + j] = o
-            for s in dead:
-                env[s] = None
-        return tuple(env[s] for s in result_slots)
+        _execute(plan, env, ctx, name)
+        return tuple(env[s] for s in sl.results)
 
     run.__name__ = f"ngraph_{fn.name}"
     return run

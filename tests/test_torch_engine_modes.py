@@ -189,3 +189,71 @@ def test_mode_specific_surfaces():
     assert rep.health == "degraded" and rep.counters["engine_errors"] == 1
     again = don.submit(prompts[0], 4)
     assert don.run().statuses[again] == "completed"
+
+
+# -- seeds 0 and 1: a bf16 token may differ from JAX only at a tie ------------
+def _ulp(x: float) -> float:
+    """One bf16 unit in the last place at the magnitude of ``x``."""
+    return 2.0 ** (np.floor(np.log2(max(abs(float(x)), 2.0 ** -14))) - 7)
+
+
+def _prefill_logits(cfg, params, level, tokens):
+    """The port's next-token logits after ``tokens`` from the dense (1, P)
+    prefill graph on the CPU, as f32."""
+    from repro_torch.backend import Backend
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.lm import build_graphs
+    P = len(tokens)
+    g = build_graphs(cfg, ShapeConfig("prefill", "prefill", P, 1), 1)
+    cf = Backend.create("torch", device="cpu").compile(
+        g.fn, _options("torch", level))
+    outs = cf(np.asarray(tokens, np.int32).reshape(1, P),
+              *[params[n] for n in g.builder.param_names()])
+    return np.asarray(outs[0], np.float32).reshape(-1)
+
+
+def _divergence_witness(cfg, params, level, prompts, jtoks, ttoks):
+    """For each request whose port tokens differ from JAX's: the first
+    step that differs, and that step's logits from a dense prefill of
+    the prompt plus the tokens both agree on -- the port's top two and
+    their gap in bf16 units in the last place (``chip_smoke.py``'s
+    witness, with the JAX engine in the place of the card)."""
+    found = []
+    for r, (jt, tt) in enumerate(zip(jtoks, ttoks)):
+        differ = [i for i, (a, b) in enumerate(zip(jt, tt)) if a != b]
+        if not differ:
+            continue
+        j = differ[0]
+        seq = np.concatenate([prompts[r], np.asarray(jt[:j], np.int32)])
+        lg = _prefill_logits(cfg, params, level, seq)
+        a, b = (int(t) for t in np.argsort(-lg, kind="stable")[:2])
+        found.append({"request": r, "step": j, "jax_token": jt[j],
+                      "port_token": tt[j], "top2": [a, b],
+                      "gap_ulps": float(lg[a] - lg[b]) / _ulp(lg[a])})
+    return found
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode,level,dtype", CASES)
+def test_mode_matches_jax_up_to_bf16_ties(mode, level, dtype, seed):
+    """Seeds 0 and 1 (seed 2 is ``test_mode_matches_jax``): f32 tokens
+    identical to JAX's; a bf16 token may differ only where a witness
+    shows the port's top two logits within one bf16 unit of each other,
+    the two packages' picks being those two."""
+    jcfg, tcfg = _cfg(j_get_config, dtype), _cfg(get_config, dtype)
+    prompts = _prompts(mode, jcfg.vocab, seed=seed)
+    jeng = JServeEngine(jcfg, mode=mode, slots=SLOTS, max_len=MAX_LEN,
+                        options=_options("jax", level), **_knobs(mode))
+    jtoks, _ = _run(jeng, prompts)
+    params = params_from_numpy(jeng.params, "cpu")
+    teng = ServeEngine(tcfg, EngineConfig(
+        mode=mode, slots=SLOTS, max_len=MAX_LEN, device="cpu",
+        params=params, **_knobs(mode)), options=_options("torch", level))
+    ttoks, _ = _run(teng, prompts)
+    if dtype == "f32":
+        assert ttoks == jtoks
+        return
+    for w in _divergence_witness(tcfg, params, level, prompts, jtoks,
+                                 ttoks):
+        assert w["gap_ulps"] <= 1, w
+        assert {w["jax_token"], w["port_token"]} == set(w["top2"]), w
