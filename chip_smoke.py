@@ -62,9 +62,22 @@ without printing a result:
                  CPU (plain versions): paged at d_head 64, and lockstep,
                  donated, continuous and paged with a dense prefill at
                  d_head 128 (flash attention on the card); f32 greedy
-                 tokens must be identical.
+                 tokens must be identical;
+  7. http     -- phase 4's engine shape and weights behind the HTTP front
+                 door (ServeHTTPServer on 127.0.0.1, an ephemeral port,
+                 wait queue 8), warmed by two direct runs so its graphs
+                 are captured, then driven by loadgen from the main
+                 thread: phase 4's six prompts and two more as 8
+                 concurrent greedy streams on 4 slots, and a ninth client
+                 that hangs up after 4 tokens (the client.disconnect_after_n
+                 fault site).  Every stream must equal the direct engine's
+                 tokens bit for bit; the disconnect is counted and
+                 cancelled, the drain is clean (drain_ok, no page in use);
+                 the four paged-path kernels launched; and the line
+                 reports TTFT, inter-token gaps and sustained tok/s from
+                 /v1/metrics beside the card's name and power limit.
 
-In phases 4 and 5 no kernel may have been refused.  Phase 6 counts its
+In phases 4, 5 and 7 no kernel may have been refused.  Phase 6 counts its
 refusals but does not gate them: the reduced vocabulary (257) is no
 whole number of 16-byte vectors, so the unembed takes the plain version
 there, as the reference's fallback rule says.  Then one JSON line with
@@ -896,7 +909,7 @@ def phase_main(report: dict, smi: str):
             f"{tokens['captured']} vs {tokens['eager']}")
     say("main", captured_vs_eager="bitwise", requests=len(prompts))
     torch.cuda.empty_cache()
-    return cfg, params
+    return cfg, params, prompts, tokens["captured"]
 
 
 # -- 5. the flash-attention path, full width --------------------------------
@@ -1250,6 +1263,154 @@ def phase_parity() -> None:
         "d_head 128 (d_model 256, 2 heads)", **line)
 
 
+# -- 7. the HTTP front door, full width --------------------------------------
+HTTP_SERVER = dict(host="127.0.0.1", port=0, max_wait_queue=8)
+HTTP_NEW = 16      # tokens per request, as in phase 4
+HTTP_DROP_AFTER = 4
+
+
+def phase_http(report: dict, cfg, params, main_prompts, main_tokens,
+               smi: str) -> None:
+    """Phase 4's paged engine (the same weights and shape, O2 with the
+    kernels, the captured dispatch) behind ``ServeHTTPServer`` on an
+    ephemeral localhost port, driven by ``loadgen`` from this thread:
+    phase 4's six greedy prompts plus two more, 8 concurrent streams on
+    4 slots (the rest wait in the server's queue), and a ninth client
+    that hangs up after 4 tokens through the ``client.disconnect_after_n``
+    fault site.  The engine serves the nine prompts directly twice first
+    (the warm runs: each graph's eager first call and its capture), so
+    the graphs are captured before the load begins; the load may still
+    meet a prefill-chunk length the warm runs did not (prefix sharing
+    depends on arrival order), which it then runs eagerly and captures.
+    Only the server's engine thread calls torch during the load; this
+    thread touches the card again after the drain."""
+    from repro_torch import kernels
+    from repro_torch.backend import CompileOptions
+    from repro_torch.launch import faults, loadgen
+    from repro_torch.launch.engine import EngineConfig, ServeEngine
+    from repro_torch.launch.server import ServeHTTPServer
+
+    rng = np.random.default_rng(7)
+    extra = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+             for n in (40, 72, 24)]
+    prompts = list(main_prompts) + extra   # the last one hangs up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, EngineConfig(params=params, **MAIN_ENGINE),
+                      options=CompileOptions(level="O2", use_pallas=True))
+    direct = []
+    for _ in range(2):
+        rids = [eng.submit(p, HTTP_NEW) for p in prompts]
+        rep = eng.run()
+        require(all(rep.statuses[r] == "completed" for r in rids),
+                f"http warm run: {rep.statuses} {rep.errors}")
+        direct.append([rep.results[r].tolist() for r in rids])
+    require(direct[0] == direct[1], "http: the two warm runs differ")
+    require(direct[0][:len(main_prompts)] == main_tokens,
+            "http: the warm run's tokens differ from phase 4's")
+    want = {str(i): t for i, t in enumerate(main_tokens)}
+    want.update({str(len(main_tokens) + i): direct[0][len(main_tokens) + i]
+                 for i in range(len(extra) - 1)})
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    graphs = _graphs(eng)
+    require(eng.cf.raw in graphs,
+            "http: the decode chunk was not captured by the warm runs")
+    n_graphs = 1 + len(eng._pf_chunks)   # the chunk and each prefill
+    captures = sum(g.captures for g in graphs)
+    before = dict(eng.counters)
+    first_rid, n_steps = eng._next_rid, len(eng.step_seconds)
+    prefill_s = eng.prefill_seconds
+
+    srv = ServeHTTPServer(eng, **HTTP_SERVER)
+    srv.start_in_thread()
+    kernels.reset_counters()
+    faults.configure(f"client.disconnect_after_n=after:{len(prompts)}:"
+                     f"{HTTP_DROP_AFTER}")
+    try:
+        t1 = time.perf_counter()
+        res = loadgen.run_load(srv.base_url, prompts, HTTP_NEW,
+                               timeout=300)
+        wall = time.perf_counter() - t1
+        deadline = time.monotonic() + 60   # the cancel lands at a boundary
+        while time.monotonic() < deadline and (
+                eng.counters["cancelled"] == before["cancelled"]
+                or eng.pool.active):
+            time.sleep(0.05)
+        metrics = loadgen.fetch_json(srv.base_url, "/v1/metrics")
+    finally:
+        faults.configure("")
+        srv.shutdown()
+    counts = kernels.counters()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    snap, live = metrics["server"], metrics["engine"]
+    rep = srv.engine_report
+    require(rep is not None, f"http: no engine report ({srv.report_doc()})")
+    done = {k: rep.counters[k] - before[k] for k in rep.counters}
+    require(res.statuses == {200: len(prompts)} and not res.errors,
+            f"http: statuses {res.statuses} errors {res.errors}")
+    require(res.results == want, "http: streamed tokens differ from the "
+            f"direct engine's: {res.results} vs {want}")
+    require(res.disconnects == 1 and snap["client_disconnects"] >= 1,
+            f"http: disconnect not counted: client {res.disconnects}, "
+            f"server {snap['client_disconnects']}")
+    require(done["cancelled"] == 1 and done["completed"] == len(prompts) - 1
+            and done["failed"] == 0, f"http: terminal counts {done}")
+    require(srv.drain_ok is True, "http: the drain left engine state")
+    require(eng.pool.pages_in_use == 0 and eng.pool.active == 0,
+            f"http: pool after the drain: {eng.pool.stats()}")
+    problems = eng.pool.verify()
+    require(problems == [], f"http: pool.verify(): {problems}")
+    _record_launches(report, "http", counts, PAGED_KERNELS)
+    after = sum(g.captures for g in _graphs(eng))
+    # the engine's side of TTFT (from its submit, on the engine thread):
+    # the wait for a slot, then admission to the first token; and the
+    # decode dispatches' wall times during the load
+    from repro_torch.launch.engine import _percentile
+    load = [r for rid, r in eng._requests.items() if rid >= first_rid
+            and r.t_first is not None]
+    waits = [(r.t_admit - r.t_submit) * 1e3 for r in load]
+    firsts = [(r.t_first - r.t_admit) * 1e3 for r in load]
+    steps = [t * 1e3 for t in eng.step_seconds[n_steps:]]
+    say("http", card=repr(smi), server="ServeHTTPServer 127.0.0.1:0",
+        slots=SLOTS, max_wait_queue=HTTP_SERVER["max_wait_queue"],
+        clients=len(prompts), new_tokens=HTTP_NEW,
+        disconnect_after=HTTP_DROP_AFTER,
+        graphs_captured_before_load=f"{len(graphs)}/{n_graphs}",
+        captures_before_load=captures, captures_during_load=after - captures,
+        warm_runs_s=f"{t_warm:.2f}", load_wall_s=f"{wall:.2f}",
+        completed=done["completed"], cancelled=done["cancelled"],
+        client_disconnects=snap["client_disconnects"],
+        engine_slot_wait_p50_ms=f"{_percentile(waits, 50):.1f}",
+        engine_slot_wait_p95_ms=f"{_percentile(waits, 95):.1f}",
+        engine_admit_to_first_p50_ms=f"{_percentile(firsts, 50):.1f}",
+        engine_admit_to_first_p95_ms=f"{_percentile(firsts, 95):.1f}",
+        decode_dispatches=len(steps),
+        dispatch_wall_p50_ms=f"{_percentile(steps, 50):.1f}",
+        dispatch_wall_p95_ms=f"{_percentile(steps, 95):.1f}",
+        prefill_s=f"{eng.prefill_seconds - prefill_s:.3f}",
+        drain_ok=srv.drain_ok, pages_in_use=eng.pool.pages_in_use,
+        live_pages_in_use=live["pages_in_use"], peak_gb=f"{peak:.2f}",
+        launches=json.dumps({k: v["launches"] for k, v in counts.items()}))
+    say("http_metrics", source="/v1/metrics", card=repr(smi),
+        ttft_p50_ms=f"{snap['ttft_p50_ms']:.1f}",
+        ttft_p95_ms=f"{snap['ttft_p95_ms']:.1f}",
+        inter_token_p50_ms=f"{snap['tok_p50_ms']:.2f}",
+        inter_token_p95_ms=f"{snap['tok_p95_ms']:.2f}",
+        sustained_tok_s=f"{snap['sustained_tok_s']:.2f}",
+        tokens_streamed=snap["tokens_streamed"])
+    say("http_clients", source="loadgen", card=repr(smi),
+        ttft_p50_ms=f"{res.ttft_p50_ms:.1f}",
+        ttft_p95_ms=f"{res.ttft_p95_ms:.1f}",
+        inter_token_p50_ms=f"{res.gap_p50_ms:.2f}",
+        inter_token_p95_ms=f"{res.gap_p95_ms:.2f}",
+        tok_s=f"{res.tok_s:.2f}", completed_tokens=res.total_tokens)
+    del eng, srv
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -1260,12 +1421,13 @@ def main() -> int:
     report = phase_kernels()
     if "--kernels-only" in sys.argv[1:]:
         return 0    # a first check of new kernels: no result line
-    cfg, params = phase_main(report, smi)
+    cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
+    phase_parity()
+    phase_http(report, cfg, params, prompts, tokens, smi)
     del params
     torch.cuda.empty_cache()
-    phase_parity()
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

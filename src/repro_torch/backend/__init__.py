@@ -3,6 +3,7 @@
     from repro_torch.backend import Backend, CompileOptions
 
     be = Backend.create("torch")                  # cuda:0; device="cpu" too
+    ref = Backend.create("interpreter")           # the numpy oracle
     cf = be.compile(fn, CompileOptions(level="O2", use_pallas=True))
     outs = cf(*arrays)            # numpy in/out (synchronizes)
     cf.raw(*tensors)              # device tensors in/out, no sync
@@ -15,4 +16,6 @@ from .base import (Backend, CacheStats, available_backends,  # noqa: F401
                    register_backend)
 from .compiled import CompiledFunction  # noqa: F401
 from .options import CompileOptions, OptionsError  # noqa: F401
-from . import torch_backend as _torch_backend  # noqa: F401  (registers itself)
+# each backend module registers itself
+from . import interpreter as _interpreter  # noqa: F401
+from . import torch_backend as _torch_backend  # noqa: F401

@@ -233,6 +233,13 @@ class GraphedProgram:
         # the graph's pool grows
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
+        # cuBLAS makes its handle per thread at first use and cannot do
+        # so inside a capture (CUBLAS_STATUS_NOT_INITIALIZED): a thread
+        # whose first call of this function is a capture -- a server's
+        # engine thread serving graphs another thread ran first -- makes
+        # it here, with the capture stream's workspace
+        with torch.cuda.device(dev), torch.cuda.stream(self._stream):
+            torch.cuda.current_blas_handle()
         graph = torch.cuda.CUDAGraph()
         before = kernels.counters()
         failure: Optional[BaseException] = None

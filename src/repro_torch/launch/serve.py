@@ -17,8 +17,16 @@ of ``--prompt-len`` tokens (``--shared-prefix-len`` of them identical, a
 shared system prompt), ``--gen`` tokens each.  Weights are random from
 ``--seed``: the builder's numpy init at ``--reduced`` size, drawn on the
 device at full width.  ``--report-json FILE`` dumps the
-EngineReport; ``--smoke`` asserts the run is sane.  The HTTP front door
-(``--serve-http``) and ``--tp`` come with later slices of the port.
+EngineReport; ``--smoke`` asserts the run is sane.
+
+``--serve-http`` skips the synthetic workload and runs the asyncio front
+door (:mod:`repro_torch.launch.server`) over the engine -- streaming
+``POST /v1/generate``, ``GET /v1/metrics``, ``GET /healthz`` on
+``--host``/``--port`` -- until SIGTERM/SIGINT, then drains gracefully
+and (with ``--report-json``) writes the served-request report, results
+keyed by the clients' tags.  It exits 1 when the drain left engine
+state behind.  Only the continuous and paged modes can serve it.
+``--tp`` comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -68,6 +76,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--report-json", metavar="FILE", default=None)
     ap.add_argument("--report-leg", default=None)
+    ap.add_argument("--serve-http", action="store_true",
+                    help="run the asyncio HTTP front door instead of a "
+                         "synthetic workload (drains on SIGTERM/SIGINT)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8777,
+                    help="--serve-http listen port (0 = ephemeral)")
+    ap.add_argument("--max-wait-queue", type=int, default=8,
+                    help="--serve-http: accepted-but-unadmitted request "
+                         "bound; beyond it new requests get 429")
+    ap.add_argument("--max-body-bytes", type=int, default=1 << 20,
+                    help="--serve-http: request bodies beyond this get 413")
     args = ap.parse_args(argv)
 
     if args.faults is not None:
@@ -80,6 +99,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..models.lm import build_dense_chunk
     from ..models.weights import init_params_on_device
     from .engine import EngineConfig, ServeEngine
+    from .loadgen import make_prompts
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -93,6 +113,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(
             f"--shared-prefix-len {args.shared_prefix_len} must be in "
             f"[0, --prompt-len {P}]")
+    if args.serve_http and args.mode not in ("continuous", "paged"):
+        raise SystemExit(
+            f"--serve-http needs a step()-capable engine "
+            f"(--mode continuous|paged), got {args.mode!r}")
     paged = args.mode == "paged"
     try:
         econf = EngineConfig(
@@ -112,21 +136,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                                                     use_pallas=args.kernels))
     except ValueError as e:
         raise SystemExit(str(e))
+    if args.serve_http:
+        return _serve_http(engine, args, cfg, max_len)
     sampling = {}
     if args.temperature or args.top_k:
         sampling = dict(temperature=args.temperature, top_k=args.top_k)
-    rng = np.random.default_rng(args.seed)
     S = args.shared_prefix_len
-    shared = rng.integers(0, cfg.vocab, size=(S,)) if S else None
-    prompts = []
-    for _ in range(n_req):
-        if S == P:
-            prompts.append(shared.copy())
-        elif S:
-            prompts.append(np.concatenate(
-                [shared, rng.integers(0, cfg.vocab, size=(P - S,))]))
-        else:
-            prompts.append(rng.integers(0, cfg.vocab, size=(P,)))
+    if not S:
+        # the load generator's recipe, so a client of --serve-http sends
+        # the prompts this path submits
+        prompts = make_prompts(n_req, P, cfg.vocab, args.seed)
+    else:
+        rng = np.random.default_rng(args.seed)
+        shared = rng.integers(0, cfg.vocab, size=(S,))
+        prompts = [shared.copy() if S == P else np.concatenate(
+            [shared, rng.integers(0, cfg.vocab, size=(P - S,))])
+            for _ in range(n_req)]
     kernels.reset_counters()
     rids = [engine.submit(prompts[i], G,
                           deadline_s=args.request_timeout,
@@ -211,6 +236,61 @@ def main(argv: Optional[List[str]] = None) -> int:
             json.dump(doc, fh, indent=2, sort_keys=True, default=str)
             fh.write("\n")
         print(f"[report] wrote {args.report_json}")
+    return 0
+
+
+def _serve_http(engine, args, cfg, max_len) -> int:
+    """The --serve-http path: front door up, drain on SIGTERM/SIGINT
+    (the handlers go on the main thread's event loop), then print and
+    emit the served-request report."""
+    from .. import kernels
+    from .server import ServeHTTPServer
+
+    srv = ServeHTTPServer(engine, host=args.host, port=args.port,
+                          max_wait_queue=args.max_wait_queue,
+                          max_body_bytes=args.max_body_bytes)
+    kernels.reset_counters()
+    srv.serve_forever(on_ready=lambda: print(
+        f"[serve-http:{engine.mode}] {cfg.name} on {engine.device} "
+        f"({args.level}{' kernels' if args.kernels else ''}) listening on "
+        f"{srv.base_url} (slots={args.batch} max_len={max_len} "
+        f"wait_queue={args.max_wait_queue})", flush=True))
+    counts = kernels.counters()
+
+    snap = srv.stats.snapshot()
+    print(f"[serve-http] drained: {snap['requests_completed']} completed / "
+          f"{snap['requests_accepted']} accepted "
+          f"(429s {snap['rejected_429']}, 503s {snap['rejected_503']}), "
+          f"{snap['tokens_streamed']} tokens streamed, "
+          f"ttft p50 {snap['ttft_p50_ms']:.1f}ms "
+          f"p95 {snap['ttft_p95_ms']:.1f}ms, "
+          f"tok p50 {snap['tok_p50_ms']:.1f}ms "
+          f"p95 {snap['tok_p95_ms']:.1f}ms, "
+          f"sustained {snap['sustained_tok_s']:.1f} tok/s, "
+          f"drain_ok={srv.drain_ok}")
+    print("[kernels] " + " ".join(
+        f"{k}={c['launches']}/{c['rejected']}" for k, c in counts.items())
+        + " (launches/rejected)")
+    if args.report_json:
+        doc = srv.report_doc()
+        doc["leg"] = args.report_leg or doc.get("mode") or "server"
+        doc["device"] = str(engine.device)
+        doc["kernels"] = counts
+        doc["workload"] = {"requests": args.requests or args.batch,
+                           "prompt_len": args.prompt_len, "gen": args.gen,
+                           "slots": args.batch, "max_len": max_len,
+                           "seed": args.seed, "level": args.level,
+                           "kernels": args.kernels,
+                           "temperature": args.temperature,
+                           "top_k": args.top_k}
+        with open(args.report_json, "w") as fh:
+            json.dump(doc, fh, indent=2, sort_keys=True, default=str)
+            fh.write("\n")
+        print(f"[report] wrote {args.report_json}")
+    if not srv.drain_ok:
+        print("[serve-http] ERROR: drain left engine state behind "
+              "(see report)", flush=True)
+        return 1
     return 0
 
 

@@ -1,6 +1,10 @@
 """The torch port stands alone: it imports torch and numpy, never jax and
 nothing of the JAX package ``repro``; and its entry points run on the
-card unless the caller asks for the CPU."""
+card unless the caller asks for the CPU.  The port's package, its
+``chip_smoke.py`` and its serving scripts (``scripts/torch_serve_load.py``,
+``scripts/torch_chaos_probe.py``) are held to that;
+``scripts/check_torch_parity.py`` is the one file outside the tests that
+imports both packages, by design."""
 import ast
 import os
 import subprocess
@@ -13,6 +17,8 @@ torch = pytest.importorskip("torch")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 PKG = os.path.join(SRC, "repro_torch")
+SCRIPTS = [os.path.join(ROOT, "scripts", f"{n}.py")
+           for n in ("torch_serve_load", "torch_chaos_probe")]
 
 
 def _port_files():
@@ -21,6 +27,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield from SCRIPTS
 
 
 def _forbidden(name: str) -> bool:
@@ -54,6 +61,10 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
     mods.append(m.name)
 import chip_smoke  # noqa: F401  (phases import the port lazily)
+import importlib.util
+for path in {scripts!r}:
+    spec = importlib.util.spec_from_file_location("script", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(mods), "modules;", "forbidden:", bad)
@@ -78,7 +89,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(src=SRC, root=ROOT)],
+        [sys.executable, "-c",
+         _PROBE.format(src=SRC, root=ROOT, scripts=SCRIPTS)],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().endswith("ok")
@@ -92,3 +104,13 @@ def test_engine_and_serve_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="not attached"):
         ServeEngine(get_config("deepseek-7b").reduced(),
                     EngineConfig(mode="paged"))
+
+
+def test_serve_http_refuses_a_missing_card():
+    """The CLI's front-door path defaults to the card like its local
+    path: without ``--device cpu`` it fails before it listens."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the CPU-only refusal cannot show")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="not attached"):
+        serve.main(["--reduced", "--serve-http", "--port", "0"])
