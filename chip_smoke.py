@@ -4,6 +4,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py                  # all phases, one card
     python3 chip_smoke.py --kernels-only   # phases 1-3, no result line
+    python3 chip_smoke.py --train-only     # phases 1-3 and 8, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -15,7 +16,8 @@ without printing a result:
                  process per source, all started together;
   3. kernels  -- each kernel against its plain PyTorch version at the
                  full-width deepseek-7b shapes of the serving paths
-                 (bf16, plus one f32 case each), with its time, the plain
+                 and of phase 8's train step (bf16, plus one f32 case
+                 each), with its time, the plain
                  version's, a one-call PyTorch yardstick's where there is
                  one, and the card's bound for the same work; then the
                  determinism checks: two launches on the same inputs give
@@ -77,10 +79,40 @@ without printing a result:
                  reports TTFT, inter-token gaps and sustained tok/s from
                  /v1/metrics beside the card's name and power limit.
 
-In phases 4, 5 and 7 no kernel may have been refused.  Phase 6 counts its
-refusals but does not gate them: the reduced vocabulary (257) is no
-whole number of 16-byte vectors, so the unembed takes the plain version
-there, as the reference's fallback rule says.  Then one JSON line with
+  8. train    -- training (runs last, after phase 7's weights are
+                 freed): deepseek-7b at full width with the depth cut to
+                 4 layers (AdamW's f32 p, m and v of 30 layers exceed one
+                 card), batch 4 x seq 512 of SyntheticLM (seed 0), f32
+                 parameters, bf16 compute, the IR train step (autodiff +
+                 AdamW) at O2 with the kernels, p, m and v donated.  Six
+                 steps (eager first call, capture, four replays): losses
+                 finite, all five kernels launched on every step (the
+                 forward and the backward scan's recompute) and none
+                 refused, the state written back into the same tensors;
+                 a replay's profile shows each kernel at its counted
+                 launches.  The same six steps eagerly from the same
+                 state: the same losses bit for bit.  The step without
+                 the kernels (O1): the first loss within 3e-2 of scale.
+                 A fresh backend over the same cache dir: the step from
+                 disk (pipeline skipped), the first loss's bits.  Then
+                 at phase 6's d_head-128 width in f32: five steps on the
+                 card against the CPU (loss and state within 1e-4 of
+                 scale), a checkpoint after step 3 restored into fresh
+                 card tensors gives steps 4-5 bit for bit, the card's
+                 checkpoint restores on the CPU bit for bit, and an
+                 autotune sweep of the prefill graph writes a valid
+                 record that a fresh backend re-resolves with no sweep.
+                 The lines report step ms (eager, capture, median
+                 replay), tok/s, model TFLOP/s (6 x non-embedding
+                 parameters x tokens per step) and its share of 989,
+                 peak GB, launches per step, and compile seconds cold
+                 against the disk hit.
+
+In phases 4, 5, 7 and 8 no kernel may have been refused at full width.
+Phase 6 and phase 8's reduced width count their refusals but do not gate
+them: the reduced vocabulary (257) is no whole number of 16-byte
+vectors, so the unembed takes the plain version there, as the
+reference's fallback rule says.  Then one JSON line with
 every kernel's numbers, the card's name and power limit, and the result
 line {"ok": true, "device": {...}}.
 """
@@ -206,9 +238,10 @@ def _rand(shape, dtype, gen, scale=1.0):
 
 def kernel_cases(gen):
     """(kernel, label, kernel_fn, plain_fn, library_fn, bytes, flops, dtype)
-    at the shapes the serving paths give each kernel: decode (4 slots)
-    first -- the case the result line reports -- then prefill (a 64-row
-    chunk, or a dense prefill for attention) and the f32 case.  Bytes
+    at the shapes the serving paths and phase 8's train step give each
+    kernel: decode (4 slots) first -- the case the result line reports --
+    then prefill (a 64-row chunk, or a dense prefill for attention), the
+    f32 case, and the train step's 2048 rows.  Bytes
     count each input read once and the output written once (for
     attention, the K/V rows the causal mask lets some query see); flops
     count what this case's inputs need."""
@@ -316,6 +349,16 @@ def kernel_cases(gen):
     # more (slot, kv head) pairs than SMs: 512 decode blocks
     fa("decode (16x32x1) over 256 keys at pos 255", 16, HEADS, HEADS, 1, 256,
        255, bf)
+    # phase 8's train step: 4 x 512 tokens, forward and recompute
+    T = TRAIN_BATCH * TRAIN_SEQ
+    mm(f"train q/k/v/o ({T}x4096)@(4096x4096)", T, D, D, bf)
+    nm(f"train ({T}x4096)(4096x4096)", T, D, bf)
+    nm(f"train ({T}x4096)(4096x11008)", T, F, bf)
+    nm(f"train final+unembed ({T}x4096)(4096x102400) g f32", T, V, f32)
+    sw(f"train ({T}x4096) F=11008", T, bf)
+    rn(f"train ({T}x4096)", T, bf)
+    fa(f"train ({TRAIN_BATCH}x32x{TRAIN_SEQ}) causal", TRAIN_BATCH, HEADS,
+       HEADS, TRAIN_SEQ, TRAIN_SEQ, None, bf)
     return cases
 
 
@@ -1411,6 +1454,432 @@ def phase_http(report: dict, cfg, params, main_prompts, main_tokens,
     del eng, srv
 
 
+# -- 8. training, full width ---------------------------------------------------
+TRAIN_LAYERS = 4        # p, m and v of all 30 layers (83 GB) exceed one card
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+TRAIN_SMALL = dict(d_model=256, n_heads=2, n_kv_heads=2, d_head=128,
+                   d_ff=256, compute_dtype="f32")   # phase 6's d_head 128
+SMALL_BATCH, SMALL_SEQ, SMALL_STEPS, SMALL_CKPT = 2, 64, 5, 3
+# limits on a train state held against another run of the same steps
+# (:func:`_state_gaps`), by compute dtype: each AdamW moment in L2 over
+# its own norm; each parameter's update from the start in norm ratio
+# and, in L2 over its own norm, in direction.  AdamW scales a gradient
+# element to about +-lr, so an element whose bf16 rounding crosses zero
+# flips its whole update: bf16's update limit is wider than its moments'.
+STATE_LIMITS = {"f32": {"m": 1e-4, "v": 1e-4, "update_norm": 1e-4,
+                        "update": 1e-4},
+                "bf16": {"m": 3e-2, "v": 3e-2, "update_norm": 3e-2,
+                         "update": 0.25}}
+
+
+def _free_card() -> float:
+    """Drop every backend's compiled functions (their CUDA graphs hold
+    static outputs and their pools) and release the cached blocks;
+    returns the GB still allocated."""
+    import gc
+    from repro_torch.backend import Backend
+    for be in list(Backend._INSTANCES.values()):
+        be.clear_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _train_step_graph(cfg, batch: int, seq: int):
+    """The train step of ``cfg`` (IR autodiff + AdamW) and the indices of
+    its donated state (p, m and v)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.lm import build_graphs
+    from repro_torch.models.train_graph import make_train_step
+    g = build_graphs(cfg, ShapeConfig("train", "train", seq, batch), batch)
+    ts = make_train_step(g, cfg)
+    n_data, n_p = len(g.builder.inputs), ts.n_params
+    return ts, tuple(range(n_data + 1, n_data + 1 + 3 * n_p))
+
+
+def _train_params(ts, dev: str, seed: int = 0) -> list:
+    """The step's parameters, drawn on ``dev`` from ``seed``."""
+    from repro_torch.models.weights import init_params_on_device
+    p = init_params_on_device(ts.graphs.builder, seed, dev)
+    return [p[n] for n in ts.param_names]
+
+
+def _train_state(ts, cfg, dev: str, seed: int = 0) -> list:
+    """Fresh state on ``dev``: the parameters of :func:`_train_params`,
+    the AdamW moments zero."""
+    from repro_torch.devices import torch_dtype
+    opt = torch_dtype(cfg.opt_dtype)
+    ps = _train_params(ts, dev, seed)
+    return ps + [torch.zeros_like(t, dtype=opt) for t in ps] + \
+        [torch.zeros_like(t, dtype=opt) for t in ps]
+
+
+def _state_gaps(start: list, ref: list, got: list) -> dict:
+    """The worst gap of each kind between two flat (p, m, v) train states
+    that ran the same steps from the same parameters ``start``, leaf by
+    leaf in f64 on ``got``'s device (``ref`` may lie on the host): the
+    moments in L2 over their own norm, each parameter's update from
+    ``start`` in norm ratio (``|1 - ratio|``) and in L2 over its norm."""
+    n = len(start)
+    assert len(ref) == len(got) == 3 * n
+    gaps = {"m": 0.0, "v": 0.0, "update_norm": 0.0, "update": 0.0}
+
+    def f64(t):
+        t = torch.as_tensor(t)
+        return t.to(device=dev, dtype=torch.float64)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(b - a) /
+                     torch.linalg.vector_norm(a))
+
+    for i in range(n):
+        dev = torch.as_tensor(got[i]).device
+        p0 = f64(start[i])
+        d_ref, d_got = f64(ref[i]) - p0, f64(got[i]) - p0
+        del p0
+        ratio = float(torch.linalg.vector_norm(d_got) /
+                      torch.linalg.vector_norm(d_ref))
+        gaps["update_norm"] = max(gaps["update_norm"], abs(1 - ratio))
+        gaps["update"] = max(gaps["update"], rel(d_ref, d_got))
+        del d_ref, d_got
+        for kind, j in (("m", n + i), ("v", 2 * n + i)):
+            gaps[kind] = max(gaps[kind], rel(f64(ref[j]), f64(got[j])))
+    return gaps
+
+
+def _require_state(gaps: dict, dtype: str, what: str) -> None:
+    over = {k: g for k, g in gaps.items() if not g <= STATE_LIMITS[dtype][k]}
+    require(not over, f"{what}: state gaps {over} over the {dtype} limits "
+            f"{STATE_LIMITS[dtype]}")
+
+
+def _train_steps(cf, flat: list, batches, first: int = 0,
+                 required=ALL_KERNELS, label: str = "train"):
+    """Run ``len(batches)`` steps of ``cf.raw`` from step ``first``; each
+    step's counters are set to 0 just before it and read just after.
+    Returns (losses, step ms, per-step counters, the state after)."""
+    from repro_torch import kernels
+    from repro_torch.backend.graphed import GraphedProgram
+    losses, ms, counts = [], [], []
+    for k, batch in enumerate(batches):
+        kernels.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = cf.raw(batch["tokens"], batch["labels"], np.int32(first + k),
+                      *flat)
+        loss = outs[0].item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        c = kernels.counters()
+        counts.append(c)
+        require(math.isfinite(loss), f"{label} step {first + k}: loss {loss}")
+        for name in required:
+            require(c[name]["launches"] > 0 and c[name]["rejected"] == 0,
+                    f"{label} step {first + k}: {name}: {c[name]}")
+        new = list(outs[1:])
+        if isinstance(cf.raw, GraphedProgram):
+            # donated state is written back in place: the same tensors
+            require(all(a is b for a, b in zip(new, flat)),
+                    f"{label} step {first + k}: the donated state did not "
+                    f"come back as the same tensors")
+        flat = new
+        losses.append(loss)
+        del outs
+    return losses, ms, counts, flat
+
+
+def phase_train(report: dict, smi: str) -> None:
+    """Training on the card: deepseek-7b at full width with the depth cut
+    to 4 layers (AdamW's p, m and v of 30 layers would not fit), batch 4
+    x seq 512 of ``SyntheticLM`` (seed 0), f32 parameters, bf16 compute,
+    O2 with the kernels, the step captured as a CUDA graph.  Six steps
+    (the eager first call, the capture, four replays) launch all five
+    kernels each (the forward and the backward scan's recompute); the
+    same six from the same state eagerly give the same losses bit for
+    bit; the six steps without the kernels (O1) agree on every loss to
+    3e-2 of scale and on the state after them within the bf16
+    :data:`STATE_LIMITS` (the moments carry the gradients, so a kernel
+    that is wrong in the backward's recompute fails here); and a fresh
+    backend over the same cache dir takes the step from disk and gives
+    the first loss's bits.  Then, at phase 6's
+    d_head-128 width in f32: five steps on the card against the port on
+    the CPU, a checkpoint resumed bit for bit, a card checkpoint restored
+    on the CPU, and an autotune record re-resolved with zero sweeps."""
+    import shutil
+    import tempfile
+    from repro_torch.backend import Backend, CompileOptions
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.data import DataConfig, SyntheticLM
+
+    held = _free_card()
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=TRAIN_LAYERS)
+    require((cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
+             cfg.compute_dtype, cfg.param_dtype) ==
+            (D, HEADS, DH, F, V, "bf16", "f32"), f"deepseek-7b: {cfg}")
+    ts, donate = _train_step_graph(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batches = [data.batch(s) for s in range(TRAIN_STEPS)]
+    n_params = sum(int(np.prod(s.shape))
+                   for s in ts.graphs.builder.params.values())
+    n_matmul = n_params - cfg.vocab * cfg.d_model   # all but the embedding
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="train_cache_", dir=build)
+    opts = CompileOptions(level="O2", use_pallas=True, donate_argnums=donate,
+                          cache_dir=cache)
+    try:
+        # captured: eager first call, capture, replays
+        torch.cuda.reset_peak_memory_stats()
+        be = Backend.create("torch", fresh=True, device="cuda")
+        t0 = time.perf_counter()
+        cf = be.compile(ts.fn, opts)
+        compile_cold_s = time.perf_counter() - t0
+        pipeline_s = cf.report.seconds
+        require(not cf.from_disk and be.cache_stats().disk_misses == 1,
+                f"train: cold compile {be.cache_stats()}")
+        fused = dict(cf.report.stats).get("fuse-compounds", {})
+        flat = _train_state(ts, cfg, "cuda")
+        losses, ms, counts, flat = _train_steps(cf, flat, batches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reserved = torch.cuda.max_memory_reserved() / 1e9
+        require((cf.raw.captures, cf.raw.replays) == (1, TRAIN_STEPS - 1),
+                f"train: {cf.raw.captures} captures, {cf.raw.replays} "
+                f"replays")
+        total = {k: {"launches": sum(c[k]["launches"] for c in counts),
+                     "rejected": sum(c[k]["rejected"] for c in counts)}
+                 for k in counts[0]}
+        _record_launches(report, "train", total, ALL_KERNELS)
+        per_step = {k: counts[-1][k]["launches"] for k in counts[-1]}
+        for name in report:
+            report[name]["launches_per_train_step"] = per_step[name]
+        # the state after the six steps, on the host, for the O1 run
+        t0 = time.perf_counter()
+        kernel_state = [t.to("cpu") for t in flat]
+        stash_s = time.perf_counter() - t0
+        # one more replay, outside the counted run, under the profiler:
+        # where the step's device time goes
+        extra = data.batch(TRAIN_STEPS)
+        rows, union, ours = _profile(lambda: cf.raw(
+            extra["tokens"], extra["labels"], np.int32(TRAIN_STEPS),
+            *flat)[0].item())
+        for name in ALL_KERNELS:
+            want = per_step[name] * KERNEL_FUNCS[name][1]
+            got = ours.get(name, [0.0, 0])[1]
+            require(got == want, f"train: {name}: {got} device kernels in "
+                    f"a replay's profile, the counters say "
+                    f"{per_step[name]} calls ({want} kernels)")
+        del cf, be, flat
+        _free_card()
+
+        # the same six steps eagerly, from the same state
+        be = Backend.create("torch", fresh=True, device="cuda")
+        cf = be.compile(ts.fn, opts.replace(static_jit=False))
+        flat = _train_state(ts, cfg, "cuda")
+        eager, eager_ms, _, flat = _train_steps(cf, flat, batches,
+                                                label="train eager")
+        require(eager == losses, f"train: captured losses {losses} != "
+                f"eager {eager}")
+        del cf, be, flat
+        _free_card()
+
+        # without the kernels: the same six steps, their losses and the
+        # state after them
+        be = Backend.create("torch", fresh=True, device="cuda")
+        cf = be.compile(ts.fn, CompileOptions(level="O1", use_pallas=False,
+                                              donate_argnums=donate,
+                                              static_jit=False))
+        flat = _train_state(ts, cfg, "cuda")
+        plain, _, _, flat = _train_steps(cf, flat, batches, required=(),
+                                         label="train O1")
+        d_plain = max(abs(a - b) / max(abs(b), 1.0)
+                      for a, b in zip(plain, losses))
+        require(d_plain <= 3e-2, f"train: O1 losses {plain} vs O2 kernels "
+                f"{losses}")
+        del cf, be
+        start = _train_params(ts, "cuda")
+        o1_gaps = _state_gaps(start, kernel_state, flat)
+        _require_state(o1_gaps, "bf16", "train: O1 vs O2 kernels")
+        del flat, start, kernel_state
+        _free_card()
+
+        # a cold process over the same cache dir: the step from disk
+        be = Backend.create("torch", fresh=True, device="cuda")
+        t0 = time.perf_counter()
+        cf = be.compile(ts.fn, opts)
+        compile_disk_s = time.perf_counter() - t0
+        require(cf.from_disk and be.cache_stats().disk_hits == 1,
+                f"train: disk {be.cache_stats()}")
+        flat = _train_state(ts, cfg, "cuda")
+        disk, _, _, flat = _train_steps(cf, flat, batches[:1],
+                                        label="train disk")
+        require(disk[0] == losses[0], f"train: disk-hit loss {disk[0]} != "
+                f"{losses[0]}")
+        del cf, be, flat
+        _free_card()
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    replay_ms = statistics.median(ms[2:])
+    flops = 6 * n_matmul * tokens
+    say("train", model=f"deepseek-7b full width, {TRAIN_LAYERS} layers",
+        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        card_allocated_gb_before=f"{held:.2f}",
+        fused=json.dumps({k: v for k, v in fused.items() if v}),
+        losses=json.dumps(losses), captured_vs_eager="bitwise",
+        o1_losses=json.dumps(plain), o1_vs_o2_loss=f"{d_plain:.3e}",
+        o1_vs_o2_state=json.dumps({k: f"{g:.3e}" for k, g in o1_gaps.items()}),
+        state_to_host_s=f"{stash_s:.2f}",
+        eager_step_ms=f"{ms[0]:.1f}", capture_step_ms=f"{ms[1]:.1f}",
+        replay_step_ms=f"{replay_ms:.1f}",
+        replay_steps_ms=json.dumps([round(t, 2) for t in ms[2:]]),
+        eager_run_ms=json.dumps([round(t, 1) for t in eager_ms]),
+        tok_s=f"{tokens / replay_ms * 1e3:.1f}",
+        model_tflop_s=f"{flops / replay_ms / 1e9:.2f}",
+        share_of_989=f"{flops / replay_ms / 1e9 / 989:.4f}",
+        peak_gb=f"{peak:.2f}", peak_reserved_gb=f"{reserved:.2f}",
+        launches_per_step=json.dumps(per_step),
+        pipeline_s=f"{pipeline_s:.3f}",
+        compile_cold_s=f"{compile_cold_s:.3f}",
+        compile_disk_hit_s=f"{compile_disk_s:.3f}",
+        disk_hit_loss="bitwise", card=repr(smi))
+    say("train_profile", dispatch="one replayed train step",
+        device_busy_ms=f"{sum(r[0] for r in rows):.1f}",
+        device_union_ms=(f"{union / 1e3:.1f}" if union is not None
+                         else "not measured"),
+        device_kernels=sum(r[1] for r in rows),
+        port_kernels_ms_launches=json.dumps(
+            {k: [round(v[0], 3), v[1]] for k, v in ours.items()}),
+        top=json.dumps([[k[:60], round(ms_, 3), n]
+                        for ms_, n, k in rows[:16]]))
+    phase_train_small()
+
+
+def phase_train_small() -> None:
+    """Phase 8 at phase 6's d_head-128 width in f32: the card against the
+    CPU over five steps, a checkpoint after step 3 resumed into fresh
+    tensors (steps 4-5 bitwise), the card's checkpoint restored on the
+    CPU, and an autotune sweep of the prefill graph re-resolved by a
+    fresh backend with zero sweeps."""
+    import shutil
+    import tempfile
+    from repro_torch.backend import Backend, CompileOptions, autotune
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.devices import to_numpy
+    from repro_torch.models.lm import build_graphs
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.data import DataConfig, SyntheticLM
+
+    cfg = get_config("deepseek-7b").reduced(**TRAIN_SMALL)
+    ts, donate = _train_step_graph(cfg, SMALL_BATCH, SMALL_SEQ)
+    data = SyntheticLM(DataConfig(cfg.vocab, SMALL_SEQ, SMALL_BATCH, seed=0))
+    batches = [data.batch(s) for s in range(SMALL_STEPS)]
+    params = ts.graphs.builder.init_params(0)
+    names = ts.param_names
+    host = [params[n] for n in names] + \
+        [np.zeros_like(params[n]) for n in names] * 2
+    opts = CompileOptions(level="O2", use_pallas=True, donate_argnums=donate)
+    build = os.path.join(ROOT, "build")
+    tmp = tempfile.mkdtemp(prefix="train_small_", dir=build)
+    try:
+        runs, cut = {}, None
+        for dev in ("cuda", "cpu"):
+            cf = Backend.create("torch", fresh=True, device=dev).compile(
+                ts.fn, opts)
+            flat = [torch.from_numpy(a.copy()).to(dev) for a in host]
+            need = ("flash_attention",) if dev == "cuda" else ()
+            card = dev == "cuda" and not runs
+            losses, _, _, flat = _train_steps(
+                cf, flat, batches[:SMALL_CKPT], required=need,
+                label=f"small {dev}")
+            if card:
+                mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+                mgr.save(SMALL_CKPT, {f"s{i}": t for i, t in enumerate(flat)})
+                cut = [to_numpy(t) for t in flat]
+            more, _, _, flat = _train_steps(
+                cf, flat, batches[SMALL_CKPT:], first=SMALL_CKPT,
+                required=need, label=f"small {dev}")
+            runs["card" if card else "cpu"] = (losses + more,
+                                               [to_numpy(t) for t in flat])
+            if card:
+                # resumed into fresh tensors on the card: steps 4-5 bitwise
+                _, got, _ = mgr.restore(device="cuda")
+                flat = [got[f"s{i}"] for i in range(len(host))]
+                again, _, _, flat = _train_steps(
+                    cf, flat, batches[SMALL_CKPT:], first=SMALL_CKPT,
+                    required=need, label="small resumed")
+                require(again == more, f"small: resumed losses {again} != "
+                        f"{more}")
+                require(all(_bitwise(torch.from_numpy(a),
+                                     torch.from_numpy(to_numpy(b)))
+                            for a, b in zip(runs["card"][1], flat)),
+                        "small: the resumed state differs from the run's")
+                # the card's checkpoint on the CPU
+                _, got, _ = mgr.restore(device="cpu")
+                require(all(np.array_equal(got[f"s{i}"].numpy(), a)
+                            for i, a in enumerate(cut)),
+                        "small: the card's checkpoint restored on the CPU "
+                        "differs")
+            del cf, flat
+        (lc, pc), (lh, ph) = runs["card"], runs["cpu"]
+        loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(lc, lh))
+        param_err = max(float(np.abs(a.astype(np.float64) - b).max())
+                        / max(float(np.abs(b).max()), 1.0)
+                        for a, b in zip(pc, ph))
+        require(loss_err <= 1e-4 and param_err <= 1e-4,
+                f"small: card vs CPU loss {loss_err:.3e} state "
+                f"{param_err:.3e} of scale")
+        small_gaps = _state_gaps(host[:len(names)], ph, pc)
+        _require_state(small_gaps, "f32", "small: card vs CPU")
+
+        # autotune: a sweep of the prefill graph, then a re-resolve
+        g = build_graphs(cfg, ShapeConfig("prefill", "prefill", SMALL_SEQ, 1),
+                         1)
+        topts = CompileOptions(level="O2", use_pallas=True, autotune=True,
+                               cache_dir=os.path.join(tmp, "cache"))
+        be = Backend.create("torch", fresh=True, device="cuda")
+        be.compile(g.fn, topts)
+        st1 = be.cache_stats()
+        recs = [os.path.join(tmp, "cache", "autotune", n) for n in
+                os.listdir(os.path.join(tmp, "cache", "autotune"))]
+        require(st1.autotune_sweeps == 1 and len(recs) == 1,
+                f"autotune: {st1}, records {recs}")
+        with open(recs[0]) as fh:
+            rec = json.load(fh)
+        require(autotune.validate_record(rec) == [],
+                f"autotune record: {autotune.validate_record(rec)}")
+        require(be.cache_stats().size == 1,
+                f"autotune: {be.cache_stats().size} compiled functions kept")
+        require(all(c["use_pallas"] is True for c in rec["candidates"]),
+                f"autotune: a candidate without the kernels: {rec}")
+        be2 = Backend.create("torch", fresh=True, device="cuda")
+        be2.compile(g.fn, topts)
+        st2 = be2.cache_stats()
+        require(st2.autotune_sweeps == 0 and st2.autotune_hits == 1,
+                f"autotune re-resolve: {st2}")
+        del be, be2
+        _free_card()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("train_small", model="deepseek-7b reduced d_head 128 (d_model 256, "
+        "2 heads), f32", steps=SMALL_STEPS, card_losses=json.dumps(lc),
+        card_vs_cpu_loss=f"{loss_err:.3e}",
+        card_vs_cpu_state=f"{param_err:.3e}",
+        card_vs_cpu_gaps=json.dumps({k: f"{g:.3e}"
+                                     for k, g in small_gaps.items()}),
+        resume="bitwise",
+        card_checkpoint_on_cpu="bitwise",
+        autotune_candidates=len(rec["candidates"]),
+        autotune_winner=json.dumps({k: rec["winner"][k] for k in
+                                    ("attn_impl", "attn_chunk", "use_pallas",
+                                     "fuse_swiglu", "fuse_norm_matmul",
+                                     "fuse_rotary_qkv")}),
+        autotune_ms=json.dumps([round(c["ms"], 3)
+                                for c in rec["candidates"]]),
+        re_resolve_sweeps=st2.autotune_sweeps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -1421,13 +1890,16 @@ def main() -> int:
     report = phase_kernels()
     if "--kernels-only" in sys.argv[1:]:
         return 0    # a first check of new kernels: no result line
+    if "--train-only" in sys.argv[1:]:
+        phase_train(report, smi)
+        return 0    # phase 8 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
     phase_parity()
     phase_http(report, cfg, params, prompts, tokens, smi)
     del params
-    torch.cuda.empty_cache()
+    phase_train(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ holds ``repro_torch`` to ``repro``, as the reference's parity scripts
 hold one lowering to another.  The port itself imports neither ``jax``
 nor ``repro``.
 
-For each serving graph kind of the dense family -- ``prefill``,
-``decode``, ``serve``, the paged decode chunk and the paged prefill
-chunk -- the same graph is built by both packages (their structural
+For each graph kind of the dense family -- the ``train`` loss graph and
+the whole train step (``train_step``: IR autodiff + AdamW,
+``models.train_graph.make_train_step``), ``prefill``, ``decode``,
+``serve``, the paged decode chunk and the paged prefill chunk -- the
+same graph is built by both packages (their structural
 signatures must agree) and run on the same numpy inputs (the recipe of
 ``check_kernel_parity.make_args``: the builder's seeded weights, integer
 inputs drawn below ``min(vocab, 100)``, float inputs zero) three ways:
@@ -20,7 +22,16 @@ versions on the CPU).  The gate fails unless
   * each torch output agrees with JAX's: integer outputs exactly, float
     outputs within 1e-4 of scale in f32 and 3e-2 in bf16, and logits
     (last dim the vocabulary) with the same argmax (``compare``, as in
-    ``check_kernel_parity``);
+    ``check_kernel_parity``).  The train kinds' f32 outputs (the loss,
+    and the step's new parameters and moments) are computed in the
+    config's compute dtype, so they are held to that dtype's tolerance,
+    and the step has no logits among its outputs (its moments of the
+    unembedding end in the vocabulary too).  The step's moments are
+    gradient-sized, far below that scale's floor of 1, and its update is
+    smaller still, so each new moment is also held within the tolerance
+    of its own norm (L2), and each parameter's update (new minus given)
+    against JAX's in norm ratio and, within ``UPDATE_L2``, in direction
+    (``compare_train_state``);
   * on a CUDA device, every kernel on a graph's path launched at least
     once in its O2 run (the launch counters; the reduced vocabulary's
     unembed is refused by the kernels' shape rule and runs plain).
@@ -44,10 +55,12 @@ sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
 
 # per-kind minimum fusion hit counts (rotary+QKV only matches the batch
-# rope tables of the prefill path; decode/serve and the paged graphs use
-# per-row or sliced tables the compound rejects); the train graph waits
-# for the training slice of the port
+# rope tables of the train/prefill paths; decode/serve and the paged
+# graphs use per-row or sliced tables the compound rejects); the train
+# step holds the train graph's forward, so its counts are the same
 EXPECTED = {
+    "train": {"swiglu": 1, "norm_matmul": 1, "rotary_qkv": 1},
+    "train_step": {"swiglu": 1, "norm_matmul": 1, "rotary_qkv": 1},
     "prefill": {"swiglu": 1, "norm_matmul": 1, "rotary_qkv": 1},
     "decode": {"swiglu": 1, "norm_matmul": 1},
     "serve": {"swiglu": 1, "norm_matmul": 1},
@@ -57,19 +70,33 @@ EXPECTED = {
 # the graph kinds that hold an Attention op, which the flash kernel
 # carries at head widths of a multiple of 128; the others attend through
 # IR compositions
-ATTENTION_KINDS = ("prefill", "decode")
+ATTENTION_KINDS = ("train", "train_step", "prefill", "decode")
 # max_len, batch, and the paged graphs' shape: n_pages and max_len cover
 # every page id and position below 100 that make_args may draw
 MAX_LEN, BATCH = 16, 2
 PAGED_MAX_LEN, PAGE_SIZE, N_PAGES, STEPS, CHUNK = 128, 8, 100, 2, 16
+# the update's direction in L2 over its own norm: AdamW scales a gradient
+# element to about +-lr, so an element whose bf16 rounding crosses zero
+# flips its whole update (tests/test_torch_train.py holds the same)
+UPDATE_L2 = {"f32": 1e-4, "bf16": 0.25}
 WIDTHS = {"reduced": {},
           "dh128": dict(d_model=256, n_heads=2, n_kv_heads=2, d_head=128,
                         d_ff=256)}
 
 
-def build(lm, shape_config, cfg, kind):
-    """One serving graph of ``kind``, built by the package whose
-    ``models.lm`` and ``ShapeConfig`` are ``lm`` and ``shape_config``."""
+def build(lm, shape_config, cfg, kind, train_graph=None):
+    """One graph of ``kind``, built by the package whose ``models.lm``,
+    ``ShapeConfig`` and ``models.train_graph`` are ``lm``,
+    ``shape_config`` and ``train_graph``; returns ``(graphs, fn)``."""
+    if kind == "train_step":
+        g = lm.build_graphs(cfg, shape_config("train", "train", MAX_LEN,
+                                              BATCH), BATCH)
+        return g, train_graph.make_train_step(g, cfg).fn
+    g = _build(lm, shape_config, cfg, kind)
+    return g, g.fn
+
+
+def _build(lm, shape_config, cfg, kind):
     if kind == "paged_chunk":
         return lm.build_dense_chunk(cfg, PAGED_MAX_LEN, BATCH, STEPS,
                                     page_size=PAGE_SIZE, n_pages=N_PAGES)
@@ -81,10 +108,13 @@ def build(lm, shape_config, cfg, kind):
                            BATCH)
 
 
-def make_args(g, cfg, rng):
+def make_args(g, fn, cfg, rng):
+    """``fn``'s inputs: the builder's seeded weights by name, integer
+    inputs below ``min(vocab, 100)``, float inputs (the AdamW moments of
+    a train step among them) zero."""
     params = g.builder.init_params(0)
     args = []
-    for node in g.fn.parameters:
+    for node in fn.parameters:
         t = node.out_types[0]
         if node.name in params:
             args.append(params[node.name])
@@ -96,7 +126,9 @@ def make_args(g, cfg, rng):
     return args
 
 
-def compare(where, a, b, vocab, errors):
+def compare(where, a, b, vocab, errors, tol=None):
+    """``b`` (torch) against ``a`` (JAX); ``tol`` None takes the output
+    dtype's tolerance, ``vocab`` None skips the logits rule."""
     a, b = np.asarray(a), np.asarray(b)
     if a.shape != b.shape or a.dtype != b.dtype:
         errors.append(f"{where}: {b.shape} {b.dtype} against JAX's "
@@ -109,7 +141,8 @@ def compare(where, a, b, vocab, errors):
     af = a.astype(np.float64)
     bf = b.astype(np.float64)
     # bf16 storage: one ulp of headroom on top of accumulated error
-    tol = 3e-2 if "bfloat16" in str(a.dtype) else 1e-4
+    if tol is None:
+        tol = 3e-2 if "bfloat16" in str(a.dtype) else 1e-4
     scale = max(float(np.abs(af).max()), 1.0)
     diff = float(np.abs(af - bf).max())
     if diff > tol * scale:
@@ -118,16 +151,55 @@ def compare(where, a, b, vocab, errors):
     # logits: greedy parity.  The reference's rule finds logits by a last
     # dim over 100, which at d_head 128 also takes the KV caches, whose
     # head-dim argmax means nothing; the vocabulary names them exactly
-    if af.ndim >= 2 and af.shape[-1] == vocab:
+    if vocab is not None and af.ndim >= 2 and af.shape[-1] == vocab:
         if not np.array_equal(af.argmax(-1), bf.argmax(-1)):
             errors.append(f"{where}: greedy argmax differs")
 
 
 def required_kernels(kind: str, cfg) -> List[str]:
-    need = ["matmul", "norm_matmul", "swiglu", "rmsnorm"]
+    from repro_torch.devices import torch_dtype
+    from repro_torch.kernels import ops
+    need = ["matmul", "swiglu", "rmsnorm"]
+    # the train loss graph's one NormMatmul is the final norm and the
+    # unembedding, which the kernels' shape rule refuses at the reduced
+    # vocabulary (257); the train step's backward forms others
+    if kind != "train" or ops.norm_matmul_supported(
+            BATCH * MAX_LEN, cfg.d_model, cfg.vocab, torch_dtype(
+                cfg.compute_dtype)):
+        need.insert(1, "norm_matmul")
     if kind in ATTENTION_KINDS and cfg.head_dim % 128 == 0:
         need.append("flash_attention")
     return need
+
+
+def _rel_l2(ref, got) -> float:
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def compare_train_state(where, given, ref, outs, dtype, errors):
+    """The train step's new state ``outs[1:]`` (p', m', v') against JAX's
+    ``ref[1:]`` beyond ``compare``: each moment within the compute
+    dtype's tolerance of its own norm, each update ``p' - p`` (``given``
+    the step's p) in norm ratio within that tolerance and in direction
+    within ``UPDATE_L2``."""
+    tol = 3e-2 if dtype == "bf16" else 1e-4
+    n = len(given)
+    for i in range(n):
+        p = np.asarray(given[i], np.float64)
+        d_ref = np.asarray(ref[1 + i], np.float64) - p
+        d_got = np.asarray(outs[1 + i], np.float64) - p
+        ratio = float(np.linalg.norm(d_got) / np.linalg.norm(d_ref))
+        err = _rel_l2(d_ref, d_got)
+        if abs(ratio - 1) > tol or err > UPDATE_L2[dtype]:
+            errors.append(f"{where}: update {i}: norm ratio {ratio:.6f}, "
+                          f"L2 {err:.3e} (limits {tol}, {UPDATE_L2[dtype]})")
+        for kind, j in (("m", 1 + n + i), ("v", 1 + 2 * n + i)):
+            err = _rel_l2(ref[j], outs[j])
+            if err > tol:
+                errors.append(f"{where}: {kind} {i}: L2 {err:.3e} of its "
+                              f"norm (tol {tol})")
 
 
 def main(argv=None) -> int:
@@ -146,11 +218,13 @@ def main(argv=None) -> int:
     from repro.configs import get_config as j_get_config
     from repro.configs.base import ShapeConfig as JShapeConfig
     from repro.models import lm as j_lm
+    from repro.models import train_graph as j_train
     from repro_torch import kernels
     from repro_torch.backend import Backend, CompileOptions
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import lm as t_lm
+    from repro_torch.models import train_graph as t_train
 
     over = WIDTHS[args.width]
     jcfg = j_get_config("deepseek-7b").reduced(**over)
@@ -158,20 +232,21 @@ def main(argv=None) -> int:
     jbe = JBackend.create("jax")
     tbe = Backend.create("torch", device=args.device)
     on_card = tbe.device.type == "cuda"
+    train_tol = 3e-2 if tcfg.compute_dtype == "bf16" else 1e-4
     rng = np.random.default_rng(0)
     errors: List[str] = []
     for kind, expected in EXPECTED.items():
-        jg = build(j_lm, JShapeConfig, jcfg, kind)
-        tg = build(t_lm, ShapeConfig, tcfg, kind)
-        if jg.fn.signature() != tg.fn.signature():
+        jg, jfn = build(j_lm, JShapeConfig, jcfg, kind, j_train)
+        tg, tfn = build(t_lm, ShapeConfig, tcfg, kind, t_train)
+        if jfn.signature() != tfn.signature():
             errors.append(f"{kind}: the two packages built different "
                           f"graphs")
             continue
-        args_np = make_args(jg, jcfg, rng)
-        ref = jbe.compile(jg.fn, JOptions(level="O1"))(*args_np)
-        o1 = tbe.compile(tg.fn, CompileOptions(level="O1"))(*args_np)
-        fused = tbe.compile(tg.fn, CompileOptions(level="O2",
-                                                  use_pallas=True))
+        args_np = make_args(jg, jfn, jcfg, rng)
+        ref = jbe.compile(jfn, JOptions(level="O1"))(*args_np)
+        o1 = tbe.compile(tfn, CompileOptions(level="O1"))(*args_np)
+        fused = tbe.compile(tfn, CompileOptions(level="O2",
+                                                use_pallas=True))
         kernels.reset_counters()
         o2 = fused(*args_np)
         counts = kernels.counters()
@@ -188,7 +263,14 @@ def main(argv=None) -> int:
                 continue
             for i, (a, b) in enumerate(zip(ref, outs)):
                 compare(f"{kind} torch {label} output {i}", a, b,
-                        tcfg.vocab, errors)
+                        None if kind == "train_step" else tcfg.vocab,
+                        errors, tol=train_tol if kind.startswith("train")
+                        else None)
+            if kind == "train_step" and len(outs) == len(ref):
+                n = (len(ref) - 1) // 3
+                compare_train_state(f"{kind} torch {label}",
+                                    args_np[-3 * n:-2 * n], ref, outs,
+                                    tcfg.compute_dtype, errors)
         launched = {k: c["launches"] for k, c in counts.items()}
         if on_card:
             for name in required_kernels(kind, tcfg):
@@ -203,7 +285,7 @@ def main(argv=None) -> int:
             print(f"PARITY FAIL: {e}", file=sys.stderr)
         return 1
     print(f"torch parity ok ({args.width}, {tbe.device}): O1 and O2 "
-          f"(kernels) match JAX O1 on every dense serving graph")
+          f"(kernels) match JAX O1 on every dense graph kind")
     return 0
 
 

@@ -7,14 +7,18 @@
     cf = be.compile(fn, CompileOptions(level="O2", use_pallas=True))
     outs = cf(*arrays)            # numpy in/out (synchronizes)
     cf.raw(*tensors)              # device tensors in/out, no sync
-    be.cache_stats()              # compile-cache hits/misses
+    be.cache_stats()              # compile-cache hits/misses, disk, tuner
 
-The persistent disk cache and the autotuner are later slices and are
-refused with a clear error (``OptionsError``).
+``CompileOptions(cache_dir=...)`` (or ``$REPRO_CACHE_DIR``) persists the
+optimized graphs on disk (:mod:`.diskcache`), so a cold process skips
+the pass pipeline; ``autotune=True`` resolves the attention and fusion
+knobs from a recorded sweep (:mod:`.autotune`).  Graph partitioning and
+gradient compression are refused with a clear error (``OptionsError``).
 """
 from .base import (Backend, CacheStats, available_backends,  # noqa: F401
                    register_backend)
 from .compiled import CompiledFunction  # noqa: F401
+from .diskcache import DiskCompileCache  # noqa: F401
 from .options import CompileOptions, OptionsError  # noqa: F401
 # each backend module registers itself
 from . import interpreter as _interpreter  # noqa: F401

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, Dict, List, Optional, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 from ..core.function import Function
 from ..core.passes import run_pipeline
@@ -57,6 +57,8 @@ class Backend:
         self.cache_misses = 0
         self.autotune_hits = 0
         self.autotune_sweeps = 0
+        self._autotune_mem: Dict[Any, Dict] = {}  # tuning records, in-process
+        self._disk_caches: Dict[Tuple, Any] = {}  # (dir, budget) -> cache
 
     # -- registry / construction --------------------------------------------
     _REGISTRY: Dict[str, Type["Backend"]] = {}
@@ -101,10 +103,18 @@ class Backend:
         compiles of the same key are deduplicated: one thread builds, the
         rest wait and receive the same executable.
 
-        The persistent disk cache, the autotuner, graph partitioning and
-        gradient compression (``cache_dir``, ``autotune``, ``partition``/
-        ``mesh_shape``, ``compress_grads``) come with later slices of the
-        torch port and are rejected here with a clear error."""
+        ``options.autotune=True`` first resolves the attention and fusion
+        knobs via :mod:`repro_torch.backend.autotune` (cached tuning
+        record, else a sweep), then compiles with the concrete winner.
+        When a cache dir is configured (``options.cache_dir`` or
+        ``$REPRO_CACHE_DIR``) an in-memory miss consults
+        :class:`~repro_torch.backend.diskcache.DiskCompileCache` before
+        running the pass pipeline: a disk hit rehydrates the optimized
+        graph + PipelineReport + metadata and only re-runs backend
+        codegen.  Graph partitioning and gradient compression
+        (``partition``/``mesh_shape``, ``compress_grads``) come with the
+        tensor-parallel slice of the torch port and are rejected here
+        with a clear error."""
         if options is None:
             options = CompileOptions()
         if not isinstance(options, CompileOptions):
@@ -119,6 +129,9 @@ class Backend:
                 f"donate_argnums {bad} out of range for {fn.name} "
                 f"({n_params} parameters)")
         _reject_later_slices(options)
+        if options.autotune:
+            from . import autotune as _autotune
+            options = _autotune.resolve(self, fn, options)
         level = options.level or self.default_level
         key = (fn.signature(), tuple(p.name for p in fn.parameters),
                level, options.cache_key())
@@ -145,16 +158,86 @@ class Backend:
 
     def _build(self, fn: Function, options: CompileOptions, level: str,
                key: Tuple) -> CompiledFunction:
-        """Build one executable: the full pipeline, then codegen."""
+        """Build one executable: disk-cache rehydrate, else full pipeline."""
+        from . import diskcache
+        disk = self._disk_for(options)
+        dkey = None
+        if disk is not None:
+            dkey = diskcache.entry_key(key[0], key[1], level, options,
+                                       self.name, self._key_opts())
+        if dkey is not None:
+            entry = disk.load(dkey)
+            if entry is not None:
+                hydrated = self._from_entry(entry, options, key[0])
+                if hydrated is not None:
+                    return hydrated
+                # the entry read fine but wouldn't hydrate (e.g. alien
+                # graph rejected by codegen) — the full pipeline runs, so
+                # reporting a disk hit would let warm-start CI gates pass
+                # on a run that re-paid everything
+                disk.hits -= 1
+                disk.misses += 1
         opt_fn, report = run_pipeline(
             fn, level,
             fuse={"swiglu": options.fuse_swiglu,
                   "norm_matmul": options.fuse_norm_matmul,
                   "rotary_qkv": options.fuse_rotary_qkv})
         call, raw, lower = self._codegen(opt_fn, options)
-        return CompiledFunction(
+        compiled = CompiledFunction(
             opt_fn, call, backend=self.name, options=options,
             report=report, signature=key[0], raw=raw, lower=lower)
+        if dkey is not None:
+            disk.store(
+                dkey, fn=opt_fn, report=report, level=level,
+                backend_name=self.name, options=options,
+                memory_plan=compiled.memory_plan, cost=compiled.cost)
+        return compiled
+
+    def _from_entry(self, entry: Dict, options: CompileOptions,
+                    signature: str) -> Optional[CompiledFunction]:
+        """Rehydrate a disk entry: codegen the stored *optimized* graph
+        (the pipeline is skipped — that's the point; the port has no
+        executable format, so emission runs again)."""
+        opt_fn = entry["function"]
+        try:
+            call, raw, lower = self._codegen(opt_fn, options)
+        except Exception:
+            return None  # alien graph; fall back to a full build
+        # memory plan stays lazy: the stored totals are introspection-only
+        # (cache_tool), and a plan without its buffer assignments would
+        # silently disable the interpreter's arena mode — recomputing from
+        # the rehydrated graph gives the identical full plan
+        cost = None
+        if entry.get("cost"):
+            from ..core.cost import Cost
+            c = entry["cost"]
+            cost = Cost(flops=float(c["flops"]), bytes=float(c["bytes"]),
+                        by_op=c.get("by_op"))
+        return CompiledFunction(
+            opt_fn, call, backend=self.name, options=options,
+            report=entry["report"], signature=signature, raw=raw,
+            lower=lower, cost=cost, from_disk=True)
+
+    # -- persistence hooks ---------------------------------------------------
+    def _disk_for(self, options: CompileOptions):
+        """The DiskCompileCache for these options, or None (disabled)."""
+        from . import diskcache
+        root = diskcache.resolve_dir(options)
+        if root is None:
+            return None
+        budget = diskcache.resolve_budget(options)
+        with self._lock:
+            dc = self._disk_caches.get((root, budget))
+            if dc is None:
+                dc = diskcache.DiskCompileCache(root, budget)
+                self._disk_caches[(root, budget)] = dc
+        return dc
+
+    def _key_opts(self) -> Dict:
+        """The backend opts that disk entries and tuning records are
+        keyed on: ``backend_opts``, plus what a backend adds (the torch
+        backend adds its device's name)."""
+        return self.backend_opts
 
     def _codegen(self, fn: Function, options: CompileOptions
                  ) -> Tuple[Callable, Optional[Callable], Optional[Callable]]:
@@ -168,33 +251,38 @@ class Backend:
     # -- cache introspection -------------------------------------------------
     def cache_stats(self) -> CacheStats:
         with self._lock:
+            disks = list(self._disk_caches.values())
             return CacheStats(
                 self.cache_hits, self.cache_misses, len(self._cache),
+                disk_hits=sum(d.hits for d in disks),
+                disk_misses=sum(d.misses for d in disks),
+                disk_evictions=sum(d.evictions for d in disks),
                 autotune_hits=self.autotune_hits,
                 autotune_sweeps=self.autotune_sweeps)
 
     def clear_cache(self) -> None:
-        """Reset the in-memory cache and counters."""
+        """Reset the in-memory cache and counters (disk entries persist —
+        that is their job; use DiskCompileCache.clear or
+        scripts/torch_cache_tool.py)."""
         with self._lock:
             self._cache.clear()
             self.cache_hits = 0
             self.cache_misses = 0
             self.autotune_hits = 0
             self.autotune_sweeps = 0
+            self._disk_caches.clear()
 
 
 def _reject_later_slices(options: CompileOptions) -> None:
     """The options whose machinery the torch port has not ported yet."""
-    later = {"cache_dir": options.cache_dir is not None,
-             "autotune": options.autotune,
-             "partition": options.partition is not None,
+    later = {"partition": options.partition is not None,
              "mesh_shape": options.mesh_shape is not None,
              "compress_grads": options.compress_grads}
     bad = sorted(k for k, v in later.items() if v)
     if bad:
         raise OptionsError(
-            f"{bad}: the disk cache, the autotuner, graph partitioning and "
-            f"gradient compression come with later slices of the torch port")
+            f"{bad}: graph partitioning and gradient compression come "
+            f"with the tensor-parallel slice of the torch port")
 
 
 def register_backend(backend_cls: Type[Backend]) -> Type[Backend]:

@@ -18,9 +18,10 @@ from .options import CompileOptions
 class InterpreterBackend(Backend):
     """Pure-numpy reference executor (with optional planned-arena mode).
 
-    It has no executable format of its own: :meth:`_codegen` is just a
-    closure over ``evaluate``.  The persistent disk cache is a later
-    slice of the torch port (``Backend.compile`` refuses ``cache_dir``)."""
+    Participates in the persistent disk cache like any backend (the
+    stored optimized graph + PipelineReport skip the pipeline on a cold
+    process) but has no AOT executable format — rehydration re-enters
+    :meth:`_codegen`, which is just a closure over ``evaluate``."""
 
     name = "interpreter"
     default_level = "O0"

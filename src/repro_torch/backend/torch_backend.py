@@ -9,6 +9,12 @@ of ``repro/backend/jax_backend.py``).
 emitter's kernel-selection points; ``interpret_pallas`` has no meaning
 here and is ignored.
 
+With a cache dir (``cache_dir`` or ``$REPRO_CACHE_DIR``) the optimized
+graph persists on disk, keyed with the device's name among the rest
+(:mod:`.diskcache`).  There is no executable format: a disk hit skips
+the pass pipeline, then emits the program again and, on the card,
+captures it at its second call as any compile does.
+
 ``static_jit=True`` (the default) on a CUDA device is the reference's
 ``jax.jit``: a compiled function runs eagerly on its first call and
 from then on replays a CUDA graph captured for the device tensors it is
@@ -29,6 +35,7 @@ import torch
 from ..core.function import Function
 from ..devices import resolve_device, to_numpy
 from ..transformers.torch_emit import EmitCtx, emit_callable
+from . import diskcache
 from .base import Backend, register_backend
 from .graphed import GraphedProgram, pair_donations
 from .options import CompileOptions, OptionsError
@@ -55,6 +62,12 @@ class TorchBackend(Backend):
         # one memory pool (made at the first capture-enabled compile)
         self._graph_pool = None
         self._capture_stream = None
+
+    def _key_opts(self):
+        # an entry's graph and a record's timings belong to one product:
+        # "cuda:0" names a slot, not the card in it
+        return {**self.backend_opts,
+                "device_name": diskcache.device_name(self.device)}
 
     def _codegen(self, fn: Function, options: CompileOptions
                  ) -> Tuple[Callable, Optional[Callable], Optional[Callable]]:

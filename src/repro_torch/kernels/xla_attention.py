@@ -20,6 +20,11 @@ import torch
 from .ref import NEG_INF, attention_mask
 
 
+class ChunkError(ValueError):
+    """A chunk size that the KV length does not divide: these options
+    refuse these shapes (the autotuner skips such a candidate)."""
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       scale: Optional[float] = None, q_offset=None,
@@ -31,7 +36,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rep = Hq // Hkv
     bk = min(bk, Skv)
     if Skv % bk:
-        raise ValueError(f"Skv={Skv} not divisible by chunk {bk}")
+        raise ChunkError(f"Skv={Skv} not divisible by chunk {bk}")
     dev = q.device
     # grouped query layout (B, Hkv, rep, Sq, Dk): contraction against
     # un-repeated kv

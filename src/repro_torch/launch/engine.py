@@ -113,6 +113,11 @@ class EngineConfig:
     prefill_chunk: Optional[int] = None
     device: Optional[object] = None
     tp: int = 1
+    # compile-cache / autotune conveniences folded into every graph's
+    # CompileOptions (same effect as passing options=CompileOptions(...))
+    cache_dir: Optional[str] = None
+    cache_budget_bytes: Optional[int] = None
+    autotune: bool = False
     params: Optional[Mapping[str, Any]] = dataclasses.field(
         default=None, compare=False, repr=False)
 
@@ -153,6 +158,26 @@ class EngineConfig:
             raise NotImplementedError(
                 f"tp={self.tp}: tensor-parallel serving comes with a later "
                 f"slice of the torch port")
+        if self.cache_budget_bytes is not None \
+                and int(self.cache_budget_bytes) < 1:
+            raise ValueError(
+                f"cache_budget_bytes must be >= 1, "
+                f"got {self.cache_budget_bytes}")
+
+    def compile_options(self, base: Optional[CompileOptions] = None
+                        ) -> CompileOptions:
+        """The engine-level CompileOptions these knobs imply, layered on
+        ``base`` (an explicit ``options=`` object; the config's cache /
+        autotune fields override only when actually set)."""
+        opts = base if base is not None else CompileOptions()
+        kw = {}
+        if self.cache_dir is not None:
+            kw["cache_dir"] = self.cache_dir
+        if self.cache_budget_bytes is not None:
+            kw["cache_budget_bytes"] = int(self.cache_budget_bytes)
+        if self.autotune:
+            kw["autotune"] = True
+        return opts.replace(**kw) if kw else opts
 
 
 @dataclasses.dataclass
@@ -975,8 +1000,7 @@ class ServeEngine:
             config.backend, **({"device": config.device}
                                if config.device is not None else {}))
         self.device = self.backend.device
-        self.base_options = options if options is not None \
-            else CompileOptions()
+        self.base_options = config.compile_options(options)
         self._graph_options = self.base_options
 
         if mode == "paged":

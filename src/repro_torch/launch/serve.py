@@ -19,6 +19,12 @@ shared system prompt), ``--gen`` tokens each.  Weights are random from
 device at full width.  ``--report-json FILE`` dumps the
 EngineReport; ``--smoke`` asserts the run is sane.
 
+``--cache-dir DIR`` (default ``$REPRO_CACHE_DIR``) persists every graph's
+optimized form on disk, so a second process skips the pass pipeline;
+``--autotune`` resolves the attention and fusion knobs by a sweep whose
+record persists there too.  ``--min-disk-hits N`` asserts that a warm run
+took at least N graphs from disk and, with ``--autotune``, swept none.
+
 ``--serve-http`` skips the synthetic workload and runs the asyncio front
 door (:mod:`repro_torch.launch.server`) over the engine -- streaming
 ``POST /v1/generate``, ``GET /v1/metrics``, ``GET /healthz`` on
@@ -76,6 +82,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--report-json", metavar="FILE", default=None)
     ap.add_argument("--report-leg", default=None)
+    ap.add_argument("--cache-dir", default=None,
+                    help="persistent compile-cache dir (default: "
+                         "$REPRO_CACHE_DIR if set, else disabled)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="resolve attn_impl/attn_chunk and the fusion "
+                         "flips via the autotuner (record persisted into "
+                         "--cache-dir)")
+    ap.add_argument("--min-disk-hits", type=int, default=None, metavar="N",
+                    help="assert >= N persistent-cache disk hits (the "
+                         "second run of an unchanged graph must "
+                         "warm-start)")
     ap.add_argument("--serve-http", action="store_true",
                     help="run the asyncio HTTP front door instead of a "
                          "synthetic workload (drains on SIGTERM/SIGINT)")
@@ -125,7 +142,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             chunk_steps=args.chunk_steps, pages=args.pages,
             device=args.device,
             prefix_sharing=(False if args.no_prefix_sharing else None),
-            prefill_chunk=args.prefill_chunk)
+            prefill_chunk=args.prefill_chunk, cache_dir=args.cache_dir,
+            autotune=args.autotune)
         params = None
         if not args.reduced:   # full width: draw the weights on the device
             # every mode's graphs declare the same parameter names
@@ -187,7 +205,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         f"{k}={c['launches']}/{c['rejected']}" for k, c in counts.items())
         + " (launches/rejected)")
     st = engine.cache_stats()
-    print(f"[compile-cache] hits={st.hits} misses={st.misses} size={st.size}")
+    print(f"[compile-cache] hits={st.hits} misses={st.misses} size={st.size} "
+          f"disk_hits={st.disk_hits} disk_misses={st.disk_misses} "
+          f"disk_evictions={st.disk_evictions} "
+          f"autotune_hits={st.autotune_hits} "
+          f"autotune_sweeps={st.autotune_sweeps}")
     for rid in rids[:2]:
         print(f"  req{rid}: {rep.results[rid][:12].tolist()} ...")
 
@@ -236,6 +258,17 @@ def main(argv: Optional[List[str]] = None) -> int:
             json.dump(doc, fh, indent=2, sort_keys=True, default=str)
             fh.write("\n")
         print(f"[report] wrote {args.report_json}")
+    if args.min_disk_hits is not None:
+        assert st.disk_hits >= args.min_disk_hits, (
+            f"expected >= {args.min_disk_hits} persistent-cache disk hits, "
+            f"got {st.disk_hits} (misses={st.disk_misses}) — the warm run "
+            f"did not reuse the on-disk compile cache")
+        if args.autotune:
+            assert st.autotune_sweeps == 0, (
+                f"warm run re-swept {st.autotune_sweeps} graphs — tuning "
+                f"records were not reused")
+        print(f"[disk-cache] ok ({st.disk_hits} hits, "
+              f"{st.autotune_sweeps} sweeps)")
     return 0
 
 

@@ -1,0 +1,225 @@
+"""Autodiff on the IR, on torch: the cases of ``tests/test_autodiff.py``.
+
+Each case builds its forward graph with both packages' ops.  The port's
+``core.autodiff.grad`` (a copy of the reference's) must build the same
+gradient graph as the JAX package's (equal structural signatures), and
+that graph, run by the port's torch backend on the CPU, must agree with
+``jax.grad`` of the JAX package's emitted forward on the same numpy
+inputs (the reference's own check: atol 1e-4, rtol 1e-3).  Every
+gradient here is IR autodiff; torch autograd plays no part.
+
+``LinearRecurrence`` waits for the recurrent families: the port's
+interpreter runs its gradient graph against ``jax.grad``, and the torch
+emitter must refuse it by naming that slice.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.backend import Backend as JBackend  # noqa: E402
+from repro.backend import CompileOptions as JOptions  # noqa: E402
+from repro.core import autodiff as j_autodiff  # noqa: E402
+from repro.core import ops as j_ops  # noqa: E402
+from repro.core.function import Function as JFunction  # noqa: E402
+
+from repro_torch.backend import Backend  # noqa: E402
+from repro_torch.core import autodiff as t_autodiff  # noqa: E402
+from repro_torch.core import ops as t_ops  # noqa: E402
+from repro_torch.core.function import Function as TFunction  # noqa: E402
+
+JB = JBackend.create("jax")
+TB = Backend.create("torch", device="cpu")
+# an unjitted O0 emission: the jax-traceable forward jax.grad differentiates
+TRACE = JOptions(level="O0", static_jit=False)
+
+RNG = np.random.default_rng(3)
+
+
+def _both(build, wrt=None):
+    """(torch grad fn, jax forward fn): ``build(ops, Function)`` run with
+    each package; the two gradient graphs must be the same graph."""
+    jfn = build(j_ops, JFunction)
+    tfn = build(t_ops, TFunction)
+    assert jfn.signature() == tfn.signature()
+    tg = t_autodiff.grad(tfn, wrt=wrt)
+    jg = j_autodiff.grad(jfn, wrt=wrt)
+    assert tg.signature() == jg.signature()
+    return tg, tfn, jfn
+
+
+def _jax_grads(jfn, args, argnums):
+    fwd = JB.compile(jfn, TRACE).raw
+
+    def jloss(*a):
+        full = list(args)
+        for i, x in zip(argnums, a):
+            full[i] = x
+        return fwd(*full)[0]
+
+    sel = [args[i] for i in argnums]
+    return jloss(*sel), jax.grad(jloss, argnums=tuple(range(len(sel))))(*sel)
+
+
+def check_grads(build, args, atol=1e-4, wrt=None, backend=TB):
+    """IR-grad of the port on ``backend`` vs jax.grad of JAX's forward."""
+    tg, tfn, jfn = _both(build, wrt)
+    outs = backend.compile(tg)(*args)
+    n_res = len(tfn.results)
+    loss_ir, grads_ir = outs[0], outs[n_res:]
+    argnums = list(range(len(args))) if wrt is None else list(wrt)
+    loss_j, grads_j = _jax_grads(jfn, args, argnums)
+    np.testing.assert_allclose(loss_ir, np.asarray(loss_j), atol=atol,
+                               rtol=1e-4)
+    assert len(grads_ir) == len(grads_j)
+    for i, (gi, gj) in enumerate(zip(grads_ir, grads_j)):
+        np.testing.assert_allclose(
+            np.asarray(gi, np.float64), np.asarray(gj, np.float64),
+            atol=atol, rtol=1e-3, err_msg=f"grad {i}")
+
+
+def _f32(*shape):
+    return RNG.normal(size=shape).astype(np.float32)
+
+
+def test_elementwise_chain():
+    def build(ops, Function):
+        x = ops.parameter((4, 3), "f32", "x")
+        y = ops.reduce_sum(ops.tanh(ops.exp(x.out() * 0.3)
+                                    + ops.silu(x.out())))
+        return Function([x], [y])
+    check_grads(build, [_f32(4, 3)])
+
+
+def test_matmul_gelu_norm():
+    def build(ops, Function):
+        x = ops.parameter((4, 8), "f32", "x")
+        w = ops.parameter((8, 16), "f32", "w")
+        g = ops.parameter((16,), "f32", "g")
+        h = ops.rms_norm(ops.gelu(ops.matmul(x.out(), w.out())), g.out())
+        return Function([x, w, g], [ops.reduce_mean(h * h)])
+    check_grads(build, [_f32(4, 8), _f32(8, 16), _f32(16)])
+
+
+def test_layernorm_softmax_xent():
+    def build(ops, Function):
+        x = ops.parameter((5, 8), "f32", "x")
+        w = ops.parameter((8,), "f32", "w")
+        b = ops.parameter((8,), "f32", "b")
+        lb = ops.parameter((5,), "i32", "labels")
+        h = ops.layer_norm(x.out(), w.out(), b.out())
+        loss = ops.reduce_mean(ops.softmax_cross_entropy(h, lb.out()))
+        return Function([x, w, b, lb], [loss])
+    args = [_f32(5, 8), np.ones(8, np.float32), np.zeros(8, np.float32),
+            np.array([1, 0, 7, 3, 3], np.int32)]
+    check_grads(build, args, wrt=[0, 1, 2])
+
+
+@pytest.mark.parametrize("hq,hkv,dv", [(4, 4, 8), (4, 2, 8), (6, 1, 4)])
+def test_attention_grads(hq, hkv, dv):
+    def build(ops, Function):
+        q = ops.parameter((2, hq, 5, 8), "f32", "q")
+        k = ops.parameter((2, hkv, 7, 8), "f32", "k")
+        v = ops.parameter((2, hkv, 7, dv), "f32", "v")
+        att = ops.attention(q.out(), k.out(), v.out(), causal=True,
+                            window=4)
+        return Function([q, k, v], [ops.reduce_sum(att * att)])
+    check_grads(build, [_f32(2, hq, 5, 8), _f32(2, hkv, 7, 8),
+                        _f32(2, hkv, 7, dv)])
+
+
+def test_gather_scatter_topk_grads():
+    def build(ops, Function):
+        x = ops.parameter((6, 4), "f32", "x")
+        idx_c = ops.constant(np.array([1, 4, 1], np.int32))
+        g = ops.gather(x.out(), idx_c, axis=0)
+        vals, _ = ops.top_k(ops.reduce_sum(g * g, [1]), 2)
+        return Function([x], [ops.reduce_sum(vals)])
+    check_grads(build, [_f32(6, 4)])
+
+
+def _linear_recurrence(ops, Function):
+    a = ops.parameter((2, 6, 3), "f32", "a")
+    b = ops.parameter((2, 6, 3), "f32", "b")
+    h = ops.linear_recurrence(ops.sigmoid(a.out()), b.out(), axis=1)
+    return Function([a, b], [ops.reduce_sum(h * h)])
+
+
+def test_linear_recurrence_grad_on_the_interpreter():
+    """The VJP stays in the copy: the port's interpreter runs it against
+    jax.grad."""
+    check_grads(_linear_recurrence, [_f32(2, 6, 3), _f32(2, 6, 3)],
+                backend=Backend.create("interpreter"))
+
+
+def test_linear_recurrence_grad_is_refused_by_the_torch_emitter():
+    tg, _, _ = _both(_linear_recurrence)
+    cf = TB.compile(tg)
+    with pytest.raises(NotImplementedError,
+                       match="LinearRecurrence comes with the "
+                             "recurrent-family slice"):
+        cf(_f32(2, 6, 3), _f32(2, 6, 3))
+
+
+def test_scan_grad_checkpoint_carries():
+    """Scan VJP: backward scan over checkpointed carries, with xs +
+    consts grads (the construction the 80-layer models train through)."""
+    def build(ops, Function):
+        c = ops.parameter((3,), "f32", "c")
+        x = ops.parameter((3, 3), "f32", "x")
+        w = ops.parameter((3,), "f32", "w")
+        body = Function([c, x, w],
+                        [ops.tanh(ops.reduce_sum(x.out(), [1]) * c.out()
+                                  + w.out())])
+        init = ops.parameter((3,), "f32", "init")
+        xs = ops.parameter((5, 3, 3), "f32", "xs")
+        wv = ops.parameter((3,), "f32", "wv")
+        outs = ops.scan(body, [init.out()], xs=[xs.out()],
+                        consts=[wv.out()])
+        return Function([init, xs, wv],
+                        [ops.reduce_sum(outs[0] * outs[0])])
+    check_grads(build, [_f32(3), _f32(5, 3, 3), _f32(3)])
+
+
+def test_scan_grad_with_ys():
+    def build(ops, Function):
+        c = ops.parameter((2,), "f32", "c")
+        x = ops.parameter((2,), "f32", "x")
+        body = Function([c, x], [ops.sigmoid(c.out() + x.out()),
+                                 c.out() * x.out()])
+        init = ops.parameter((2,), "f32", "init")
+        xs = ops.parameter((4, 2), "f32", "xs")
+        outs = ops.scan(body, [init.out()], xs=[xs.out()])
+        loss = ops.reduce_sum(outs[0]) + ops.reduce_sum(outs[1] * outs[1])
+        return Function([init, xs], [loss])
+    check_grads(build, [_f32(2), _f32(4, 2)])
+
+
+def test_nested_scan_grad():
+    """Scan inside a scan body (the sLSTM-inside-layer-stack shape)."""
+    def build(ops, Function):
+        ci = ops.parameter((2,), "f32", "ci")
+        xi = ops.parameter((2,), "f32", "xi")
+        inner = Function([ci, xi], [ops.tanh(ci.out() + xi.out())])
+        co = ops.parameter((2,), "f32", "co")
+        xo = ops.parameter((3, 2), "f32", "xo")
+        inner_out = ops.scan(inner, [co.out()], xs=[xo.out()])
+        outer_body = Function([co, xo], [inner_out[0]])
+        init = ops.parameter((2,), "f32", "init")
+        xs = ops.parameter((4, 3, 2), "f32", "xs")
+        outs = ops.scan(outer_body, [init.out()], xs=[xs.out()])
+        return Function([init, xs], [ops.reduce_sum(outs[0] * outs[0])])
+    check_grads(build, [_f32(2), _f32(4, 3, 2)])
+
+
+def test_zero_grad_paths():
+    def build(ops, Function):
+        x = ops.parameter((3,), "f32", "x")
+        return Function([x], [ops.reduce_sum(ops.stop_gradient(x.out())
+                                             * x.out())])
+    tg, _, _ = _both(build)
+    arr = _f32(3)
+    outs = TB.compile(tg)(arr)
+    np.testing.assert_allclose(outs[1], arr, atol=1e-6)  # sg(x) * x
+

@@ -4,10 +4,9 @@ cache and its key, named-parameter calling, warmup and timing hooks,
 donation, concurrent compiles and the device errors -- on the torch
 backend (CPU) and the port's numpy ``"interpreter"`` backend.
 
-Not ported: the disk-cache cases (the persistent cache is a later slice,
-refused with ``OptionsError``), the AOT-export case (the port has no
-executable format yet) and the legacy ``get_transformer`` shim (the port
-has no shim).
+The disk-cache cases are in ``tests/test_torch_diskcache.py``.  Not
+ported: the AOT-export case (the port has no executable format) and the
+legacy ``get_transformer`` shim (the port has no shim).
 """
 import threading
 
@@ -258,12 +257,17 @@ def test_device_errors_name_the_available_devices():
         Backend.create("torch", fresh=True, gpu=True)
 
 
-def test_later_slices_are_refused_on_every_backend():
-    """The disk cache and the autotuner are refused, not ignored, on the
-    interpreter as on torch."""
+def test_later_slices_are_refused_on_every_backend(tmp_path):
+    """Gradient compression and graph partitioning are refused, not
+    ignored, on the interpreter as on torch, naming the tensor-parallel
+    slice; the disk cache and the autotuner are ported and accepted."""
     for name in BACKENDS:
         be = _create(name, fresh=True)
-        with pytest.raises(OptionsError, match="later slices"):
-            be.compile(_graph(), CompileOptions(cache_dir="/nonexistent"))
-        with pytest.raises(OptionsError, match="later slices"):
-            be.compile(_graph(), CompileOptions(autotune=True))
+        with pytest.raises(OptionsError, match="tensor-parallel slice"):
+            be.compile(_graph(), CompileOptions(compress_grads=True))
+        with pytest.raises(OptionsError, match="tensor-parallel slice"):
+            CompileOptions(partition="tp")
+        cf = be.compile(_graph(), CompileOptions(
+            cache_dir=str(tmp_path / name), autotune=True))
+        assert be.cache_stats().disk_misses == 1
+        assert cf.options.autotune is False

@@ -1,8 +1,9 @@
 """The torch port stands alone: it imports torch and numpy, never jax and
 nothing of the JAX package ``repro``; and its entry points run on the
 card unless the caller asks for the CPU.  The port's package, its
-``chip_smoke.py`` and its serving scripts (``scripts/torch_serve_load.py``,
-``scripts/torch_chaos_probe.py``) are held to that;
+``chip_smoke.py`` and its scripts (``scripts/torch_serve_load.py``,
+``scripts/torch_chaos_probe.py``, ``scripts/torch_cache_tool.py``) are
+held to that;
 ``scripts/check_torch_parity.py`` is the one file outside the tests that
 imports both packages, by design."""
 import ast
@@ -18,7 +19,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 PKG = os.path.join(SRC, "repro_torch")
 SCRIPTS = [os.path.join(ROOT, "scripts", f"{n}.py")
-           for n in ("torch_serve_load", "torch_chaos_probe")]
+           for n in ("torch_serve_load", "torch_chaos_probe",
+                     "torch_cache_tool")]
 
 
 def _port_files():
@@ -114,3 +116,14 @@ def test_serve_http_refuses_a_missing_card():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="not attached"):
         serve.main(["--reduced", "--serve-http", "--port", "0"])
+
+
+def test_train_refuses_a_missing_card(tmp_path):
+    """The training CLI defaults to the card too: without ``--device
+    cpu`` it fails before the first step."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is attached: the CPU-only refusal cannot show")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="not attached"):
+        train.main(["--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
