@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py                  # all phases, one card
     python3 chip_smoke.py --kernels-only   # phases 1-3, no result line
     python3 chip_smoke.py --train-only     # phases 1-3 and 8, no result line
+    python3 chip_smoke.py --moe-only       # phases 1-3 and 9, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -15,9 +16,9 @@ without printing a result:
                  src/repro_torch/kernels/csrc/ (sm_90a) at first use, one
                  process per source, all started together;
   3. kernels  -- each kernel against its plain PyTorch version at the
-                 full-width deepseek-7b shapes of the serving paths
-                 and of phase 8's train step (bf16, plus one f32 case
-                 each), with its time, the plain
+                 full-width deepseek-7b shapes of the serving paths,
+                 of phase 8's train step and of phase 9's models (bf16,
+                 plus one f32 case each), with its time, the plain
                  version's, a one-call PyTorch yardstick's where there is
                  one, and the card's bound for the same work; then the
                  determinism checks: two launches on the same inputs give
@@ -107,8 +108,30 @@ without printing a result:
                  parameters x tokens per step) and its share of 989,
                  peak GB, launches per step, and compile seconds cold
                  against the disk hit.
+  9. moe      -- the mixture-of-experts families (runs after phase 8,
+                 whose graphs it frees) through ServeEngine(mode=
+                 "lockstep") at O2 with the kernels, bf16 compute,
+                 weights drawn on the card from seed 0, depth cut to 2
+                 layers: mixtral-8x22b (f32 parameters) with 4 greedy
+                 requests of 128 prompt tokens and 16 new ones, eager
+                 and then captured, then one request of 4,224 tokens
+                 and 8 new ones across its 4096-token window;
+                 deepseek-v3-671b (bf16 parameters, one dense and one
+                 MoE layer) with 4 requests of 64 tokens and 16 new
+                 ones, eager and then captured.  Every request
+                 completes, captured == eager bit for bit, each path's
+                 kernels launched (mixtral: matmul, norm_matmul, rmsnorm,
+                 flash; deepseek-v3: all five), flash exactly once a
+                 layer and attention call it takes, nothing refused but
+                 deepseek-v3's absorbed decode attention (576 wide, past
+                 the kernel's 256), refused once a layer and step; a
+                 replay's profile of each decode graph shows each kernel
+                 at its counted launches.  Then both families at d_head
+                 128 in f32 (flash on the card) with the builder's numpy
+                 weights: the card's greedy tokens equal the CPU's.
 
-In phases 4, 5, 7 and 8 no kernel may have been refused at full width.
+In phases 4, 5, 7, 8 and 9 no kernel may have been refused at full
+width, but phase 9's counted deepseek-v3 decode attention.
 Phase 6 and phase 8's reduced width count their refusals but do not gate
 them: the reduced vocabulary (257) is no whole number of 16-byte
 vectors, so the unembed takes the plain version there, as the
@@ -145,6 +168,8 @@ TOL = {torch.bfloat16: 2 * 2.0 ** -7, torch.float16: 2 * 2.0 ** -10,
        torch.float32: 1e-4}
 D, F, V, SLOTS, CHUNK, DH, HEADS = 4096, 11008, 102400, 4, 64, 128, 32
 DENSE = 512   # rows of the donated dense prefill (4 prompts x 128)
+MX_PROMPT, MX_LONG, V3_PROMPT = 128, 4224, 64
+V3_ROWS = SLOTS * V3_PROMPT   # deepseek-v3's prefill rows (4 x 64)
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:20",
     "norm_matmul": "src/repro/kernels/norm_matmul.py:21",
@@ -236,22 +261,18 @@ def _rand(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def kernel_cases(gen):
-    """(kernel, label, kernel_fn, plain_fn, library_fn, bytes, flops, dtype)
-    at the shapes the serving paths and phase 8's train step give each
-    kernel: decode (4 slots) first -- the case the result line reports --
-    then prefill (a 64-row chunk, or a dense prefill for attention), the
-    f32 case, and the train step's 2048 rows.  Bytes
-    count each input read once and the output written once (for
-    attention, the K/V rows the causal mask lets some query see); flops
-    count what this case's inputs need."""
+def _case_makers(gen, cases: list):
+    """One builder per kernel; each draws a case's inputs from ``gen`` and
+    appends ``(kernel, label, kernel_fn, plain_fn, library_fn, bytes,
+    flops, dtype)`` to ``cases``.  Bytes count each input read once and
+    the output written once (for attention, the K/V rows the mask lets
+    some query see); flops count what the case's inputs need."""
     from repro_torch.kernels import matmul as km, norm_matmul as kn
     from repro_torch.kernels import rmsnorm as kr, swiglu as ks
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ref
     import torch.nn.functional as Fn
     bf, f32 = torch.bfloat16, torch.float32
-    cases = []
 
     def mm(label, M, K, N, dt):
         a = _rand((M, K), dt, gen)
@@ -261,35 +282,84 @@ def kernel_cases(gen):
                       lambda: ref.matmul_ref(a, b), lambda: torch.matmul(a, b),
                       (M * K + K * N + M * N) * s, 2 * M * K * N, dt))
 
-    def nm(label, M, N, g_dt):
-        x = _rand((M, D), bf, gen)
-        g = (1 + 0.1 * _rand((D,), f32, gen)).to(g_dt)
-        w = _rand((D, N), bf, gen, D ** -0.5)
+    def nm(label, M, N, g_dt, K=D, dt=bf, eps=1e-6):
+        x = _rand((M, K), dt, gen)
+        g = (1 + 0.1 * _rand((K,), f32, gen)).to(g_dt)
+        w = _rand((K, N), dt, gen, K ** -0.5)
         cases.append(("norm_matmul", label,
-                      lambda: kn.norm_matmul(x, g, w, 1e-6),
-                      lambda: ref.norm_matmul_ref(x, g, w, 1e-6), None,
-                      (M * D + D * N + M * N) * 2 + D * g.element_size(),
-                      2 * M * D * N + 4 * M * D, bf))
+                      lambda: kn.norm_matmul(x, g, w, eps),
+                      lambda: ref.norm_matmul_ref(x, g, w, eps), None,
+                      (M * K + K * N + M * N) * x.element_size()
+                      + K * g.element_size(),
+                      2 * M * K * N + 4 * M * K, dt))
 
-    def sw(label, M, dt):
-        x = _rand((M, D), dt, gen)
-        wg = _rand((D, F), dt, gen, D ** -0.5)
-        wu = _rand((D, F), dt, gen, D ** -0.5)
-        wd = _rand((F, D), dt, gen, F ** -0.5)
+    def sw(label, M, dt, d=D, f=F):
+        x = _rand((M, d), dt, gen)
+        wg = _rand((d, f), dt, gen, d ** -0.5)
+        wu = _rand((d, f), dt, gen, d ** -0.5)
+        wd = _rand((f, d), dt, gen, f ** -0.5)
         s = x.element_size()
         cases.append(("swiglu", label, lambda: ks.swiglu(x, wg, wu, wd),
                       lambda: ref.swiglu_ref(x, wg, wu, wd), None,
-                      (M * D + 3 * D * F + M * D) * s,
-                      6 * M * D * F + 4 * M * F, dt))
+                      (M * d + 3 * d * f + M * d) * s,
+                      6 * M * d * f + 4 * M * f, dt))
 
-    def rn(label, M, w_dt):
-        x = _rand((M, D), bf, gen)
-        w = (1 + 0.1 * _rand((D,), f32, gen)).to(w_dt)
-        lib = (lambda: Fn.rms_norm(x, (D,), w, 1e-6)) if w_dt == bf else None
-        cases.append(("rmsnorm", label, lambda: kr.rmsnorm(x, w, 1e-6),
-                      lambda: ref.rmsnorm_ref(x, w, 1e-6), lib,
-                      2 * M * D * 2 + D * w.element_size(), 4 * M * D, bf))
+    def rn(label, M, w_dt, d=D, dt=bf, eps=1e-6):
+        x = _rand((M, d), dt, gen)
+        w = (1 + 0.1 * _rand((d,), f32, gen)).to(w_dt)
+        lib = (lambda: Fn.rms_norm(x, (d,), w, eps)) if w_dt == dt else None
+        cases.append(("rmsnorm", label, lambda: kr.rmsnorm(x, w, eps),
+                      lambda: ref.rmsnorm_ref(x, w, eps), lib,
+                      2 * M * d * x.element_size() + d * w.element_size(),
+                      4 * M * d, dt))
 
+    def fa(label, B, Hq, Hkv, Sq, Skv, off, dt, dk=DH, dv=DH, window=None,
+           causal=True, scale=None):
+        q = _rand((B, Hq, Sq, dk), dt, gen)
+        k = _rand((B, Hkv, Skv, dk), dt, gen)
+        v = _rand((B, Hkv, Skv, dv), dt, gen)
+        o = None if off is None else torch.tensor(off, dtype=torch.int32,
+                                                  device="cuda")
+        # the mask on absolute positions: what this case lets through
+        vis = ref.attention_mask(Sq, Skv, causal=causal, window=window,
+                                 q_offset=off, device="cuda")
+        pairs = int(vis.sum())
+        rows = int(vis.any(0).sum())   # K/V rows some query sees
+        s = q.element_size()
+        # the one-call yardstick: SDPA over repeated kv heads (repeated
+        # here, outside the timed call), is_causal where top-left
+        # alignment is the mask, else the boolean mask
+        kr_, vr_ = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
+        if off is None and window is None and causal:
+            lib = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
+                q, kr_, vr_, is_causal=True, scale=scale)
+        else:
+            lib = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
+                q, kr_, vr_, attn_mask=vis, scale=scale)
+        cases.append(("flash_attention", label,
+                      lambda: kf.flash_attention(q, k, v, causal=causal,
+                                                 window=window, scale=scale,
+                                                 q_offset=o),
+                      lambda: ref.flash_attention_ref(
+                          q, k, v, causal=causal, window=window,
+                          scale=scale, q_offset=o),
+                      lib, (B * Hq * Sq * (dk + dv)
+                            + B * Hkv * rows * (dk + dv)) * s,
+                      2 * B * Hq * pairs * (dk + dv), dt))
+
+    return mm, nm, sw, rn, fa
+
+
+def kernel_cases(gen):
+    """The cases (:func:`_case_makers`) at the shapes the serving paths
+    and phase 8's train step give each kernel: decode (4 slots) first --
+    the case the result line reports -- then prefill (a 64-row chunk, or
+    a dense prefill for attention), the f32 case, the train step's 2048
+    rows, and phase 9's full-width shapes (phase 9 also holds every
+    shape its runs launch, :func:`_launched_cases`)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    mm, nm, sw, rn, fa = _case_makers(gen, cases)
     mm("decode wo (4x4096)@(4096x4096)", SLOTS, D, D, bf)
     mm("prefill wo (64x4096)@(4096x4096)", CHUNK, D, D, bf)
     mm("prefill unembed (1x4096)@(4096x102400)", 1, D, V, bf)
@@ -303,34 +373,6 @@ def kernel_cases(gen):
     sw("prefill (64x4096) F=11008", CHUNK, bf)
     sw("dense prefill (512x4096) F=11008", DENSE, bf)
     sw("f32 decode (4x4096) F=11008", SLOTS, f32)
-    def fa(label, B, Hq, Hkv, Sq, Skv, off, dt):
-        q = _rand((B, Hq, Sq, DH), dt, gen)
-        k = _rand((B, Hkv, Skv, DH), dt, gen)
-        v = _rand((B, Hkv, Skv, DH), dt, gen)
-        o = None if off is None else torch.tensor(off, dtype=torch.int32,
-                                                  device="cuda")
-        # causal on absolute positions: what this case's mask lets through
-        vis = (torch.arange(Skv, device="cuda")[None, :]
-               <= torch.arange(Sq, device="cuda")[:, None] + (off or 0))
-        pairs = int(vis.sum())
-        rows = int(vis.any(0).sum())   # K/V rows some query sees
-        s = q.element_size()
-        # the one-call yardstick: SDPA over repeated kv heads (repeated
-        # here, outside the timed call), is_causal where top-left
-        # alignment is the mask, else the boolean mask
-        kr_, vr_ = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (k, v))
-        if off is None:
-            lib = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
-                q, kr_, vr_, is_causal=True)
-        else:
-            lib = lambda: Fn.scaled_dot_product_attention(  # noqa: E731
-                q, kr_, vr_, attn_mask=vis)
-        cases.append(("flash_attention", label,
-                      lambda: kf.flash_attention(q, k, v, q_offset=o),
-                      lambda: ref.flash_attention_ref(q, k, v, q_offset=o),
-                      lib, (2 * B * Hq * Sq * DH + 2 * B * Hkv * rows * DH) * s,
-                      4 * B * Hq * pairs * DH, dt))
-
     rn("decode pre-MLP (4x4096)", SLOTS, bf)
     rn("prefill final (64x4096) w f32", CHUNK, f32)
     rn("dense prefill (512x4096)", DENSE, bf)
@@ -359,7 +401,78 @@ def kernel_cases(gen):
     rn(f"train ({T}x4096)", T, bf)
     fa(f"train ({TRAIN_BATCH}x32x{TRAIN_SEQ}) causal", TRAIN_BATCH, HEADS,
        HEADS, TRAIN_SEQ, TRAIN_SEQ, None, bf)
+    # phase 9's full-width shapes, from the two configs
+    from repro_torch.configs import get_config
+    mx, v3 = get_config("mixtral-8x22b"), get_config("deepseek-v3-671b")
+    mm(f"moe router f32 ({SLOTS}x{mx.d_model})@({mx.d_model}x"
+       f"{mx.n_experts}) (mixtral)", SLOTS, mx.d_model, mx.n_experts, f32)
+    kv_a = v3.kv_lora + v3.d_rope
+    mm(f"moe wkv_a ({V3_ROWS}x{v3.d_model})@({v3.d_model}x{kv_a}) "
+       f"(deepseek-v3)", V3_ROWS, v3.d_model, kv_a, bf)
+    nq = v3.n_heads * (v3.d_nope + v3.d_rope)
+    nm(f"moe wq_b ({V3_ROWS}x{v3.q_lora})({v3.q_lora}x{nq}) (deepseek-v3)",
+       V3_ROWS, nq, bf, K=v3.q_lora)
+    for f, what in ((v3.d_ff, "dense MLP"), (v3.expert_d_ff,
+                                             "shared expert")):
+        for m in (SLOTS, V3_ROWS):
+            sw(f"moe {what} ({m}x{v3.d_model}) F={f} (deepseek-v3)", m, bf,
+               d=v3.d_model, f=f)
+    dk = v3.d_nope + v3.d_rope
+    fa(f"moe MLA prefill ({SLOTS}x{v3.n_heads}x{V3_PROMPT}) Dk {dk} Dv "
+       f"{v3.d_v} causal (deepseek-v3)", SLOTS, v3.n_heads, v3.n_heads,
+       V3_PROMPT, V3_PROMPT, None, bf, dk=dk, dv=v3.d_v)
+    fa(f"moe prefill (1x{mx.n_heads}x{MX_LONG}) GQA {mx.n_heads}:"
+       f"{mx.n_kv_heads} window {mx.window} (mixtral)", 1, mx.n_heads,
+       mx.n_kv_heads, MX_LONG, MX_LONG, None, bf, window=mx.window)
+    fa(f"moe decode (1x{mx.n_heads}x1) at pos {MX_LONG - 1} GQA "
+       f"{mx.n_heads}:{mx.n_kv_heads} window {mx.window} (mixtral)", 1,
+       mx.n_heads, mx.n_kv_heads, 1, MX_LONG, MX_LONG - 1, bf,
+       window=mx.window)
+    # 64-wide heads, which the emitter offers flash too (minicpm-2b)
+    mc = get_config("minicpm-2b")
+    fa(f"d_head {mc.head_dim} decode ({SLOTS}x{mc.n_heads}x1) at pos 255 "
+       f"(minicpm-2b)", SLOTS, mc.n_heads, mc.n_kv_heads, 1, 256, 255, bf,
+       dk=mc.head_dim, dv=mc.head_dim)
+    fa(f"d_head {mc.head_dim} prefill ({SLOTS}x{mc.n_heads}x128) causal "
+       f"(minicpm-2b)", SLOTS, mc.n_heads, mc.n_kv_heads, 128, 128, None, bf,
+       dk=mc.head_dim, dv=mc.head_dim)
     return cases
+
+
+def _hold(case, flush) -> tuple:
+    """One case: two launches give the same bits, the kernel agrees with
+    its plain version within :data:`TOL`, and its time, its plain
+    version's, the library call's and its bound.  Returns (max |kernel -
+    plain|, ms, plain ms, library ms or None, bound ms, bound by)."""
+    name, label, kfn, pfn, lfn, nbytes, flops, dt = case
+    out = kfn()
+    torch.cuda.synchronize()
+    require(_bitwise(out, kfn()),
+            f"{name} {label}: two launches on the same inputs differ")
+    plain = pfn()
+    torch.cuda.synchronize()
+    require(out.shape == plain.shape and out.dtype == plain.dtype,
+            f"{name} {label}: {out.shape} {out.dtype} vs plain "
+            f"{plain.shape} {plain.dtype}")
+    o, p = out.double(), plain.double()
+    require(bool(torch.isfinite(o).all()), f"{name} {label}: non-finite")
+    err = float((o - p).abs().max())
+    scale = max(float(p.abs().max()), 1.0)
+    require(err <= TOL[out.dtype] * scale,
+            f"{name} {label}: max |kernel - plain| {err} > "
+            f"{TOL[out.dtype]} x {scale}")
+    del out, plain, o, p
+    ms = _events_ms(kfn, 20, flush)
+    plain_ms = _events_ms(pfn, 5, flush)
+    lib_ms = _events_ms(lfn, 20, flush) if lfn is not None else None
+    bound_ms, bound_by = _bound(nbytes, flops, dt)
+    say("kernel", name=name, case=repr(label), max_abs_err=f"{err:.3e}",
+        tol=f"{TOL[dt] * scale:.3e}", kernel_ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{lib_ms:.4f}" if lib_ms is not None else None,
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        bound_share=f"{bound_ms / ms:.3f}")
+    return err, ms, plain_ms, lib_ms, bound_ms, bound_by
 
 
 def phase_kernels() -> dict:
@@ -367,31 +480,9 @@ def phase_kernels() -> dict:
     gen.manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
     report = {}
-    for name, label, kfn, pfn, lfn, nbytes, flops, dt in kernel_cases(gen):
-        out = kfn()
-        torch.cuda.synchronize()
-        plain = pfn()
-        torch.cuda.synchronize()
-        require(out.shape == plain.shape and out.dtype == plain.dtype,
-                f"{name} {label}: {out.shape} {out.dtype} vs plain "
-                f"{plain.shape} {plain.dtype}")
-        o, p = out.double(), plain.double()
-        require(bool(torch.isfinite(o).all()), f"{name} {label}: non-finite")
-        err = float((o - p).abs().max())
-        scale = max(float(p.abs().max()), 1.0)
-        require(err <= TOL[out.dtype] * scale,
-                f"{name} {label}: max |kernel - plain| {err} > "
-                f"{TOL[out.dtype]} x {scale}")
-        ms = _events_ms(kfn, 20, flush)
-        plain_ms = _events_ms(pfn, 5, flush)
-        lib_ms = _events_ms(lfn, 20, flush) if lfn is not None else None
-        bound_ms, bound_by = _bound(nbytes, flops, dt)
-        say("kernel", name=name, case=repr(label), max_abs_err=f"{err:.3e}",
-            tol=f"{TOL[out.dtype] * scale:.3e}", kernel_ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}",
-            library_ms=f"{lib_ms:.4f}" if lib_ms is not None else None,
-            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            bound_share=f"{bound_ms / ms:.3f}")
+    for case in kernel_cases(gen):
+        name = case[0]
+        err, ms, plain_ms, lib_ms, bound_ms, bound_by = _hold(case, flush)
         if name not in report:   # the decode case is the reported one
             report[name] = {
                 "name": name, "route": "cuda",
@@ -471,7 +562,35 @@ def check_determinism(gen) -> None:
                    lambda x: ks.swiglu(x, wg, wu, wd),
                    lambda m: _rand((m, D), dt, gen))
         check_swiglu_alternation(name(dt), wg, wu, wd, gen)
+    # phase 9's shapes: 4 slots and deepseek-v3's 256 prefill rows
+    moe_rows = {1: 0, SLOTS: 2, V3_ROWS: 101}
+    from repro_torch.configs import get_config
+    mx, v3 = get_config("mixtral-8x22b"), get_config("deepseek-v3-671b")
+    d = v3.d_model
+    router = _rand((mx.d_model, mx.n_experts), f32, gen, mx.d_model ** -0.5)
+    probe_rows("matmul", f"float32 router N={mx.n_experts}", moe_rows,
+               lambda a: km.matmul(a, router),
+               lambda m: _rand((m, mx.d_model), f32, gen))
+    wkv = _rand((d, v3.kv_lora + v3.d_rope), bf, gen, d ** -0.5)
+    probe_rows("matmul", f"bfloat16 wkv_a N={v3.kv_lora + v3.d_rope}",
+               moe_rows, lambda a: km.matmul(a, wkv),
+               lambda m: _rand((m, d), bf, gen))
+    nq = v3.n_heads * (v3.d_nope + v3.d_rope)
+    g = (1 + 0.1 * _rand((v3.q_lora,), f32, gen)).to(bf)
+    wq = _rand((v3.q_lora, nq), bf, gen, v3.q_lora ** -0.5)
+    probe_rows("norm_matmul", f"bfloat16 wq_b {v3.q_lora}x{nq}", moe_rows,
+               lambda x: kn.norm_matmul(x, g, wq, 1e-6),
+               lambda m: _rand((m, v3.q_lora), bf, gen))
+    for f in (v3.d_ff, v3.expert_d_ff):
+        wg = _rand((d, f), bf, gen, d ** -0.5)
+        wu = _rand((d, f), bf, gen, d ** -0.5)
+        wd = _rand((f, d), bf, gen, f ** -0.5)
+        probe_rows("swiglu", f"bfloat16 {d}->{f}", moe_rows,
+                   lambda x: ks.swiglu(x, wg, wu, wd),
+                   lambda m: _rand((m, d), bf, gen))
+        del wg, wu, wd
     check_flash_determinism(gen)
+    check_moe_flash_determinism(gen)
     check_in_capture(gen)
     check_fixed_order_scans(gen)
 
@@ -535,6 +654,50 @@ def check_flash_determinism(gen) -> None:
     say("determinism", kernel="flash_attention", dtype="bfloat16",
         runs="bitwise", slot_alone_vs_batch="bitwise",
         decode_vs_prefill_rows="0,63,64,127", decode_vs_prefill="bitwise")
+
+
+def check_moe_flash_determinism(gen) -> None:
+    """Flash attention at phase 9's shapes: mixtral's GQA 48:8 under the
+    4096-token window -- decode at p gives row p of the windowed prefill
+    bit for bit, for p on both sides of the window's edge and the last
+    row; and MLA's prefill (Dk 192, Dv 128): two launches give the same
+    bits, and a probe (slot, head) gives them alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    mx, v3 = get_config("mixtral-8x22b"), get_config("deepseek-v3-671b")
+    bf, W = torch.bfloat16, mx.window
+    q = _rand((1, mx.n_heads, MX_LONG, mx.head_dim), bf, gen)
+    k, v = (_rand((1, mx.n_kv_heads, MX_LONG, mx.head_dim), bf, gen)
+            for _ in range(2))
+    full = kf.flash_attention(q, k, v, causal=True, window=W)
+    require(_bitwise(full, kf.flash_attention(q, k, v, causal=True,
+                                              window=W)),
+            "flash_attention: two launches of the windowed prefill differ")
+    rows = (W - 1, W, MX_LONG - 1)
+    for p in rows:
+        off = torch.tensor(p, dtype=torch.int32, device="cuda")
+        one = kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
+                                 window=W, q_offset=off)
+        row = full[:, :, p:p + 1]
+        require(_bitwise(one, row), f"flash_attention: windowed decode at "
+                f"{p} differs from row {p} of the prefill: max |diff| "
+                f"{float((one.double() - row.double()).abs().max())}")
+    del q, k, v, full
+    dk = v3.d_nope + v3.d_rope
+    q, k = (_rand((SLOTS, v3.n_heads, V3_PROMPT, dk), bf, gen)
+            for _ in range(2))
+    v = _rand((SLOTS, v3.n_heads, V3_PROMPT, v3.d_v), bf, gen)
+    full = kf.flash_attention(q, k, v, causal=True)
+    require(_bitwise(full, kf.flash_attention(q, k, v, causal=True)),
+            "flash_attention: two launches of MLA's prefill differ")
+    alone = kf.flash_attention(q[1:2, 77:78], k[1:2, 77:78], v[1:2, 77:78],
+                               causal=True)
+    require(_bitwise(alone, full[1:2, 77:78]), "flash_attention: MLA slot "
+            "1 head 77 alone differs from it inside 4 slots")
+    say("determinism", kernel="flash_attention", dtype="bfloat16",
+        window_decode_vs_prefill_rows=",".join(map(str, rows)),
+        window_decode_vs_prefill="bitwise", mla_dk192_runs="bitwise",
+        mla_slot_alone_vs_batch="bitwise")
 
 
 def check_fixed_order_scans(gen) -> None:
@@ -685,27 +848,67 @@ def _port_kernel(key: str):
     return None
 
 
+# The profiler drops device records at the edges of its window: Kineto
+# counts the first records of a session (now and then the last ones) out
+# of range, more of them as the process ages, so a replay's profile can
+# miss kernels that ran (``scripts/torch_profile_edges.py`` counts them).
+# ``_profile`` brackets the call with marker kernels
+# (``torch.cuda._sleep(1)``, ``spin_kernel``) that take those drops, and
+# keeps a profile only when markers survive on both sides: then nothing
+# between them was cut.
+MARKER_KERNEL = "spin_kernel"
+MARKER_PADS = (256, 2048, 16384)
+
+
+def _is_marker(key: str) -> bool:
+    import re
+    return re.search(rf"(?<![A-Za-z0-9_]){MARKER_KERNEL}(?![A-Za-z0-9_])",
+                     key) is not None
+
+
 def _profile(call) -> tuple:
-    """Run ``call`` once under ``torch.profiler`` (CUDA activity only).
-    Returns its kernel rows (ms, count, name) by time, the merged span of
-    their intervals in us (None with no interval), and the port's device
-    kernels by wrapper (``{name: [ms, count]}``)."""
+    """Run ``call`` under ``torch.profiler`` (CUDA activity only), between
+    ``pad`` marker kernels on each side.  A session whose profile lost
+    every marker on one side is run again with more of them
+    (:data:`MARKER_PADS`); if the last one loses them too, this raises.
+    Returns the kernel rows (ms, count, name) by time, the merged span of
+    their intervals in us (None with no interval), the port's device
+    kernels by wrapper (``{name: [ms, count]}``), markers left out of
+    all three, and the edges: how many times ``call`` ran, the last
+    pad, and the markers lost before and after the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
+    for calls, pad in enumerate(MARKER_PADS, 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(1)
+            call()
+            for _ in range(pad):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        evs = sorted((ev.time_range.start, ev.time_range.end,
+                      _is_marker(ev.name))
+                     for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA)
+        work = [i for i, e in enumerate(evs) if not e[2]]
+        if work and work[0] > 0 and work[-1] < len(evs) - 1:
+            break
+        print(f"[profile] pad={pad}: the profile kept no marker before "
+              f"or after the call (events {len(evs)}, first work event "
+              f"{work[0] if work else None}); again with more",
+              flush=True)
+    else:
+        raise AssertionError(
+            f"the profiler cut the window's edges even behind "
+            f"{MARKER_PADS[-1]} markers a side")
     rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
+        if us > 0 and not _is_marker(ev.key):
             rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA
-                   and ev.time_range.end > ev.time_range.start)
+    spans = [(a, b) for a, b, marker in evs if not marker and b > a]
     union, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -718,7 +921,10 @@ def _profile(call) -> tuple:
             t = ours.setdefault(name, [0.0, 0])
             t[0] += ms
             t[1] += n
-    return rows, (union if spans else None), ours
+    edges = {"calls": calls, "pad": pad,
+             "markers_lost_before": pad - work[0],
+             "markers_lost_after": pad - (len(evs) - 1 - work[-1])}
+    return rows, (union if spans else None), ours, edges
 
 
 def _dispatch_profile(eng) -> dict:
@@ -748,7 +954,7 @@ def _dispatch_profile(eng) -> dict:
     to_numpy(outs[0])
     h2 = time.perf_counter()
     del outs
-    rows, union, ours = _profile(lambda: to_numpy(dispatch()[0]))
+    rows, union, ours, _ = _profile(lambda: to_numpy(dispatch()[0]))
     busy = sum(r[0] for r in rows)
     return {"host_ms": (h1 - h0) * 1e3, "wall_ms": (h2 - h0) * 1e3,
             "busy_ms": f"{busy:.1f}" if rows else "not measured",
@@ -777,9 +983,10 @@ def _require_replay_profile(label: str, cf, pvals) -> None:
     prog(*args)
     torch.cuda.synchronize()
     captures, replays = prog.captures, prog.replays
-    rows, union, ours = _profile(lambda: prog(*args))
-    require((prog.captures, prog.replays) == (captures, replays + 1),
-            f"{label}: the profiled call was not one replay")
+    rows, union, ours, edges = _profile(lambda: prog(*args))
+    require((prog.captures, prog.replays) ==
+            (captures, replays + edges["calls"]),
+            f"{label}: the profiled calls were not replays")
     seen = {}
     for name, c in prog.launches.items():
         want = c["launches"] * KERNEL_FUNCS[name][1]
@@ -793,7 +1000,12 @@ def _require_replay_profile(label: str, cf, pvals) -> None:
         device_union_ms=(f"{union / 1e3:.1f}" if union is not None
                          else "not measured"),
         device_kernels=sum(r[1] for r in rows),
-        port_kernels_by_wrapper=json.dumps(seen))
+        port_kernels_by_wrapper=json.dumps(seen),
+        port_kernels_ms=json.dumps({k: round(v[0], 3)
+                                    for k, v in ours.items()}),
+        profile_edges=json.dumps(edges),
+        top=json.dumps([[k[:60], round(ms, 3), n]
+                        for ms, n, k in rows[:10]]))
     del args
 
 
@@ -1661,7 +1873,7 @@ def phase_train(report: dict, smi: str) -> None:
         # one more replay, outside the counted run, under the profiler:
         # where the step's device time goes
         extra = data.batch(TRAIN_STEPS)
-        rows, union, ours = _profile(lambda: cf.raw(
+        rows, union, ours, _ = _profile(lambda: cf.raw(
             extra["tokens"], extra["labels"], np.int32(TRAIN_STEPS),
             *flat)[0].item())
         for name in ALL_KERNELS:
@@ -1880,6 +2092,333 @@ def phase_train_small() -> None:
         re_resolve_sweeps=st2.autotune_sweeps)
 
 
+# -- 9. the mixture-of-experts families, full width -----------------------------
+MOE_LAYERS = 2          # mixtral 56 -> 2, deepseek-v3 61 -> 2 (1 dense, 1 MoE)
+MOE_NEW, MX_LONG_NEW = 16, 8
+# card against CPU at a reduced width whose attention takes flash: d_head
+# 128 for mixtral (GQA 4:2, the reduced 8-token window); for MLA the
+# prefill's d_nope + d_rope and the absorbed decode's kv_lora + d_rope
+# both 128 wide
+MOE_SMALL = {"mixtral-8x22b": dict(d_model=256, n_heads=4, n_kv_heads=2,
+                                   d_head=128, compute_dtype="f32"),
+             "deepseek-v3-671b": dict(d_model=256, d_nope=64, d_rope=64,
+                                      d_v=128, kv_lora=64,
+                                      compute_dtype="f32")}
+MOE_SMALL_PROMPT, MOE_SMALL_NEW = 24, 10
+
+
+def _moe_config(arch: str):
+    """``arch`` at full width with the depth cut to :data:`MOE_LAYERS`;
+    deepseek-v3's parameters in bf16 (f32 parameters and their
+    per-dispatch bf16 converts would not fit in 80 GB)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.mla:
+        return dataclasses.replace(cfg, n_layers=MOE_LAYERS, first_dense=1,
+                                   param_dtype="bf16")
+    return dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+
+
+@contextlib.contextmanager
+def _launched_shapes(seen: dict):
+    """While open, each call of a kernel wrapper on the card adds one to
+    ``seen[signature]``: the kernel, its tensors' shapes and dtypes, its
+    other arguments, and which keywords were tensors (flash's q_offset).
+    The wrappers are looked up on their modules at every call, so the
+    emitter's calls (and those a CUDA-graph capture makes) pass here."""
+    from repro_torch import kernels
+
+    def recording(name, fn):
+        def call(*args, **kw):
+            if args[0].is_cuda:
+                sig = (name,
+                       tuple((tuple(a.shape), a.dtype) for a in args
+                             if isinstance(a, torch.Tensor)),
+                       tuple(a for a in args
+                             if not isinstance(a, torch.Tensor)),
+                       tuple(sorted((k, "tensor" if isinstance(
+                           v, torch.Tensor) else v) for k, v in kw.items())))
+                seen[sig] = seen.get(sig, 0) + 1
+            return fn(*args, **kw)
+        return call
+
+    wrapped = {name: getattr(mod, name)
+               for name, mod in kernels.MODULES.items()}
+    try:
+        for name, fn in wrapped.items():
+            setattr(kernels.MODULES[name], name, recording(name, fn))
+        yield seen
+    finally:
+        for name, fn in wrapped.items():
+            setattr(kernels.MODULES[name], name, fn)
+
+
+def _launched_case(gen, sig, calls: int, model: str):
+    """The :func:`_case_makers` case of one :func:`_launched_shapes`
+    signature: its shapes and dtypes, inputs drawn from ``gen``; a query
+    offset given as a tensor puts the queries at the end of the keys (a
+    decode step at the cache's last row: every key in the window
+    visible)."""
+    cases = []
+    mm, nm, sw, rn, fa = _case_makers(gen, cases)
+    name, tensors, extra, kw = sig
+    shp = [s for s, _ in tensors]
+    dts = [d for _, d in tensors]
+    kw = dict(kw)
+    eps = extra[0] if extra else kw.get("eps")
+    label = (f"{model} launched " + " ".join(
+        "x".join(map(str, s)) + ":" + str(d).split(".")[-1]
+        for s, d in tensors) + f" ({calls} calls)")
+    if name == "matmul":
+        (M, K), (_, N) = shp
+        mm(label, M, K, N, dts[0])
+    elif name == "norm_matmul":
+        (M, K), _, (_, N) = shp
+        nm(label, M, N, dts[1], K=K, dt=dts[0], eps=eps)
+    elif name == "swiglu":
+        (M, d), (_, f) = shp[0], shp[1]
+        sw(label, M, dts[0], d=d, f=f)
+    elif name == "rmsnorm":
+        x, (d,) = shp
+        rn(label, math.prod(x[:-1]), dts[1], d=d, dt=dts[0], eps=eps)
+    else:
+        (B, Hq, Sq, dk), (_, Hkv, Skv, _), (*_, dv) = shp
+        off = Skv - Sq if kw.get("q_offset") == "tensor" else None
+        fa(label, B, Hq, Hkv, Sq, Skv, off, dts[0], dk=dk, dv=dv,
+           window=kw.get("window"), causal=kw.get("causal", True),
+           scale=kw.get("scale"))
+    return cases[0]
+
+
+def _hold_launched(seen: dict, model: str) -> dict:
+    """Hold each distinct shape a model's runs launched (recorded by
+    :func:`_launched_shapes`) against its plain version, with its time,
+    its bound and the library call's; returns the shapes held per
+    kernel."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
+    held = {}
+    for sig, calls in sorted(seen.items(), key=repr):
+        _hold(_launched_case(gen, sig, calls, model), flush)
+        held[sig[0]] = held.get(sig[0], 0) + 1
+        torch.cuda.empty_cache()
+    del flush
+    return held
+
+
+def _moe_run(cfg, params, prompts, max_new, static_jit: bool):
+    """One lockstep workload on a fresh engine (as many slots as
+    prompts); returns (engine, report, counters of the run, peak GB
+    allocated, peak GB reserved)."""
+    from repro_torch import kernels
+    from repro_torch.backend import CompileOptions
+    from repro_torch.launch.engine import EngineConfig, ServeEngine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, EngineConfig(
+        mode="lockstep", slots=len(prompts),
+        max_len=len(prompts[0]) + max_new, device="cuda", params=params),
+        options=CompileOptions(level="O2", use_pallas=True,
+                               static_jit=static_jit))
+    kernels.reset_counters()
+    rids = [eng.submit(p, max_new) for p in prompts]
+    rep = eng.run()
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    for r in rids:
+        toks = rep.results[r]
+        require(rep.statuses[r] == "completed" and len(toks) == max_new
+                and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+                f"{cfg.name}: request {r}: {rep.statuses[r]} "
+                f"{rep.errors.get(r)} {toks}")
+    return (eng, rep, counts, torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+
+
+def _moe_gate(report, phase, cfg, counts, flash_per_run: int,
+              main: bool) -> None:
+    """Every kernel of the family's path launched; none refused but
+    deepseek-v3's absorbed-decode attention (Hkv 1, Dk kv_lora + d_rope
+    = 576, wider than the flash kernel's 256), refused exactly once per
+    layer and decode step; flash launched exactly ``flash_per_run``
+    times."""
+    from repro_torch.launch.serve import smoke_kernels
+    need, may_refuse = smoke_kernels(cfg)
+    got = counts["flash_attention"]["launches"]
+    require(got == flash_per_run, f"{phase}: {got} flash launches, "
+            f"{flash_per_run} expected")
+    refused = counts["flash_attention"]["rejected"]
+    if "flash_attention" in may_refuse:
+        want = cfg.n_layers * (MOE_NEW - 1)
+        require(refused == want, f"{phase}: {refused} flash refusals, "
+                f"{want} expected (the absorbed decode: {cfg.n_layers} "
+                f"layers x {MOE_NEW - 1} steps)")
+        counts = dict(counts, flash_attention=dict(
+            counts["flash_attention"], rejected=0))
+    _record_launches(report, phase, counts, need, main=main)
+    if may_refuse:
+        report["flash_attention"].setdefault("refused_by_phase", {})[
+            phase] = refused
+
+
+def phase_moe(report: dict, smi: str) -> None:
+    """Both mixture-of-experts families at full width through
+    ``ServeEngine(mode="lockstep")`` at O2 with the kernels, bf16
+    compute, weights drawn on the card from seed 0, depth cut to
+    :data:`MOE_LAYERS`.  Mixtral-8x22b (f32 parameters): 4 greedy
+    requests of 128 prompt tokens and 16 new ones, eagerly and then
+    captured (the same tokens bit for bit), then one request of 4,224
+    prompt tokens and 8 new ones on one slot, whose prefill and decode
+    attend across the 4096-token window.  Deepseek-v3-671b (bf16
+    parameters): 4 requests of 64 prompt tokens and 16 new ones, eagerly
+    and then captured.  Each run's kernels launched (mixtral: matmul,
+    norm_matmul, rmsnorm, flash; deepseek-v3: all five) and none refused
+    but deepseek-v3's absorbed decode attention; a replay's profile of
+    each model's decode graph shows each kernel at its counted launches.
+    After each model, every distinct shape its runs gave a kernel is
+    held against the plain version (:func:`_hold_launched`).  Then both
+    families at a reduced d_head-128 width in f32, the same
+    numpy weights on the card (kernels) and on the CPU (plain versions):
+    the same greedy tokens."""
+    from repro_torch.models.weights import init_params_on_device
+    from repro_torch.launch.serve import full_width_builder
+
+    held = _free_card()
+    rng = np.random.default_rng(9)
+    for arch in ("mixtral-8x22b", "deepseek-v3-671b"):
+        cfg = _moe_config(arch)
+        P = V3_PROMPT if cfg.mla else MX_PROMPT
+        t0 = time.perf_counter()
+        params = init_params_on_device(
+            full_width_builder(cfg, P + MOE_NEW, SLOTS), 0, "cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n = sum(t.numel() for t in params.values())
+        gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+        prompts = [rng.integers(0, cfg.vocab, P).astype(np.int32)
+                   for _ in range(SLOTS)]
+        # a prefill (one launch a layer) and MOE_NEW - 1 decode steps;
+        # deepseek-v3's decode attention is the refused absorbed one
+        flash = cfg.n_layers * (1 if cfg.mla else MOE_NEW)
+        toks = {}
+        shapes = contextlib.ExitStack()
+        seen = shapes.enter_context(_launched_shapes({}))
+        for what, sj in (("eager", False), ("captured", True)):
+            eng, rep, counts, peak, reserved = _moe_run(
+                cfg, params, prompts, MOE_NEW, sj)
+            toks[what] = [rep.results[r].tolist() for r in sorted(rep.results)]
+            _moe_gate(report, f"moe_{cfg.name}_{what}", cfg, counts, flash,
+                      main=sj)
+            if sj:
+                require(eng.cf.raw.captured,
+                        f"{cfg.name}: the decode graph was never captured")
+                _require_replay_profile(f"{cfg.name}_decode", eng.cf,
+                                        eng.tparams)
+            say("moe", model=cfg.name, dispatch=what, layers=cfg.n_layers,
+                params_b=f"{n / 1e9:.3f}", params_gb=f"{gb:.2f}",
+                param_dtype=cfg.param_dtype, init_s=f"{t_init:.2f}",
+                requests=len(prompts), prompt_len=P,
+                generated=rep.generated_tokens,
+                prefill_ms=f"{rep.prefill_seconds * 1e3:.1f}",
+                decode_tok_s=f"{rep.decode_tok_s:.2f}",
+                decode_step_p50_ms=f"{rep.p50_ms:.1f}",
+                wall_s=f"{rep.wall_seconds:.2f}", peak_gb=f"{peak:.2f}",
+                reserved_gb=f"{reserved:.2f}",
+                launches=json.dumps({k: v["launches"]
+                                     for k, v in counts.items()}),
+                refused=json.dumps({k: v["rejected"]
+                                    for k, v in counts.items()}),
+                card=repr(smi))
+            del eng
+        require(toks["captured"] == toks["eager"],
+                f"{cfg.name}: captured greedy tokens differ from eager: "
+                f"{toks['captured']} vs {toks['eager']}")
+        say("moe", model=cfg.name, captured_vs_eager="bitwise",
+            requests=len(prompts))
+        if not cfg.mla:
+            # one request across the sliding window: prefill attends over
+            # 4224 keys under the 4096 window, decode past it
+            long_prompt = [rng.integers(0, cfg.vocab, MX_LONG).astype(
+                np.int32)]
+            eng, rep, counts, peak, reserved = _moe_run(
+                cfg, params, long_prompt, MX_LONG_NEW, True)
+            _moe_gate(report, f"moe_{cfg.name}_long", cfg, counts,
+                      cfg.n_layers * MX_LONG_NEW, main=True)
+            say("moe", model=cfg.name, dispatch="captured", slots=1,
+                prompt_len=MX_LONG, window=cfg.window,
+                generated=rep.generated_tokens,
+                prefill_ms=f"{rep.prefill_seconds * 1e3:.1f}",
+                decode_tok_s=f"{rep.decode_tok_s:.2f}",
+                decode_step_p50_ms=f"{rep.p50_ms:.1f}",
+                peak_gb=f"{peak:.2f}", reserved_gb=f"{reserved:.2f}",
+                launches=json.dumps({k: v["launches"]
+                                     for k, v in counts.items()}),
+                card=repr(smi))
+            del eng
+        shapes.close()
+        del params
+        held = _free_card()
+        by_kernel = _hold_launched(seen, cfg.name)
+        require(set(by_kernel) == {k for k, c in report.items()
+                                   if c["launches_by_phase"].get(
+                                       f"moe_{cfg.name}_eager")},
+                f"{cfg.name}: shapes held {by_kernel}, launched "
+                f"{report}")
+        say("moe_shapes", model=cfg.name, held=sum(by_kernel.values()),
+            by_kernel=json.dumps(by_kernel), card=repr(smi))
+    phase_moe_parity()
+    say("moe", families="moe,mla_moe", result="ok",
+        held_gb=f"{held:.2f}")
+
+
+def phase_moe_parity() -> None:
+    """Both families at :data:`MOE_SMALL` (f32, flash on the card), the
+    builder's numpy weights carried across by ``params_from_numpy``:
+    lockstep on the card with the kernels and on the CPU with their
+    plain versions give the same greedy tokens."""
+    from repro_torch import kernels
+    from repro_torch.backend import CompileOptions
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import EngineConfig, ServeEngine
+    from repro_torch.launch.serve import full_width_builder, smoke_kernels
+    from repro_torch.models.weights import params_from_numpy
+
+    line = {}
+    for arch, over in MOE_SMALL.items():
+        cfg = get_config(arch).reduced(**over)
+        max_len = MOE_SMALL_PROMPT + MOE_SMALL_NEW
+        np_params = full_width_builder(cfg, max_len, SLOTS).init_params(0)
+        prompts = _prompts(cfg.vocab, (MOE_SMALL_PROMPT,) * SLOTS, 8, seed=4)
+        results = {}
+        for dev in ("cuda", "cpu"):
+            kernels.reset_counters()
+            eng = ServeEngine(cfg, EngineConfig(
+                mode="lockstep", slots=SLOTS, max_len=max_len, device=dev,
+                params=params_from_numpy(np_params, dev)),
+                options=CompileOptions(level="O2", use_pallas=True))
+            rids = [eng.submit(p, MOE_SMALL_NEW) for p in prompts]
+            rep = eng.run()
+            require(all(rep.statuses[r] == "completed" for r in rids),
+                    f"{arch} small {dev}: {rep.statuses} {rep.errors}")
+            results[dev] = [rep.results[r].tolist() for r in rids]
+            if dev == "cuda":
+                card = kernels.counters()
+        launched = {k: c["launches"] for k, c in card.items()}
+        need, _ = smoke_kernels(cfg)
+        require(all(launched[k] > 0 for k in need),
+                f"{arch} small: a kernel never launched on the card: "
+                f"{launched}")
+        require(results["cuda"] == results["cpu"],
+                f"{arch} small f32: card tokens {results['cuda']} differ "
+                f"from the CPU's {results['cpu']}")
+        line[f"{arch}_tokens"] = "identical"
+        line[f"{arch}_launches"] = json.dumps(launched)
+        line[f"{arch}_refused"] = sum(c["rejected"] for c in card.values())
+    say("moe_parity", width="reduced d_head 128, f32", **line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -1893,6 +2432,9 @@ def main() -> int:
     if "--train-only" in sys.argv[1:]:
         phase_train(report, smi)
         return 0    # phase 8 alone: no result line
+    if "--moe-only" in sys.argv[1:]:
+        phase_moe(report, smi)
+        return 0    # phase 9 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -1900,6 +2442,7 @@ def main() -> int:
     phase_http(report, cfg, params, prompts, tokens, smi)
     del params
     phase_train(report, smi)
+    phase_moe(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

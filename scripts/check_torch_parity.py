@@ -6,12 +6,16 @@ holds ``repro_torch`` to ``repro``, as the reference's parity scripts
 hold one lowering to another.  The port itself imports neither ``jax``
 nor ``repro``.
 
-For each graph kind of the dense family -- the ``train`` loss graph and
-the whole train step (``train_step``: IR autodiff + AdamW,
-``models.train_graph.make_train_step``), ``prefill``, ``decode``,
-``serve``, the paged decode chunk and the paged prefill chunk -- the
-same graph is built by both packages (their structural
-signatures must agree) and run on the same numpy inputs (the recipe of
+For each graph kind of the dense family (deepseek-7b) -- the ``train``
+loss graph and the whole train step (``train_step``: IR autodiff +
+AdamW, ``models.train_graph.make_train_step``), ``prefill``, ``decode``,
+``serve``, the paged decode chunk and the paged prefill chunk -- and of
+the moe family (mixtral-8x22b: ``train``, ``prefill``, ``decode`` and
+the sliding window's ring ``long_decode``) and the mla_moe family
+(deepseek-v3-671b: ``train`` with its MTP head, ``prefill``, ``decode``
+over the latent caches), the same graph is built by both packages (their
+structural signatures must agree) and run on the same numpy inputs (the
+recipe of
 ``check_kernel_parity.make_args``: the builder's seeded weights, integer
 inputs drawn below ``min(vocab, 100)``, float inputs zero) three ways:
 JAX at O1, torch at O1, and torch at O2 with ``use_pallas=True`` (the
@@ -34,7 +38,8 @@ versions on the CPU).  The gate fails unless
     (``compare_train_state``);
   * on a CUDA device, every kernel on a graph's path launched at least
     once in its O2 run (the launch counters; the reduced vocabulary's
-    unembed is refused by the kernels' shape rule and runs plain).
+    unembed is refused by the kernels' shape rule and runs plain;
+    mixtral's experts are batched einsums, so it runs no SwiGLU).
 
 Run (the port's device defaults to the card):
 
@@ -67,10 +72,25 @@ EXPECTED = {
     "paged_chunk": {"swiglu": 1, "norm_matmul": 1},
     "paged_prefill": {"swiglu": 1, "norm_matmul": 1},
 }
+# the other families' graph kinds and theirs (the reference's O2 forms
+# the same at both widths): the architecture, then kind -> counts
+FAMILIES = {
+    "moe": ("mixtral-8x22b", {
+        "train": {"norm_matmul": 1, "rotary_qkv": 1},
+        "prefill": {"norm_matmul": 2, "rotary_qkv": 1},
+        "decode": {"norm_matmul": 3},
+        "long_decode": {"norm_matmul": 3},
+    }),
+    "mla_moe": ("deepseek-v3-671b", {
+        "train": {"swiglu": 3, "norm_matmul": 17},
+        "prefill": {"swiglu": 2, "norm_matmul": 10},
+        "decode": {"swiglu": 2, "norm_matmul": 6},
+    }),
+}
 # the graph kinds that hold an Attention op, which the flash kernel
-# carries at head widths of a multiple of 128; the others attend through
-# IR compositions
-ATTENTION_KINDS = ("train", "train_step", "prefill", "decode")
+# carries at the head widths the emitter offers it; the others attend
+# through IR compositions
+ATTENTION_KINDS = ("train", "train_step", "prefill", "decode", "long_decode")
 # max_len, batch, and the paged graphs' shape: n_pages and max_len cover
 # every page id and position below 100 that make_args may draw
 MAX_LEN, BATCH = 16, 2
@@ -82,6 +102,26 @@ UPDATE_L2 = {"f32": 1e-4, "bf16": 0.25}
 WIDTHS = {"reduced": {},
           "dh128": dict(d_model=256, n_heads=2, n_kv_heads=2, d_head=128,
                         d_ff=256)}
+# MLA's heads at the d_head-128 width: the prefill's d_nope + d_rope and
+# the absorbed decode's kv_lora + d_rope are both 128 wide
+MLA_DH128 = dict(d_nope=64, d_rope=64, d_v=128, kv_lora=64)
+
+
+def family_config(get_config, arch: str, width: str):
+    """``arch`` reduced, at ``width``.  The MoE families compute in f32:
+    in bf16 a router whose k-th and (k+1)-th probabilities lie within a
+    rounding of each other picks a different expert in two correct
+    implementations (JAX against the reference's own numpy interpreter
+    does so too), and the layer's output moves by a whole expert's
+    share; ``tests/test_torch_moe.py`` holds bf16 to JAX with both
+    packages on JAX's routing."""
+    cfg = get_config(arch)
+    over = dict(WIDTHS[width])
+    if cfg.mla and width == "dh128":
+        over.update(MLA_DH128)
+    if cfg.family != "dense":
+        over["compute_dtype"] = "f32"
+    return cfg.reduced(**over)
 
 
 def build(lm, shape_config, cfg, kind, train_graph=None):
@@ -109,15 +149,21 @@ def _build(lm, shape_config, cfg, kind):
 
 
 def make_args(g, fn, cfg, rng):
-    """``fn``'s inputs: the builder's seeded weights by name, integer
-    inputs below ``min(vocab, 100)``, float inputs (the AdamW moments of
-    a train step among them) zero."""
+    """``fn``'s inputs: the builder's seeded weights by name, a decode
+    step's scalar position inside its cache (``MAX_LEN`` rows: past them
+    a sliding window masks every key, where the flash kernel gives 0 and
+    the plain composition the mean of V), other integer inputs below
+    ``min(vocab, 100)``, float inputs (the AdamW moments of a train step
+    among them) zero."""
     params = g.builder.init_params(0)
     args = []
     for node in fn.parameters:
         t = node.out_types[0]
         if node.name in params:
             args.append(params[node.name])
+        elif node.name == "pos" and t.shape == ():
+            args.append(rng.integers(0, MAX_LEN, size=()).astype(
+                str(t.dtype)))
         elif "int" in str(t.dtype):
             args.append(rng.integers(
                 0, min(cfg.vocab, 100), size=t.shape).astype(str(t.dtype)))
@@ -159,17 +205,17 @@ def compare(where, a, b, vocab, errors, tol=None):
 def required_kernels(kind: str, cfg) -> List[str]:
     from repro_torch.devices import torch_dtype
     from repro_torch.kernels import ops
-    need = ["matmul", "swiglu", "rmsnorm"]
-    # the train loss graph's one NormMatmul is the final norm and the
-    # unembedding, which the kernels' shape rule refuses at the reduced
-    # vocabulary (257); the train step's backward forms others
-    if kind != "train" or ops.norm_matmul_supported(
+    from repro_torch.launch.serve import smoke_kernels
+    need, _ = smoke_kernels(cfg, attention=kind in ATTENTION_KINDS)
+    # the dense and moe train loss graphs' one NormMatmul is the final
+    # norm and the unembedding, which the kernels' shape rule refuses at
+    # the reduced vocabulary (257); the train step's backward forms
+    # others, and MLA's q and kv norms feed their projections
+    if kind == "train" and not cfg.mla and not ops.norm_matmul_supported(
             BATCH * MAX_LEN, cfg.d_model, cfg.vocab, torch_dtype(
                 cfg.compute_dtype)):
-        need.insert(1, "norm_matmul")
-    if kind in ATTENTION_KINDS and cfg.head_dim % 128 == 0:
-        need.append("flash_attention")
-    return need
+        need.discard("norm_matmul")
+    return sorted(need)
 
 
 def _rel_l2(ref, got) -> float:
@@ -226,66 +272,70 @@ def main(argv=None) -> int:
     from repro_torch.models import lm as t_lm
     from repro_torch.models import train_graph as t_train
 
-    over = WIDTHS[args.width]
-    jcfg = j_get_config("deepseek-7b").reduced(**over)
-    tcfg = get_config("deepseek-7b").reduced(**over)
     jbe = JBackend.create("jax")
     tbe = Backend.create("torch", device=args.device)
     on_card = tbe.device.type == "cuda"
-    train_tol = 3e-2 if tcfg.compute_dtype == "bf16" else 1e-4
     rng = np.random.default_rng(0)
     errors: List[str] = []
-    for kind, expected in EXPECTED.items():
-        jg, jfn = build(j_lm, JShapeConfig, jcfg, kind, j_train)
-        tg, tfn = build(t_lm, ShapeConfig, tcfg, kind, t_train)
-        if jfn.signature() != tfn.signature():
-            errors.append(f"{kind}: the two packages built different "
-                          f"graphs")
-            continue
-        args_np = make_args(jg, jfn, jcfg, rng)
-        ref = jbe.compile(jfn, JOptions(level="O1"))(*args_np)
-        o1 = tbe.compile(tfn, CompileOptions(level="O1"))(*args_np)
-        fused = tbe.compile(tfn, CompileOptions(level="O2",
-                                                use_pallas=True))
-        kernels.reset_counters()
-        o2 = fused(*args_np)
-        counts = kernels.counters()
-        hits = dict(fused.report.stats).get("fuse-compounds", {})
-        for compound, n in expected.items():
-            if hits.get(compound, 0) < n:
-                errors.append(f"{kind}: expected >= {n} {compound} "
-                              f"fusions, got {hits.get(compound, 0)} "
-                              f"(hits: {hits})")
-        for label, outs in (("O1", o1), ("O2", o2)):
-            if len(outs) != len(ref):
-                errors.append(f"{kind} {label}: {len(outs)} outputs, JAX "
-                              f"gives {len(ref)}")
+    runs = [("deepseek-7b", "", EXPECTED)] + [
+        (arch, f"{arch} ", kinds) for arch, kinds in FAMILIES.values()]
+    for arch, label, kinds in runs:
+        jcfg = family_config(j_get_config, arch, args.width)
+        tcfg = family_config(get_config, arch, args.width)
+        train_tol = 3e-2 if tcfg.compute_dtype == "bf16" else 1e-4
+        for kind, expected in kinds.items():
+            where = f"{label}{kind}"
+            jg, jfn = build(j_lm, JShapeConfig, jcfg, kind, j_train)
+            tg, tfn = build(t_lm, ShapeConfig, tcfg, kind, t_train)
+            if jfn.signature() != tfn.signature():
+                errors.append(f"{where}: the two packages built different "
+                              f"graphs")
                 continue
-            for i, (a, b) in enumerate(zip(ref, outs)):
-                compare(f"{kind} torch {label} output {i}", a, b,
-                        None if kind == "train_step" else tcfg.vocab,
-                        errors, tol=train_tol if kind.startswith("train")
-                        else None)
-            if kind == "train_step" and len(outs) == len(ref):
-                n = (len(ref) - 1) // 3
-                compare_train_state(f"{kind} torch {label}",
-                                    args_np[-3 * n:-2 * n], ref, outs,
-                                    tcfg.compute_dtype, errors)
-        launched = {k: c["launches"] for k, c in counts.items()}
-        if on_card:
-            for name in required_kernels(kind, tcfg):
-                if launched[name] == 0:
-                    errors.append(f"{kind}: kernel {name} never launched "
-                                  f"on the card ({counts})")
-        shown = {k: v for k, v in hits.items() if v}
-        print(f"{kind}: fused {shown}, torch O1 and O2 match JAX O1 "
-              f"on {tbe.device}; launches {launched}")
+            args_np = make_args(jg, jfn, jcfg, rng)
+            ref = jbe.compile(jfn, JOptions(level="O1"))(*args_np)
+            o1 = tbe.compile(tfn, CompileOptions(level="O1"))(*args_np)
+            fused = tbe.compile(tfn, CompileOptions(level="O2",
+                                                    use_pallas=True))
+            kernels.reset_counters()
+            o2 = fused(*args_np)
+            counts = kernels.counters()
+            hits = dict(fused.report.stats).get("fuse-compounds", {})
+            for compound, n in expected.items():
+                if hits.get(compound, 0) < n:
+                    errors.append(f"{where}: expected >= {n} {compound} "
+                                  f"fusions, got {hits.get(compound, 0)} "
+                                  f"(hits: {hits})")
+            for level, outs in (("O1", o1), ("O2", o2)):
+                if len(outs) != len(ref):
+                    errors.append(f"{where} {level}: {len(outs)} outputs, "
+                                  f"JAX gives {len(ref)}")
+                    continue
+                for i, (a, b) in enumerate(zip(ref, outs)):
+                    compare(f"{where} torch {level} output {i}", a, b,
+                            None if kind == "train_step" else tcfg.vocab,
+                            errors, tol=train_tol if kind.startswith("train")
+                            else None)
+                if kind == "train_step" and len(outs) == len(ref):
+                    n = (len(ref) - 1) // 3
+                    compare_train_state(f"{where} torch {level}",
+                                        args_np[-3 * n:-2 * n], ref, outs,
+                                        tcfg.compute_dtype, errors)
+            launched = {k: c["launches"] for k, c in counts.items()}
+            if on_card:
+                for name in required_kernels(kind, tcfg):
+                    if launched[name] == 0:
+                        errors.append(f"{where}: kernel {name} never "
+                                      f"launched on the card ({counts})")
+            shown = {k: v for k, v in hits.items() if v}
+            print(f"{where}: fused {shown}, torch O1 and O2 match JAX O1 "
+                  f"on {tbe.device}; launches {launched}")
     if errors:
         for e in errors:
             print(f"PARITY FAIL: {e}", file=sys.stderr)
         return 1
     print(f"torch parity ok ({args.width}, {tbe.device}): O1 and O2 "
-          f"(kernels) match JAX O1 on every dense graph kind")
+          f"(kernels) match JAX O1 on every graph kind of the dense, moe "
+          f"and mla_moe families")
     return 0
 
 

@@ -63,6 +63,16 @@ class TorchBackend(Backend):
         self._graph_pool = None
         self._capture_stream = None
 
+    def clear_cache(self) -> None:
+        """The base reset, and a new capture pool for later captures: the
+        graphs captured into the old one go with the cache, and a pool
+        whose graphs were all released takes no new capture (PyTorch's
+        caching host allocator keeps the released pool's id and fails an
+        internal assert when a capture names it again)."""
+        super().clear_cache()
+        with self._lock:
+            self._graph_pool = None
+
     def _key_opts(self):
         # an entry's graph and a record's timings belong to one product:
         # "cuda:0" names a slot, not the card in it

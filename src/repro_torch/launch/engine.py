@@ -4,7 +4,9 @@ The port of ``repro/launch/engine.py``: four modes, worst to best.
 
   * ``lockstep``   -- the legacy hot loop: numpy in and out every step
                       (through ``CompiledFunction.__call__``), every
-                      request starts together (the baseline).
+                      request starts together (the baseline).  The one
+                      mode that serves every family ``build_graphs``
+                      builds (moe and mla_moe too), as in the reference.
   * ``donated``    -- the same lockstep schedule, but the caches stay on
                       the device and the whole greedy loop (argmax and
                       token feedback included) runs inside one fused
@@ -60,7 +62,7 @@ import torch
 from ..backend import Backend, CompileOptions
 from ..configs.base import ModelConfig, ShapeConfig
 from ..devices import as_tensor, to_numpy, torch_dtype
-from ..models.lm import ModelGraphs, build_graphs
+from ..models.lm import LATER_FAMILIES, ModelGraphs, build_graphs
 from .faults import FaultInjector, get_injector
 
 MODES = ("lockstep", "donated", "continuous", "paged")
@@ -983,10 +985,14 @@ class ServeEngine:
                 f"config must be an EngineConfig, got "
                 f"{type(config).__name__}")
         mode = config.mode
-        if cfg.family != "dense":
+        if cfg.family in LATER_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}) comes with "
+                f"{LATER_FAMILIES[cfg.family]} of the torch port")
+        if mode != "lockstep" and cfg.family != "dense":
             raise NotImplementedError(
                 f"mode {mode!r} needs the dense-family serve/chunk graphs; "
-                f"{cfg.name} ({cfg.family}) comes with a later slice")
+                f"{cfg.name} ({cfg.family}) serves via mode='lockstep'")
         self.cfg = cfg
         self.config = config
         self.slots = int(config.slots)

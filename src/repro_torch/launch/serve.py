@@ -33,6 +33,13 @@ and (with ``--report-json``) writes the served-request report, results
 keyed by the clients' tags.  It exits 1 when the drain left engine
 state behind.  Only the continuous and paged modes can serve it.
 ``--tp`` comes with a later slice of the port.
+
+The moe and mla_moe families (``--arch mixtral-8x22b``,
+``--arch deepseek-v3-671b``) serve through ``--mode lockstep`` only, as
+in the reference:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --reduced --mode lockstep --device cpu
 """
 from __future__ import annotations
 
@@ -42,6 +49,36 @@ import json
 from typing import List, Optional
 
 import numpy as np
+
+
+def full_width_builder(cfg, max_len: int, batch: int):
+    """The builder that declares a full-width engine's parameters: the
+    config family's own decode graph (every graph an engine of that family
+    compiles reads the same names)."""
+    from ..configs.base import ShapeConfig
+    from ..models.lm import build_graphs
+    return build_graphs(cfg, ShapeConfig("decode", "decode", max_len, batch),
+                        batch).builder
+
+
+def smoke_kernels(cfg, attention: bool = True):
+    """(the kernels a path of ``cfg`` on the card must launch, the kernels
+    allowed to refuse a shape there) -- the one statement of this rule,
+    which the serving smoke, the parity script, ``chip_smoke.py`` and the
+    card tests read.  Mixtral's experts are batched einsums, so a moe
+    config without a shared expert runs no SwiGLU.  Flash attention runs
+    where the path's graphs hold an Attention op (``attention``; the
+    paged path's chunked prefill holds none) at a query head width the
+    emitter offers it, and refuses MLA's absorbed decode, whose latent
+    head (kv_lora + d_rope) is wider than the kernel takes."""
+    from ..transformers.torch_emit import FLASH_HEAD_MULTIPLE
+    need = {"matmul", "norm_matmul", "rmsnorm"}
+    if cfg.family != "moe" or cfg.n_shared_experts:
+        need.add("swiglu")
+    width = cfg.d_nope + cfg.d_rope if cfg.mla else cfg.head_dim
+    if attention and width % FLASH_HEAD_MULTIPLE == 0:
+        need.add("flash_attention")
+    return need, ({"flash_attention"} if cfg.mla else set())
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -113,7 +150,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .. import kernels
     from ..backend import CompileOptions
     from ..configs import get_config
-    from ..models.lm import build_dense_chunk
     from ..models.weights import init_params_on_device
     from .engine import EngineConfig, ServeEngine
     from .loadgen import make_prompts
@@ -146,13 +182,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             autotune=args.autotune)
         params = None
         if not args.reduced:   # full width: draw the weights on the device
-            # every mode's graphs declare the same parameter names
-            g = build_dense_chunk(cfg, max_len, args.batch, 1)
-            params = init_params_on_device(g.builder, args.seed, args.device)
+            # every mode's graphs declare the parameter names of the
+            # family's own decode graph
+            params = init_params_on_device(
+                full_width_builder(cfg, max_len, args.batch), args.seed,
+                args.device)
         engine = ServeEngine(cfg, dataclasses.replace(econf, params=params),
                              options=CompileOptions(level=args.level,
                                                     use_pallas=args.kernels))
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
     if args.serve_http:
         return _serve_http(engine, args, cfg, max_len)
@@ -229,14 +267,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             assert p.page_allocs == p.page_frees and \
                 p.ref_allocs == p.ref_frees
         if args.kernels and engine.device.type == "cuda":
-            # flash attention runs where the graphs hold an Attention op
-            # (every dense prefill, the lockstep/donated decode) at a
-            # head width of a multiple of 128
-            flash = cfg.head_dim % 128 == 0 and not (
-                paged and engine.prefill_chunk)
-            assert all(c["rejected"] == 0 for c in counts.values()), counts
-            assert all(c["launches"] > 0 for k, c in counts.items()
-                       if k != "flash_attention" or flash), counts
+            need, may_refuse = smoke_kernels(
+                cfg, attention=not (paged and engine.prefill_chunk))
+            assert all(c["rejected"] == 0 for k, c in counts.items()
+                       if k not in may_refuse), counts
+            assert all(counts[k]["launches"] > 0 for k in need), counts
         print("[smoke] ok")
     if args.report_json:
         doc = dataclasses.asdict(rep)

@@ -3,11 +3,12 @@ IR graphs.
 
 Every architecture is a *frontend program* over the same IR (nGraph's
 O(frameworks + platforms) claim): a family function assembles blocks
-from ``components`` into a ``Function`` via ``ModelBuilder.scan_blocks``
-(stacked layer weights + the Scan op keep 80-layer graphs compact).
-This copy of the reference's ``models/lm.py`` holds the dense family
-only; the moe, mla_moe, rg_hybrid, xlstm, encdec and vlm builders come
-with later slices of the torch port.
+from ``components`` / ``moe`` / ``mla`` into a ``Function`` via
+``ModelBuilder.scan_blocks`` (stacked layer weights + the Scan op keep
+80-layer graphs compact).  This copy of the reference's ``models/lm.py``
+holds the dense, moe (mixtral) and mla_moe (deepseek-v3) families; the
+rg_hybrid, xlstm, encdec and vlm builders come with later slices of the
+torch port.
 
 Graph kinds:
   * train   — (tokens, labels, *W) -> scalar loss (optimizer wrapped on
@@ -29,6 +30,8 @@ from ..core.function import Function
 from ..core.node import Value
 from .builder import ModelBuilder, ones_init
 from . import components as C
+from . import mla as MLA
+from . import moe as MOE
 
 CACHE_SPEC = (None, "batch", "kv_heads", "kv_seq", None)  # (L,B,H,S,D)
 # paged pools have no batch axis: (L, pages, H, page_size, D)
@@ -583,17 +586,320 @@ def build_dense_paged_prefill(cfg: ModelConfig, max_len: int, chunk: int, *,
 # =============================================================================
 # MoE family (mixtral)
 # =============================================================================
+def _moe_layer_specs(cfg: ModelConfig) -> Tuple[C.Specs, Dict]:
+    dh = cfg.head_dim
+    specs: C.Specs = {}
+    specs.update(_block_norm_specs(cfg, "ln1_"))
+    specs.update(C.prefix_weights(
+        C.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, dh), "attn_"))
+    specs.update(_block_norm_specs(cfg, "ln2_"))
+    specs.update(C.prefix_weights(
+        MOE.moe_specs(cfg.d_model, cfg.n_experts, cfg.expert_d_ff,
+                      cfg.n_shared_experts), "moe_"))
+    inits = {}
+    inits.update(C.norm_inits("ln1_", cfg.norm))
+    inits.update(C.attn_inits("attn_"))
+    inits.update(C.norm_inits("ln2_", cfg.norm))
+    inits.update(MOE.moe_inits("moe_", cfg.n_shared_experts))
+    return specs, inits
+
+
+def _moe_block(b, cfg, h, aux, w, rope, *, cache=None, pos=None, ring=False,
+               return_kv=False):
+    dh = cfg.head_dim
+    xn = C.apply_norm(h, w, "ln1_", cfg.norm, cfg.norm_eps)
+    att, extras = C.self_attention(
+        b, xn, w, prefix="attn_", n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        d_head=dh, rope=rope, causal=True, window=cfg.window,
+        cache_k=cache[0] if cache else None,
+        cache_v=cache[1] if cache else None, pos=pos, ring=ring,
+        return_kv=return_kv)
+    h = h + att
+    xn2 = C.apply_norm(h, w, "ln2_", cfg.norm, cfg.norm_eps)
+    mo, a = MOE.apply_moe(b, xn2, w, prefix="moe_", n_experts=cfg.n_experts,
+                          top_k=cfg.top_k,
+                          capacity_factor=cfg.capacity_factor)
+    if cfg.n_shared_experts:
+        mo = mo + MOE.apply_shared_expert(b, xn2, w, "moe_")
+    h = h + mo
+    aux = aux + a
+    return h, aux, extras
+
+
+def build_moe(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> ModelGraphs:
+    b = ModelBuilder(cfg.param_dtype, cfg.compute_dtype)
+    kind = shape.kind
+    dh = cfg.head_dim
+    specs, inits = _moe_layer_specs(cfg)
+
+    if kind in ("train", "prefill"):
+        S = shape.seq_len
+        tokens = b.input("tokens", (batch, S))
+        labels = b.input("labels", (batch, S)) if kind == "train" else None
+        h = _embed(b, cfg, tokens)
+        aux0 = ops.constant(0.0, dtype="f32")
+        cos, sin = C.rope_tables(b, S, dh, cfg.rope_base)
+        want_kv = kind == "prefill"
+
+        def body(carries, w, consts):
+            hh, aux, ex = _moe_block(b, cfg, carries[0], carries[1], w,
+                                     (consts[0], consts[1]),
+                                     return_kv=want_kv)
+            return [hh, aux], list(ex)
+
+        (h, aux), ys = b.scan_blocks(
+            "layers", cfg.n_layers, specs, body, [h, aux0],
+            consts=[cos, sin], n_ys=2 if want_kv else 0, weight_inits=inits)
+        if kind == "train":
+            aux = aux * ops.constant(cfg.router_aux_weight / cfg.n_layers,
+                                     dtype="f32")
+            return ModelGraphs(cfg, kind, b.finish(
+                [_loss_result(b, cfg, h, labels, aux)],
+                f"{cfg.name}_train"), b, {})
+        logits = _final_logits(b, cfg, h, last_only=True)
+        return ModelGraphs(cfg, kind, b.finish(
+            [logits, ys[0], ys[1]], f"{cfg.name}_prefill"), b,
+            {"cache_names": ["cache_k", "cache_v"]})
+
+    Skv = _cache_len(cfg, shape)
+    ring = shape.kind == "long_decode" and cfg.window is not None
+    token = b.input("token", (batch, 1))
+    pos = b.input("pos", (), spec=())
+    ck = b.input("cache_k", (cfg.n_layers, batch, cfg.n_kv_heads, Skv, dh),
+                 dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    cv = b.input("cache_v", (cfg.n_layers, batch, cfg.n_kv_heads, Skv, dh),
+                 dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    h = _embed(b, cfg, token)
+    aux0 = ops.constant(0.0, dtype="f32")
+    cos, sin = C.rope_tables(b, 1, dh, cfg.rope_base, offset=pos)
+
+    def body(carries, w, consts):
+        hh, aux, ex = _moe_block(b, cfg, carries[0], carries[1], w,
+                                 (consts[0], consts[1]),
+                                 cache=(w["cache_k"], w["cache_v"]),
+                                 pos=consts[2], ring=ring)
+        return [hh, aux], list(ex)
+
+    (h, _), ys = b.scan_blocks(
+        "layers", cfg.n_layers, specs, body, [h, aux0],
+        consts=[cos, sin, pos], xs_extra={"cache_k": ck, "cache_v": cv},
+        n_ys=2, weight_inits=inits)
+    logits = _final_logits(b, cfg, h, last_only=True)
+    return ModelGraphs(cfg, kind, b.finish(
+        [logits, ys[0], ys[1]], f"{cfg.name}_decode"), b,
+        {"cache_names": ["cache_k", "cache_v"],
+         "state_out_names": ["cache_k", "cache_v"]})
+
+
+# =============================================================================
+# MLA + MoE family (deepseek-v3) — dense first_k layers, then MoE; MTP head
+# =============================================================================
+def _mla_attn_specs(cfg: ModelConfig) -> Tuple[C.Specs, Dict]:
+    specs = C.prefix_weights(
+        MLA.mla_specs(cfg.d_model, cfg.n_heads, cfg.q_lora, cfg.kv_lora,
+                      cfg.d_nope, cfg.d_rope, cfg.d_v), "attn_")
+    return specs, MLA.mla_inits("attn_")
+
+
+def _v3_dense_specs(cfg) -> Tuple[C.Specs, Dict]:
+    sa, ia = _mla_attn_specs(cfg)
+    specs: C.Specs = {}
+    specs.update(_block_norm_specs(cfg, "ln1_"))
+    specs.update(sa)
+    specs.update(_block_norm_specs(cfg, "ln2_"))
+    specs.update(C.prefix_weights(C.mlp_specs(cfg.d_model, cfg.d_ff), "mlp_"))
+    inits = {**C.norm_inits("ln1_"), **ia, **C.norm_inits("ln2_"),
+             **C.mlp_inits("mlp_")}
+    return specs, inits
+
+
+def _v3_moe_specs(cfg) -> Tuple[C.Specs, Dict]:
+    sa, ia = _mla_attn_specs(cfg)
+    specs: C.Specs = {}
+    specs.update(_block_norm_specs(cfg, "ln1_"))
+    specs.update(sa)
+    specs.update(_block_norm_specs(cfg, "ln2_"))
+    specs.update(C.prefix_weights(
+        MOE.moe_specs(cfg.d_model, cfg.n_experts, cfg.expert_d_ff,
+                      cfg.n_shared_experts), "moe_"))
+    inits = {**C.norm_inits("ln1_"), **ia, **C.norm_inits("ln2_"),
+             **MOE.moe_inits("moe_", cfg.n_shared_experts)}
+    return specs, inits
+
+
+def _v3_block(b, cfg, h, aux, w, rope, *, moe: bool, cache=None, pos=None):
+    xn = C.apply_norm(h, w, "ln1_", cfg.norm, cfg.norm_eps)
+    att, extras = MLA.apply_mla(
+        b, xn, w, prefix="attn_", n_heads=cfg.n_heads, q_lora=cfg.q_lora,
+        kv_lora=cfg.kv_lora, d_nope=cfg.d_nope, d_rope=cfg.d_rope,
+        d_v=cfg.d_v, rope=rope,
+        cache_ckv=cache[0] if cache else None,
+        cache_kr=cache[1] if cache else None, pos=pos)
+    h = h + att
+    xn2 = C.apply_norm(h, w, "ln2_", cfg.norm, cfg.norm_eps)
+    if moe:
+        mo, a = MOE.apply_moe(b, xn2, w, prefix="moe_",
+                              n_experts=cfg.n_experts, top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor)
+        if cfg.n_shared_experts:
+            mo = mo + MOE.apply_shared_expert(b, xn2, w, "moe_")
+        h = h + mo
+        aux = aux + a
+    else:
+        h = h + C.apply_mlp(b, xn2, w, "mlp_")
+    return h, aux, extras
+
+
+def build_mla_moe(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> ModelGraphs:
+    b = ModelBuilder(cfg.param_dtype, cfg.compute_dtype)
+    kind = shape.kind
+    nd, nm = cfg.first_dense, cfg.n_layers - cfg.first_dense
+    sd, idn = _v3_dense_specs(cfg)
+    sm, imo = _v3_moe_specs(cfg)
+
+    if kind in ("train", "prefill"):
+        S = shape.seq_len
+        tokens = b.input("tokens", (batch, S))
+        labels = b.input("labels", (batch, S)) if kind == "train" else None
+        h = _embed(b, cfg, tokens)
+        aux = ops.constant(0.0, dtype="f32")
+        cos, sin = C.rope_tables(b, S, cfg.d_rope, cfg.rope_base)
+        want_kv = kind == "prefill"
+
+        def dense_body(carries, w, consts):
+            hh, a2, ex = _v3_block(b, cfg, carries[0], carries[1], w,
+                                   (consts[0], consts[1]), moe=False)
+            return [hh, a2], list(ex) if want_kv else []
+
+        def moe_body(carries, w, consts):
+            hh, a2, ex = _v3_block(b, cfg, carries[0], carries[1], w,
+                                   (consts[0], consts[1]), moe=True)
+            return [hh, a2], list(ex) if want_kv else []
+
+        (h, aux), ys_d = b.scan_blocks(
+            "dense", nd, sd, dense_body, [h, aux], consts=[cos, sin],
+            n_ys=2 if want_kv else 0, weight_inits=idn)
+        (h, aux), ys_m = b.scan_blocks(
+            "moe", nm, sm, moe_body, [h, aux], consts=[cos, sin],
+            n_ys=2 if want_kv else 0, weight_inits=imo)
+
+        if kind == "prefill":
+            logits = _final_logits(b, cfg, h, last_only=True)
+            return ModelGraphs(cfg, kind, b.finish(
+                [logits] + list(ys_d) + list(ys_m),
+                f"{cfg.name}_prefill"), b,
+                {"cache_names": ["dense_ckv", "dense_kr",
+                                 "moe_ckv", "moe_kr"]})
+
+        aux = aux * ops.constant(cfg.router_aux_weight / max(nm, 1), dtype="f32")
+        loss = _loss_result(b, cfg, h, labels, aux)
+        if cfg.mtp:
+            loss = loss + _mtp_loss(b, cfg, h, tokens, labels)
+        return ModelGraphs(cfg, kind, b.finish([loss], f"{cfg.name}_train"),
+                           b, {})
+
+    # decode: latent caches per layer (split dense/moe stacks)
+    Skv = _cache_len(cfg, shape)
+    token = b.input("token", (batch, 1))
+    pos = b.input("pos", (), spec=())
+    cd_kv = b.input("dense_ckv", (nd, batch, Skv, cfg.kv_lora),
+                    dtype=cfg.compute_dtype, spec=(None, "batch", "kv_seq", None))
+    cd_kr = b.input("dense_kr", (nd, batch, Skv, cfg.d_rope),
+                    dtype=cfg.compute_dtype, spec=(None, "batch", "kv_seq", None))
+    cm_kv = b.input("moe_ckv", (nm, batch, Skv, cfg.kv_lora),
+                    dtype=cfg.compute_dtype, spec=(None, "batch", "kv_seq", None))
+    cm_kr = b.input("moe_kr", (nm, batch, Skv, cfg.d_rope),
+                    dtype=cfg.compute_dtype, spec=(None, "batch", "kv_seq", None))
+    h = _embed(b, cfg, token)
+    aux = ops.constant(0.0, dtype="f32")
+    cos, sin = C.rope_tables(b, 1, cfg.d_rope, cfg.rope_base, offset=pos)
+
+    def dense_body(carries, w, consts):
+        hh, a2, ex = _v3_block(b, cfg, carries[0], carries[1], w,
+                               (consts[0], consts[1]), moe=False,
+                               cache=(w["ckv"], w["kr"]), pos=consts[2])
+        return [hh, a2], list(ex)
+
+    def moe_body(carries, w, consts):
+        hh, a2, ex = _v3_block(b, cfg, carries[0], carries[1], w,
+                               (consts[0], consts[1]), moe=True,
+                               cache=(w["ckv"], w["kr"]), pos=consts[2])
+        return [hh, a2], list(ex)
+
+    (h, aux), ys_d = b.scan_blocks(
+        "dense", nd, sd, dense_body, [h, aux], consts=[cos, sin, pos],
+        xs_extra={"ckv": cd_kv, "kr": cd_kr}, n_ys=2, weight_inits=idn)
+    (h, _), ys_m = b.scan_blocks(
+        "moe", nm, sm, moe_body, [h, aux], consts=[cos, sin, pos],
+        xs_extra={"ckv": cm_kv, "kr": cm_kr}, n_ys=2, weight_inits=imo)
+    logits = _final_logits(b, cfg, h, last_only=True)
+    return ModelGraphs(cfg, kind, b.finish(
+        [logits] + list(ys_d) + list(ys_m), f"{cfg.name}_decode"), b,
+        {"cache_names": ["dense_ckv", "dense_kr", "moe_ckv", "moe_kr"],
+         "state_out_names": ["dense_ckv", "dense_kr",
+                             "moe_ckv", "moe_kr"]})
+
+
+def _mtp_loss(b: ModelBuilder, cfg: ModelConfig, h: Value, tokens: Value,
+              labels: Value) -> Value:
+    """One MTP depth: predict token t+2 from h_t and emb(token t+1)."""
+    B, S, D = h.shape
+    h1 = ops.slice_(h, [0, 0, 0], [B, S - 1, D])
+    tok_next = ops.slice_(tokens, [0, 1], [B, S])
+    emb = ops.gather(b.cast(b.params["embed/table"].node.out()), tok_next,
+                     axis=0)
+    g1 = b.raw_param("mtp/norm_h/g", (D,), (None,), ones_init())
+    g2 = b.raw_param("mtp/norm_e/g", (D,), (None,), ones_init())
+    cat = ops.concat([ops.rms_norm(h1, g1), ops.rms_norm(emb, g2)], axis=-1)
+    wp = b.param("mtp/proj", (2 * D, D), ("embed", "embed"))
+    hm = ops.matmul(cat, wp)
+    # one transformer block on hm
+    specs, inits = _v3_dense_specs(cfg)
+    cos, sin = C.rope_tables(b, S - 1, cfg.d_rope, cfg.rope_base)
+
+    def body(carries, w, consts):
+        hh, _, _ = _v3_block(b, cfg, carries[0],
+                             ops.constant(0.0, dtype="f32"), w,
+                             (consts[0], consts[1]), moe=False)
+        return [hh], []
+
+    (hm,), _ = b.scan_blocks("mtp_block", 1, specs, body, [hm],
+                             consts=[cos, sin], weight_inits=inits)
+    gf = b.raw_param("mtp/final_norm/g", (D,), (None,), ones_init())
+    logits = C.unembed(b, ops.rms_norm(hm, gf), cfg.vocab, cfg.d_model,
+                       tied_table="embed/table")
+    lbl2 = ops.slice_(labels, [0, 1], [B, S])
+    return C.lm_loss(logits, lbl2) * ops.constant(cfg.mtp_weight, dtype="f32")
 
 
 # =============================================================================
 # dispatch
 # =============================================================================
+_FAMILIES = {
+    "dense": build_dense,
+    "moe": build_moe,
+    "mla_moe": build_mla_moe,
+}
+# the families a later slice of the torch port brings, by the slice
+LATER_FAMILIES = {
+    "rg_hybrid": "the recurrent-family slice (LinearRecurrence)",
+    "xlstm": "the recurrent-family slice (LinearRecurrence)",
+    "encdec": "the encoder-decoder slice",
+    "vlm": "the vision-language slice",
+}
+
+
 def build_graphs(cfg: ModelConfig, shape: ShapeConfig,
                  batch: Optional[int] = None) -> ModelGraphs:
-    """Dense-family graphs only: the moe, mla_moe, rg_hybrid, xlstm,
-    encdec and vlm builders are ported in a later slice."""
-    if cfg.family != "dense":
+    if cfg.family in LATER_FAMILIES:
         raise NotImplementedError(
-            f"the torch port builds dense-family graphs only so far; "
-            f"{cfg.name} is {cfg.family!r} (a later slice ports it)")
-    return build_dense(cfg, shape, batch or shape.global_batch)
+            f"the torch port builds the dense, moe and mla_moe families so "
+            f"far; {cfg.name} is {cfg.family!r}, which comes with "
+            f"{LATER_FAMILIES[cfg.family]}")
+    if cfg.family not in _FAMILIES:
+        raise KeyError(f"unknown family {cfg.family}")
+    if shape.kind in ("serve", "serve_paged") and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{shape.kind} (continuous-batching) graphs are only built for "
+            f"the dense family so far, not {cfg.family!r}")
+    return _FAMILIES[cfg.family](cfg, shape, batch or shape.global_batch)

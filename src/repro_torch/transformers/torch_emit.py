@@ -23,11 +23,15 @@ The kernel-selection points mirror the reference: ``DotGeneral``,
 go to the hand-written Hopper kernels (:mod:`repro_torch.kernels`) under
 ``use_pallas`` when the reference's dtype conditions and the kernel's
 shape predicate hold.  ``Attention`` goes to the flash-attention kernel
-under ``use_pallas`` where the kernel takes the shapes and the head
-width is a multiple of 128 (the reference's rule, so a model gets flash
-numerics in the port exactly where it gets them in the reference), else
-to the chunked composition where the reference selects its chunked XLA
-attention, else to the plain composition.  Collectives come with the
+under ``use_pallas`` where the kernel takes the shapes and the query
+head width is a multiple of :data:`FLASH_HEAD_MULTIPLE` (64), else to
+the chunked composition where the reference selects its chunked XLA
+attention, else to the plain composition.  The reference's TPU kernel
+needs a multiple of 128 (its lane width); the port takes every such
+head as the reference does, and also MLA's 192-wide prefill heads
+(d_nope 128 + d_rope 64), which the Hopper kernel takes.  Below 64 (the
+reduced test configs' 16) both packages compose attention from plain
+ops, so their numerics match there.  Collectives come with the
 tensor-parallel slice.
 """
 from __future__ import annotations
@@ -556,6 +560,10 @@ def _(node, args, ctx):
     return [_outcast(node, q, 0), _outcast(node, k, 1), _outcast(node, v, 2)]
 
 
+# the query head widths the Attention emitter offers the flash kernel
+FLASH_HEAD_MULTIPLE = 64
+
+
 def reference_attention(q, k, v, *, causal, window, scale, q_offset=None):
     """Plain attention (BHSD, GQA by head repeat, f32 scores and softmax,
     probabilities cast to v's dtype), the reference's
@@ -580,7 +588,8 @@ def _(node, args, ctx):
     at = node.attrs
     q, k, v = args[:3]
     q_offset = args[3] if at["has_offset"] else None
-    if ctx.use_pallas and q.ndim == 4 and q.shape[-1] % 128 == 0 and \
+    if ctx.use_pallas and q.ndim == 4 and \
+            q.shape[-1] % FLASH_HEAD_MULTIPLE == 0 and \
             _k_flash.supported(q, k, v):
         return [_outcast(node, _k_flash.flash_attention(
             q, k, v, causal=at["causal"], window=at["window"],
@@ -675,6 +684,12 @@ class _Slots:
         for n in self.nodes:
             self.of[id(n)] = self.n
             self.n += len(n.out_types)
+        for p in fn.parameters:
+            # a parameter no result reads (a Scan body's input whose
+            # cotangent the backward drops) still takes its argument
+            if id(p) not in self.of:
+                self.of[id(p)] = self.n
+                self.n += 1
         self.params = [self.of[id(p)] for p in fn.parameters]
         self.results = [self.of[id(r.node)] + r.index for r in fn.results]
         self.leaves: Dict[int, torch.Tensor] = {

@@ -489,3 +489,48 @@ def test_cuda_flash_slot_alone_equals_slot_in_batch(cuda_device, sq, off,
     part = kf.flash_attention(q, k, v, causal=True,
                               q_offset=torch.tensor(-3, device=cuda_device))
     assert torch.equal(part[:, :, :3], torch.zeros_like(part[:, :, :3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_cuda_d_head_64_graphs_match_jax(cuda_device, kind):
+    """The emitter offers flash 64-wide heads too (minicpm-2b's d_head;
+    the reference's TPU kernel takes multiples of 128 and composes
+    these): a dense graph at d_head 64 runs its attention through the
+    kernel on the card and matches JAX's composed attention (f32)."""
+    from repro.configs import get_config as j_get_config
+    from repro.configs.base import ShapeConfig as JShapeConfig
+    from repro.models import lm as j_lm
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    over = dict(d_model=256, n_heads=4, n_kv_heads=4, d_head=64,
+                compute_dtype="f32")
+    jcfg = j_get_config("minicpm-2b").reduced(**over)
+    tcfg = get_config("minicpm-2b").reduced(**over)
+    assert tcfg.head_dim == 64
+    B, S = 2, 16
+    jg = j_lm.build_graphs(jcfg, JShapeConfig(kind, kind, S, B), B)
+    tg = lm.build_graphs(tcfg, ShapeConfig(kind, kind, S, B), B)
+    assert jg.fn.signature() == tg.fn.signature()
+    rng = np.random.default_rng(7)
+    args = []
+    for node in jg.builder.inputs:
+        t = node.out_types[0]
+        if node.name in ("tokens", "token"):
+            args.append(rng.integers(0, jcfg.vocab, size=t.shape)
+                        .astype(np.int32))
+        elif node.name == "pos":
+            args.append(np.int32(S // 2))
+        else:   # caches
+            args.append((rng.normal(size=t.shape) * 0.5).astype(t.dtype))
+    params = jg.builder.init_params(0)
+    args += [params[n] for n in jg.builder.param_names()]
+    want = JBackend.create("jax").compile(jg.fn, JOptions(level="O1"))(*args)
+    kernels.reset_counters()
+    got = TBackend.create("torch", device="cuda", fresh=True).compile(
+        tg.fn, TOptions(level="O2", use_pallas=True))(*args)
+    assert kernels.counters()["flash_attention"]["launches"] > 0
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        _close(to_numpy(b), np.asarray(a), 1e-4)

@@ -259,3 +259,5 @@ def test_serving_graphs_match_jax_through_the_parity_gate(width, capsys):
     out = capsys.readouterr().out
     assert f"torch parity ok ({width}, cpu)" in out
     assert all(f"{kind}: fused" in out for kind in gate.EXPECTED)
+    assert all(f"{arch} {kind}: fused" in out
+               for arch, kinds in gate.FAMILIES.values() for kind in kinds)

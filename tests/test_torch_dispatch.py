@@ -559,3 +559,44 @@ def test_scatter_add_is_bitwise_stable_on_the_card(cuda_device):
     assert _bits_equal(a, b)
     assert torch.allclose(a[2].double(), upd.double().sum(0), atol=1e-2)
     assert not torch.equal(a[2], torch.zeros_like(a[2]))
+
+
+def test_clear_cache_drops_the_capture_pool():
+    """A cleared backend captures later graphs into a new pool (its old
+    graphs are gone with the cache); on the CPU no pool is ever made."""
+    be = TBackend.create("torch", device="cpu", fresh=True)
+    be._graph_pool = object()
+    be.clear_cache()
+    assert be._graph_pool is None
+
+
+@pytest.mark.cuda
+def test_capture_after_clear_cache(cuda_device):
+    """Graphs captured, the backend's cache cleared (every graph of its
+    pool released), then a new graph captured on the same backend: the
+    capture takes a new pool, where reusing the released one failed
+    PyTorch's host-allocator assert, and replays give the eager bits."""
+    import gc
+    cfg, g = _chunk()
+    opts = TOptions(level="O2", use_pallas=True, donate_argnums=_cache_ix(g))
+    be = TBackend.create("torch", device=cuda_device, fresh=True)
+    for round_ in range(2):
+        eager = be.compile(g.fn, opts.replace(static_jit=False))
+        graphed = be.compile(g.fn, opts)
+        args = _chunk_args(g, cfg, cuda_device, seed=round_)
+        fixed = [a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        want = eager.raw(*args)
+        for _ in range(3):
+            for f, a in zip(fixed, _chunk_args(g, cfg, cuda_device,
+                                               seed=round_)):
+                if isinstance(a, torch.Tensor):
+                    f.copy_(a)
+            got = graphed.raw(*fixed)
+        torch.cuda.synchronize()
+        assert graphed.raw.captures == 1 and graphed.raw.replays == 2
+        for w, o in zip(want, got):
+            assert _bits_equal(w, o), f"round {round_}"
+        del eager, graphed, got, want, fixed
+        be.clear_cache()
+        gc.collect()

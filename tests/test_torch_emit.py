@@ -293,3 +293,22 @@ def test_bf16_crosses_between_numpy_and_torch_bit_exactly():
     back = to_numpy(t)
     assert back.dtype == x.dtype
     np.testing.assert_array_equal(back.view(np.uint16), x.view(np.uint16))
+
+
+def test_a_parameter_no_result_reads_still_takes_its_argument():
+    """A function may declare a parameter none of its results read (the
+    backward Scan body of a MoE layer does, for an input whose cotangent
+    it drops); both emitters take the argument and ignore it."""
+    import ml_dtypes
+
+    def build(ops):
+        x = ops.parameter((3,), "f32", "x")
+        unused = ops.parameter((2, 2), "bf16", "unused")
+        y = ops.parameter((3,), "f32", "y")
+        return [x, unused, y], [ops.add(x.out(), y.out())]
+    rng = np.random.default_rng(0)
+    args = [rng.normal(size=(3,)).astype(np.float32),
+            np.zeros((2, 2), ml_dtypes.bfloat16),
+            rng.normal(size=(3,)).astype(np.float32)]
+    jout, tout = _both(build, args)
+    _same(jout, tout)

@@ -2,8 +2,8 @@
 nothing of the JAX package ``repro``; and its entry points run on the
 card unless the caller asks for the CPU.  The port's package, its
 ``chip_smoke.py`` and its scripts (``scripts/torch_serve_load.py``,
-``scripts/torch_chaos_probe.py``, ``scripts/torch_cache_tool.py``) are
-held to that;
+``scripts/torch_chaos_probe.py``, ``scripts/torch_cache_tool.py``,
+``scripts/torch_profile_edges.py``) are held to that;
 ``scripts/check_torch_parity.py`` is the one file outside the tests that
 imports both packages, by design."""
 import ast
@@ -20,7 +20,7 @@ SRC = os.path.join(ROOT, "src")
 PKG = os.path.join(SRC, "repro_torch")
 SCRIPTS = [os.path.join(ROOT, "scripts", f"{n}.py")
            for n in ("torch_serve_load", "torch_chaos_probe",
-                     "torch_cache_tool")]
+                     "torch_cache_tool", "torch_profile_edges")]
 
 
 def _port_files():
