@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --kernels-only   # phases 1-3, no result line
     python3 chip_smoke.py --train-only     # phases 1-3 and 8, no result line
     python3 chip_smoke.py --moe-only       # phases 1-3 and 9, no result line
+    python3 chip_smoke.py --recurrent-only # phases 1-3 and 10, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -28,13 +29,20 @@ without printing a result:
                  inputs in turn gives each its own bits; for flash attention
                  two launches, a probe (slot, head) alone and inside 4
                  slots, and decode at position p against row p of the
-                 dense prefill, for p in 0, 63, 64, 127; then the same
+                 dense prefill, for p in 0, 63, 64, 127 (and under a
+                 sliding window, at mixtral's and recurrentgemma's heads,
+                 for p on both sides of the window's edge); then the same
                  inside CUDA graphs: swiglu and norm_matmul (whose second
                  launch is the first one's programmatic dependent) on two
                  inputs in turn, and flash's prefill and decode rows,
                  replayed, give the eager bits; and the emitter's CumSum
                  (4 x 102400 f32, 20 runs) and ScatterAdd (10^5 updates
                  onto one row, 2 runs) give the same bits every run;
+                 and the emitter's LinearRecurrence (torch ops, no
+                 kernel of its own) at phase 10's prefill shapes, f32,
+                 forward and reversed, within 1e-4 of the sequential
+                 interpreter, bitwise across runs and for a row alone
+                 and in a batch, with its time and bound;
   4. main     -- ServeEngine(mode="paged") at O2 with the kernels on
                  full-width deepseek-7b (30 layers, d_model 4096, vocab
                  102400, f32 params drawn on the card from a seed):
@@ -129,8 +137,28 @@ without printing a result:
                  at its counted launches.  Then both families at d_head
                  128 in f32 (flash on the card) with the builder's numpy
                  weights: the card's greedy tokens equal the CPU's.
+ 10. recurrent -- the recurrent families (runs after phase 9, whose
+                 graphs it frees) through ServeEngine(mode="lockstep")
+                 at O2 with the kernels, bf16 compute, f32 parameters
+                 drawn on the card from seed 0: recurrentgemma-9b at
+                 full width with the depth cut to 8 (two (rec, rec,
+                 attn) groups and the two-rec tail) and xlstm-350m at
+                 full width and depth, each with 4 greedy requests of
+                 128 prompt tokens and 16 new ones, eager and then
+                 captured (bit for bit), and recurrentgemma with one
+                 request of 2,176 tokens and 8 new ones past its
+                 2048-token window.  Each run launches exactly the
+                 kernels serve.smoke_kernels names (recurrentgemma: all
+                 five; xlstm: matmul, norm_matmul, rmsnorm) and refuses
+                 none; flash launches once per attention layer and call;
+                 a replay's profile of each decode graph shows each
+                 kernel at its counted launches; every distinct shape
+                 the runs gave a kernel is held against its plain
+                 version; then both at a reduced f32 width (rg at d_head
+                 128, flash on the card) with the builder's numpy
+                 weights: the card's greedy tokens equal the CPU's.
 
-In phases 4, 5, 7, 8 and 9 no kernel may have been refused at full
+In phases 4, 5, 7, 8, 9 and 10 no kernel may have been refused at full
 width, but phase 9's counted deepseek-v3 decode attention.
 Phase 6 and phase 8's reduced width count their refusals but do not gate
 them: the reduced vocabulary (257) is no whole number of 16-byte
@@ -170,6 +198,9 @@ D, F, V, SLOTS, CHUNK, DH, HEADS = 4096, 11008, 102400, 4, 64, 128, 32
 DENSE = 512   # rows of the donated dense prefill (4 prompts x 128)
 MX_PROMPT, MX_LONG, V3_PROMPT = 128, 4224, 64
 V3_ROWS = SLOTS * V3_PROMPT   # deepseek-v3's prefill rows (4 x 64)
+# phase 10: 4 x 128 prompt tokens and 16 new ones for both recurrent
+# families; rg's long request, past its 2048-token window
+REC_PROMPT, REC_NEW, RG_LONG, RG_LONG_NEW = 128, 16, 2176, 8
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:20",
     "norm_matmul": "src/repro/kernels/norm_matmul.py:21",
@@ -436,6 +467,18 @@ def kernel_cases(gen):
     fa(f"d_head {mc.head_dim} prefill ({SLOTS}x{mc.n_heads}x128) causal "
        f"(minicpm-2b)", SLOTS, mc.n_heads, mc.n_kv_heads, 128, 128, None, bf,
        dk=mc.head_dim, dv=mc.head_dim)
+    # phase 10's attention: recurrentgemma's MQA 16:1, 256-wide heads,
+    # window 2048 (the kernel's 256-wide class)
+    rg = get_config("recurrentgemma-9b")
+    W, Hq, Hkv, dh = rg.local_window, rg.n_heads, rg.n_kv_heads, rg.head_dim
+    for B, Sq in ((SLOTS, REC_PROMPT), (1, RG_LONG)):
+        fa(f"rg prefill ({B}x{Hq}x{Sq}) MQA {Hq}:{Hkv} Dk {dh} window {W} "
+           f"(recurrentgemma-9b)", B, Hq, Hkv, Sq, Sq, None, bf, dk=dh,
+           dv=dh, window=W)
+    for B, Skv in ((SLOTS, REC_PROMPT + REC_NEW), (1, RG_LONG + RG_LONG_NEW)):
+        fa(f"rg decode ({B}x{Hq}x1) at pos {Skv - 1} over {Skv} keys Dk "
+           f"{dh} window {W} (recurrentgemma-9b)", B, Hq, Hkv, 1, Skv,
+           Skv - 1, bf, dk=dh, dv=dh, window=W)
     return cases
 
 
@@ -591,8 +634,14 @@ def check_determinism(gen) -> None:
         del wg, wu, wd
     check_flash_determinism(gen)
     check_moe_flash_determinism(gen)
+    rows = _check_window_rows(get_config("recurrentgemma-9b"), RG_LONG, gen)
+    say("determinism", kernel="flash_attention", dtype="bfloat16",
+        model="recurrentgemma-9b", heads="16:1 Dk 256",
+        window_decode_vs_prefill_rows=",".join(map(str, rows)),
+        window_decode_vs_prefill="bitwise")
     check_in_capture(gen)
     check_fixed_order_scans(gen)
+    check_linear_recurrence(gen)
 
 
 def check_swiglu_alternation(label, wg, wu, wd, gen) -> None:
@@ -656,6 +705,34 @@ def check_flash_determinism(gen) -> None:
         decode_vs_prefill_rows="0,63,64,127", decode_vs_prefill="bitwise")
 
 
+def _check_window_rows(cfg, length: int, gen) -> tuple:
+    """Flash at ``cfg``'s heads under its sliding window (``window`` or
+    ``local_window``), bf16: two launches of a ``length``-token prefill
+    give the same bits, and decode at p gives row p of it bit for bit,
+    for p on both sides of the window's edge and the last row; returns
+    those rows."""
+    from repro_torch.kernels import flash_attention as kf
+    bf, W = torch.bfloat16, cfg.window or cfg.local_window
+    q = _rand((1, cfg.n_heads, length, cfg.head_dim), bf, gen)
+    k, v = (_rand((1, cfg.n_kv_heads, length, cfg.head_dim), bf, gen)
+            for _ in range(2))
+    full = kf.flash_attention(q, k, v, causal=True, window=W)
+    require(_bitwise(full, kf.flash_attention(q, k, v, causal=True,
+                                              window=W)),
+            f"flash_attention {cfg.name}: two launches of the windowed "
+            f"prefill differ")
+    rows = (W - 1, W, length - 1)
+    for p in rows:
+        off = torch.tensor(p, dtype=torch.int32, device="cuda")
+        one = kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
+                                 window=W, q_offset=off)
+        row = full[:, :, p:p + 1]
+        require(_bitwise(one, row), f"flash_attention {cfg.name}: windowed "
+                f"decode at {p} differs from row {p} of the prefill: max "
+                f"|diff| {float((one.double() - row.double()).abs().max())}")
+    return rows
+
+
 def check_moe_flash_determinism(gen) -> None:
     """Flash attention at phase 9's shapes: mixtral's GQA 48:8 under the
     4096-token window -- decode at p gives row p of the windowed prefill
@@ -665,24 +742,8 @@ def check_moe_flash_determinism(gen) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kf
     mx, v3 = get_config("mixtral-8x22b"), get_config("deepseek-v3-671b")
-    bf, W = torch.bfloat16, mx.window
-    q = _rand((1, mx.n_heads, MX_LONG, mx.head_dim), bf, gen)
-    k, v = (_rand((1, mx.n_kv_heads, MX_LONG, mx.head_dim), bf, gen)
-            for _ in range(2))
-    full = kf.flash_attention(q, k, v, causal=True, window=W)
-    require(_bitwise(full, kf.flash_attention(q, k, v, causal=True,
-                                              window=W)),
-            "flash_attention: two launches of the windowed prefill differ")
-    rows = (W - 1, W, MX_LONG - 1)
-    for p in rows:
-        off = torch.tensor(p, dtype=torch.int32, device="cuda")
-        one = kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
-                                 window=W, q_offset=off)
-        row = full[:, :, p:p + 1]
-        require(_bitwise(one, row), f"flash_attention: windowed decode at "
-                f"{p} differs from row {p} of the prefill: max |diff| "
-                f"{float((one.double() - row.double()).abs().max())}")
-    del q, k, v, full
+    bf = torch.bfloat16
+    rows = _check_window_rows(mx, MX_LONG, gen)
     dk = v3.d_nope + v3.d_rope
     q, k = (_rand((SLOTS, v3.n_heads, V3_PROMPT, dk), bf, gen)
             for _ in range(2))
@@ -734,6 +795,67 @@ def check_fixed_order_scans(gen) -> None:
         unguarded_distinct_results=len(plain))
     say("determinism", kernel="ScatterAdd", updates=n, rows=1,
         dtype="float32", runs=2, result="bitwise")
+
+
+def check_linear_recurrence(gen) -> None:
+    """The emitter's ``LinearRecurrence`` (torch ops, a log-depth doubling
+    scan; the RG-LRU's) at phase 10's prefill shapes, f32, forward and
+    reversed: within 1e-4 of scale of the port's sequential interpreter,
+    two runs give the same bits, and a row gives the same bits alone and
+    inside a batch of 4; with its device time against the bound of
+    reading a and b once and writing h once."""
+    from repro_torch.core import ops
+    from repro_torch.transformers.interpreter import EVAL
+    from repro_torch.transformers.torch_emit import EMIT, EmitCtx
+    ctx = EmitCtx(torch.device("cuda"))
+    flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
+    for shape in ((SLOTS, REC_PROMPT, D), (1, RG_LONG, D)):
+        a = torch.sigmoid(torch.randn(shape, generator=gen, device="cuda")
+                          * 2 + 2)
+        b = torch.randn(shape, generator=gen, device="cuda")
+        for reverse in (False, True):
+            def node(n):
+                return ops.linear_recurrence(
+                    ops.parameter((n,) + shape[1:], "f32", "a").out(),
+                    ops.parameter((n,) + shape[1:], "f32", "b").out(),
+                    axis=-2, reverse=reverse).node
+
+            def scan(x, y):
+                return EMIT["LinearRecurrence"](node(x.shape[0]), [x, y],
+                                                ctx)[0]
+            h = scan(a, b)
+            require(_bitwise(h, scan(a, b)),
+                    f"LinearRecurrence {shape} reverse={reverse}: two runs "
+                    f"differ")
+            seq = EVAL["LinearRecurrence"](node(shape[0]), [
+                a.cpu().numpy(), b.cpu().numpy()])[0]
+            p = torch.from_numpy(seq).double()
+            err = float((h.cpu().double() - p).abs().max())
+            scale = max(float(p.abs().max()), 1.0)
+            require(err <= TOL[torch.float32] * scale,
+                    f"LinearRecurrence {shape} reverse={reverse}: max "
+                    f"|scan - sequential| {err} > 1e-4 x {scale}")
+            if shape[0] == 1:   # the row inside a batch of 4
+                ab = torch.cat([torch.sigmoid(torch.randn(
+                    (3,) + shape[1:], generator=gen, device="cuda")), a])
+                bb = torch.cat([torch.randn((3,) + shape[1:], generator=gen,
+                                            device="cuda"), b])
+                row, alone = scan(ab, bb)[3:4], h
+            else:
+                row, alone = h[2:3], scan(a[2:3], b[2:3])
+            require(_bitwise(row, alone),
+                    f"LinearRecurrence {shape} reverse={reverse}: a row "
+                    f"alone differs from it in a batch of 4")
+            ms = _events_ms(lambda: scan(a, b), 20, flush)
+            bound_ms, by = _bound(3 * a.numel() * 4, 2 * a.numel(),
+                                  torch.float32)
+            say("recurrence", shape="x".join(map(str, shape)),
+                reverse=reverse, dtype="float32", max_abs_err=f"{err:.3e}",
+                tol=f"{TOL[torch.float32] * scale:.3e}", runs="bitwise",
+                row_alone_vs_batch="bitwise", ms=f"{ms:.4f}",
+                bound_ms=f"{bound_ms:.4f}", bound_by=by,
+                bound_share=f"{bound_ms / ms:.3f}")
+    del flush
 
 
 def _captured(fn):
@@ -2207,7 +2329,7 @@ def _hold_launched(seen: dict, model: str) -> dict:
     return held
 
 
-def _moe_run(cfg, params, prompts, max_new, static_jit: bool):
+def _lockstep_run(cfg, params, prompts, max_new, static_jit: bool):
     """One lockstep workload on a fresh engine (as many slots as
     prompts); returns (engine, report, counters of the run, peak GB
     allocated, peak GB reserved)."""
@@ -2237,15 +2359,18 @@ def _moe_run(cfg, params, prompts, max_new, static_jit: bool):
             torch.cuda.max_memory_reserved() / 1e9)
 
 
-def _moe_gate(report, phase, cfg, counts, flash_per_run: int,
+def _lockstep_gate(report, phase, cfg, counts, flash_per_run: int,
               main: bool) -> None:
-    """Every kernel of the family's path launched; none refused but
-    deepseek-v3's absorbed-decode attention (Hkv 1, Dk kv_lora + d_rope
-    = 576, wider than the flash kernel's 256), refused exactly once per
-    layer and decode step; flash launched exactly ``flash_per_run``
-    times."""
+    """Exactly the kernels ``serve.smoke_kernels`` names for the family
+    launched; none refused but deepseek-v3's absorbed-decode attention
+    (Hkv 1, Dk kv_lora + d_rope = 576, wider than the flash kernel's
+    256), refused exactly once per layer and decode step; flash launched
+    exactly ``flash_per_run`` times."""
     from repro_torch.launch.serve import smoke_kernels
     need, may_refuse = smoke_kernels(cfg)
+    launched = {k for k, c in counts.items() if c["launches"]}
+    require(launched == need, f"{phase}: launched {sorted(launched)}, "
+            f"the path's kernels are {sorted(need)}")
     got = counts["flash_attention"]["launches"]
     require(got == flash_per_run, f"{phase}: {got} flash launches, "
             f"{flash_per_run} expected")
@@ -2306,10 +2431,10 @@ def phase_moe(report: dict, smi: str) -> None:
         shapes = contextlib.ExitStack()
         seen = shapes.enter_context(_launched_shapes({}))
         for what, sj in (("eager", False), ("captured", True)):
-            eng, rep, counts, peak, reserved = _moe_run(
+            eng, rep, counts, peak, reserved = _lockstep_run(
                 cfg, params, prompts, MOE_NEW, sj)
             toks[what] = [rep.results[r].tolist() for r in sorted(rep.results)]
-            _moe_gate(report, f"moe_{cfg.name}_{what}", cfg, counts, flash,
+            _lockstep_gate(report, f"moe_{cfg.name}_{what}", cfg, counts, flash,
                       main=sj)
             if sj:
                 require(eng.cf.raw.captured,
@@ -2342,9 +2467,9 @@ def phase_moe(report: dict, smi: str) -> None:
             # 4224 keys under the 4096 window, decode past it
             long_prompt = [rng.integers(0, cfg.vocab, MX_LONG).astype(
                 np.int32)]
-            eng, rep, counts, peak, reserved = _moe_run(
+            eng, rep, counts, peak, reserved = _lockstep_run(
                 cfg, params, long_prompt, MX_LONG_NEW, True)
-            _moe_gate(report, f"moe_{cfg.name}_long", cfg, counts,
+            _lockstep_gate(report, f"moe_{cfg.name}_long", cfg, counts,
                       cfg.n_layers * MX_LONG_NEW, main=True)
             say("moe", model=cfg.name, dispatch="captured", slots=1,
                 prompt_len=MX_LONG, window=cfg.window,
@@ -2368,16 +2493,17 @@ def phase_moe(report: dict, smi: str) -> None:
                 f"{report}")
         say("moe_shapes", model=cfg.name, held=sum(by_kernel.values()),
             by_kernel=json.dumps(by_kernel), card=repr(smi))
-    phase_moe_parity()
+    _lockstep_parity("moe_parity", MOE_SMALL)
     say("moe", families="moe,mla_moe", result="ok",
         held_gb=f"{held:.2f}")
 
 
-def phase_moe_parity() -> None:
-    """Both families at :data:`MOE_SMALL` (f32, flash on the card), the
-    builder's numpy weights carried across by ``params_from_numpy``:
-    lockstep on the card with the kernels and on the CPU with their
-    plain versions give the same greedy tokens."""
+def _lockstep_parity(line: str, smalls: dict) -> None:
+    """Each ``{arch: reduced() overrides}`` of ``smalls``, the builder's
+    numpy weights carried across by ``params_from_numpy``: lockstep on
+    the card with the kernels and on the CPU with their plain versions
+    give the same greedy tokens, and every kernel of the path launched
+    on the card."""
     from repro_torch import kernels
     from repro_torch.backend import CompileOptions
     from repro_torch.configs import get_config
@@ -2385,8 +2511,8 @@ def phase_moe_parity() -> None:
     from repro_torch.launch.serve import full_width_builder, smoke_kernels
     from repro_torch.models.weights import params_from_numpy
 
-    line = {}
-    for arch, over in MOE_SMALL.items():
+    out = {}
+    for arch, over in smalls.items():
         cfg = get_config(arch).reduced(**over)
         max_len = MOE_SMALL_PROMPT + MOE_SMALL_NEW
         np_params = full_width_builder(cfg, max_len, SLOTS).init_params(0)
@@ -2413,10 +2539,135 @@ def phase_moe_parity() -> None:
         require(results["cuda"] == results["cpu"],
                 f"{arch} small f32: card tokens {results['cuda']} differ "
                 f"from the CPU's {results['cpu']}")
-        line[f"{arch}_tokens"] = "identical"
-        line[f"{arch}_launches"] = json.dumps(launched)
-        line[f"{arch}_refused"] = sum(c["rejected"] for c in card.values())
-    say("moe_parity", width="reduced d_head 128, f32", **line)
+        out[f"{arch}_tokens"] = "identical"
+        out[f"{arch}_launches"] = json.dumps(launched)
+        out[f"{arch}_refused"] = sum(c["rejected"] for c in card.values())
+    say(line, width="reduced d_head 128, f32", **out)
+
+
+# -- 10. the recurrent families, full width -----------------------------------
+RG_LAYERS = 8    # 38 -> 8: two (rec, rec, attn) groups and the two-rec tail
+# card against CPU at a reduced width, f32: rg at d_head 128 (MQA 2:1,
+# the reduced 8-token window), so its attention takes flash on the card
+REC_SMALL = {"recurrentgemma-9b": dict(d_model=256, n_heads=2, d_head=128,
+                                       compute_dtype="f32"),
+             "xlstm-350m": dict(d_model=256, compute_dtype="f32")}
+
+
+def _rec_config(arch: str):
+    """``arch`` at full width; recurrentgemma's depth cut to
+    :data:`RG_LAYERS` (both of its Scans run as at 38 layers: the groups
+    Scan twice, then the tail); xlstm at full depth (24 blocks)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.family == "rg_hybrid":
+        return dataclasses.replace(cfg, n_layers=RG_LAYERS)
+    return cfg
+
+
+def _rec_line(cfg, what, rep, eng, counts, peak, reserved, smi, **kw):
+    per_step = (_per_replay(eng.cf.raw) if getattr(eng.cf.raw, "captured",
+                                                   False) else None)
+    say("recurrent", model=cfg.name, dispatch=what, layers=cfg.n_layers,
+        **kw, generated=rep.generated_tokens,
+        prefill_ms=f"{rep.prefill_seconds * 1e3:.1f}",
+        decode_tok_s=f"{rep.decode_tok_s:.2f}",
+        decode_step_p50_ms=f"{rep.p50_ms:.1f}",
+        wall_s=f"{rep.wall_seconds:.2f}", peak_gb=f"{peak:.2f}",
+        reserved_gb=f"{reserved:.2f}",
+        launches_per_step=json.dumps(per_step),
+        launches=json.dumps({k: v["launches"] for k, v in counts.items()}),
+        refused=json.dumps({k: v["rejected"] for k, v in counts.items()}),
+        card=repr(smi))
+
+
+def phase_recurrent(report: dict, smi: str) -> None:
+    """Both recurrent families at full width through
+    ``ServeEngine(mode="lockstep")`` at O2 with the kernels, bf16
+    compute, f32 parameters drawn on the card from seed 0.
+    Recurrentgemma-9b, depth 8 (:data:`RG_LAYERS`): 4 greedy requests of
+    128 prompt tokens and 16 new ones, eagerly and then captured (the
+    same tokens bit for bit), then one request of 2,176 tokens (past the
+    2048-token window) and 8 new ones.  Xlstm-350m, all 24 blocks: 4
+    requests of 128 tokens and 16 new ones, eagerly and then captured.
+    Each run launches exactly the kernels ``serve.smoke_kernels`` names
+    for the family (rg: all five; xlstm: matmul, norm_matmul, rmsnorm)
+    and refuses none; flash launches once per attention layer and call
+    (the prefill and each decode step); a replay's profile of each
+    decode graph shows each kernel at its counted launches.  After each
+    model, every distinct shape its runs gave a kernel is held against
+    the plain version (:func:`_hold_launched`).  Then both at
+    :data:`REC_SMALL` in f32: the card's greedy tokens equal the CPU's.
+    Decode starts the recurrent states from zeros, as the reference's
+    does (its prefill exports only rg's attention caches)."""
+    from repro_torch.launch.serve import full_width_builder, smoke_kernels
+    from repro_torch.models.weights import init_params_on_device
+
+    held = _free_card()
+    rng = np.random.default_rng(10)
+    for arch in ("recurrentgemma-9b", "xlstm-350m"):
+        cfg = _rec_config(arch)
+        need, _ = smoke_kernels(cfg)
+        n_attn = sum(cfg.pattern[i % len(cfg.pattern)] == "attn"
+                     for i in range(cfg.n_layers)) if cfg.pattern else 0
+        t0 = time.perf_counter()
+        params = init_params_on_device(
+            full_width_builder(cfg, REC_PROMPT + REC_NEW, SLOTS), 0, "cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n = sum(t.numel() for t in params.values())
+        gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+        prompts = [rng.integers(0, cfg.vocab, REC_PROMPT).astype(np.int32)
+                   for _ in range(SLOTS)]
+        toks = {}
+        shapes = contextlib.ExitStack()
+        seen = shapes.enter_context(_launched_shapes({}))
+        for what, sj in (("eager", False), ("captured", True)):
+            eng, rep, counts, peak, reserved = _lockstep_run(
+                cfg, params, prompts, REC_NEW, sj)
+            toks[what] = [rep.results[r].tolist() for r in sorted(rep.results)]
+            _lockstep_gate(report, f"rec_{cfg.name}_{what}", cfg, counts,
+                           n_attn * REC_NEW, main=sj)
+            if sj:
+                require(eng.cf.raw.captured,
+                        f"{cfg.name}: the decode graph was never captured")
+                _require_replay_profile(f"{cfg.name}_decode", eng.cf,
+                                        eng.tparams)
+            _rec_line(cfg, what, rep, eng, counts, peak, reserved, smi,
+                      params_b=f"{n / 1e9:.3f}", params_gb=f"{gb:.2f}",
+                      init_s=f"{t_init:.2f}", requests=len(prompts),
+                      prompt_len=REC_PROMPT)
+            del eng
+        require(toks["captured"] == toks["eager"],
+                f"{cfg.name}: captured greedy tokens differ from eager: "
+                f"{toks['captured']} vs {toks['eager']}")
+        say("recurrent", model=cfg.name, captured_vs_eager="bitwise",
+            requests=len(prompts))
+        if n_attn:
+            # one request past the window: prefill attends over 2176 keys
+            # under the 2048 window, decode past it
+            long_prompt = [rng.integers(0, cfg.vocab, RG_LONG).astype(
+                np.int32)]
+            eng, rep, counts, peak, reserved = _lockstep_run(
+                cfg, params, long_prompt, RG_LONG_NEW, True)
+            _lockstep_gate(report, f"rec_{cfg.name}_long", cfg, counts,
+                           n_attn * RG_LONG_NEW, main=True)
+            _require_replay_profile(f"{cfg.name}_long_decode", eng.cf,
+                                    eng.tparams)
+            _rec_line(cfg, "captured", rep, eng, counts, peak, reserved, smi,
+                      slots=1, prompt_len=RG_LONG, window=cfg.local_window)
+            del eng
+        shapes.close()
+        del params
+        held = _free_card()
+        by_kernel = _hold_launched(seen, cfg.name)
+        require(set(by_kernel) == need,
+                f"{cfg.name}: shapes held {by_kernel}, written {need}")
+        say("recurrent_shapes", model=cfg.name, held=sum(by_kernel.values()),
+            by_kernel=json.dumps(by_kernel), card=repr(smi))
+    _lockstep_parity("recurrent_parity", REC_SMALL)
+    say("recurrent", families="rg_hybrid,xlstm", result="ok",
+        held_gb=f"{held:.2f}")
 
 
 def main() -> int:
@@ -2435,6 +2686,9 @@ def main() -> int:
     if "--moe-only" in sys.argv[1:]:
         phase_moe(report, smi)
         return 0    # phase 9 alone: no result line
+    if "--recurrent-only" in sys.argv[1:]:
+        phase_recurrent(report, smi)
+        return 0    # phase 10 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -2443,6 +2697,7 @@ def main() -> int:
     del params
     phase_train(report, smi)
     phase_moe(report, smi)
+    phase_recurrent(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

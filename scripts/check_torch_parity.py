@@ -11,9 +11,11 @@ loss graph and the whole train step (``train_step``: IR autodiff +
 AdamW, ``models.train_graph.make_train_step``), ``prefill``, ``decode``,
 ``serve``, the paged decode chunk and the paged prefill chunk -- and of
 the moe family (mixtral-8x22b: ``train``, ``prefill``, ``decode`` and
-the sliding window's ring ``long_decode``) and the mla_moe family
+the sliding window's ring ``long_decode``), the mla_moe family
 (deepseek-v3-671b: ``train`` with its MTP head, ``prefill``, ``decode``
-over the latent caches), the same graph is built by both packages (their
+over the latent caches), and the recurrent families (recurrentgemma-9b,
+``rg_hybrid``, and xlstm-350m: ``train``, ``prefill``, ``decode`` over
+the recurrent states and ``long_decode``), the same graph is built by both packages (their
 structural signatures must agree) and run on the same numpy inputs (the
 recipe of
 ``check_kernel_parity.make_args``: the builder's seeded weights, integer
@@ -39,7 +41,8 @@ versions on the CPU).  The gate fails unless
   * on a CUDA device, every kernel on a graph's path launched at least
     once in its O2 run (the launch counters; the reduced vocabulary's
     unembed is refused by the kernels' shape rule and runs plain;
-    mixtral's experts are batched einsums, so it runs no SwiGLU).
+    mixtral's experts are batched einsums and xlstm's FFN is GeLU-gated,
+    so neither runs SwiGLU; no xlstm graph holds an Attention op).
 
 Run (the port's device defaults to the card):
 
@@ -86,6 +89,18 @@ FAMILIES = {
         "prefill": {"swiglu": 2, "norm_matmul": 10},
         "decode": {"swiglu": 2, "norm_matmul": 6},
     }),
+    "rg_hybrid": ("recurrentgemma-9b", {
+        "train": {"swiglu": 5, "norm_matmul": 9, "rotary_qkv": 1},
+        "prefill": {"swiglu": 5, "norm_matmul": 10, "rotary_qkv": 1},
+        "decode": {"swiglu": 5, "norm_matmul": 11},
+        "long_decode": {"swiglu": 5, "norm_matmul": 11},
+    }),
+    "xlstm": ("xlstm-350m", {
+        "train": {"norm_matmul": 5},
+        "prefill": {"norm_matmul": 4},
+        "decode": {"norm_matmul": 4},
+        "long_decode": {"norm_matmul": 4},
+    }),
 }
 # the graph kinds that hold an Attention op, which the flash kernel
 # carries at the head widths the emitter offers it; the others attend
@@ -108,13 +123,18 @@ MLA_DH128 = dict(d_nope=64, d_rope=64, d_v=128, kv_lora=64)
 
 
 def family_config(get_config, arch: str, width: str):
-    """``arch`` reduced, at ``width``.  The MoE families compute in f32:
-    in bf16 a router whose k-th and (k+1)-th probabilities lie within a
-    rounding of each other picks a different expert in two correct
-    implementations (JAX against the reference's own numpy interpreter
-    does so too), and the layer's output moves by a whole expert's
-    share; ``tests/test_torch_moe.py`` holds bf16 to JAX with both
-    packages on JAX's routing."""
+    """``arch`` reduced, at ``width``.  The other families compute in
+    f32.  In bf16 a MoE router whose k-th and (k+1)-th probabilities lie
+    within a rounding of each other picks a different expert in two
+    correct implementations (JAX against the reference's own numpy
+    interpreter does so too), and the layer's output moves by a whole
+    expert's share; ``tests/test_torch_moe.py`` holds bf16 to JAX with
+    both packages on JAX's routing.  A recurrence carries one step's
+    bf16 rounding into every later step, and an f32 state computed from
+    bf16 values (rg's RG-LRU h, xlstm's seven) is no closer than bf16
+    allows, so this gate's f32 tolerance for f32 outputs cannot hold
+    them; ``tests/test_torch_recurrent.py`` and ``test_torch_xlstm.py``
+    hold bf16 to JAX at 3e-2 of scale."""
     cfg = get_config(arch)
     over = dict(WIDTHS[width])
     if cfg.mla and width == "dh128":
@@ -210,11 +230,18 @@ def required_kernels(kind: str, cfg) -> List[str]:
     # the dense and moe train loss graphs' one NormMatmul is the final
     # norm and the unembedding, which the kernels' shape rule refuses at
     # the reduced vocabulary (257); the train step's backward forms
-    # others, and MLA's q and kv norms feed their projections
-    if kind == "train" and not cfg.mla and not ops.norm_matmul_supported(
-            BATCH * MAX_LEN, cfg.d_model, cfg.vocab, torch_dtype(
-                cfg.compute_dtype)):
+    # others, and MLA's q and kv norms and the recurrent families' block
+    # norms feed their projections
+    if kind == "train" and cfg.family in ("dense", "moe") and \
+            not ops.norm_matmul_supported(
+                BATCH * MAX_LEN, cfg.d_model, cfg.vocab,
+                torch_dtype(cfg.compute_dtype)):
         need.discard("norm_matmul")
+    # a train graph normalizes every position, so its final norm fuses
+    # with the unembedding too; every other xlstm norm feeds a
+    # projection, which leaves its train graph no RMSNorm op
+    if kind == "train" and cfg.family == "xlstm":
+        need.discard("rmsnorm")
     return sorted(need)
 
 
@@ -334,8 +361,8 @@ def main(argv=None) -> int:
             print(f"PARITY FAIL: {e}", file=sys.stderr)
         return 1
     print(f"torch parity ok ({args.width}, {tbe.device}): O1 and O2 "
-          f"(kernels) match JAX O1 on every graph kind of the dense, moe "
-          f"and mla_moe families")
+          f"(kernels) match JAX O1 on every graph kind of the dense, moe, "
+          f"mla_moe, rg_hybrid and xlstm families")
     return 0
 
 

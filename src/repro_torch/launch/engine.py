@@ -6,7 +6,8 @@ The port of ``repro/launch/engine.py``: four modes, worst to best.
                       (through ``CompiledFunction.__call__``), every
                       request starts together (the baseline).  The one
                       mode that serves every family ``build_graphs``
-                      builds (moe and mla_moe too), as in the reference.
+                      builds (moe, mla_moe, rg_hybrid and xlstm
+                      too), as in the reference.
   * ``donated``    -- the same lockstep schedule, but the caches stay on
                       the device and the whole greedy loop (argmax and
                       token feedback included) runs inside one fused
@@ -1926,8 +1927,11 @@ class ServeEngine:
         """The decode caches for a lockstep/donated run: zeros on the
         device with each prefill cache copied in by name, along its
         ``kv_seq`` axis, on the device (no host round trip of the
-        cache).  Lockstep gets numpy copies, the caches its numpy loop
-        passes around."""
+        cache).  A decode input the prefill does not name stays zero, as
+        in the reference: rg_hybrid's conv tails and RG-LRU states (its
+        prefill exports only the attention caches) and all seven of
+        xlstm's states (its prefill exports none).  Lockstep gets numpy
+        copies, the caches its numpy loop passes around."""
         name_map = {name: prefill_caches[i] for i, name in
                     enumerate(prefill_graphs.aux.get("cache_names", []))}
         b = self.graphs.builder

@@ -34,12 +34,22 @@ keyed by the clients' tags.  It exits 1 when the drain left engine
 state behind.  Only the continuous and paged modes can serve it.
 ``--tp`` comes with a later slice of the port.
 
-The moe and mla_moe families (``--arch mixtral-8x22b``,
-``--arch deepseek-v3-671b``) serve through ``--mode lockstep`` only, as
-in the reference:
+The moe, mla_moe, rg_hybrid and xlstm families (``--arch
+mixtral-8x22b``, ``--arch deepseek-v3-671b``, ``--arch
+recurrentgemma-9b``, ``--arch xlstm-350m``) serve through ``--mode
+lockstep`` only, as in the reference:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
       --reduced --mode lockstep --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --reduced --mode lockstep --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
+      --device cuda --level O2 --kernels --mode lockstep
+
+(the last at full width on the card, weights drawn there).  The
+recurrent families' decode starts its recurrent states from zeros: the
+reference's prefill exports only rg's attention caches and none of
+xlstm's states.
 """
 from __future__ import annotations
 
@@ -66,17 +76,22 @@ def smoke_kernels(cfg, attention: bool = True):
     allowed to refuse a shape there) -- the one statement of this rule,
     which the serving smoke, the parity script, ``chip_smoke.py`` and the
     card tests read.  Mixtral's experts are batched einsums, so a moe
-    config without a shared expert runs no SwiGLU.  Flash attention runs
-    where the path's graphs hold an Attention op (``attention``; the
-    paged path's chunked prefill holds none) at a query head width the
-    emitter offers it, and refuses MLA's absorbed decode, whose latent
-    head (kv_lora + d_rope) is wider than the kernel takes."""
+    config without a shared expert runs no SwiGLU, nor does xlstm, whose
+    FFN is GeLU-gated.  Flash attention runs where the path's graphs
+    hold an Attention op (``attention``; the paged path's chunked
+    prefill holds none, and no xlstm graph does: its mLSTM attends
+    through einsums) at a query head width the emitter offers it, and
+    refuses MLA's absorbed decode, whose latent head (kv_lora + d_rope)
+    is wider than the kernel takes.  Nothing else is refused at full
+    width: xlstm's input/forget gate projection (N = 2 x heads = 8) is
+    one 16-byte bf16 vector wide, which the matmul kernel takes."""
     from ..transformers.torch_emit import FLASH_HEAD_MULTIPLE
     need = {"matmul", "norm_matmul", "rmsnorm"}
-    if cfg.family != "moe" or cfg.n_shared_experts:
+    if cfg.family not in ("moe", "xlstm") or cfg.n_shared_experts:
         need.add("swiglu")
     width = cfg.d_nope + cfg.d_rope if cfg.mla else cfg.head_dim
-    if attention and width % FLASH_HEAD_MULTIPLE == 0:
+    if attention and cfg.family != "xlstm" and \
+            width % FLASH_HEAD_MULTIPLE == 0:
         need.add("flash_attention")
     return need, ({"flash_attention"} if cfg.mla else set())
 

@@ -3,12 +3,12 @@ IR graphs.
 
 Every architecture is a *frontend program* over the same IR (nGraph's
 O(frameworks + platforms) claim): a family function assembles blocks
-from ``components`` / ``moe`` / ``mla`` into a ``Function`` via
-``ModelBuilder.scan_blocks`` (stacked layer weights + the Scan op keep
-80-layer graphs compact).  This copy of the reference's ``models/lm.py``
-holds the dense, moe (mixtral) and mla_moe (deepseek-v3) families; the
-rg_hybrid, xlstm, encdec and vlm builders come with later slices of the
-torch port.
+from ``components`` / ``moe`` / ``mla`` / ``recurrent`` / ``xlstm`` into a
+``Function`` via ``ModelBuilder.scan_blocks`` (stacked layer weights +
+the Scan op keep 80-layer graphs compact).  This copy of the reference's
+``models/lm.py`` holds the dense, moe (mixtral), mla_moe (deepseek-v3),
+rg_hybrid (recurrentgemma) and xlstm families; the encdec and vlm
+builders come with later slices of the torch port.
 
 Graph kinds:
   * train   — (tokens, labels, *W) -> scalar loss (optimizer wrapped on
@@ -22,7 +22,7 @@ Graph kinds:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core import ops
@@ -32,6 +32,8 @@ from .builder import ModelBuilder, ones_init
 from . import components as C
 from . import mla as MLA
 from . import moe as MOE
+from . import recurrent as RG
+from . import xlstm as XL
 
 CACHE_SPEC = (None, "batch", "kv_heads", "kv_seq", None)  # (L,B,H,S,D)
 # paged pools have no batch axis: (L, pages, H, page_size, D)
@@ -873,17 +875,305 @@ def _mtp_loss(b: ModelBuilder, cfg: ModelConfig, h: Value, tokens: Value,
 
 
 # =============================================================================
+# RecurrentGemma hybrid
+# =============================================================================
+def _rg_group_specs(cfg: ModelConfig, pattern) -> Tuple[C.Specs, Dict]:
+    dh = cfg.head_dim
+    specs: C.Specs = {}
+    inits: Dict = {}
+    for i, kindp in enumerate(pattern):
+        p = f"b{i}_"
+        specs.update(_block_norm_specs(cfg, f"{p}ln1_"))
+        inits.update(C.norm_inits(f"{p}ln1_", cfg.norm))
+        if kindp == "rec":
+            specs.update(C.prefix_weights(
+                RG.rg_specs(cfg.d_model, cfg.lru_width, cfg.conv_width),
+                f"{p}rec_"))
+            inits.update(RG.rg_inits(f"{p}rec_"))
+        else:
+            specs.update(C.prefix_weights(
+                C.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, dh),
+                f"{p}attn_"))
+            inits.update(C.attn_inits(f"{p}attn_"))
+        specs.update(_block_norm_specs(cfg, f"{p}ln2_"))
+        specs.update(C.prefix_weights(C.mlp_specs(cfg.d_model, cfg.d_ff),
+                                      f"{p}mlp_"))
+        inits.update(C.norm_inits(f"{p}ln2_", cfg.norm))
+        inits.update(C.mlp_inits(f"{p}mlp_"))
+    return specs, inits
+
+
+def _rg_group(b, cfg, h, w, pattern, rope, *, decode=False, caches=None,
+              pos=None, return_kv=False):
+    """caches: dict with per-block entries (decode)."""
+    dh = cfg.head_dim
+    new_states: List[Value] = []
+    kv_out: List[Value] = []
+    for i, kindp in enumerate(pattern):
+        p = f"b{i}_"
+        xn = C.apply_norm(h, w, f"{p}ln1_", cfg.norm, cfg.norm_eps)
+        if kindp == "rec":
+            out, ex = RG.apply_rg_block(
+                b, xn, w, prefix=f"{p}rec_",
+                conv_tail=w.get(f"{p}tail") if decode else None,
+                h_state=w.get(f"{p}h") if decode else None, decode=decode)
+            if decode:
+                new_states.extend(ex)
+        else:
+            out, ex = C.self_attention(
+                b, xn, w, prefix=f"{p}attn_", n_heads=cfg.n_heads,
+                n_kv=cfg.n_kv_heads, d_head=dh, rope=rope, causal=True,
+                window=cfg.local_window,
+                cache_k=w.get(f"{p}ck") if decode else None,
+                cache_v=w.get(f"{p}cv") if decode else None,
+                pos=pos, ring=decode and caches == "ring",
+                return_kv=return_kv)
+            if decode or return_kv:
+                kv_out.extend(ex)
+        h = h + out
+        xn2 = C.apply_norm(h, w, f"{p}ln2_", cfg.norm, cfg.norm_eps)
+        h = h + C.apply_mlp(b, xn2, w, f"{p}mlp_")
+    return h, new_states, kv_out
+
+
+def build_rg(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> ModelGraphs:
+    b = ModelBuilder(cfg.param_dtype, cfg.compute_dtype)
+    kind = shape.kind
+    dh = cfg.head_dim
+    pat = cfg.pattern
+    n_groups = cfg.n_layers // len(pat)
+    rem = cfg.n_layers - n_groups * len(pat)
+    tail_pat = tuple(pat[:rem]) if rem else ()
+    sg, ig = _rg_group_specs(cfg, pat)
+    st, it = _rg_group_specs(cfg, tail_pat) if tail_pat else ({}, {})
+
+    if kind in ("train", "prefill"):
+        S = shape.seq_len
+        tokens = b.input("tokens", (batch, S))
+        labels = b.input("labels", (batch, S)) if kind == "train" else None
+        h = _embed(b, cfg, tokens)
+        cos, sin = C.rope_tables(b, S, dh, cfg.rope_base)
+        want_kv = kind == "prefill"
+
+        def mk_body(pattern):
+            def body(carries, w, consts):
+                hh, _, kvs = _rg_group(b, cfg, carries[0], w, pattern,
+                                       (consts[0], consts[1]),
+                                       return_kv=want_kv)
+                return [hh], kvs
+            return body
+
+        n_attn = sum(1 for k in pat if k == "attn")
+        (h,), ys = b.scan_blocks("groups", n_groups, sg, mk_body(pat), [h],
+                                 consts=[cos, sin],
+                                 n_ys=2 * n_attn if want_kv else 0,
+                                 weight_inits=ig)
+        if tail_pat:
+            nta = sum(1 for k in tail_pat if k == "attn")
+            (h,), ys2 = b.scan_blocks("tail", 1, st, mk_body(tail_pat), [h],
+                                      consts=[cos, sin],
+                                      n_ys=2 * nta if want_kv else 0,
+                                      weight_inits=it)
+            ys = list(ys) + list(ys2)
+        if kind == "train":
+            return ModelGraphs(cfg, kind, b.finish(
+                [_loss_result(b, cfg, h, labels)], f"{cfg.name}_train"), b, {})
+        logits = _final_logits(b, cfg, h, last_only=True)
+        names = [f"g_{i}_{t}" for i, k in enumerate(pat) if k == "attn"
+                 for t in ("ck", "cv")]
+        names += [f"t_{i}_{t}" for i, k in enumerate(tail_pat) if k == "attn"
+                  for t in ("ck", "cv")]
+        return ModelGraphs(cfg, kind, b.finish([logits] + list(ys),
+                                               f"{cfg.name}_prefill"), b,
+                           {"cache_names": names})
+
+    # decode: recurrent state + windowed attention cache
+    Skv = _cache_len(cfg, shape)
+    ring = shape.kind == "long_decode"
+    token = b.input("token", (batch, 1))
+    pos = b.input("pos", (), spec=())
+    cw1 = cfg.conv_width - 1
+    lw = cfg.lru_width
+
+    def declare_states(tag, pattern, n):
+        xs = {}
+        for i, kindp in enumerate(pattern):
+            p = f"b{i}_"
+            if kindp == "rec":
+                xs[f"{p}tail"] = b.input(
+                    f"{tag}_{i}_tail", (n, batch, cw1, lw),
+                    dtype=cfg.compute_dtype, spec=(None, "batch", None, None))
+                xs[f"{p}h"] = b.input(
+                    f"{tag}_{i}_h", (n, batch, 1, lw), dtype="f32",
+                    spec=(None, "batch", None, None))
+            else:
+                xs[f"{p}ck"] = b.input(
+                    f"{tag}_{i}_ck", (n, batch, cfg.n_kv_heads, Skv, dh),
+                    dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+                xs[f"{p}cv"] = b.input(
+                    f"{tag}_{i}_cv", (n, batch, cfg.n_kv_heads, Skv, dh),
+                    dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+        return xs
+
+    xs_main = declare_states("g", pat, n_groups)
+    xs_tail = declare_states("t", tail_pat, 1) if tail_pat else {}
+    h = _embed(b, cfg, token)
+    cos, sin = C.rope_tables(b, 1, dh, cfg.rope_base, offset=pos)
+
+    def mk_body(pattern):
+        def body(carries, w, consts):
+            hh, states, kvs = _rg_group(
+                b, cfg, carries[0], w, pattern, (consts[0], consts[1]),
+                decode=True, caches="ring" if ring else None, pos=consts[2])
+            return [hh], states + kvs
+        return body
+
+    def n_states(pattern):
+        return sum(2 for k in pattern)  # rec: (tail,h); attn: (ck,cv)
+
+    (h,), ys1 = b.scan_blocks("groups", n_groups, sg, mk_body(pat), [h],
+                              consts=[cos, sin, pos], xs_extra=xs_main,
+                              n_ys=n_states(pat), weight_inits=ig)
+    ys = list(ys1)
+    if tail_pat:
+        (h,), ys2 = b.scan_blocks("tail", 1, st, mk_body(tail_pat), [h],
+                                  consts=[cos, sin, pos], xs_extra=xs_tail,
+                                  n_ys=n_states(tail_pat), weight_inits=it)
+        ys += list(ys2)
+    logits = _final_logits(b, cfg, h, last_only=True)
+    names = [f"g_{i}_{t}" for i, k in enumerate(pat) if k == "attn"
+             for t in ("ck", "cv")]
+    names += [f"t_{i}_{t}" for i, k in enumerate(tail_pat) if k == "attn"
+              for t in ("ck", "cv")]
+
+    def out_order(tag, pattern):
+        rec = [f"{tag}_{i}_{t}" for i, k in enumerate(pattern) if k == "rec"
+               for t in ("tail", "h")]
+        att = [f"{tag}_{i}_{t}" for i, k in enumerate(pattern) if k == "attn"
+               for t in ("ck", "cv")]
+        return rec + att  # _rg_group emits states first, then kvs
+
+    return ModelGraphs(cfg, kind, b.finish([logits] + ys,
+                                           f"{cfg.name}_decode"), b,
+                       {"cache_names": names,
+                        "state_out_names": out_order("g", pat)
+                        + out_order("t", tail_pat)})
+
+
+# =============================================================================
+# xLSTM
+# =============================================================================
+def build_xlstm(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> ModelGraphs:
+    b = ModelBuilder(cfg.param_dtype, cfg.compute_dtype)
+    kind = shape.kind
+    D = cfg.d_model
+    H = cfg.n_heads
+    proj = cfg.mlstm_proj
+    dp = proj * D
+    dm = dp // H  # mLSTM head dim
+    ffn = max(128, int(D * 4 / 3) // 128 * 128)
+    n_groups = cfg.n_layers // 2  # alternating (mLSTM, sLSTM) pairs
+
+    specs: C.Specs = {}
+    inits: Dict = {}
+    specs.update(_block_norm_specs(cfg, "m_ln_"))
+    inits.update(C.norm_inits("m_ln_", cfg.norm))
+    specs.update(C.prefix_weights(XL.mlstm_specs(D, H, proj), "m_"))
+    inits.update(XL.mlstm_inits("m_"))
+    specs.update(_block_norm_specs(cfg, "s_ln_"))
+    inits.update(C.norm_inits("s_ln_", cfg.norm))
+    specs.update(C.prefix_weights(XL.slstm_specs(D, H, ffn), "s_"))
+    inits.update(XL.slstm_inits("s_"))
+
+    def body_train(carries, w, consts):
+        h = carries[0]
+        xn = C.apply_norm(h, w, "m_ln_", cfg.norm, cfg.norm_eps)
+        out, _ = XL.apply_mlstm_block(b, xn, w, prefix="m_", n_heads=H,
+                                      proj=proj)
+        h = h + out
+        xn = C.apply_norm(h, w, "s_ln_", cfg.norm, cfg.norm_eps)
+        out, _ = XL.apply_slstm_block(b, xn, w, prefix="s_", n_heads=H,
+                                      d_ff=ffn)
+        h = h + out
+        return [h], []
+
+    if kind in ("train", "prefill"):
+        S = shape.seq_len
+        tokens = b.input("tokens", (batch, S))
+        labels = b.input("labels", (batch, S)) if kind == "train" else None
+        h = _embed(b, cfg, tokens)
+        (h,), _ = b.scan_blocks("groups", n_groups, specs, body_train, [h],
+                                weight_inits=inits)
+        if kind == "train":
+            return ModelGraphs(cfg, kind, b.finish(
+                [_loss_result(b, cfg, h, labels)], f"{cfg.name}_train"), b, {})
+        # prefill: recompute-from-scratch caches are the recurrent states;
+        # emitting them requires the decode-form recurrence — for the
+        # prefill cell we report last-token logits only (states are cheap
+        # to rebuild chunkwise; see DESIGN.md).
+        logits = _final_logits(b, cfg, h, last_only=True)
+        return ModelGraphs(cfg, kind, b.finish([logits],
+                                               f"{cfg.name}_prefill"), b,
+                           {"cache_names": []})
+
+    # decode: pure recurrent state, no KV cache at any context length
+    token = b.input("token", (batch, 1))
+    pos = b.input("pos", (), spec=())
+    xs_extra = {
+        "mC": b.input("m_C", (n_groups, batch, H, dm, dm), dtype="f32",
+                      spec=(None, "batch", "heads", None, None)),
+        "mn": b.input("m_n", (n_groups, batch, H, dm), dtype="f32",
+                      spec=(None, "batch", "heads", None)),
+        "mm": b.input("m_m", (n_groups, batch, H), dtype="f32",
+                      spec=(None, "batch", None)),
+        "sh": b.input("s_h", (n_groups, batch, D), dtype="f32",
+                      spec=(None, "batch", None)),
+        "sc": b.input("s_c", (n_groups, batch, D), dtype="f32",
+                      spec=(None, "batch", None)),
+        "sn": b.input("s_n", (n_groups, batch, D), dtype="f32",
+                      spec=(None, "batch", None)),
+        "sm": b.input("s_m", (n_groups, batch, D), dtype="f32",
+                      spec=(None, "batch", None)),
+    }
+    h = _embed(b, cfg, token)
+
+    def body(carries, w, consts):
+        hh = carries[0]
+        xn = C.apply_norm(hh, w, "m_ln_", cfg.norm, cfg.norm_eps)
+        out, mst = XL.apply_mlstm_block(b, xn, w, prefix="m_", n_heads=H,
+                                        proj=proj,
+                                        state=(w["mC"], w["mn"], w["mm"]))
+        hh = hh + out
+        xn = C.apply_norm(hh, w, "s_ln_", cfg.norm, cfg.norm_eps)
+        out, sst = XL.apply_slstm_block(b, xn, w, prefix="s_", n_heads=H,
+                                        d_ff=ffn,
+                                        state=(w["sh"], w["sc"], w["sn"],
+                                               w["sm"]))
+        hh = hh + out
+        return [hh], list(mst) + list(sst)
+
+    (h,), ys = b.scan_blocks("groups", n_groups, specs, body, [h],
+                             xs_extra=xs_extra, n_ys=7, weight_inits=inits)
+    logits = _final_logits(b, cfg, h, last_only=True)
+    return ModelGraphs(cfg, kind, b.finish([logits] + list(ys),
+                                           f"{cfg.name}_decode"), b,
+                       {"cache_names": [],
+                        "state_out_names": ["m_C", "m_n", "m_m", "s_h",
+                                            "s_c", "s_n", "s_m"]})
+
+
+# =============================================================================
 # dispatch
 # =============================================================================
 _FAMILIES = {
     "dense": build_dense,
     "moe": build_moe,
     "mla_moe": build_mla_moe,
+    "rg_hybrid": build_rg,
+    "xlstm": build_xlstm,
 }
 # the families a later slice of the torch port brings, by the slice
 LATER_FAMILIES = {
-    "rg_hybrid": "the recurrent-family slice (LinearRecurrence)",
-    "xlstm": "the recurrent-family slice (LinearRecurrence)",
     "encdec": "the encoder-decoder slice",
     "vlm": "the vision-language slice",
 }
@@ -893,8 +1183,8 @@ def build_graphs(cfg: ModelConfig, shape: ShapeConfig,
                  batch: Optional[int] = None) -> ModelGraphs:
     if cfg.family in LATER_FAMILIES:
         raise NotImplementedError(
-            f"the torch port builds the dense, moe and mla_moe families so "
-            f"far; {cfg.name} is {cfg.family!r}, which comes with "
+            f"the torch port builds the dense, moe, mla_moe, rg_hybrid and "
+            f"xlstm families so far; {cfg.name} is {cfg.family!r}, which comes with "
             f"{LATER_FAMILIES[cfg.family]}")
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown family {cfg.family}")

@@ -31,8 +31,9 @@ needs a multiple of 128 (its lane width); the port takes every such
 head as the reference does, and also MLA's 192-wide prefill heads
 (d_nope 128 + d_rope 64), which the Hopper kernel takes.  Below 64 (the
 reduced test configs' 16) both packages compose attention from plain
-ops, so their numerics match there.  Collectives come with the
-tensor-parallel slice.
+ops, so their numerics match there.  ``LinearRecurrence`` (no Pallas
+kernel in the reference either) is a log-depth doubling scan of torch
+ops.  Collectives come with the tensor-parallel slice.
 """
 from __future__ import annotations
 
@@ -624,8 +625,34 @@ def _later(op: str, slice_name: str):
 for _opname in ("AllReduce", "AllGather", "ReduceScatter", "AllToAll",
                 "CollectivePermute"):
     EMIT[_opname] = _later(_opname, _LATER_TP)
-EMIT["LinearRecurrence"] = _later(
-    "LinearRecurrence", "the recurrent-family slice of the torch port")
+
+
+@_em("LinearRecurrence")
+def _(node, args, ctx):
+    """``h_t = a_t * h_{t-1} + b_t`` along ``axis`` (from the end when
+    ``reverse``), h_{-1} = 0: the reference's ``lax.associative_scan``
+    with the combine ``(a_r * a_l, a_r * b_l + b_r)``, as a log-depth
+    doubling scan.  Step d combines each element with the one d before
+    it, d = 1, 2, 4, ... (ceil(log2 S) steps of a few elementwise
+    kernels each).  Every element's sums take one fixed order that
+    depends only on its place along the axis, never on the batch, and
+    each product and sum is its own rounded op (no fused multiply-add),
+    so the card and the CPU give the same bits.  Sub-f32 inputs run in
+    f32, cast back to the node's type."""
+    axis = node.attrs["axis"]
+    a = torch.movedim(_f32up(args[0]), axis, 0)
+    h = torch.movedim(_f32up(args[1]), axis, 0)
+    if node.attrs["reverse"]:
+        a, h = a.flip(0), h.flip(0)
+    n, d = h.shape[0], 1
+    while d < n:
+        h = torch.cat((h[:d], a[d:] * h[:-d] + h[d:]))
+        if 2 * d < n:   # the last step reads no product of a
+            a = torch.cat((a[:d], a[d:] * a[:-d]))
+        d *= 2
+    if node.attrs["reverse"]:
+        h = h.flip(0)
+    return [_outcast(node, torch.movedim(h, 0, axis))]
 
 
 # -- structured control -------------------------------------------------------

@@ -8,9 +8,9 @@ that graph, run by the port's torch backend on the CPU, must agree with
 inputs (the reference's own check: atol 1e-4, rtol 1e-3).  Every
 gradient here is IR autodiff; torch autograd plays no part.
 
-``LinearRecurrence`` waits for the recurrent families: the port's
-interpreter runs its gradient graph against ``jax.grad``, and the torch
-emitter must refuse it by naming that slice.
+``LinearRecurrence``'s gradient graph (a reversed recurrence) runs on
+the port's interpreter and its torch backend, each against
+``jax.grad``.
 """
 import numpy as np
 import pytest
@@ -154,12 +154,14 @@ def test_linear_recurrence_grad_on_the_interpreter():
 
 
 def test_linear_recurrence_grad_is_refused_by_the_torch_emitter():
+    """``tests/test_autodiff.py::test_linear_recurrence_grad`` on the
+    torch backend: the VJP's reversed recurrence goes through the
+    emitter's doubling scan, against ``jax.grad``.  (The name is the one
+    this case had while the emitter refused the op.)"""
     tg, _, _ = _both(_linear_recurrence)
-    cf = TB.compile(tg)
-    with pytest.raises(NotImplementedError,
-                       match="LinearRecurrence comes with the "
-                             "recurrent-family slice"):
-        cf(_f32(2, 6, 3), _f32(2, 6, 3))
+    assert any(n.op == "LinearRecurrence" and n.attrs["reverse"]
+               for n in tg.nodes())
+    check_grads(_linear_recurrence, [_f32(2, 6, 3), _f32(2, 6, 3)])
 
 
 def test_scan_grad_checkpoint_carries():

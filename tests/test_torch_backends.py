@@ -8,9 +8,9 @@ port keeps its own copy of the IR), and checks that the two builds are
 the same graph by their structural signatures.  Integer outputs must be
 identical; float outputs agree within 1e-4 of scale in f32 and 3e-2 in
 bf16 (``scripts/check_kernel_parity.py:69``), the scale being
-``max(max |jax|, 1)``.  ``LinearRecurrence`` waits for the port's
-recurrent-family slice: the interpreter runs it against JAX, and the
-torch emitter must refuse it by naming that slice.  And the model-level
+``max(max |jax|, 1)``.  ``LinearRecurrence`` (the recurrent families'
+scan) runs forward and reversed on both, as in the reference's case.
+And the model-level
 gate, ``scripts/check_torch_parity.py``, passes on the CPU at the stock
 reduced widths and at d_head 128.
 """
@@ -199,6 +199,11 @@ def test_xent_and_topk():
 
 
 def test_linear_recurrence_waits_for_the_recurrent_slice():
+    """``tests/test_backends.py::test_linear_recurrence`` on the port: the
+    torch emitter's doubling scan and the interpreter's loop against
+    JAX's associative scan, forward and reversed.  (The name is the one
+    this case had while the emitter refused the op, before the
+    recurrent-family slice.)"""
     def build(ops, Function):
         a = ops.parameter((2, 5, 3), "f32", "a")
         b = ops.parameter((2, 5, 3), "f32", "b")
@@ -206,15 +211,8 @@ def test_linear_recurrence_waits_for_the_recurrent_slice():
         yr = ops.linear_recurrence(ops.sigmoid(a.out()), b.out(), axis=1,
                                    reverse=True)
         return Function([a, b], [y, yr])
-    args = (RNG.normal(size=(2, 5, 3)).astype(np.float32),
-            RNG.normal(size=(2, 5, 3)).astype(np.float32))
-    jcf, tcf, icf = _compiled(build)
-    ref = jcf(*args)
-    for i, (a, b) in enumerate(zip(ref, icf(*args))):
-        _close(f"interpreter output {i}", a, b, TOL["f32"])
-    with pytest.raises(NotImplementedError,
-                       match="recurrent-family slice of the torch port"):
-        tcf(*args)
+    three(build, RNG.normal(size=(2, 5, 3)).astype(np.float32),
+          RNG.normal(size=(2, 5, 3)).astype(np.float32))
 
 
 def test_scan_with_ys_and_reverse():

@@ -439,10 +439,12 @@ def test_lockstep_tokens_match_jax(arch, level, dtype, width):
 
 
 @pytest.mark.parametrize("mode", ["donated", "continuous", "paged"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("recurrentgemma-9b",
+                                          "xlstm-350m"))
 def test_other_modes_refuse_with_the_reference_message(arch, mode):
-    """Only lockstep serves a non-dense family, as in the reference; the
-    other modes refuse at construction with the reference's message."""
+    """Only lockstep serves a non-dense family (the MoE and the recurrent
+    ones), as in the reference; the other modes refuse at construction
+    with the reference's message."""
     with pytest.raises(NotImplementedError) as jerr:
         JServeEngine(j_get_config(arch).reduced(), mode=mode, slots=2,
                      max_len=16)
@@ -455,8 +457,6 @@ def test_other_modes_refuse_with_the_reference_message(arch, mode):
 
 @pytest.mark.parametrize("mode", ["lockstep", "paged"])
 @pytest.mark.parametrize("arch,slice_", [
-    ("recurrentgemma-9b", "recurrent-family slice"),
-    ("xlstm-350m", "recurrent-family slice"),
     ("whisper-medium", "encoder-decoder slice"),
     ("llama-3.2-vision-11b", "vision-language slice")])
 def test_families_not_yet_ported_name_their_slice(arch, slice_, mode):
