@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --train-only     # phases 1-3 and 8, no result line
     python3 chip_smoke.py --moe-only       # phases 1-3 and 9, no result line
     python3 chip_smoke.py --recurrent-only # phases 1-3 and 10, no result line
+    python3 chip_smoke.py --multimodal-only # phases 1-3 and 11, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -158,8 +159,27 @@ without printing a result:
                  128, flash on the card) with the builder's numpy
                  weights: the card's greedy tokens equal the CPU's.
 
-In phases 4, 5, 7, 8, 9 and 10 no kernel may have been refused at full
-width, but phase 9's counted deepseek-v3 decode attention.
+ 11. multimodal -- the multimodal families (runs after phase 10, whose
+                 graphs it frees) through ServeEngine(mode="lockstep")
+                 at O2 with the kernels, bf16 compute, f32 parameters
+                 drawn on the card from seed 0: whisper-medium at full
+                 width and depth (24 + 24 layers), 4 greedy requests of
+                 64 prompt tokens and 16 new ones over 4 x 1500 stubbed
+                 frames; llama-3.2-vision-11b at full width, at full
+                 depth when the builder's census reckons its peak under
+                 70 GB (else 20 layers), 4 requests of 128 tokens and 16
+                 new ones over 1601 stubbed image tokens.  Each eagerly
+                 and then captured (bit for bit); exactly the kernels
+                 serve.smoke_kernels names launch (whisper: matmul and
+                 flash; vlm: all five), none refused; flash once per
+                 Attention op and call; a replay's profile of each
+                 decode graph; every launched shape held against its
+                 plain version; then both at a reduced f32 width whose
+                 attention takes flash (whisper d_head 64, vlm 128,
+                 gates open): the card's greedy tokens equal the CPU's.
+
+In phases 4, 5, 7, 8, 9, 10 and 11 no kernel may have been refused at
+full width, but phase 9's counted deepseek-v3 decode attention.
 Phase 6 and phase 8's reduced width count their refusals but do not gate
 them: the reduced vocabulary (257) is no whole number of 16-byte
 vectors, so the unembed takes the plain version there, as the
@@ -2516,6 +2536,9 @@ def _lockstep_parity(line: str, smalls: dict) -> None:
         cfg = get_config(arch).reduced(**over)
         max_len = MOE_SMALL_PROMPT + MOE_SMALL_NEW
         np_params = full_width_builder(cfg, max_len, SLOTS).init_params(0)
+        for name in MM_GATES:   # vlm's cross blocks add nothing at tanh(0)
+            if name in np_params:
+                np_params[name][...] = 0.5
         prompts = _prompts(cfg.vocab, (MOE_SMALL_PROMPT,) * SLOTS, 8, seed=4)
         results = {}
         for dev in ("cuda", "cpu"):
@@ -2539,10 +2562,11 @@ def _lockstep_parity(line: str, smalls: dict) -> None:
         require(results["cuda"] == results["cpu"],
                 f"{arch} small f32: card tokens {results['cuda']} differ "
                 f"from the CPU's {results['cpu']}")
+        out[f"{arch}_d_head"] = cfg.head_dim
         out[f"{arch}_tokens"] = "identical"
         out[f"{arch}_launches"] = json.dumps(launched)
         out[f"{arch}_refused"] = sum(c["rejected"] for c in card.values())
-    say(line, width="reduced d_head 128, f32", **out)
+    say(line, width="reduced, f32", **out)
 
 
 # -- 10. the recurrent families, full width -----------------------------------
@@ -2565,10 +2589,11 @@ def _rec_config(arch: str):
     return cfg
 
 
-def _rec_line(cfg, what, rep, eng, counts, peak, reserved, smi, **kw):
+def _rec_line(cfg, what, rep, eng, counts, peak, reserved, smi,
+              line="recurrent", **kw):
     per_step = (_per_replay(eng.cf.raw) if getattr(eng.cf.raw, "captured",
                                                    False) else None)
-    say("recurrent", model=cfg.name, dispatch=what, layers=cfg.n_layers,
+    say(line, model=cfg.name, dispatch=what, layers=cfg.n_layers,
         **kw, generated=rep.generated_tokens,
         prefill_ms=f"{rep.prefill_seconds * 1e3:.1f}",
         decode_tok_s=f"{rep.decode_tok_s:.2f}",
@@ -2670,6 +2695,183 @@ def phase_recurrent(report: dict, smi: str) -> None:
         held_gb=f"{held:.2f}")
 
 
+# -- 11. the multimodal families, full width -----------------------------------
+MM_ARCHS = ("whisper-medium", "llama-3.2-vision-11b")
+MM_PROMPT = {"whisper-medium": 64, "llama-3.2-vision-11b": 128}
+MM_NEW = 16
+# vlm's depth: full (40 layers, 8 groups) when the reckoned peak fits
+# under MM_PEAK_LIMIT_GB, else 20 layers (4 groups), never below 2 groups
+MM_PEAK_LIMIT_GB, VLM_CUT_LAYERS = 70.0, 20
+MM_GATES = ("groups/x_gate_attn", "groups/x_gate_ffn")
+# card against CPU at a reduced width whose attention takes flash, f32:
+# whisper at d_head 64 (its full-width head), vlm at d_head 128 (GQA 2:1)
+MM_SMALL = {"whisper-medium": dict(d_model=128, n_heads=2, n_kv_heads=2,
+                                   d_head=64, d_ff=256,
+                                   compute_dtype="f32"),
+            "llama-3.2-vision-11b": dict(d_model=256, n_heads=2,
+                                         n_kv_heads=1, d_head=128,
+                                         d_ff=256, compute_dtype="f32")}
+
+
+def _reckon_peak_gb(cfg, builder, prompt_len: int) -> float:
+    """The lockstep run's peak as the builder's parameter census reckons
+    it: the f32 parameters, their bf16 copies (a dispatch converts every
+    weight it reads, and the Scans' stacked weights are converted before
+    the Scan runs, all of them at once), the stubbed frames or images
+    and the decode's self and cross caches in bf16."""
+    n = sum(math.prod(s.shape) for s in builder.params.values())
+    row = SLOTS * cfg.n_kv_heads * cfg.head_dim * 2   # one key's K and V
+    if cfg.family == "encdec":   # per decoder layer: self and cross
+        media = SLOTS * cfg.enc_seq * cfg.d_model
+        caches = cfg.n_layers * row * (prompt_len + MM_NEW + cfg.enc_seq)
+    else:   # per self block, and per group the image keys and values
+        media = SLOTS * cfg.vision_tokens * cfg.vision_dim
+        caches = (cfg.n_layers * row * (prompt_len + MM_NEW)
+                  + cfg.n_layers // cfg.cross_every * row
+                  * cfg.vision_tokens)
+    return (n * (4 + 2) + 2 * (media + caches)) / 1e9
+
+
+def _mm_config(arch: str, prompt_len: int):
+    """(config, the builder that declares its parameters, the reckoned
+    peak GB, why this depth): whisper at full depth (24 + 24 layers); vlm at full
+    depth (40 layers) when :func:`_reckon_peak_gb` is under
+    :data:`MM_PEAK_LIMIT_GB`, else :data:`VLM_CUT_LAYERS`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import full_width_builder
+    cfg = get_config(arch)
+    b = full_width_builder(cfg, prompt_len + MM_NEW, SLOTS)
+    gb = _reckon_peak_gb(cfg, b, prompt_len)
+    if cfg.family == "vlm" and gb >= MM_PEAK_LIMIT_GB:
+        full = gb
+        cfg = dataclasses.replace(cfg, n_layers=VLM_CUT_LAYERS)
+        require(cfg.n_layers // cfg.cross_every >= 2,
+                f"{arch}: fewer than two cross-attention groups")
+        b = full_width_builder(cfg, prompt_len + MM_NEW, SLOTS)
+        return (cfg, b, _reckon_peak_gb(cfg, b, prompt_len),
+                f"full depth reckoned {full:.1f} GB >= {MM_PEAK_LIMIT_GB}")
+    return cfg, b, gb, "full depth"
+
+
+def _mm_flash_per_run(cfg) -> tuple:
+    """(flash launches per prefill, per decode step): one per Attention
+    op -- whisper's encoder self-attention, decoder self- and
+    cross-attention in the prefill, the decoder's two in a decode step;
+    vlm's cross block and self blocks of every group in both."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    per = (cfg.n_layers // cfg.cross_every) * (1 + cfg.cross_every)
+    return per, per
+
+
+def _prefill_profile(eng, prompts, cfg, smi) -> None:
+    """Two more eager calls of the engine's prefill graph on the run's
+    inputs, outside the counted run: the first times it on the host's
+    clock (``wall_ms``, to the logits on the host), the second runs under
+    ``torch.profiler`` (device busy and union ms, the top kernels)."""
+    g, cf, pvals = eng._prefill_for(len(prompts[0]), len(prompts))
+    pin = eng._prefill_inputs(g, np.stack(prompts))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cf(*pin, *pvals)
+    wall = time.perf_counter() - t0
+    rows, union, ours, edges = _profile(lambda: cf(*pin, *pvals))
+    say("multimodal_prefill", model=cfg.name, dispatch="eager",
+        wall_ms=f"{wall * 1e3:.1f}",
+        device_busy_ms=f"{sum(r[0] for r in rows):.1f}",
+        device_union_ms=(f"{union / 1e3:.1f}" if union is not None
+                         else "not measured"),
+        device_kernels=sum(r[1] for r in rows),
+        port_kernels_ms=json.dumps({k: round(v[0], 3)
+                                    for k, v in ours.items()}),
+        profile_edges=json.dumps(edges),
+        top=json.dumps([[k[:60], round(ms, 3), n]
+                        for ms, n, k in rows[:10]]), card=repr(smi))
+
+
+def phase_multimodal(report: dict, smi: str) -> None:
+    """Both multimodal families at full width through
+    ``ServeEngine(mode="lockstep")`` at O2 with the kernels, bf16
+    compute, f32 parameters drawn on the card from seed 0 (the prefill
+    builder's: whisper's encoder, vlm's vision projection too).
+    Whisper-medium at full depth: 4 greedy requests of 64 prompt tokens
+    and 16 new ones, the encoder over 4 x 1500 stubbed frames.
+    Llama-3.2-vision-11b at the depth :func:`_mm_config` settles: 4
+    requests of 128 prompt tokens and 16 new ones over 1601 stubbed
+    image tokens of width 7680.  Each eagerly and then captured (the
+    same tokens bit for bit, the decode graph captured); each run
+    launches exactly the kernels ``serve.smoke_kernels`` names (whisper:
+    matmul and flash; vlm: all five) and refuses none; flash launches
+    once per Attention op and call (:func:`_mm_flash_per_run`); a
+    replay's profile of each decode graph shows each kernel at its
+    counted launches.  After each model, every distinct shape its runs
+    gave a kernel (flash at 64-wide heads and over 1500 and 1601 keys
+    among them) is held against the plain version
+    (:func:`_hold_launched`).  Then both at :data:`MM_SMALL` in f32,
+    vlm's gates open: the card's greedy tokens equal the CPU's.  The
+    lockstep decode cross-attends over zeros, as the reference's does:
+    the prefill exports only the self-attention caches."""
+    from repro_torch.launch.serve import smoke_kernels
+    from repro_torch.models.weights import init_params_on_device
+
+    held = _free_card()
+    rng = np.random.default_rng(11)
+    for arch in MM_ARCHS:
+        P = MM_PROMPT[arch]
+        cfg, builder, reckoned, why = _mm_config(arch, P)
+        need, _ = smoke_kernels(cfg)
+        t0 = time.perf_counter()
+        params = init_params_on_device(builder, 0, "cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n = sum(t.numel() for t in params.values())
+        gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+        prompts = [rng.integers(0, cfg.vocab, P).astype(np.int32)
+                   for _ in range(SLOTS)]
+        f_pre, f_dec = _mm_flash_per_run(cfg)
+        toks = {}
+        shapes = contextlib.ExitStack()
+        seen = shapes.enter_context(_launched_shapes({}))
+        for what, sj in (("eager", False), ("captured", True)):
+            eng, rep, counts, peak, reserved = _lockstep_run(
+                cfg, params, prompts, MM_NEW, sj)
+            toks[what] = [rep.results[r].tolist() for r in sorted(rep.results)]
+            _lockstep_gate(report, f"mm_{cfg.name}_{what}", cfg, counts,
+                           f_pre + f_dec * (MM_NEW - 1), main=sj)
+            if sj:
+                require(eng.cf.raw.captured,
+                        f"{cfg.name}: the decode graph was never captured")
+                _require_replay_profile(f"{cfg.name}_decode", eng.cf,
+                                        eng.tparams)
+            _rec_line(cfg, what, rep, eng, counts, peak, reserved, smi,
+                      line="multimodal", params_b=f"{n / 1e9:.3f}",
+                      params_gb=f"{gb:.2f}", reckoned_peak_gb=f"{reckoned:.2f}",
+                      depth=repr(why), init_s=f"{t_init:.2f}",
+                      requests=len(prompts), prompt_len=P,
+                      media_tokens=(cfg.enc_seq if cfg.family == "encdec"
+                                    else cfg.vision_tokens))
+            if not sj:
+                _prefill_profile(eng, prompts, cfg, smi)
+            del eng
+        require(toks["captured"] == toks["eager"],
+                f"{cfg.name}: captured greedy tokens differ from eager: "
+                f"{toks['captured']} vs {toks['eager']}")
+        say("multimodal", model=cfg.name, captured_vs_eager="bitwise",
+            requests=len(prompts))
+        shapes.close()
+        del params
+        held = _free_card()
+        by_kernel = _hold_launched(seen, cfg.name)
+        require(set(by_kernel) == need,
+                f"{cfg.name}: shapes held {by_kernel}, written {need}")
+        say("multimodal_shapes", model=cfg.name,
+            held=sum(by_kernel.values()), by_kernel=json.dumps(by_kernel),
+            card=repr(smi))
+    _lockstep_parity("multimodal_parity", MM_SMALL)
+    say("multimodal", families="encdec,vlm", result="ok",
+        held_gb=f"{held:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -2689,6 +2891,9 @@ def main() -> int:
     if "--recurrent-only" in sys.argv[1:]:
         phase_recurrent(report, smi)
         return 0    # phase 10 alone: no result line
+    if "--multimodal-only" in sys.argv[1:]:
+        phase_multimodal(report, smi)
+        return 0    # phase 11 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -2698,6 +2903,7 @@ def main() -> int:
     phase_train(report, smi)
     phase_moe(report, smi)
     phase_recurrent(report, smi)
+    phase_multimodal(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,12 @@ the sliding window's ring ``long_decode``), the mla_moe family
 (deepseek-v3-671b: ``train`` with its MTP head, ``prefill``, ``decode``
 over the latent caches), and the recurrent families (recurrentgemma-9b,
 ``rg_hybrid``, and xlstm-350m: ``train``, ``prefill``, ``decode`` over
-the recurrent states and ``long_decode``), the same graph is built by both packages (their
-structural signatures must agree) and run on the same numpy inputs (the
-recipe of
-``check_kernel_parity.make_args``: the builder's seeded weights, integer
+the recurrent states and ``long_decode``), and the multimodal families
+(whisper-medium, ``encdec``, and llama-3.2-vision-11b, ``vlm``:
+``train``, ``prefill`` with the stubbed frames or images, ``decode``
+over the self and cross caches), the same graph is built by both
+packages (their structural signatures must agree) and run on the same
+numpy inputs (the recipe of ``check_kernel_parity.make_args``: the builder's seeded weights, integer
 inputs drawn below ``min(vocab, 100)``, float inputs zero) three ways:
 JAX at O1, torch at O1, and torch at O2 with ``use_pallas=True`` (the
 fused compounds through the Hopper kernels on the card, their plain
@@ -42,7 +44,9 @@ versions on the CPU).  The gate fails unless
     once in its O2 run (the launch counters; the reduced vocabulary's
     unembed is refused by the kernels' shape rule and runs plain;
     mixtral's experts are batched einsums and xlstm's FFN is GeLU-gated,
-    so neither runs SwiGLU; no xlstm graph holds an Attention op).
+    so neither runs SwiGLU; no xlstm graph holds an Attention op;
+    whisper's norms are LayerNorms and its MLP GeLU, so it runs matmul
+    and, at d_head 128, flash only: ``serve.smoke_kernels``).
 
 Run (the port's device defaults to the card):
 
@@ -100,6 +104,13 @@ FAMILIES = {
         "prefill": {"norm_matmul": 4},
         "decode": {"norm_matmul": 4},
         "long_decode": {"norm_matmul": 4},
+    }),
+    # LayerNorm and a GeLU MLP: no compound of the three forms
+    "encdec": ("whisper-medium", {"train": {}, "prefill": {}, "decode": {}}),
+    "vlm": ("llama-3.2-vision-11b", {
+        "train": {"swiglu": 6, "norm_matmul": 2, "rotary_qkv": 5},
+        "prefill": {"swiglu": 6, "norm_matmul": 11, "rotary_qkv": 5},
+        "decode": {"swiglu": 6, "norm_matmul": 16},
     }),
 }
 # the graph kinds that hold an Attention op, which the flash kernel
@@ -362,7 +373,7 @@ def main(argv=None) -> int:
         return 1
     print(f"torch parity ok ({args.width}, {tbe.device}): O1 and O2 "
           f"(kernels) match JAX O1 on every graph kind of the dense, moe, "
-          f"mla_moe, rg_hybrid and xlstm families")
+          f"mla_moe, rg_hybrid, xlstm, encdec and vlm families")
     return 0
 
 

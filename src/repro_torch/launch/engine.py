@@ -6,8 +6,8 @@ The port of ``repro/launch/engine.py``: four modes, worst to best.
                       (through ``CompiledFunction.__call__``), every
                       request starts together (the baseline).  The one
                       mode that serves every family ``build_graphs``
-                      builds (moe, mla_moe, rg_hybrid and xlstm
-                      too), as in the reference.
+                      builds (moe, mla_moe, rg_hybrid, xlstm, encdec
+                      and vlm too), as in the reference.
   * ``donated``    -- the same lockstep schedule, but the caches stay on
                       the device and the whole greedy loop (argmax and
                       token feedback included) runs inside one fused
@@ -46,8 +46,10 @@ spelling of the reference's donation).  Because nothing else holds them,
 the host-side cache writes (prefill scatter, copy-on-write) update the
 buffers in place.
 
-``tp > 1`` and the multimodal prefill inputs come with later slices of
-the port.
+The multimodal families' prefill reads stubbed frames or images (as the
+reference's does) and weights the decode graph does not declare: the
+encoder's, the vision projection's.  ``tp > 1`` comes with a later slice
+of the port.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ import torch
 from ..backend import Backend, CompileOptions
 from ..configs.base import ModelConfig, ShapeConfig
 from ..devices import as_tensor, to_numpy, torch_dtype
-from ..models.lm import LATER_FAMILIES, ModelGraphs, build_graphs
+from ..models.lm import ModelGraphs, build_graphs
 from .faults import FaultInjector, get_injector
 
 MODES = ("lockstep", "donated", "continuous", "paged")
@@ -986,10 +988,6 @@ class ServeEngine:
                 f"config must be an EngineConfig, got "
                 f"{type(config).__name__}")
         mode = config.mode
-        if cfg.family in LATER_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) comes with "
-                f"{LATER_FAMILIES[cfg.family]} of the torch port")
         if mode != "lockstep" and cfg.family != "dense":
             raise NotImplementedError(
                 f"mode {mode!r} needs the dense-family serve/chunk graphs; "
@@ -1083,8 +1081,14 @@ class ServeEngine:
         given = config.params
         if given is None:
             given = b.init_params(self.seed)
+        # the decode graph's names, then any others given (the encoder's
+        # or the vision projection's weights, which only the multimodal
+        # families' prefill reads)
         self._param_map: Dict[str, torch.Tensor] = {
             n: as_tensor(given[n], self.device) for n in b.param_names()}
+        self._param_map.update((n, as_tensor(v, self.device))
+                               for n, v in given.items()
+                               if n not in self._param_map)
         self.tparams = [self._param_map[n] for n in b.param_names()]
 
         self.pool = None  # KVCachePool | PagedKVPool

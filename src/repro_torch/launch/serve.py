@@ -8,10 +8,12 @@ Usage (on the card; ``--device cpu`` runs on the CPU):
       --device cuda --level O2 --kernels
 
 ``--mode {lockstep,donated,continuous,paged}`` picks the engine mode
-(paged by default; lockstep and donated take one batch of uniform
-prompts, so ``--requests`` must not exceed ``--batch``).  ``--level O2
---kernels`` runs the fused compounds and attention through the
-hand-written Hopper kernels (``CompileOptions(level="O2",
+(continuous by default, paged with ``--serve-http``, as in the
+reference; lockstep and donated take one batch of uniform prompts, so
+``--requests`` must not exceed ``--batch``; ``--temperature``,
+``--top-k`` and the page, chunk and prefill flags need paged).
+``--level O2 --kernels`` runs the fused compounds and attention through
+the hand-written Hopper kernels (``CompileOptions(level="O2",
 use_pallas=True)``).  The workload is synthetic: ``--requests`` prompts
 of ``--prompt-len`` tokens (``--shared-prefix-len`` of them identical, a
 shared system prompt), ``--gen`` tokens each.  Weights are random from
@@ -34,22 +36,25 @@ keyed by the clients' tags.  It exits 1 when the drain left engine
 state behind.  Only the continuous and paged modes can serve it.
 ``--tp`` comes with a later slice of the port.
 
-The moe, mla_moe, rg_hybrid and xlstm families (``--arch
-mixtral-8x22b``, ``--arch deepseek-v3-671b``, ``--arch
-recurrentgemma-9b``, ``--arch xlstm-350m``) serve through ``--mode
-lockstep`` only, as in the reference:
+The families other than dense (``--arch mixtral-8x22b``,
+``deepseek-v3-671b``, ``recurrentgemma-9b``, ``xlstm-350m``,
+``whisper-medium``, ``llama-3.2-vision-11b``) serve through lockstep
+only, as in the reference: without ``--mode`` the CLI says so and falls
+back to it, and ``--mode paged`` is refused:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
       --reduced --mode lockstep --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch recurrentgemma-9b --reduced --mode lockstep --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \
       --device cuda --level O2 --kernels --mode lockstep
 
 (the last at full width on the card, weights drawn there).  The
 recurrent families' decode starts its recurrent states from zeros: the
 reference's prefill exports only rg's attention caches and none of
-xlstm's states.
+xlstm's states.  Likewise the multimodal families' decode cross-attends
+over zeros: their prefill exports the self-attention caches, not
+whisper's encoder projections nor vlm's image keys and values.
 """
 from __future__ import annotations
 
@@ -64,10 +69,13 @@ import numpy as np
 def full_width_builder(cfg, max_len: int, batch: int):
     """The builder that declares a full-width engine's parameters: the
     config family's own decode graph (every graph an engine of that family
-    compiles reads the same names)."""
+    compiles reads the same names), or for the multimodal families its
+    prefill graph, which declares the decode graph's names and the
+    encoder's (whisper) or the vision projection's (vlm) besides."""
     from ..configs.base import ShapeConfig
     from ..models.lm import build_graphs
-    return build_graphs(cfg, ShapeConfig("decode", "decode", max_len, batch),
+    kind = "prefill" if cfg.family in ("encdec", "vlm") else "decode"
+    return build_graphs(cfg, ShapeConfig(kind, kind, max_len, batch),
                         batch).builder
 
 
@@ -75,19 +83,30 @@ def smoke_kernels(cfg, attention: bool = True):
     """(the kernels a path of ``cfg`` on the card must launch, the kernels
     allowed to refuse a shape there) -- the one statement of this rule,
     which the serving smoke, the parity script, ``chip_smoke.py`` and the
-    card tests read.  Mixtral's experts are batched einsums, so a moe
-    config without a shared expert runs no SwiGLU, nor does xlstm, whose
-    FFN is GeLU-gated.  Flash attention runs where the path's graphs
-    hold an Attention op (``attention``; the paged path's chunked
-    prefill holds none, and no xlstm graph does: its mLSTM attends
-    through einsums) at a query head width the emitter offers it, and
-    refuses MLA's absorbed decode, whose latent head (kv_lora + d_rope)
-    is wider than the kernel takes.  Nothing else is refused at full
-    width: xlstm's input/forget gate projection (N = 2 x heads = 8) is
-    one 16-byte bf16 vector wide, which the matmul kernel takes."""
+    card tests read.  Every path launches matmul.  RMSNorm configs launch
+    rmsnorm and norm_matmul; a LayerNorm config (whisper) launches
+    neither, its norms being torch ops (the reference has no Pallas
+    LayerNorm either).  SwiGLU runs where the MLP is one: not in a GeLU
+    MLP (whisper), nor in mixtral's experts (batched einsums, so a moe
+    config without a shared expert runs none), nor in xlstm, whose FFN
+    is GeLU-gated.  Flash attention runs where the path's graphs hold an
+    Attention op (``attention``; the paged path's chunked prefill holds
+    none, and no xlstm graph does: its mLSTM attends through einsums) at
+    a query head width the emitter offers it (whisper's 64 too, over its
+    1500 encoder frames; vlm's over 1601 image tokens), and refuses
+    MLA's absorbed decode, whose latent head (kv_lora + d_rope) is wider
+    than the kernel takes.  Nothing else is refused at full width:
+    xlstm's input/forget gate projection (N = 2 x heads = 8) is one
+    16-byte bf16 vector wide, which the matmul kernel takes, and a tied
+    unembedding (whisper's 51865-wide vocabulary) never asks the kernel:
+    the pass pipeline folds the table's transpose into the dot, whose
+    contraction over the table's second axis stays a plain product."""
     from ..transformers.torch_emit import FLASH_HEAD_MULTIPLE
-    need = {"matmul", "norm_matmul", "rmsnorm"}
-    if cfg.family not in ("moe", "xlstm") or cfg.n_shared_experts:
+    need = {"matmul"}
+    if cfg.norm == "rms":
+        need |= {"norm_matmul", "rmsnorm"}
+    if cfg.mlp == "swiglu" and (cfg.family not in ("moe", "xlstm")
+                                or cfg.n_shared_experts):
         need.add("swiglu")
     width = cfg.d_nope + cfg.d_rope if cfg.mla else cfg.head_dim
     if attention and cfg.family != "xlstm" and \
@@ -99,9 +118,10 @@ def smoke_kernels(cfg, attention: bool = True):
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
-    ap.add_argument("--mode", default="paged",
+    ap.add_argument("--mode", default=None,
                     choices=("lockstep", "donated", "continuous", "paged"),
-                    help="engine mode (default: paged)")
+                    help="engine mode (default: continuous; paged when "
+                         "--serve-http)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4, help="KV pool slots")
     ap.add_argument("--requests", type=int, default=0,
@@ -177,18 +197,45 @@ def main(argv: Optional[List[str]] = None) -> int:
     max_len = args.max_len or (P + G)
     if max_len < P + G:
         raise SystemExit(f"--max-len {max_len} < prompt-len + gen ({P + G})")
+    mode = args.mode or ("paged" if args.serve_http else "continuous")
+    if args.serve_http and mode not in ("continuous", "paged"):
+        raise SystemExit(
+            f"--serve-http needs a step()-capable engine "
+            f"(--mode continuous|paged), got {mode!r}")
+    if cfg.family != "dense" and mode != "lockstep":
+        if mode == "paged":
+            # an explicit paged request must not silently fall back to a
+            # mode that ignores its page/sampling flags
+            raise SystemExit(
+                f"--mode paged needs the dense family's serve graphs; "
+                f"{cfg.name} ({cfg.family}) only serves via "
+                f"--mode lockstep")
+        print(f"[serve] {cfg.name} ({cfg.family}): no serve/chunk graphs "
+              f"yet, falling back to --mode lockstep")
+        mode = "lockstep"
+    if mode != "paged" and (args.temperature or args.top_k):
+        # never silently decode greedy when the user asked for sampling
+        raise SystemExit(
+            f"--temperature/--top-k need --mode paged (in-graph sampling); "
+            f"mode {mode!r} decodes greedily")
+    if mode != "paged" and any(v is not None for v in
+                               (args.page_size, args.chunk_steps,
+                                args.pages, args.prefill_chunk)):
+        raise SystemExit(
+            f"--page-size/--chunk-steps/--pages/--prefill-chunk need "
+            f"--mode paged; mode {mode!r} uses fixed per-slot cache rows")
+    if mode != "paged" and args.no_prefix_sharing:
+        raise SystemExit(
+            f"--no-prefix-sharing needs --mode paged; mode {mode!r} "
+            f"never shares KV pages")
     if not 0 <= args.shared_prefix_len <= P:
         raise SystemExit(
             f"--shared-prefix-len {args.shared_prefix_len} must be in "
             f"[0, --prompt-len {P}]")
-    if args.serve_http and args.mode not in ("continuous", "paged"):
-        raise SystemExit(
-            f"--serve-http needs a step()-capable engine "
-            f"(--mode continuous|paged), got {args.mode!r}")
-    paged = args.mode == "paged"
+    paged = mode == "paged"
     try:
         econf = EngineConfig(
-            mode=args.mode, slots=args.batch, max_len=max_len,
+            mode=mode, slots=args.batch, max_len=max_len,
             seed=args.seed, page_size=args.page_size,
             chunk_steps=args.chunk_steps, pages=args.pages,
             device=args.device,
@@ -210,7 +257,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.serve_http:
         return _serve_http(engine, args, cfg, max_len)
     sampling = {}
-    if args.temperature or args.top_k:
+    if paged and (args.temperature or args.top_k):
         sampling = dict(temperature=args.temperature, top_k=args.top_k)
     S = args.shared_prefix_len
     if not S:

@@ -11,8 +11,9 @@ The step is compiled with its parameters and AdamW moments donated and
 called through ``.raw``: on the card the state stays in the same device
 tensors, which every step overwrites in place; the loss is read with
 ``.item()`` and checkpoints copy the state to host numpy, on this
-thread, before the next step runs.  The multimodal families' extra
-inputs (frames, images) come with the slice that ports those families.
+thread, before the next step runs.  The multimodal families take the
+reference's stubbed inputs beside the batch: whisper's frames and vlm's
+images, drawn from ``default_rng([seed, step])``.
 
 Usage (on the card; ``--device cpu`` runs on the CPU):
 
@@ -28,6 +29,26 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+
+
+def step_data(cfg, builder, batch, seed: int, step: int,
+              n: int) -> list:
+    """A train step's data arguments in the graph's input order, as the
+    reference's trainer passes them: the batch's tokens and labels, after
+    whisper's stubbed frames or before vlm's stubbed images, each drawn
+    from ``default_rng([seed, step])`` in f32 at 0.02 for ``n`` rows."""
+    names = {node.name for node in builder.inputs}
+    dargs = [batch["tokens"], batch["labels"]]
+    if "frames" in names:
+        rng = np.random.default_rng([seed, step])
+        dargs = [rng.normal(size=(n, cfg.enc_seq, cfg.d_model))
+                 .astype(np.float32) * 0.02] + dargs
+    if "images" in names:
+        rng = np.random.default_rng([seed, step])
+        dargs = dargs + [
+            (rng.normal(size=(n, cfg.vision_tokens,
+                              cfg.vision_dim)) * 0.02).astype(np.float32)]
+    return dargs
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -130,7 +151,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     for step in range(start_step, args.steps):
         got_step, batch = prefetch.next()
         assert got_step == step, (got_step, step)
-        dargs = [batch["tokens"], batch["labels"]]
+        dargs = step_data(cfg, b, batch, args.seed, step, args.batch)
 
         def one_step():
             t0 = time.time()

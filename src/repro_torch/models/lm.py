@@ -1,14 +1,12 @@
 """Architecture assembly: every assigned arch as train / prefill / decode
 IR graphs.
 
-Every architecture is a *frontend program* over the same IR (nGraph's
-O(frameworks + platforms) claim): a family function assembles blocks
+All ten architectures are *frontend programs* over the same IR (nGraph's
+O(frameworks + platforms) claim): each family function assembles blocks
 from ``components`` / ``moe`` / ``mla`` / ``recurrent`` / ``xlstm`` into a
 ``Function`` via ``ModelBuilder.scan_blocks`` (stacked layer weights +
-the Scan op keep 80-layer graphs compact).  This copy of the reference's
-``models/lm.py`` holds the dense, moe (mixtral), mla_moe (deepseek-v3),
-rg_hybrid (recurrentgemma) and xlstm families; the encdec and vlm
-builders come with later slices of the torch port.
+the Scan op keep 80-layer graphs compact).  A copy of the reference's
+``models/lm.py``.
 
 Graph kinds:
   * train   — (tokens, labels, *W) -> scalar loss (optimizer wrapped on
@@ -22,6 +20,7 @@ Graph kinds:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 from ..configs.base import ModelConfig, ShapeConfig
@@ -1163,6 +1162,322 @@ def build_xlstm(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> ModelGraphs
 
 
 # =============================================================================
+# encoder-decoder (whisper) — conv frontend stubbed as frame embeddings
+# =============================================================================
+def _sinusoid(b: ModelBuilder, S: int, D: int,
+              offset: Optional[Value] = None) -> Value:
+    import numpy as np
+    half = D // 2
+    freq = ops.constant(
+        np.exp(-np.arange(half, dtype=np.float64) * (math.log(10000.0) / max(half - 1, 1)))
+        .astype(np.float32))
+    pos = ops.iota((S,), 0, "i32")
+    if offset is not None:
+        pos = pos + ops.broadcast_to(offset, (S,))
+    ang = ops.reshape(ops.convert(pos, "f32"), (S, 1)) * ops.reshape(freq, (1, half))
+    return ops.concat([ops.sin(ang), ops.cos(ang)], axis=-1)  # (S, D)
+
+
+def _whisper_dec_specs(cfg) -> Tuple[C.Specs, Dict]:
+    dh = cfg.head_dim
+    specs: C.Specs = {}
+    specs.update(_block_norm_specs(cfg, "ln1_"))
+    specs.update(C.prefix_weights(
+        C.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, dh), "self_"))
+    specs.update(_block_norm_specs(cfg, "lnx_"))
+    specs.update(C.prefix_weights(
+        C.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, dh), "cross_"))
+    specs.update(_block_norm_specs(cfg, "ln2_"))
+    specs.update(C.prefix_weights(C.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp),
+                                  "mlp_"))
+    inits = {**C.norm_inits("ln1_", cfg.norm), **C.attn_inits("self_"),
+             **C.norm_inits("lnx_", cfg.norm), **C.attn_inits("cross_"),
+             **C.norm_inits("ln2_", cfg.norm), **C.mlp_inits("mlp_", cfg.mlp)}
+    return specs, inits
+
+
+def build_encdec(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> ModelGraphs:
+    b = ModelBuilder(cfg.param_dtype, cfg.compute_dtype)
+    kind = shape.kind
+    dh = cfg.head_dim
+    D = cfg.d_model
+
+    def encoder(frames: Value) -> Value:
+        B, Se, _ = frames.shape
+        pe = ops.convert(_sinusoid(b, Se, D), cfg.compute_dtype)
+        h = frames + ops.broadcast_to(ops.reshape(pe, (1, Se, D)), frames.shape)
+        specs: C.Specs = {}
+        specs.update(_block_norm_specs(cfg, "ln1_"))
+        specs.update(C.prefix_weights(
+            C.attn_specs(D, cfg.n_heads, cfg.n_kv_heads, dh), "attn_"))
+        specs.update(_block_norm_specs(cfg, "ln2_"))
+        specs.update(C.prefix_weights(C.mlp_specs(D, cfg.d_ff, cfg.mlp),
+                                      "mlp_"))
+        inits = {**C.norm_inits("ln1_", cfg.norm), **C.attn_inits("attn_"),
+                 **C.norm_inits("ln2_", cfg.norm),
+                 **C.mlp_inits("mlp_", cfg.mlp)}
+
+        def body(carries, w, consts):
+            hh = carries[0]
+            xn = C.apply_norm(hh, w, "ln1_", cfg.norm, cfg.norm_eps)
+            att, _ = C.self_attention(b, xn, w, prefix="attn_",
+                                      n_heads=cfg.n_heads,
+                                      n_kv=cfg.n_kv_heads, d_head=dh,
+                                      causal=False)
+            hh = hh + att
+            xn2 = C.apply_norm(hh, w, "ln2_", cfg.norm, cfg.norm_eps)
+            hh = hh + C.apply_mlp(b, xn2, w, "mlp_", cfg.mlp)
+            return [hh], []
+
+        (h,), _ = b.scan_blocks("enc", cfg.n_enc_layers, specs, body, [h],
+                                weight_inits=inits)
+        ge = b.raw_param("enc_norm/g", (D,), (None,), ones_init())
+        be = b.raw_param("enc_norm/b", (D,), (None,))
+        return ops.layer_norm(h, ge, be, eps=cfg.norm_eps)
+
+    sd, idd = _whisper_dec_specs(cfg)
+
+    if kind in ("train", "prefill"):
+        S = shape.seq_len
+        frames = b.input("frames", (batch, cfg.enc_seq, D),
+                         dtype=cfg.compute_dtype, spec=("batch", None, None))
+        tokens = b.input("tokens", (batch, S))
+        labels = b.input("labels", (batch, S)) if kind == "train" else None
+        enc = encoder(frames)
+        pe = ops.convert(_sinusoid(b, S, D), cfg.compute_dtype)
+        h = _embed(b, cfg, tokens) + ops.broadcast_to(
+            ops.reshape(pe, (1, S, D)), (batch, S, D))
+        want_kv = kind == "prefill"
+
+        def body(carries, w, consts):
+            hh = carries[0]
+            encv = consts[0]
+            xn = C.apply_norm(hh, w, "ln1_", cfg.norm, cfg.norm_eps)
+            att, ex = C.self_attention(b, xn, w, prefix="self_",
+                                       n_heads=cfg.n_heads,
+                                       n_kv=cfg.n_kv_heads, d_head=dh,
+                                       causal=True, return_kv=want_kv)
+            hh = hh + att
+            xn = C.apply_norm(hh, w, "lnx_", cfg.norm, cfg.norm_eps)
+            hh = hh + C.cross_attention(b, xn, encv, w, prefix="cross_",
+                                        n_heads=cfg.n_heads,
+                                        n_kv=cfg.n_kv_heads, d_head=dh)
+            xn = C.apply_norm(hh, w, "ln2_", cfg.norm, cfg.norm_eps)
+            hh = hh + C.apply_mlp(b, xn, w, "mlp_", cfg.mlp)
+            return [hh], list(ex)
+
+        (h,), ys = b.scan_blocks("dec", cfg.n_layers, sd, body, [h],
+                                 consts=[enc], n_ys=2 if want_kv else 0,
+                                 weight_inits=idd)
+        if kind == "train":
+            return ModelGraphs(cfg, kind, b.finish(
+                [_loss_result(b, cfg, h, labels)], f"{cfg.name}_train"), b, {})
+        logits = _final_logits(b, cfg, h, last_only=True)
+        return ModelGraphs(cfg, kind, b.finish([logits] + list(ys),
+                                               f"{cfg.name}_prefill"), b,
+                           {"cache_names": ["cache_k", "cache_v"]})
+
+    # decode: self cache + precomputed per-layer cross k/v caches
+    Skv = _cache_len(cfg, shape)
+    L = cfg.n_layers
+    token = b.input("token", (batch, 1))
+    pos = b.input("pos", (), spec=())
+    ck = b.input("cache_k", (L, batch, cfg.n_kv_heads, Skv, dh),
+                 dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    cv = b.input("cache_v", (L, batch, cfg.n_kv_heads, Skv, dh),
+                 dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    xk = b.input("cross_k", (L, batch, cfg.n_kv_heads, cfg.enc_seq, dh),
+                 dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    xv = b.input("cross_v", (L, batch, cfg.n_kv_heads, cfg.enc_seq, dh),
+                 dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    pe = ops.convert(_sinusoid(b, 1, D, offset=pos), cfg.compute_dtype)
+    h = _embed(b, cfg, token) + ops.broadcast_to(
+        ops.reshape(pe, (1, 1, D)), (batch, 1, D))
+
+    def body(carries, w, consts):
+        hh = carries[0]
+        xn = C.apply_norm(hh, w, "ln1_", cfg.norm, cfg.norm_eps)
+        att, ex = C.self_attention(
+            b, xn, w, prefix="self_", n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=dh, causal=True,
+            cache_k=w["sck"], cache_v=w["scv"], pos=consts[0])
+        hh = hh + att
+        xn = C.apply_norm(hh, w, "lnx_", cfg.norm, cfg.norm_eps)
+        # cross attention against the cached encoder projections
+        q = ops.matmul(xn, b.cast(w["cross_wq"]))
+        q = C.split_heads(q, cfg.n_heads)
+        catt = ops.attention(q, b.cast(w["xck"]), b.cast(w["xcv"]),
+                             causal=False, scale=1.0 / math.sqrt(dh))
+        hh = hh + ops.matmul(C.merge_heads(catt), b.cast(w["cross_wo"]))
+        xn = C.apply_norm(hh, w, "ln2_", cfg.norm, cfg.norm_eps)
+        hh = hh + C.apply_mlp(b, xn, w, "mlp_", cfg.mlp)
+        return [hh], list(ex)
+
+    (h,), ys = b.scan_blocks(
+        "dec", L, sd, body, [h], consts=[pos],
+        xs_extra={"sck": ck, "scv": cv, "xck": xk, "xcv": xv}, n_ys=2,
+        weight_inits=idd)
+    logits = _final_logits(b, cfg, h, last_only=True)
+    return ModelGraphs(cfg, kind, b.finish([logits] + list(ys),
+                                           f"{cfg.name}_decode"), b,
+                       {"cache_names": ["cache_k", "cache_v"],
+                        "state_out_names": ["cache_k", "cache_v"]})
+
+
+# =============================================================================
+# VLM (llama-3.2-vision): self-attn stack + gated cross-attn every Nth
+# =============================================================================
+def _vlm_group_specs(cfg) -> Tuple[C.Specs, Dict]:
+    dh = cfg.head_dim
+    specs: C.Specs = {}
+    inits: Dict = {}
+    # gated cross block at group start
+    specs.update(_block_norm_specs(cfg, "xln_"))
+    specs.update(C.prefix_weights(
+        C.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, dh), "x_"))
+    specs["x_gate_attn"] = ((), ())
+    specs["x_gate_ffn"] = ((), ())
+    specs.update(_block_norm_specs(cfg, "xln2_"))
+    specs.update(C.prefix_weights(C.mlp_specs(cfg.d_model, cfg.d_ff), "xmlp_"))
+    inits.update(C.norm_inits("xln_"))
+    inits.update(C.attn_inits("x_"))
+    inits.update(C.norm_inits("xln2_"))
+    inits.update(C.mlp_inits("xmlp_"))
+    from .builder import zeros_init
+    inits["x_gate_attn"] = zeros_init()
+    inits["x_gate_ffn"] = zeros_init()
+    for i in range(cfg.cross_every):
+        p = f"s{i}_"
+        specs.update(_block_norm_specs(cfg, f"{p}ln1_"))
+        specs.update(C.prefix_weights(
+            C.attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, dh),
+            f"{p}attn_"))
+        specs.update(_block_norm_specs(cfg, f"{p}ln2_"))
+        specs.update(C.prefix_weights(C.mlp_specs(cfg.d_model, cfg.d_ff),
+                                      f"{p}mlp_"))
+        inits.update(C.norm_inits(f"{p}ln1_"))
+        inits.update(C.attn_inits(f"{p}attn_"))
+        inits.update(C.norm_inits(f"{p}ln2_"))
+        inits.update(C.mlp_inits(f"{p}mlp_"))
+    return specs, inits
+
+
+def _vlm_group(b, cfg, h, w, rope, vis, *, decode=False, pos=None,
+               return_kv=False):
+    dh = cfg.head_dim
+    # gated cross-attention (vis: (B, T_v, D) projected vision tokens,
+    # or cached (xk, xv) in decode)
+    xn = C.apply_norm(h, w, "xln_", cfg.norm, cfg.norm_eps)
+    if decode:
+        q = C.split_heads(ops.matmul(xn, b.cast(w["x_wq"])), cfg.n_heads)
+        catt = ops.attention(q, b.cast(w["vxk"]), b.cast(w["vxv"]),
+                             causal=False, scale=1.0 / math.sqrt(dh))
+        cat_o = ops.matmul(C.merge_heads(catt), b.cast(w["x_wo"]))
+    else:
+        cat_o = C.cross_attention(b, xn, vis, w, prefix="x_",
+                                  n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                  d_head=dh)
+    h = h + ops.tanh(ops.convert(w["x_gate_attn"], h.dtype)) * cat_o
+    xn = C.apply_norm(h, w, "xln2_", cfg.norm, cfg.norm_eps)
+    h = h + ops.tanh(ops.convert(w["x_gate_ffn"], h.dtype)) * \
+        C.apply_mlp(b, xn, w, "xmlp_")
+    kvs: List[Value] = []
+    for i in range(cfg.cross_every):
+        p = f"s{i}_"
+        xn = C.apply_norm(h, w, f"{p}ln1_", cfg.norm, cfg.norm_eps)
+        att, ex = C.self_attention(
+            b, xn, w, prefix=f"{p}attn_", n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=dh, rope=rope, causal=True,
+            cache_k=w.get(f"{p}ck") if decode else None,
+            cache_v=w.get(f"{p}cv") if decode else None,
+            pos=pos, return_kv=return_kv)
+        kvs.extend(ex)
+        h = h + att
+        xn = C.apply_norm(h, w, f"{p}ln2_", cfg.norm, cfg.norm_eps)
+        h = h + C.apply_mlp(b, xn, w, f"{p}mlp_")
+    return h, kvs
+
+
+def build_vlm(cfg: ModelConfig, shape: ShapeConfig, batch: int) -> ModelGraphs:
+    b = ModelBuilder(cfg.param_dtype, cfg.compute_dtype)
+    kind = shape.kind
+    dh = cfg.head_dim
+    D = cfg.d_model
+    n_groups = cfg.n_layers // cfg.cross_every
+    specs, inits = _vlm_group_specs(cfg)
+
+    def project_vision(images: Value) -> Value:
+        wv = b.param("vision_proj/w", (cfg.vision_dim, D), ("embed", "embed"))
+        return C.constrain(ops.matmul(images, wv), ("batch", None, None))
+
+    if kind in ("train", "prefill"):
+        S = shape.seq_len
+        tokens = b.input("tokens", (batch, S))
+        labels = b.input("labels", (batch, S)) if kind == "train" else None
+        images = b.input("images", (batch, cfg.vision_tokens, cfg.vision_dim),
+                         dtype=cfg.compute_dtype, spec=("batch", None, None))
+        vis = project_vision(images)
+        h = _embed(b, cfg, tokens)
+        cos, sin = C.rope_tables(b, S, dh, cfg.rope_base)
+        want_kv = kind == "prefill"
+
+        def body(carries, w, consts):
+            hh, kvs = _vlm_group(b, cfg, carries[0], w,
+                                 (consts[0], consts[1]), consts[2],
+                                 return_kv=want_kv)
+            return [hh], kvs
+
+        (h,), ys = b.scan_blocks(
+            "groups", n_groups, specs, body, [h], consts=[cos, sin, vis],
+            n_ys=2 * cfg.cross_every if want_kv else 0, weight_inits=inits)
+        if kind == "train":
+            return ModelGraphs(cfg, kind, b.finish(
+                [_loss_result(b, cfg, h, labels)], f"{cfg.name}_train"), b, {})
+        logits = _final_logits(b, cfg, h, last_only=True)
+        names = [f"g_{i}_{t}" for i in range(cfg.cross_every)
+                 for t in ("ck", "cv")]
+        return ModelGraphs(cfg, kind, b.finish([logits] + list(ys),
+                                               f"{cfg.name}_prefill"), b,
+                           {"cache_names": names})
+
+    # decode
+    Skv = _cache_len(cfg, shape)
+    token = b.input("token", (batch, 1))
+    pos = b.input("pos", (), spec=())
+    xs_extra: Dict[str, Value] = {}
+    for i in range(cfg.cross_every):
+        xs_extra[f"s{i}_ck"] = b.input(
+            f"g_{i}_ck", (n_groups, batch, cfg.n_kv_heads, Skv, dh),
+            dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+        xs_extra[f"s{i}_cv"] = b.input(
+            f"g_{i}_cv", (n_groups, batch, cfg.n_kv_heads, Skv, dh),
+            dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    xs_extra["vxk"] = b.input(
+        "vis_k", (n_groups, batch, cfg.n_kv_heads, cfg.vision_tokens, dh),
+        dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    xs_extra["vxv"] = b.input(
+        "vis_v", (n_groups, batch, cfg.n_kv_heads, cfg.vision_tokens, dh),
+        dtype=cfg.compute_dtype, spec=CACHE_SPEC)
+    h = _embed(b, cfg, token)
+    cos, sin = C.rope_tables(b, 1, dh, cfg.rope_base, offset=pos)
+
+    def body(carries, w, consts):
+        hh, kvs = _vlm_group(b, cfg, carries[0], w, (consts[0], consts[1]),
+                             None, decode=True, pos=consts[2])
+        return [hh], kvs
+
+    (h,), ys = b.scan_blocks("groups", n_groups, specs, body, [h],
+                             consts=[cos, sin, pos], xs_extra=xs_extra,
+                             n_ys=2 * cfg.cross_every, weight_inits=inits)
+    logits = _final_logits(b, cfg, h, last_only=True)
+    names = [f"g_{i}_{t}" for i in range(cfg.cross_every)
+             for t in ("ck", "cv")]
+    return ModelGraphs(cfg, kind, b.finish([logits] + list(ys),
+                                           f"{cfg.name}_decode"), b,
+                       {"cache_names": names, "state_out_names": names})
+
+
+# =============================================================================
 # dispatch
 # =============================================================================
 _FAMILIES = {
@@ -1171,21 +1486,13 @@ _FAMILIES = {
     "mla_moe": build_mla_moe,
     "rg_hybrid": build_rg,
     "xlstm": build_xlstm,
-}
-# the families a later slice of the torch port brings, by the slice
-LATER_FAMILIES = {
-    "encdec": "the encoder-decoder slice",
-    "vlm": "the vision-language slice",
+    "encdec": build_encdec,
+    "vlm": build_vlm,
 }
 
 
 def build_graphs(cfg: ModelConfig, shape: ShapeConfig,
                  batch: Optional[int] = None) -> ModelGraphs:
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"the torch port builds the dense, moe, mla_moe, rg_hybrid and "
-            f"xlstm families so far; {cfg.name} is {cfg.family!r}, which comes with "
-            f"{LATER_FAMILIES[cfg.family]}")
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown family {cfg.family}")
     if shape.kind in ("serve", "serve_paged") and cfg.family != "dense":

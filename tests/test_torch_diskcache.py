@@ -435,9 +435,9 @@ def test_serve_cli_warm_run_hits_the_disk_and_sweeps_nothing(
     sweeps and stores, the second takes every graph from disk, re-sweeps
     nothing (``--min-disk-hits``) and serves the same tokens."""
     from repro_torch.launch import serve
-    argv = ["--reduced", "--device", "cpu", "--level", "O2", "--kernels",
-            "--requests", "2", "--prompt-len", "8", "--gen", "4",
-            "--cache-dir", str(tmp_path), "--autotune"]
+    argv = ["--reduced", "--device", "cpu", "--mode", "paged", "--level",
+            "O2", "--kernels", "--requests", "2", "--prompt-len", "8",
+            "--gen", "4", "--cache-dir", str(tmp_path), "--autotune"]
     outs = []
     for extra in ([], ["--min-disk-hits", "1"]):
         monkeypatch.setattr(Backend, "_INSTANCES", {})

@@ -440,11 +440,12 @@ def test_lockstep_tokens_match_jax(arch, level, dtype, width):
 
 @pytest.mark.parametrize("mode", ["donated", "continuous", "paged"])
 @pytest.mark.parametrize("arch", ARCHS + ("recurrentgemma-9b",
-                                          "xlstm-350m"))
+                                          "xlstm-350m", "whisper-medium",
+                                          "llama-3.2-vision-11b"))
 def test_other_modes_refuse_with_the_reference_message(arch, mode):
-    """Only lockstep serves a non-dense family (the MoE and the recurrent
-    ones), as in the reference; the other modes refuse at construction
-    with the reference's message."""
+    """Only lockstep serves a non-dense family (the MoE, the recurrent and
+    the multimodal ones), as in the reference; the other modes refuse at
+    construction with the reference's message."""
     with pytest.raises(NotImplementedError) as jerr:
         JServeEngine(j_get_config(arch).reduced(), mode=mode, slots=2,
                      max_len=16)
@@ -453,19 +454,6 @@ def test_other_modes_refuse_with_the_reference_message(arch, mode):
             mode=mode, slots=2, max_len=16, device="cpu"))
     assert str(terr.value) == str(jerr.value)
     assert "serves via mode='lockstep'" in str(terr.value)
-
-
-@pytest.mark.parametrize("mode", ["lockstep", "paged"])
-@pytest.mark.parametrize("arch,slice_", [
-    ("whisper-medium", "encoder-decoder slice"),
-    ("llama-3.2-vision-11b", "vision-language slice")])
-def test_families_not_yet_ported_name_their_slice(arch, slice_, mode):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=slice_):
-        ServeEngine(cfg, EngineConfig(mode=mode, slots=2, max_len=16,
-                                      device="cpu"))
-    with pytest.raises(NotImplementedError, match=slice_):
-        lm.build_graphs(cfg, ShapeConfig("decode", "decode", 16, 2), 2)
 
 
 # -- the reference's per-arch smoke cases ---------------------------------------
@@ -642,10 +630,79 @@ def test_serve_cli_lockstep_smoke(arch, capsys):
 
 
 def test_serve_cli_refuses_a_non_lockstep_moe_mode():
+    """An explicit ``--mode paged`` on a non-dense family is the
+    reference's ``SystemExit``, word for word (no silent fallback to a
+    mode that ignores the page and sampling flags)."""
+    from repro.launch import serve as j_serve
     from repro_torch.launch import serve
-    with pytest.raises(SystemExit, match="serves via mode='lockstep'"):
-        serve.main(["--arch", "mixtral-8x22b", "--reduced", "--device",
-                    "cpu"])
+    argv = ["--arch", "mixtral-8x22b", "--reduced", "--mode", "paged"]
+    with pytest.raises(SystemExit) as terr:
+        serve.main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit) as jerr:
+        j_serve.main(argv)
+    assert str(terr.value) == str(jerr.value)
+    assert "only serves via --mode lockstep" in str(terr.value)
+
+
+@pytest.mark.parametrize("flag", [["--temperature", "0.5"],
+                                  ["--top-k", "4"],
+                                  ["--prefill-chunk", "8"],
+                                  ["--no-prefix-sharing"]],
+                         ids=["temperature", "top_k", "prefill_chunk",
+                              "no_prefix_sharing"])
+def test_serve_cli_refuses_paged_flags_outside_paged(flag):
+    """Sampling, page, chunk and prefill flags outside paged mode are the
+    reference's clean ``SystemExit`` (the default mode, continuous, and a
+    non-dense family's lockstep fallback alike), not a traceback."""
+    from repro.launch import serve as j_serve
+    from repro_torch.launch import serve
+    for arch in ("deepseek-7b", "mixtral-8x22b"):
+        argv = ["--arch", arch, "--reduced"] + flag
+        with pytest.raises(SystemExit) as terr:
+            serve.main(argv + ["--device", "cpu"])
+        with pytest.raises(SystemExit) as jerr:
+            j_serve.main(argv)
+        assert str(terr.value) == str(jerr.value) and \
+            "--mode paged" in str(terr.value)
+
+
+def _f32_reduced(monkeypatch, *config_classes):
+    """Both packages' ``ModelConfig.reduced`` compute in f32 while open."""
+    for cls in config_classes:
+        red = cls.reduced
+        monkeypatch.setattr(cls, "reduced", lambda self, _r=red, **o:
+                            _r(self, **dict(o, compute_dtype="f32")))
+
+
+def test_serve_cli_lockstep_fallback_matches_the_reference(monkeypatch,
+                                                           capsys):
+    """``repro_torch.launch.serve --arch mixtral-8x22b --reduced`` with no
+    ``--mode``: the reference's notice, lockstep, exit 0, and the tokens
+    ``repro.launch.serve`` prints for the same flags.  In bf16 the two
+    MoE engines may split a router or logit near-tie (the module
+    docstring), so the tokens are compared in f32, where they are
+    identical; the bf16 run is held to the notice and exit code."""
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro.launch import serve as j_serve
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.launch import serve
+    argv = ["--arch", "mixtral-8x22b", "--reduced", "--batch", "2",
+            "--prompt-len", "8", "--gen", "4"]
+    notice = ("[serve] mixtral-8x22b-smoke (moe): no serve/chunk graphs "
+              "yet, falling back to --mode lockstep")
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert notice in out and "[serve:lockstep]" in out
+    _f32_reduced(monkeypatch, ModelConfig, JModelConfig)
+    outs = []
+    for main, extra in ((serve.main, ["--device", "cpu"]),
+                        (j_serve.main, [])):
+        assert main(argv + extra) == 0
+        outs.append(capsys.readouterr().out)
+    toks = [[ln for ln in o.splitlines() if ln.startswith("  req")]
+            for o in outs]
+    assert all(notice in o for o in outs)
+    assert len(toks[0]) == 2 and toks[0] == toks[1]
 
 
 def test_smoke_kernels_follow_the_family():

@@ -51,6 +51,7 @@ from repro_torch.devices import torch_dtype  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.launch.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.launch.serve import smoke_kernels  # noqa: E402
+from repro_torch.launch.train import step_data  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import recurrent as t_rg  # noqa: E402
 from repro_torch.models import train_graph as t_tg  # noqa: E402
@@ -105,10 +106,10 @@ def _cfg(get, arch=ARCH, dtype="f32", width="reduced", **over):
     return get(arch).reduced(compute_dtype=dtype, **over)
 
 
-def graphs(arch, kind, dtype, width="reduced"):
+def graphs(arch, kind, dtype, width="reduced", **over):
     """The two packages' ``kind`` graphs of ``arch`` (same signature)."""
-    jc = _cfg(j_get_config, arch, dtype, width)
-    tc = _cfg(get_config, arch, dtype, width)
+    jc = _cfg(j_get_config, arch, dtype, width, **over)
+    tc = _cfg(get_config, arch, dtype, width, **over)
     jg = j_lm.build_graphs(jc, JShapeConfig(kind, kind, S, B), B)
     tg = lm.build_graphs(tc, ShapeConfig(kind, kind, S, B), B)
     assert jg.fn.signature() == tg.fn.signature()
@@ -215,7 +216,8 @@ def long_decode_state_is_constant(arch):
 
 
 def five_train_steps(arch, level):
-    """Five f32 train steps (IR autodiff + AdamW) on SyntheticLM batches:
+    """Five f32 train steps (IR autodiff + AdamW) on SyntheticLM batches
+    (and the trainer's stubbed frames or images, ``train.step_data``):
     the port at ``level`` against the JAX backend at O1: the losses and
     the final parameters within 1e-4 of scale, each AdamW moment within
     1e-4 of its own norm, each update in norm and direction as
@@ -240,7 +242,8 @@ def five_train_steps(arch, level):
                                          use_pallas=level == "O2"))):
         flat, losses = list(start), []
         for i, bt in enumerate(batches):
-            outs = cf(bt["tokens"], bt["labels"], np.int32(i), *flat)
+            outs = cf(*step_data(tcfg, g.builder, bt, 0, i, B), np.int32(i),
+                      *flat)
             losses.append(float(np.asarray(outs[0])))
             flat = [np.asarray(o) for o in outs[1:]]
         runs.append((losses, flat))

@@ -165,7 +165,8 @@ def test_serve_cli_runs_the_paged_engine_on_cpu(tmp_path, capsys):
     import json
     from repro_torch.launch import serve
     out = tmp_path / "report.json"
-    assert serve.main(["--reduced", "--device", "cpu", "--level", "O2",
+    assert serve.main(["--reduced", "--device", "cpu", "--mode", "paged",
+                       "--level", "O2",
                        "--kernels", "--requests", "3", "--prompt-len", "9",
                        "--gen", "12", "--shared-prefix-len", "8", "--smoke",
                        "--report-json", str(out)]) == 0
