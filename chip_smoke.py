@@ -8,6 +8,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --moe-only       # phases 1-3 and 9, no result line
     python3 chip_smoke.py --recurrent-only # phases 1-3 and 10, no result line
     python3 chip_smoke.py --multimodal-only # phases 1-3 and 11, no result line
+    python3 chip_smoke.py --tp-only        # phases 1-3 and 12, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -178,8 +179,37 @@ without printing a result:
                  attention takes flash (whisper d_head 64, vlm 128,
                  gates open): the card's greedy tokens equal the CPU's.
 
-In phases 4, 5, 7, 8, 9, 10 and 11 no kernel may have been refused at
-full width, but phase 9's counted deepseek-v3 decode attention.
+ 12. tp       -- tensor-parallel paged serving (runs after phase 11, whose
+                 graphs it frees): deepseek-7b at full width, as deep as
+                 the census reckons two shards' peak under 70 GB
+                 (_reckon_tp_peak_gb), f32 parameters drawn on the card
+                 from seed 0, bf16 compute, phase 4's engine shape and six
+                 requests, two shards on the one card (an explicit mesh,
+                 make_mesh((2,), ("model",), devices=["cuda", "cuda"])).
+                 At O2 with the kernels (the main path) and at O1 with
+                 the kernels (the sharded products at local width): tp=1
+                 and tp=2, each eagerly and captured, give the same
+                 tokens bit for bit; every pool drains (pages_in_use 0,
+                 verify() clean, ref_allocs == ref_frees);
+                 kv_bytes_per_device * 2 == pool.total_bytes; the path's
+                 kernels launch (O2 the four paged ones, O1 matmul and
+                 rmsnorm), a replay's profile shows each at its counted
+                 launches, nothing refused; the partitioned chunk and
+                 64-row prefill graphs' stats equal the reference pass's
+                 on the same graphs (scripts/check_torch_parity.py
+                 --kind tp, run beside the phase in a process of its
+                 own); a cancel mid-prefill over a shared prefix moves
+                 the pool at tp=2 as at tp=1.  [tp] lines: decode tok/s,
+                 host and wall ms of a dispatch, steady decode tok/s,
+                 peak GB; [tp_profile]: a captured dispatch's device ms
+                 split into the kernels, cat (the AllGathers and the
+                 outputs' joins) and copy (the inputs' splits, the bf16
+                 converts, the pools' write-back), and the splits and
+                 joins alone by CUDA events; every launched shape held
+                 against its plain version ([tp_shapes]).
+
+In phases 4, 5, 7, 8, 9, 10, 11 and 12 no kernel may have been refused
+at full width, but phase 9's counted deepseek-v3 decode attention.
 Phase 6 and phase 8's reduced width count their refusals but do not gate
 them: the reduced vocabulary (257) is no whole number of 16-byte
 vectors, so the unembed takes the plain version there, as the
@@ -2872,6 +2902,386 @@ def phase_multimodal(report: dict, smi: str) -> None:
         held_gb=f"{held:.2f}")
 
 
+# -- 12. tensor-parallel paged serving, full width ---------------------------
+TP = 2
+TP_CARD = "cuda"           # the device both shards name
+TP_LEVELS = ("O2", "O1")   # the main path first, then local-width products
+TP_PEAK_LIMIT_GB = 70.0
+TP_NEW = 16
+# the cancel workload: a published prefix of three pages, and a request
+# that attaches them and is cancelled while it prefills the rest
+TP_BASE, TP_LONG = 48, 208
+
+
+def _tp_census(cfg, tp: int = TP) -> dict:
+    """The parameter census of phase 12's engine: all parameters (n),
+    those the tp profile shards (s), and the KV pool's elements."""
+    from repro_torch.backend.sharding import partition_profile
+    from repro_torch.core.passes import PartitionGraph
+    from repro_torch.models.lm import build_dense_chunk
+    g = build_dense_chunk(cfg, MAIN_ENGINE["max_len"], SLOTS,
+                          MAIN_ENGINE["chunk_steps"],
+                          page_size=MAIN_ENGINE["page_size"])
+    pg = PartitionGraph.from_profile(partition_profile("tp"), (tp,))
+    specs = {p.name: pg.seed_spec(p) for p in g.fn.parameters}
+    n = s = 0
+    for name, spec in g.builder.params.items():
+        size = math.prod(spec.shape)
+        n += size
+        if any(specs.get(name, ())):
+            s += size
+    pool = sum(math.prod(node.out_types[0].shape) for node in g.builder.inputs
+               if node.name not in ("token", "pos", "page_tbl",
+                                    "temperature", "top_k", "key"))
+    return {"n": n, "s": s, "pool": pool}
+
+
+def _reckon_tp_peak_gb(cfg, level: str, tp: int = TP) -> float:
+    """:func:`_reckon_peak_gb` for the shards on one card: the f32
+    parameters (n), the split copies of the sharded ones (s, one whole
+    copy across the shards), every shard's bf16 converts (its half of
+    each sharded weight, all of each replicated one), at O2 the gathered
+    bf16 weights (the shards on one card share each AllGather's output),
+    and the bf16 pool four times over (the pool, its split, the join and
+    the tokens' caches)."""
+    c = _tp_census(cfg, tp)
+    n, s, pool = c["n"], c["s"], c["pool"]
+    r = n - s
+    total = 4 * n + 4 * s + 2 * (r * tp + s) + 2 * 4 * pool
+    if level == "O2":
+        total += 2 * s
+    return total / 1e9
+
+
+def _tp_config():
+    """(config, the reckoned O2 peak GB, why this depth): deepseek-7b at
+    full width, as deep as :func:`_reckon_tp_peak_gb` stays under
+    :data:`TP_PEAK_LIMIT_GB` at O2 (30 layers at most)."""
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-7b")
+    depth = full.n_layers
+    while depth > 2:
+        cfg = dataclasses.replace(full, n_layers=depth)
+        gb = _reckon_tp_peak_gb(cfg, "O2")
+        if gb < TP_PEAK_LIMIT_GB:
+            break
+        depth -= 1
+    why = ("full depth" if depth == full.n_layers else
+           f"{full.n_layers} layers reckoned over {TP_PEAK_LIMIT_GB} GB")
+    return cfg, gb, why
+
+
+def _tp_partition_reference(cfg):
+    """Start ``scripts/check_torch_parity.py --kind tp`` on phase 12's
+    graphs (full width, ``cfg``'s depth, the engine's shape) in a
+    process of its own: it partitions them with the reference's pass and
+    with the port's (numpy only, no device) and writes both stats."""
+    out = os.path.join(ROOT, "build", "tp_partition_stats.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    cmd = [sys.executable, os.path.join(ROOT, "scripts",
+                                        "check_torch_parity.py"),
+           "--kind", "tp", "--tp", str(TP), "--tp-width", "full",
+           "--layers", str(cfg.n_layers), "--slots", str(SLOTS),
+           "--max-len", str(MAIN_ENGINE["max_len"]),
+           "--page-size", str(MAIN_ENGINE["page_size"]),
+           "--chunk-steps", str(MAIN_ENGINE["chunk_steps"]),
+           "--prefill-chunk", str(CHUNK), "--json", out]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    return proc, out
+
+
+def _tp_reference_stats(proc, out) -> dict:
+    try:
+        log, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0 and os.path.exists(out),
+            f"check_torch_parity.py --kind tp: rc {proc.returncode}: "
+            f"{log[-2000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _tp_engine(cfg, params, level: str, tp: int, static_jit: bool):
+    """Phase 4's paged engine shape at ``level`` over ``tp`` shards that
+    share the card (an explicit mesh), or unsharded at tp=1."""
+    from repro_torch.backend import CompileOptions
+    from repro_torch.backend.sharding import make_mesh
+    from repro_torch.launch.engine import EngineConfig, ServeEngine
+    opts = dict(level=level, use_pallas=True, static_jit=static_jit)
+    if tp > 1:
+        opts["mesh"] = make_mesh((tp,), ("model",), devices=[TP_CARD] * tp)
+    return ServeEngine(cfg, EngineConfig(params=params, tp=tp,
+                                         **MAIN_ENGINE),
+                       options=CompileOptions(**opts))
+
+
+def _tp_serve(cfg, params, prompts, level, tp, static_jit):
+    """Phase 4's six requests on a fresh engine, drained; returns
+    (engine, report, counters of the run, peak GB, tokens).  The caller
+    holds no earlier engine nor any of its compiled functions, whose
+    captured graphs keep their memory pools."""
+    from repro_torch import kernels
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _tp_engine(cfg, params, level, tp, static_jit)
+    what = f"tp={tp} {level} {'captured' if static_jit else 'eager'}"
+    kernels.reset_counters()
+    rids = [eng.submit(p, TP_NEW) for p in prompts]
+    try:
+        rep = eng.run()
+    except RuntimeError as exc:   # a contained step failure halted it
+        errors = {r: eng._requests[r].error for r in rids}
+        raise AssertionError(f"{what}: {exc}; the requests' errors: "
+                             f"{errors}") from exc
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for r in rids:
+        toks = rep.results[r]
+        require(rep.statuses[r] == "completed" and len(toks) == TP_NEW
+                and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+                f"{what}: request {r}: {rep.statuses[r]} "
+                f"{rep.errors.get(r)} {toks}")
+    _require_drained(what, eng, rep)
+    require(rep.pool.shared_attaches > 0, f"{what}: no prefix page shared")
+    require(rep.tp == tp and rep.kv_bytes_per_device * tp
+            == eng.pool.total_bytes, f"{what}: kv_bytes_per_device "
+            f"{rep.kv_bytes_per_device} x {tp} != {eng.pool.total_bytes}")
+    return eng, rep, counts, peak, [rep.results[r].tolist() for r in rids]
+
+
+def _require_drained(what, eng, rep) -> None:
+    p = rep.pool
+    require(p.pages_in_use == 0 and p.ref_allocs == p.ref_frees
+            and p.page_allocs == p.page_frees,
+            f"{what}: pool not drained: {p}")
+    problems = eng.pool.verify()
+    require(problems == [], f"{what}: pool.verify(): {problems}")
+
+
+def _tp_cancel(eng, cfg) -> tuple:
+    """A request that attaches a published three-page prefix and is
+    cancelled while it prefills the rest; returns (the publisher's
+    tokens, the pool's sharing and page counts).  The engine drains."""
+    rng = np.random.default_rng(21)
+    base = rng.integers(0, cfg.vocab, TP_BASE).astype(np.int32)
+    longp = np.concatenate([base, rng.integers(
+        0, cfg.vocab, TP_LONG - TP_BASE).astype(np.int32)])
+    before = eng.pool.stats()
+    rp = eng.submit(base, TP_NEW)
+    rl = eng.submit(longp, 4)
+    for _ in range(8):
+        eng.step()
+        req = eng._requests[rl]
+        if req.prefill_pos is not None and req.prefill_pos > TP_BASE:
+            break
+    require(eng._requests[rl].prefill_pos is not None,
+            "cancel: the sharer is not mid-prefill")
+    require(eng.cancel(rl, "phase 12") is True, "cancel: refused")
+    rep = eng.run()
+    require(rep.statuses[rl] == "cancelled"
+            and rep.statuses[rp] == "completed",
+            f"cancel: statuses {rep.statuses[rl]} {rep.statuses[rp]}")
+    _require_drained("cancel", eng, rep)
+    p = rep.pool
+    moved = tuple(getattr(p, k) - getattr(before, k)
+                  for k in ("shared_attaches", "cow_copies", "page_allocs",
+                            "page_frees"))
+    require(moved[0] > 0, f"cancel: no prefix page was attached ({p})")
+    return rep.results[rp].tolist(), moved
+
+
+def _tp_dispatch_split(eng) -> dict:
+    """The device time of one captured decode dispatch (phase 4's
+    ``_dispatch_profile``) split by kernel: the port's kernels, ``cat``
+    (the AllGathers and the outputs' joins), ``copy`` (the inputs'
+    splits, the bf16 converts and the donated pools' write-back) and the
+    rest; and the splits and joins alone, timed with CUDA events
+    outside the graph on the dispatch's own inputs."""
+    from repro_torch.backend.sharded import ShardLayout, graph_specs
+    from repro_torch.devices import to_numpy
+
+    def dispatch():
+        return eng.cf.raw(eng._tok, eng._pos, eng.pool.page_table,
+                          eng._temp, eng._topk, eng._key,
+                          *eng.pool.buffers, *eng.tparams)
+
+    torch.cuda.synchronize()
+    rows, union, ours, edges = _profile(lambda: to_numpy(dispatch()[0]))
+    split = {"kernels": 0.0, "cat": 0.0, "copy": 0.0, "other": 0.0}
+    for ms, _, key in rows:
+        if _port_kernel(key) is not None:
+            split["kernels"] += ms
+        elif "CatArray" in key:
+            split["cat"] += ms
+        elif "copy" in key.lower():
+            split["copy"] += ms
+        else:
+            split["other"] += ms
+    out = {k: round(v, 3) for k, v in split.items()}
+    out["busy_ms"] = round(sum(r[0] for r in rows), 3)
+    out["union_ms"] = (round(union / 1e3, 3) if union is not None
+                       else "not measured")
+    out["ours"] = {k: [round(v[0], 3), v[1]] for k, v in ours.items()}
+    out["edges"] = edges
+    mesh = eng.base_options.mesh
+    if mesh is not None:
+        lay = ShardLayout(mesh)
+        args = [eng._tok, eng._pos, eng.pool.page_table, eng._temp,
+                eng._topk, eng._key, *eng.pool.buffers, *eng.tparams]
+        ts = [a if isinstance(a, torch.Tensor) else
+              torch.as_tensor(a, device=eng.device) for a in args]
+        specs, _ = graph_specs(eng.cf.function)
+
+        def splits():
+            return [lay.split(t, sp) for t, sp in zip(ts, specs)]
+
+        # the joined outputs are the pools, in their inputs' specs
+        first = 6
+        pools = [(lay.split(t, sp), sp) for t, sp in zip(
+            ts[first:first + len(eng.pool.buffers)],
+            specs[first:first + len(eng.pool.buffers)])]
+
+        def joins():
+            return [lay.join(pc, sp, eng.device) for pc, sp in pools]
+
+        flush = torch.empty(128 << 20, dtype=torch.float32,
+                            device=eng.device)
+        out["split_ms"] = round(_events_ms(splits, 5, flush), 3)
+        out["join_ms"] = round(_events_ms(joins, 5, flush), 3)
+        del pools, flush
+    return out
+
+
+def phase_tp(report: dict, smi: str) -> None:
+    """Tensor-parallel paged serving of full-width deepseek-7b over two
+    shards on the one card (``make_mesh((2,), ("model",),
+    devices=[cuda:0, cuda:0])``), f32 parameters drawn on the card from
+    seed 0, bf16 compute, the depth :func:`_tp_config` settles.  At each
+    level of :data:`TP_LEVELS` (O2 with the kernels, the main path; O1
+    with the kernels, where the sharded products run at local width):
+    phase 4's six requests at tp=1 and at tp=2, each eagerly and
+    captured: the same tokens bit for bit, every pool drained
+    (``pages_in_use`` 0, ``verify()`` clean, ``ref_allocs ==
+    ref_frees``), ``kv_bytes_per_device * 2 == pool.total_bytes``, the
+    path's kernels launched and none refused; the partitioned graphs'
+    stats equal the reference's (``check_torch_parity.py --kind tp`` on
+    the same graphs); a cancel mid-prefill over a shared prefix moves
+    the pool at tp=2 as at tp=1, and the publisher's tokens agree; a
+    captured decode dispatch's device time split (kernels, gathers and
+    joins, splits and converts), host ms and steady decode tok/s at tp=1
+    and tp=2.  Every distinct shape the runs gave a kernel is held
+    against its plain version."""
+    from repro_torch.models.weights import init_params_on_device
+    from repro_torch.models.lm import build_dense_chunk
+
+    held = _free_card()
+    cfg, reckoned, why = _tp_config()
+    ref_proc, ref_out = _tp_partition_reference(cfg)
+    t0 = time.perf_counter()
+    builder = build_dense_chunk(cfg, 256, SLOTS, 4, page_size=16).builder
+    params = init_params_on_device(builder, 0, TP_CARD)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+    prompts = _prompts(cfg.vocab, (17, 33, 48, 64, 81, 100), 32)
+    need = {"O2": PAGED_KERNELS, "O1": ("matmul", "rmsnorm")}
+    reference = None
+    shapes = contextlib.ExitStack()
+    seen = shapes.enter_context(_launched_shapes({}))
+    for level in TP_LEVELS:
+        tokens, lines = {}, {}
+        for tp, sj in ((1, False), (1, True), (TP, False), (TP, True)):
+            what = f"tp={tp} {'captured' if sj else 'eager'}"
+            eng, rep, counts, peak, toks = _tp_serve(cfg, params, prompts,
+                                                     level, tp, sj)
+            tokens[what] = toks
+            phase = f"tp{tp}_{level}_{'captured' if sj else 'eager'}"
+            _record_launches(report, phase, counts, need[level],
+                             main=(tp == TP and sj))
+            line = dict(level=level, tp=tp,
+                        dispatch="captured" if sj else "eager",
+                        decode_tok_s=f"{rep.decode_tok_s:.2f}",
+                        wall_s=f"{rep.wall_seconds:.2f}",
+                        decode_dispatches=rep.steps,
+                        kv_bytes_per_device=rep.kv_bytes_per_device,
+                        pool_bytes=eng.pool.total_bytes,
+                        peak_gb=f"{peak:.2f}",
+                        launches=json.dumps({k: v["launches"]
+                                             for k, v in counts.items()}))
+            if tp == TP:
+                st = dict(eng.cf.report.stats["partition"])
+                require(CHUNK in eng._pf_chunks,
+                        f"{what}: no {CHUNK}-row prefill")
+                lines["stats"] = {"paged_chunk": st, "paged_prefill": dict(
+                    eng._pf_chunks[CHUNK][1].report.stats["partition"])}
+                line["partition"] = json.dumps(st)
+            disp = _dispatch_profile(eng)
+            line.update(dispatch_host_ms=f"{disp['host_ms']:.2f}",
+                        dispatch_wall_ms=f"{disp['wall_ms']:.2f}",
+                        steady_decode_tok_s=(
+                            f"{SLOTS * 4 / disp['wall_ms'] * 1e3:.2f}"),
+                        reserved_gb=(
+                            f"{torch.cuda.max_memory_reserved() / 1e9:.2f}"))
+            if sj:
+                require(eng.cf.raw.captured,
+                        f"{what}: the chunk never captured")
+                per_replay = _per_replay(eng.cf.raw)
+                for name in need[level]:
+                    want = per_replay[name] * KERNEL_FUNCS[name][1]
+                    got = disp["ours"].get(name, [0.0, 0])[1]
+                    require(got == want, f"{what} {level}: {name}: {got} "
+                            f"device kernels in a replay's profile, the "
+                            f"counters say {per_replay[name]} calls")
+                line["launches_per_replay"] = json.dumps(per_replay)
+                split = _tp_dispatch_split(eng)
+                say("tp_profile", level=level, tp=tp,
+                    dispatch=f"decode chunk (4 steps x {cfg.n_layers} "
+                    f"layers), captured", **{k: (json.dumps(v)
+                                                 if isinstance(v, dict)
+                                                 else v)
+                                             for k, v in split.items()},
+                    card=repr(smi))
+                lines[tp] = _tp_cancel(eng, cfg)
+            say("tp", **line, card=repr(smi))
+            del eng
+        base = tokens["tp=1 eager"]
+        for what, toks in tokens.items():
+            require(toks == base, f"{level}: {what} tokens differ from "
+                    f"tp=1 eager: {toks} vs {base}")
+        require(lines[TP] == lines[1], f"{level}: cancel at tp={TP} "
+                f"{lines[TP]} vs tp=1 {lines[1]}")
+        if reference is None:
+            reference = _tp_reference_stats(ref_proc, ref_out)
+            require(not reference["errors"] and reference["layers"]
+                    == cfg.n_layers, f"tp reference: {reference}")
+        for kind, st in lines["stats"].items():
+            ref = reference["graphs"][f"{kind}/{level}"]
+            require(ref["signature_equal"] and st == ref["reference"],
+                    f"{level} {kind}: partition stats {st}, the "
+                    f"reference's {ref['reference']}")
+        say("tp", level=level, tp2_vs_tp1="bitwise",
+            captured_vs_eager="bitwise", cancel=json.dumps(lines[TP]),
+            partition_vs_reference="equal",
+            stats=json.dumps(lines["stats"]))
+    shapes.close()
+    del params
+    held = _free_card()
+    by_kernel = _hold_launched(seen, "deepseek-7b tp")
+    say("tp_shapes", held=sum(by_kernel.values()),
+        by_kernel=json.dumps(by_kernel), card=repr(smi))
+    say("tp", model=cfg.name, layers=cfg.n_layers, depth=repr(why),
+        reckoned_peak_gb=f"{reckoned:.2f}", params_gb=f"{gb:.2f}",
+        init_s=f"{t_init:.2f}", result="ok", held_gb=f"{held:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -2894,6 +3304,9 @@ def main() -> int:
     if "--multimodal-only" in sys.argv[1:]:
         phase_multimodal(report, smi)
         return 0    # phase 11 alone: no result line
+    if "--tp-only" in sys.argv[1:]:
+        phase_tp(report, smi)
+        return 0    # phase 12 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -2904,6 +3317,7 @@ def main() -> int:
     phase_moe(report, smi)
     phase_recurrent(report, smi)
     phase_multimodal(report, smi)
+    phase_tp(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

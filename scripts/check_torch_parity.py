@@ -48,11 +48,27 @@ versions on the CPU).  The gate fails unless
     whisper's norms are LayerNorms and its MLP GeLU, so it runs matmul
     and, at d_head 128, flash only: ``serve.smoke_kernels``).
 
+The ``tp`` kind (``--kind tp``, and part of ``--kind all``, the
+default) holds the port's partition pass to the reference's: the paged
+decode chunk and the paged prefill chunk of deepseek-7b, optimized at O1
+and at O2 (the fusion gates on) with the ``tp`` profile's
+PartitionGraph last, must give the same structural signature and the
+same pass stats (params sharded, AllGathers, AllReduces, Scan bodies)
+in both packages.  It runs the reference's pass directly, from the
+port's ``partition_profile("tp")`` (the tests hold the two profiles
+equal), so it imports no jax and needs no devices.  ``--tp-width full``
+builds the graphs at deepseek-7b's full width (``--layers`` deep, the
+``--slots``/``--max-len``/``--page-size``/``--chunk-steps``/
+``--prefill-chunk`` of the engine) and ``--json FILE`` writes the
+reference's stats and the port's for each graph and level, which
+``chip_smoke.py`` phase 12 reads.
+
 Run (the port's device defaults to the card):
 
     PYTHONPATH=src python scripts/check_torch_parity.py --device cpu
     PYTHONPATH=src python scripts/check_torch_parity.py --device cpu \
         --width dh128
+    PYTHONPATH=src python scripts/check_torch_parity.py --kind tp
 """
 from __future__ import annotations
 
@@ -286,8 +302,127 @@ def compare_train_state(where, given, ref, outs, dtype, errors):
                               f"norm (tol {tol})")
 
 
+TP_KINDS = ("paged_chunk", "paged_prefill")
+TP_LEVELS = ("O1", "O2")
+FUSE_ALL = {"swiglu": True, "norm_matmul": True, "rotary_qkv": True}
+
+
+def tp_graphs(lm, cfg, shape: dict) -> dict:
+    """The paged chunk and paged prefill graphs of ``shape`` built by the
+    package whose ``models.lm`` is ``lm``."""
+    mp = -(-shape["max_len"] // shape["page_size"])
+    n_pages = 1 + shape["slots"] * mp
+    return {
+        "paged_chunk": lm.build_dense_chunk(
+            cfg, shape["max_len"], shape["slots"], shape["chunk_steps"],
+            page_size=shape["page_size"], n_pages=n_pages).fn,
+        "paged_prefill": lm.build_dense_paged_prefill(
+            cfg, shape["max_len"], shape["prefill_chunk"],
+            page_size=shape["page_size"], n_pages=n_pages).fn}
+
+
+def tp_partition_stats(tp: int, cfgs, shape: dict, errors: List[str]
+                       ) -> dict:
+    """``{"<kind>/<level>": {"reference": stats, "port": stats,
+    "signature_equal": bool}}`` of each tp graph, partitioned over ``tp``
+    shards by both packages' PartitionGraph with the port's ``tp``
+    profile; a signature or stats mismatch is added to ``errors``."""
+    from repro.core.passes import PartitionGraph as JPartitionGraph
+    from repro.core.passes import run_pipeline as j_run_pipeline
+    from repro.models import lm as j_lm
+    from repro_torch.backend.sharding import partition_profile
+    from repro_torch.core.passes import PartitionGraph, run_pipeline
+    from repro_torch.models import lm as t_lm
+
+    prof = partition_profile("tp")
+    sizes = prof.axis_sizes((tp,))
+    jcfg, tcfg = cfgs
+    jgs, tgs = tp_graphs(j_lm, jcfg, shape), tp_graphs(t_lm, tcfg, shape)
+    out = {}
+    for kind in TP_KINDS:
+        for level in TP_LEVELS:
+            where = f"tp={tp} {kind} {level}"
+            jfn, jrep = j_run_pipeline(
+                jgs[kind], level, fuse=FUSE_ALL,
+                partition=JPartitionGraph(prof.rules, sizes,
+                                          prof.last_dim_only, prof.anywhere))
+            tfn, trep = run_pipeline(
+                tgs[kind], level, fuse=FUSE_ALL,
+                partition=PartitionGraph.from_profile(prof, (tp,)))
+            ref = dict(jrep.stats["partition"])
+            got = dict(trep.stats["partition"])
+            same = jfn.signature() == tfn.signature()
+            if not same:
+                errors.append(f"{where}: the partitioned graphs differ")
+            if got != ref:
+                errors.append(f"{where}: partition stats {got}, the "
+                              f"reference's {ref}")
+            out[f"{kind}/{level}"] = {"reference": ref, "port": got,
+                                      "signature_equal": same}
+            print(f"{where}: signature {'equal' if same else 'DIFFERS'}, "
+                  f"stats {got} (reference {ref})")
+    return out
+
+
+def main_tp(args) -> int:
+    import dataclasses
+    import json
+
+    from repro.configs import get_config as j_get_config
+    from repro_torch.configs import get_config
+
+    if args.tp_width == "full":
+        cfgs = tuple(dataclasses.replace(g("deepseek-7b"),
+                                         n_layers=args.layers)
+                     for g in (j_get_config, get_config))
+        shape = dict(slots=args.slots, max_len=args.max_len,
+                     page_size=args.page_size, chunk_steps=args.chunk_steps,
+                     prefill_chunk=args.prefill_chunk)
+    else:
+        cfgs = tuple(g("deepseek-7b").reduced()
+                     for g in (j_get_config, get_config))
+        shape = dict(slots=BATCH, max_len=PAGED_MAX_LEN,
+                     page_size=PAGE_SIZE, chunk_steps=STEPS,
+                     prefill_chunk=CHUNK)
+    errors: List[str] = []
+    out = tp_partition_stats(args.tp, cfgs, shape, errors)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"tp": args.tp, "width": args.tp_width,
+                       "layers": cfgs[1].n_layers, "shape": shape,
+                       "graphs": out, "errors": errors}, f, indent=1)
+    if errors:
+        for e in errors:
+            print(f"PARITY FAIL: {e}", file=sys.stderr)
+        return 1
+    print(f"torch tp parity ok (tp={args.tp}, {args.tp_width} width): the "
+          f"partitioned paged graphs' signatures and stats equal the "
+          f"reference's at O1 and O2")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kind", choices=("all", "graphs", "tp"),
+                    default="all",
+                    help="graphs: every graph kind against JAX; tp: the "
+                         "partition pass against the reference's; all: "
+                         "both")
+    ap.add_argument("--tp", type=int, default=2,
+                    help="tp kind: shards of the partition")
+    ap.add_argument("--tp-width", choices=("reduced", "full"),
+                    default="reduced",
+                    help="tp kind: reduced deepseek-7b at this script's "
+                         "paged shapes, or full width at the engine "
+                         "shape the flags below give")
+    ap.add_argument("--layers", type=int, default=30)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--chunk-steps", type=int, default=4)
+    ap.add_argument("--prefill-chunk", type=int, default=64)
+    ap.add_argument("--json", metavar="FILE", default=None,
+                    help="tp kind: write the stats here")
     ap.add_argument("--device", default="cuda",
                     help="the torch side's device: 'cuda', 'cuda:i' or "
                          "'cpu' (default: the card)")
@@ -296,6 +431,10 @@ def main(argv=None) -> int:
                          "128 (d_model 256, 2 heads), where the flash "
                          "kernel carries the Attention op")
     args = ap.parse_args(argv)
+    if args.kind == "tp":
+        return main_tp(args)
+    if args.kind == "all" and main_tp(args):
+        return 1
 
     from repro.backend import Backend as JBackend
     from repro.backend import CompileOptions as JOptions

@@ -12,8 +12,10 @@
 ``CompileOptions(cache_dir=...)`` (or ``$REPRO_CACHE_DIR``) persists the
 optimized graphs on disk (:mod:`.diskcache`), so a cold process skips
 the pass pipeline; ``autotune=True`` resolves the attention and fusion
-knobs from a recorded sweep (:mod:`.autotune`).  Graph partitioning and
-gradient compression are refused with a clear error (``OptionsError``).
+knobs from a recorded sweep (:mod:`.autotune`).
+``CompileOptions(mode="shardmap", partition="tp", mesh_shape=(N,))``
+partitions a graph and runs its N shards in one process
+(:mod:`.sharding`, :mod:`.sharded`).
 """
 from .base import (Backend, CacheStats, available_backends,  # noqa: F401
                    register_backend)

@@ -111,10 +111,7 @@ class Backend:
         :class:`~repro_torch.backend.diskcache.DiskCompileCache` before
         running the pass pipeline: a disk hit rehydrates the optimized
         graph + PipelineReport + metadata and only re-runs backend
-        codegen.  Graph partitioning and gradient compression
-        (``partition``/``mesh_shape``, ``compress_grads``) come with the
-        tensor-parallel slice of the torch port and are rejected here
-        with a clear error."""
+        codegen."""
         if options is None:
             options = CompileOptions()
         if not isinstance(options, CompileOptions):
@@ -128,7 +125,6 @@ class Backend:
             raise OptionsError(
                 f"donate_argnums {bad} out of range for {fn.name} "
                 f"({n_params} parameters)")
-        _reject_later_slices(options)
         if options.autotune:
             from . import autotune as _autotune
             options = _autotune.resolve(self, fn, options)
@@ -178,10 +174,11 @@ class Backend:
                 disk.hits -= 1
                 disk.misses += 1
         opt_fn, report = run_pipeline(
-            fn, level,
+            fn, level, compress_grads=options.compress_grads,
             fuse={"swiglu": options.fuse_swiglu,
                   "norm_matmul": options.fuse_norm_matmul,
-                  "rotary_qkv": options.fuse_rotary_qkv})
+                  "rotary_qkv": options.fuse_rotary_qkv},
+            partition=self._partition_pass(options))
         call, raw, lower = self._codegen(opt_fn, options)
         compiled = CompiledFunction(
             opt_fn, call, backend=self.name, options=options,
@@ -192,6 +189,23 @@ class Backend:
                 backend_name=self.name, options=options,
                 memory_plan=compiled.memory_plan, cost=compiled.cost)
         return compiled
+
+    def _partition_pass(self, options: CompileOptions):
+        """The configured PartitionGraph pass for these options (None when
+        not partitioning).  ``mode='shardmap'`` cuts the graph explicitly;
+        ``mode='pjit'`` leaves partitioning to GSPMD via the policy's
+        shardings, so no pass runs there."""
+        if options.partition is None or options.mode != "shardmap":
+            return None
+        from ..core.passes import PartitionGraph
+        from .sharding import mesh_axis_sizes, partition_profile
+        profile = partition_profile(options.partition)
+        if options.mesh_shape is not None:
+            sizes = profile.axis_sizes(options.mesh_shape)
+        else:
+            sizes = {a: n for a, n in mesh_axis_sizes(options.mesh).items()
+                     if a in profile.axes}
+        return PartitionGraph.from_profile_sizes(profile, sizes)
 
     def _from_entry(self, entry: Dict, options: CompileOptions,
                     signature: str) -> Optional[CompiledFunction]:
@@ -271,18 +285,6 @@ class Backend:
             self.autotune_hits = 0
             self.autotune_sweeps = 0
             self._disk_caches.clear()
-
-
-def _reject_later_slices(options: CompileOptions) -> None:
-    """The options whose machinery the torch port has not ported yet."""
-    later = {"partition": options.partition is not None,
-             "mesh_shape": options.mesh_shape is not None,
-             "compress_grads": options.compress_grads}
-    bad = sorted(k for k, v in later.items() if v)
-    if bad:
-        raise OptionsError(
-            f"{bad}: graph partitioning and gradient compression come "
-            f"with the tensor-parallel slice of the torch port")
 
 
 def register_backend(backend_cls: Type[Backend]) -> Type[Backend]:

@@ -40,10 +40,10 @@ class CompileOptions:
 
     # jax emission / partitioning
     mode: str = "jit"                    # 'jit' | 'shardmap' | 'pjit'
-    mesh: Any = None                     # jax Mesh (pjit mode)
+    mesh: Any = None                     # sharding.DeviceMesh
     axis_rules: Any = None               # logical axis -> mesh axes
     # graph partitioning: `partition` names a profile from
-    # repro.backend.sharding (e.g. 'tp'); with mode='shardmap' the
+    # backend.sharding (e.g. 'tp'); with mode='shardmap' the
     # PartitionGraph pass cuts the graph and inserts explicit collective
     # nodes, with mode='pjit' the profile's policy derives in_shardings/
     # axis_rules so callers never hand-build them.  `mesh_shape` sizes
@@ -103,9 +103,18 @@ class CompileOptions:
         if self.mode == "pjit" and not self.static_jit:
             raise OptionsError("mode='pjit' requires static_jit=True")
         if self.partition is not None:
-            raise OptionsError(
-                f"partition={self.partition!r}: graph partitioning comes "
-                f"with the tensor-parallel slice of the torch port")
+            from .sharding import PARTITION_PROFILES
+            if self.partition not in PARTITION_PROFILES:
+                raise OptionsError(
+                    f"partition must be one of {PARTITION_PROFILES} or "
+                    f"None, got {self.partition!r}")
+            if self.mode == "jit":
+                raise OptionsError(
+                    "partition requires mode='shardmap' (explicit "
+                    "collectives) or mode='pjit' (GSPMD)")
+            if self.mesh is None and self.mesh_shape is None:
+                raise OptionsError(
+                    "partition requires a mesh or mesh_shape")
         if self.mesh_shape is not None:
             try:
                 shape = tuple(int(s) for s in self.mesh_shape)
@@ -164,7 +173,7 @@ class CompileOptions:
         in-process, which is meaningless across processes — options
         carrying any return ``None``, meaning "not disk-cacheable".
         Meshes are the exception: a mesh is identified by its axis
-        names, shape, and device kind, all process-stable, so
+        names, shape, and devices, all process-stable, so
         shardmap/tp compiles hit the disk cache and warm replicas skip
         the pipeline."""
         out = []
@@ -215,16 +224,18 @@ def _stable_token(v: Any):
 
 
 def _mesh_token(v: Any):
-    """A process-stable token for a jax Mesh (duck-typed so options never
-    import jax): (axis names, mesh shape, device kinds)."""
+    """A process-stable token for a mesh (duck-typed, a
+    :class:`~repro_torch.backend.sharding.DeviceMesh`): (axis names, mesh
+    shape, the devices in mesh order).  Shards that share one card and
+    shards on cards of their own run differently, so the devices key in
+    order; the card's product name is in the backend's key already."""
     axis_names = getattr(v, "axis_names", None)
     devices = getattr(v, "devices", None)
     if axis_names is None or devices is None or not hasattr(devices, "shape"):
         return None
     try:
-        kinds = tuple(sorted({f"{d.platform}:{d.device_kind}"
-                              for d in devices.flat}))
         return ("mesh", tuple(str(a) for a in axis_names),
-                tuple(int(s) for s in devices.shape), kinds)
+                tuple(int(s) for s in devices.shape),
+                tuple(str(d) for d in devices.flat))
     except Exception:
         return None

@@ -25,6 +25,13 @@ written.  On the CPU, or with
 ``donate_argnums`` means "may reuse": the program drops every value
 after its last use, so a donated input the caller no longer references
 is free for the allocator to reuse within the dispatch.
+
+``CompileOptions(mode="shardmap", partition="tp", mesh_shape=(N,))``
+runs the PartitionGraph pass last in the pipeline and the partitioned
+graph through the shard executor (:mod:`.sharded`) over a mesh of N
+shards (:func:`.sharding.mesh_for_options`; ``mesh=`` names the devices,
+e.g. two shards on one card).  Callers pass and receive global tensors.
+A mesh on the backend's own device is captured whole like any program.
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ from . import diskcache
 from .base import Backend, register_backend
 from .graphed import GraphedProgram, pair_donations
 from .options import CompileOptions, OptionsError
+from .sharded import ShardedProgram
+from .sharding import mesh_for_options
 
 
 @register_backend
@@ -81,27 +90,39 @@ class TorchBackend(Backend):
 
     def _codegen(self, fn: Function, options: CompileOptions
                  ) -> Tuple[Callable, Optional[Callable], Optional[Callable]]:
-        if options.mode != "jit":
+        if options.mode == "pjit":
             raise OptionsError(
-                f"mode={options.mode!r}: sharded execution comes with the "
-                f"tensor-parallel slice of the torch port")
-        ctx = EmitCtx(self.device, use_pallas=options.use_pallas,
-                      attn_impl=options.attn_impl,
-                      attn_chunk=options.attn_chunk)
-        run = emit_callable(fn, ctx)
+                "mode='pjit' (GSPMD partitioning from shardings) has no "
+                "torch counterpart; partitioned graphs run through "
+                "mode='shardmap'")
+
+        def ctx_for(device):
+            return EmitCtx(device, use_pallas=options.use_pallas,
+                           attn_impl=options.attn_impl,
+                           attn_chunk=options.attn_chunk, mode=options.mode)
+
         dev = self.device
-        if dev.type == "cuda" and options.static_jit:
+        mesh = self._shardmap_mesh(fn, options)
+        if mesh is None:
+            run = emit_callable(fn, ctx_for(dev))
+            in_types, out_types = fn.in_types, fn.out_types
+            one_stream = True
+        else:
+            run = ShardedProgram(fn, mesh, ctx_for, home=dev)
+            in_types, out_types = run.in_types, run.out_types
+            one_stream = all(d == dev for d in run.layout.devices)
+        if dev.type == "cuda" and options.static_jit and one_stream:
             with self._lock:
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
                     self._capture_stream = torch.cuda.Stream(dev)
             run = GraphedProgram(
-                run, name=fn.name, device=dev, in_types=fn.in_types,
-                out_types=fn.out_types,
+                run, name=fn.name, device=dev, in_types=in_types,
+                out_types=out_types,
                 donate_argnums=options.donate_argnums,
                 pool=self._graph_pool, stream=self._capture_stream)
         else:
-            run.donation = pair_donations(fn.in_types, fn.out_types,
+            run.donation = pair_donations(in_types, out_types,
                                           options.donate_argnums)
 
         def call(*args):
@@ -111,3 +132,16 @@ class TorchBackend(Backend):
             return [to_numpy(o) for o in outs]
 
         return call, run, None
+
+    def _shardmap_mesh(self, fn: Function, options: CompileOptions):
+        """The mesh to run a partitioned graph over, or None.
+
+        Active only when the PartitionGraph pass actually ran (parameters
+        carry ``pspec`` attrs): plain ``mode='shardmap'`` compiles with
+        hand-written collectives are left alone (run them through
+        :func:`.sharded.shard_map`)."""
+        if options.mode != "shardmap":
+            return None
+        if not any("pspec" in p.attrs for p in fn.parameters):
+            return None
+        return mesh_for_options(options, self.device)

@@ -48,8 +48,19 @@ buffers in place.
 
 The multimodal families' prefill reads stubbed frames or images (as the
 reference's does) and weights the decode graph does not declare: the
-encoder's, the vision projection's.  ``tp > 1`` comes with a later slice
-of the port.
+encoder's, the vision projection's.
+
+``EngineConfig(mode="paged", tp=N)`` compiles the paged chunk and
+prefill graphs partitioned (``CompileOptions(mode="shardmap",
+partition="tp", mesh_shape=(N,))``): each shard holds ``n_kv_heads/N``
+heads of every KV page, the page tables stay replicated on the host,
+and greedy decode is token-identical to ``tp=1``.  The pool stays one
+global tensor per cache on the engine's device; the shard executor
+(:mod:`repro_torch.backend.sharded`) splits it per dispatch and writes
+the joined outputs back.  ``device="cpu"`` runs the N shards on the CPU;
+on the card a mesh needs N cards unless ``options.mesh`` names the
+devices (``make_mesh((2,), ("model",), devices=["cuda:0"] * 2)`` puts
+both shards on one).
 """
 from __future__ import annotations
 
@@ -98,8 +109,11 @@ class EngineConfig:
     in the engine, which holds the ModelConfig.
 
     ``device`` pins every graph and the KV pool to one device (None =
-    the card, ``"cpu"`` = the CPU).  ``params`` optionally supplies the
-    weights (name -> numpy array or tensor, e.g. from
+    the card, ``"cpu"`` = the CPU).  With ``tp > 1`` a bare device type
+    (``"cpu"``, ``"cuda"``) names the type the mesh is built over, not a
+    pin; an indexed pin (``"cuda:0"``) is refused unless the compile
+    options carry an explicit mesh (:meth:`compile_options`).
+    ``params`` optionally supplies the weights (name -> numpy array or tensor, e.g. from
     :mod:`repro_torch.models.weights`) instead of the builder's seeded
     numpy init.
     """
@@ -160,9 +174,14 @@ class EngineConfig:
         if int(self.tp) < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
         if int(self.tp) > 1:
-            raise NotImplementedError(
-                f"tp={self.tp}: tensor-parallel serving comes with a later "
-                f"slice of the torch port")
+            if self.mode != "paged":
+                raise ValueError(
+                    f"tp={self.tp} shards the paged KV pool; it needs "
+                    f"mode='paged', got {self.mode!r}")
+            if self.backend != "torch":
+                raise ValueError(
+                    f"tp={self.tp} lowers via shard_map and needs the "
+                    f"torch backend, got {self.backend!r}")
         if self.cache_budget_bytes is not None \
                 and int(self.cache_budget_bytes) < 1:
             raise ValueError(
@@ -175,6 +194,12 @@ class EngineConfig:
         ``base`` (an explicit ``options=`` object; the config's cache /
         autotune fields override only when actually set)."""
         opts = base if base is not None else CompileOptions()
+        if int(self.tp) > 1 and self.device is not None \
+                and str(self.device).lower() not in ("cpu", "cuda") \
+                and opts.mesh is None:
+            raise ValueError(
+                "tp shards over a device mesh and is incompatible "
+                "with a single-device pin (device=...)")
         kw = {}
         if self.cache_dir is not None:
             kw["cache_dir"] = self.cache_dir
@@ -976,7 +1001,9 @@ class ServeEngine:
         through :class:`EngineConfig`.  Every graph the engine compiles
         (the decode step or chunk, the paged prefill chunks, the dense
         prefill) goes through ``options`` -- ``CompileOptions(level="O2",
-        use_pallas=True)`` runs the Hopper kernels."""
+        use_pallas=True)`` runs the Hopper kernels.  ``config.tp > 1``
+        shards the paged chunk + prefill graphs over a ``tp``-shard mesh
+        (see the module docstring)."""
         if config is None:
             config = EngineConfig(**legacy_kw)
         elif legacy_kw:
@@ -1006,7 +1033,25 @@ class ServeEngine:
                                if config.device is not None else {}))
         self.device = self.backend.device
         self.base_options = config.compile_options(options)
-        self._graph_options = self.base_options
+        if self.tp > 1:
+            for dim, val in (("n_heads", cfg.n_heads),
+                             ("n_kv_heads", cfg.n_kv_heads),
+                             ("d_ff", cfg.d_ff)):
+                if val % self.tp:
+                    raise ValueError(
+                        f"tp={self.tp} must divide {dim}={val} "
+                        f"({cfg.name})")
+            self._check_tp_devices()
+            # the chunk + paged-prefill graphs compile partitioned: the
+            # PartitionGraph pass cuts them per shard and the backend
+            # runs the shards over a (tp,)-"model" mesh.  The dense
+            # prefill fallback (prefill_chunk=0) stays on base_options --
+            # it computes global caches that the host scatters into the
+            # (globally addressed) pool pages.
+            self._graph_options = self.base_options.replace(
+                mode="shardmap", partition="tp", mesh_shape=(self.tp,))
+        else:
+            self._graph_options = self.base_options
 
         if mode == "paged":
             # paged mode always dispatches the fused chunk graph -- one
@@ -1387,6 +1432,27 @@ class ServeEngine:
             self.health = "degraded"
         except Exception:
             self.health = "halted"
+
+    def _check_tp_devices(self) -> None:
+        """A tp mesh needs ``tp`` shards: an explicit ``options.mesh`` of
+        that size, CPU shards (any number), or one card per shard."""
+        mesh = self.base_options.mesh
+        if mesh is not None:
+            if mesh.devices.size != self.tp:
+                raise ValueError(
+                    f"tp={self.tp} needs a mesh of {self.tp} shards, got "
+                    f"{mesh}")
+            return
+        if self.device.type == "cpu":
+            return
+        n_dev = torch.cuda.device_count()
+        if n_dev < self.tp:
+            from ..backend.sharding import shared_card_recipe
+            raise RuntimeError(
+                f"tp={self.tp} needs >= {self.tp} devices but torch "
+                f"sees {n_dev} cards; for shards that share one card "
+                f"pass options=CompileOptions(mesh="
+                f"{shared_card_recipe((self.tp,))})")
 
     # -- prefill -------------------------------------------------------------
     def _params_for(self, g: ModelGraphs) -> List[torch.Tensor]:

@@ -34,7 +34,17 @@ door (:mod:`repro_torch.launch.server`) over the engine -- streaming
 and (with ``--report-json``) writes the served-request report, results
 keyed by the clients' tags.  It exits 1 when the drain left engine
 state behind.  Only the continuous and paged modes can serve it.
-``--tp`` comes with a later slice of the port.
+
+``--tp N`` (paged mode) shards the chunk and prefill graphs and the KV
+pool's kv_heads dim over N shards, greedy outputs token-identical to
+``--tp 1``; it prints a ``[kv-pool:tp]`` line.  With ``--device cpu``
+the N shards run on the CPU, with no flags:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+      --reduced --mode paged --tp 2 --device cpu
+
+On the card the mesh needs N cards (``chip_smoke.py --tp-only`` runs
+two shards on one card through an explicit mesh).
 
 The families other than dense (``--arch mixtral-8x22b``,
 ``deepseek-v3-671b``, ``recurrentgemma-9b``, ``xlstm-350m``,
@@ -141,6 +151,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--page-size", type=int, default=None)
     ap.add_argument("--chunk-steps", type=int, default=None)
     ap.add_argument("--pages", type=int, default=None)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="paged mode: tensor-parallel width -- shard the "
+                         "chunk/prefill graphs and the KV pool's kv_heads "
+                         "dim over a tp-shard mesh (greedy outputs stay "
+                         "token-identical to tp=1; with --device cpu the "
+                         "shards run on the CPU, on cuda the mesh needs "
+                         "tp cards)")
     ap.add_argument("--no-prefix-sharing", action="store_true")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prompt tokens per in-graph prefill dispatch "
@@ -238,7 +255,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             mode=mode, slots=args.batch, max_len=max_len,
             seed=args.seed, page_size=args.page_size,
             chunk_steps=args.chunk_steps, pages=args.pages,
-            device=args.device,
+            device=args.device, tp=args.tp,
             prefix_sharing=(False if args.no_prefix_sharing else None),
             prefill_chunk=args.prefill_chunk, cache_dir=args.cache_dir,
             autotune=args.autotune)
@@ -294,6 +311,10 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"frag={p.fragmentation:.3f} page_allocs={p.page_allocs} "
               f"page_frees={p.page_frees} cow={p.cow_copies} "
               f"attach={p.shared_attaches} arena={p.decode_arena_bytes}B")
+        if rep.tp > 1:
+            print(f"[kv-pool:tp] tp={rep.tp} "
+                  f"bytes/device={rep.kv_bytes_per_device} "
+                  f"(global {p.total_bytes}B)")
     elif p is not None:
         print(f"[kv-pool:{rep.mode}] slots={p.slots} "
               f"bytes/slot={p.bytes_per_slot} allocs={p.allocs} "

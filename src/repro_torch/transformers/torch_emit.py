@@ -33,7 +33,16 @@ head as the reference does, and also MLA's 192-wide prefill heads
 reduced test configs' 16) both packages compose attention from plain
 ops, so their numerics match there.  ``LinearRecurrence`` (no Pallas
 kernel in the reference either) is a log-depth doubling scan of torch
-ops.  Collectives come with the tensor-parallel slice.
+ops.
+
+Collectives (``AllReduce``, ``AllGather``, ``ReduceScatter``,
+``AllToAll``, ``CollectivePermute``) read every shard of a group:
+:data:`COLLECTIVES` holds their group emitters, which the shard executor
+(:mod:`repro_torch.backend.sharded`) calls with all N shards' inputs.
+Each combines in shard order 0..N-1 on shard 0's device and hands every
+shard its output on its own device, so the result is the same from run
+to run.  Reached through ``EMIT`` (one shard, outside a group) a
+collective raises.
 """
 from __future__ import annotations
 
@@ -57,8 +66,8 @@ from ..kernels.ref import attention_mask
 from ..kernels.xla_attention import chunked_attention
 
 EMIT: Dict[str, Callable] = {}
-
-_LATER_TP = "the tensor-parallel slice of the torch port"
+# op -> group emitter (node, per-shard args, per-shard ctxs) -> per-shard outs
+COLLECTIVES: Dict[str, Callable] = {}
 
 
 def _em(op: str):
@@ -71,11 +80,14 @@ def _em(op: str):
 class EmitCtx:
     """Emission options: the device every tensor lives on, whether the
     Hopper kernels are selected (``use_pallas``, the reference's name),
-    and the attention realization knobs the kernel check reads."""
+    the attention realization knobs the kernel check reads, and the
+    compile mode (``"shardmap"`` for a shard of a group)."""
 
     def __init__(self, device: torch.device, use_pallas: bool = False,
-                 attn_impl: str = "auto", attn_chunk: int = 1024):
+                 attn_impl: str = "auto", attn_chunk: int = 1024,
+                 mode: str = "jit"):
         self.device = torch.device(device)
+        self.mode = mode
         self.use_pallas = use_pallas
         self.attn_impl = attn_impl
         self.attn_chunk = attn_chunk
@@ -616,15 +628,94 @@ def _(node, args, ctx):
     return [(lse - ll).to(torch.float32)]
 
 
-def _later(op: str, slice_name: str):
-    def run(node, args, ctx):
-        raise NotImplementedError(f"{op} comes with {slice_name}")
-    return run
+# -- collectives ------------------------------------------------------------
+def _collective_guard(node, args, ctx):
+    """A collective reached outside a shard group."""
+    if ctx.mode != "shardmap":
+        raise RuntimeError(
+            f"{node.op} requires mode='shardmap' (explicit per-device "
+            f"program); in pjit mode communication is realized by GSPMD "
+            f"from shardings")
+    raise RuntimeError(
+        f"{node.op} over {node.attrs['axis_name']!r} runs inside a shard "
+        f"group: compile with partition= and a mesh, or run the graph "
+        f"through repro_torch.backend.sharded.shard_map")
 
 
-for _opname in ("AllReduce", "AllGather", "ReduceScatter", "AllToAll",
-                "CollectivePermute"):
-    EMIT[_opname] = _later(_opname, _LATER_TP)
+def _group(op: str):
+    def deco(f):
+        COLLECTIVES[op] = f
+        EMIT[op] = _collective_guard
+        return f
+    return deco
+
+
+def _onto(xs: List[torch.Tensor], dev: torch.device) -> List[torch.Tensor]:
+    return [x if x.device == dev else x.to(dev) for x in xs]
+
+
+def _to_each(ys: List[torch.Tensor], ctxs) -> List[List[torch.Tensor]]:
+    """Shard i's output ``ys[i]`` on shard i's device."""
+    return [[y if y.device == c.device else y.to(c.device)]
+            for y, c in zip(ys, ctxs)]
+
+
+@_group("AllReduce")
+def _(node, argss, ctxs):
+    rop = node.attrs["reduce_op"]
+    xs = _onto([a[0] for a in argss], ctxs[0].device)
+    tot = xs[0]
+    for x in xs[1:]:
+        if rop == "max":
+            tot = torch.maximum(tot, x)
+        elif rop == "min":
+            tot = torch.minimum(tot, x)
+        else:
+            tot = tot + x
+    if rop == "mean":
+        tot = tot / len(xs)
+    tot = _outcast(node, tot)
+    return _to_each([tot] * len(ctxs), ctxs)
+
+
+@_group("AllGather")
+def _(node, argss, ctxs):
+    xs = _onto([a[0] for a in argss], ctxs[0].device)
+    cat = torch.cat(xs, dim=node.attrs["axis"])
+    return _to_each([cat] * len(ctxs), ctxs)
+
+
+@_group("ReduceScatter")
+def _(node, argss, ctxs):
+    xs = _onto([a[0] for a in argss], ctxs[0].device)
+    tot = xs[0]
+    for x in xs[1:]:
+        tot = tot + x
+    pieces = torch.chunk(tot, len(ctxs), dim=node.attrs["axis"])
+    return _to_each([p.contiguous() for p in pieces], ctxs)
+
+
+@_group("AllToAll")
+def _(node, argss, ctxs):
+    """Shard j gets block j of every shard's split axis, concatenated
+    along the concat axis in shard order (``lax.all_to_all``, tiled)."""
+    n = len(ctxs)
+    sp, cc = node.attrs["split_axis"], node.attrs["concat_axis"]
+    blocks = [torch.chunk(x, n, dim=sp)
+              for x in _onto([a[0] for a in argss], ctxs[0].device)]
+    return _to_each([torch.cat([b[j] for b in blocks], dim=cc)
+                     for j in range(n)], ctxs)
+
+
+@_group("CollectivePermute")
+def _(node, argss, ctxs):
+    """Shard ``dst`` gets shard ``src``'s value for each (src, dst) pair;
+    a shard no pair names gets zeros (``lax.ppermute``)."""
+    xs = [a[0] for a in argss]
+    ys = [torch.zeros_like(x) for x in xs]
+    for src, dst in node.attrs["pairs"]:
+        ys[dst] = xs[src]
+    return _to_each(ys, ctxs)
 
 
 @_em("LinearRecurrence")
@@ -719,9 +810,22 @@ class _Slots:
                 self.n += 1
         self.params = [self.of[id(p)] for p in fn.parameters]
         self.results = [self.of[id(r.node)] + r.index for r in fn.results]
+        self.device = ctx.device
         self.leaves: Dict[int, torch.Tensor] = {
             self.of[id(n)]: _LEAVES[n.op](n, ctx)
             for n in self.nodes if n.op in _LEAVES}
+        self._leaves_on: Dict[torch.device, Dict[int, torch.Tensor]] = {}
+
+    def leaves_for(self, ctx: EmitCtx) -> Dict[int, torch.Tensor]:
+        """The leaves on ``ctx``'s device (built once per other device;
+        the shards of a group on one device share them)."""
+        if ctx.device == self.device:
+            return self.leaves
+        if ctx.device not in self._leaves_on:
+            self._leaves_on[ctx.device] = {
+                self.of[id(n)]: _LEAVES[n.op](n, ctx)
+                for n in self.nodes if n.op in _LEAVES}
+        return self._leaves_on[ctx.device]
 
     def plan(self, nodes: List[Node], keep) -> List[_Step]:
         """``nodes`` (in order) as steps that drop each slot right after
@@ -815,6 +919,16 @@ class ScanBody:
         return [env[s] for s in self.slots.results]
 
 
+def function_plan(fn: Function, ctx: EmitCtx) -> Tuple[_Slots, List[_Step]]:
+    """``fn``'s value slots (leaves built on ``ctx.device``) and the plan
+    of its non-leaf nodes, each slot dropped after its last use."""
+    sl = _Slots(fn, ctx)
+    plan = sl.plan([n for n in sl.nodes
+                    if n.op != "Parameter" and n.op not in _LEAVES],
+                   set(sl.results))
+    return sl, plan
+
+
 def emit_callable(fn: Function, ctx: EmitCtx) -> Callable:
     """Emit ``fn`` as a Python callable over torch tensors on
     ``ctx.device``.
@@ -824,10 +938,7 @@ def emit_callable(fn: Function, ctx: EmitCtx) -> Callable:
     is dropped from the slot table right after its last use, so a
     dispatch holds only the live intermediates (and a donated input the
     caller no longer references can be reused by the allocator)."""
-    sl = _Slots(fn, ctx)
-    plan = sl.plan([n for n in sl.nodes
-                    if n.op != "Parameter" and n.op not in _LEAVES],
-                   set(sl.results))
+    sl, plan = function_plan(fn, ctx)
     dev = ctx.device
     name = fn.name
     n_params = len(fn.parameters)

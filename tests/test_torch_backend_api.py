@@ -258,16 +258,28 @@ def test_device_errors_name_the_available_devices():
 
 
 def test_later_slices_are_refused_on_every_backend(tmp_path):
-    """Gradient compression and graph partitioning are refused, not
-    ignored, on the interpreter as on torch, naming the tensor-parallel
-    slice; the disk cache and the autotuner are ported and accepted."""
+    """Gradient compression, graph partitioning, the disk cache and the
+    autotuner are ported and accepted on the interpreter as on torch:
+    ``compress_grads`` runs CompressAllReduce at O2, a ``partition``
+    compile reports the pass's stats, and a partition without
+    ``mode='shardmap'`` is refused with the reference's message.  GSPMD
+    (``mode='pjit'``), which waits for the dry-run tooling, is refused on
+    torch."""
     for name in BACKENDS:
         be = _create(name, fresh=True)
-        with pytest.raises(OptionsError, match="tensor-parallel slice"):
-            be.compile(_graph(), CompileOptions(compress_grads=True))
-        with pytest.raises(OptionsError, match="tensor-parallel slice"):
-            CompileOptions(partition="tp")
+        cf = be.compile(_graph(), CompileOptions(level="O2",
+                                                 compress_grads=True))
+        assert "grad-compress" in cf.report.stats
+        with pytest.raises(OptionsError, match="requires mode='shardmap'"):
+            CompileOptions(partition="tp", mesh_shape=(2,))
+        cf = be.compile(_graph(), CompileOptions(
+            mode="shardmap", partition="tp", mesh_shape=(2,)))
+        assert cf.report.stats["partition"]["params_total"] == 2
+        np.testing.assert_allclose(cf(*_args())[0].sum(), 4.0, rtol=1e-5)
         cf = be.compile(_graph(), CompileOptions(
             cache_dir=str(tmp_path / name), autotune=True))
         assert be.cache_stats().disk_misses == 1
         assert cf.options.autotune is False
+    with pytest.raises(OptionsError, match="mode='pjit'"):
+        _create("torch", fresh=True).compile(_graph(), CompileOptions(
+            mode="pjit", mesh=object()))

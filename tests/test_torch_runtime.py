@@ -1,6 +1,6 @@
 """The runtime substrate on torch: the checkpoint, data and fault cases of
 ``tests/test_runtime.py`` against the port's ``repro_torch.runtime``
-(the sharding-policy cases come with the tensor-parallel slice).  Beyond
+(the sharding-policy cases are in ``tests/test_torch_partition.py``).  Beyond
 them: the port's data pipeline gives the JAX package's batches, a
 checkpoint crosses between the two packages in both directions, torch
 tensors are saved through host numpy and restored onto a device, and

@@ -128,11 +128,15 @@ def test_pool_drains_after_a_cancel_storm():
 
 
 def test_engine_config_refuses_later_slices():
-    """Every serving mode is ported; tensor-parallel serving (tp > 1) is
-    the one later slice the config still refuses."""
+    """Every serving mode is ported, and tensor-parallel serving with
+    them: tp > 1 is accepted in paged mode and refused in the others
+    with the reference's message (``tests/test_torch_tp.py`` serves it)."""
     for mode in ("lockstep", "donated", "continuous", "paged"):
         assert EngineConfig(mode=mode).mode == mode
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        if mode == "paged":
+            assert EngineConfig(mode=mode, tp=2).tp == 2
+            continue
+        with pytest.raises(ValueError, match="it needs mode='paged'"):
             EngineConfig(mode=mode, tp=2)
     with pytest.raises(ValueError, match="need mode='paged'"):
         EngineConfig(mode="continuous", prefill_chunk=0)

@@ -13,8 +13,8 @@ port's trainer (``repro_torch.launch.train``) end to end on the CPU.
   the fusion counts meet ``EXPECTED["train"]`` of
   ``scripts/check_kernel_parity.py``.
 - Microbatching against the full batch, and the LR schedules, as in
-  ``tests/test_train_features.py`` (its shard_map case comes with the
-  tensor-parallel slice).
+  ``tests/test_train_features.py`` (its shard_map case is in
+  ``tests/test_torch_partition.py``).
 - The CLI: ``--device cpu --reduced --steps 20`` exits 0 with a falling
   loss; a restarted run takes the step from the disk cache; a resumed
   run ends on the same state bit for bit; and a checkpoint written by
