@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --recurrent-only # phases 1-3 and 10, no result line
     python3 chip_smoke.py --multimodal-only # phases 1-3 and 11, no result line
     python3 chip_smoke.py --tp-only        # phases 1-3 and 12, no result line
+    python3 chip_smoke.py --roofline-only  # phases 1-3 and 13, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -207,6 +208,21 @@ without printing a result:
                  converts, the pools' write-back), and the splits and
                  joins alone by CUDA events; every launched shape held
                  against its plain version ([tp_shapes]).
+ 13. roofline -- the IR cost model's roofline (launch/roofline.py, the
+                 H100 data-sheet constants) read against the card (runs
+                 last): phase 4's engine again, its decode chunk's
+                 compute, memory and collective terms against the
+                 median of 7 CUDA-event replays of the captured
+                 dispatch (its launches equal phase 4's), the memory
+                 plan against one eager dispatch's peak; phase 8's
+                 train step the same way, its MFU equal to phase 8's to
+                 1% (run alone, to its own host-timed replays'); phase
+                 12's O2 chunk graph at tp=2, its collective census
+                 (the AllGather nodes equal the pass's stats) beside
+                 phase 12's measured dispatch and cat ms.  Every term
+                 finite; a fraction max(t_*) / measured above 1.05
+                 fails, naming the top ops of the cost.  [roofline]
+                 lines.
 
 In phases 4, 5, 7, 8, 9, 10, 11 and 12 no kernel may have been refused
 at full width, but phase 9's counted deepseek-v3 decode attention.
@@ -263,6 +279,8 @@ REPLACES = {
 # Attention op at d_head 128
 PAGED_KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm")
 ALL_KERNELS = PAGED_KERNELS + ("flash_attention",)
+# what phases 8 and 12 measured, for phase 13 to read its meter against
+READINGS: dict = {}
 
 
 def say(phase: str, **kw) -> None:
@@ -2106,6 +2124,7 @@ def phase_train(report: dict, smi: str) -> None:
         shutil.rmtree(cache, ignore_errors=True)
     replay_ms = statistics.median(ms[2:])
     flops = 6 * n_matmul * tokens
+    READINGS["train"] = {"replay_ms": replay_ms, "per_step": per_step}
     say("train", model=f"deepseek-7b full width, {TRAIN_LAYERS} layers",
         params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         card_allocated_gb_before=f"{held:.2f}",
@@ -3242,6 +3261,10 @@ def phase_tp(report: dict, smi: str) -> None:
                             f"counters say {per_replay[name]} calls")
                 line["launches_per_replay"] = json.dumps(per_replay)
                 split = _tp_dispatch_split(eng)
+                if tp == TP and level == "O2":
+                    READINGS["tp"] = {"stats": lines["stats"]["paged_chunk"],
+                                      "wall_ms": disp["wall_ms"],
+                                      "cat_ms": split["cat"]}
                 say("tp_profile", level=level, tp=tp,
                     dispatch=f"decode chunk (4 steps x {cfg.n_layers} "
                     f"layers), captured", **{k: (json.dumps(v)
@@ -3281,6 +3304,271 @@ def phase_tp(report: dict, smi: str) -> None:
         reckoned_peak_gb=f"{reckoned:.2f}", params_gb=f"{gb:.2f}",
         init_s=f"{t_init:.2f}", result="ok", held_gb=f"{held:.2f}")
 
+# -- 13. roofline: the meter held against the card ----------------------------
+ROOFLINE_CARD = "cuda"
+ROOFLINE_REPLAYS = 7       # CUDA-event timings of a dispatch, median
+ROOFLINE_LIMIT = 1.05      # a fraction above this counts work not done
+MFU_AGREEMENT = 0.01
+def _roofline_terms(label: str, rl, measured_ms, cost) -> dict:
+    """Gate one Roofline against the ms it was measured in: every term
+    finite, compute and memory positive, collective positive exactly when
+    there are collectives, and ``max(t_*) / measured`` at most
+    :data:`ROOFLINE_LIMIT` (above it the cost model counts work the
+    program does not do: the phase fails naming the top five ops of
+    ``cost.by_op``)."""
+    terms = {"compute": rl.t_compute, "memory": rl.t_memory,
+             "collective": rl.t_collective}
+    for k, v in terms.items():
+        require(math.isfinite(v) and v >= 0, f"{label}: t_{k} = {v}")
+    require(terms["compute"] > 0 and terms["memory"] > 0,
+            f"{label}: terms {terms}")
+    require((terms["collective"] > 0) == (rl.collective_bytes > 0),
+            f"{label}: t_collective {terms['collective']} for "
+            f"{rl.collective_bytes} wire bytes")
+    out = {f"t_{k}_ms": f"{v * 1e3:.4f}" for k, v in terms.items()}
+    out["bottleneck"] = rl.bottleneck
+    if measured_ms is None:
+        out.update(measured_ms="not measured", fraction="not measured")
+        return out
+    require(math.isfinite(measured_ms) and measured_ms > 0,
+            f"{label}: measured {measured_ms} ms")
+    fraction = max(terms.values()) * 1e3 / measured_ms
+    top = sorted((cost.by_op or {}).items(), key=lambda kv: -kv[1])[:5]
+    require(fraction <= ROOFLINE_LIMIT,
+            f"{label}: roofline fraction {fraction:.3f} over "
+            f"{ROOFLINE_LIMIT} (the cost model counts work the program "
+            f"does not do); top ops by flops: {top}")
+    out.update(measured_ms=f"{measured_ms:.3f}", fraction=f"{fraction:.4f}")
+    return out
+
+
+def _replay_ms(call, reps: int = ROOFLINE_REPLAYS) -> list:
+    """Device ms of ``reps`` calls, each between two CUDA events."""
+    call()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        call()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def _roofline_main(report: dict, smi: str) -> None:
+    """Phase 4's paged engine again: its decode chunk's Roofline against
+    the median of CUDA-event timed replays of the captured dispatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost import function_cost
+    from repro_torch.launch.roofline import Roofline, model_flops_for
+    from repro_torch.models.lm import build_dense_chunk
+    from repro_torch.models.weights import init_params_on_device
+
+    cfg = get_config("deepseek-7b")
+    steps = MAIN_ENGINE["chunk_steps"]
+    g = build_dense_chunk(cfg, MAIN_ENGINE["max_len"], SLOTS, steps,
+                          page_size=MAIN_ENGINE["page_size"])
+    params = init_params_on_device(g.builder, 0, ROOFLINE_CARD)
+    prompts = _prompts(cfg.vocab, (17, 33, 48, 64, 81, 100), 32)
+    eng, rep, counts, peak, _ = _serve_main(cfg, params, prompts, True)
+    _record_launches(report, "roofline_main", counts, PAGED_KERNELS,
+                     main=False)
+    main = {k: v["launches_by_phase"].get("main")
+            for k, v in report.items()}
+    got = {k: c["launches"] for k, c in counts.items()}
+    if all(v is not None for v in main.values()):
+        require(got == main, f"roofline main: launches {got}, phase 4's "
+                f"{main}")
+
+    def args():
+        return (eng._tok, eng._pos, eng.pool.page_table, eng._temp,
+                eng._topk, eng._key, *eng.pool.buffers, *eng.tparams)
+
+    prog = eng.cf.raw
+    require(prog.captured, "roofline main: the decode chunk never captured")
+    ms = _replay_ms(lambda: prog(*args()))
+    measured = statistics.median(ms)
+    # one eager dispatch (the emitted program itself), its peak
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = prog._run(*args())
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    del outs
+    cf = eng.cf
+    plan = cf.memory_plan
+    ir = function_cost(g.fn, attn_impl="chunked", by_op=True)
+    rl = Roofline(
+        arch=cfg.name, shape="paged_chunk", mesh="1xH100", n_devices=1,
+        hlo_flops=cf.cost.flops, hlo_bytes=cf.cost.bytes,
+        ir_flops=ir.flops, ir_bytes=ir.bytes, collective_bytes=0.0,
+        model_flops=model_flops_for(g.builder, cfg, "decode", 1,
+                                    SLOTS * steps),
+        collectives={}, coll_bytes_by_kind={},
+        per_device_memory=float(plan.peak_live_bytes + plan.io_bytes))
+    line = _roofline_terms("roofline main", rl, measured, ir)
+    say("roofline", path="main", model=f"deepseek-7b full width, "
+        f"{cfg.n_layers} layers, paged decode chunk ({steps} steps x "
+        f"{SLOTS} slots)", **line,
+        replays_ms=json.dumps([round(m, 3) for m in ms]),
+        model_flops=f"{rl.model_flops:.4e}", ir_flops=f"{ir.flops:.4e}",
+        ir_bytes=f"{ir.bytes:.4e}", compiled_flops=f"{cf.cost.flops:.4e}",
+        compiled_bytes=f"{cf.cost.bytes:.4e}",
+        useful_flops_ratio=f"{rl.useful_flops_ratio:.4f}",
+        roofline_fraction=f"{rl.roofline_fraction:.6f}",
+        memory_plan_gb=f"{rl.per_device_memory / 1e9:.2f}",
+        memory_plan_intermediates_gb=f"{plan.peak_live_bytes / 1e9:.2f}",
+        eager_dispatch_peak_gb=f"{eager_peak / 1e9:.2f}",
+        eager_dispatch_added_gb=f"{(eager_peak - base) / 1e9:.2f}",
+        launches=json.dumps(got), card=repr(smi))
+    del eng, params, prog
+    _free_card()
+
+
+def _roofline_train(report: dict, smi: str) -> None:
+    """Phase 8's train step again: its Roofline against CUDA-event timed
+    replays, and its MFU against phase 8's (or, run alone, against this
+    phase's own host-timed replays, phase 8's way)."""
+    from repro_torch import kernels
+    from repro_torch.backend import Backend, CompileOptions
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost import function_cost
+    from repro_torch.launch.roofline import (PEAK_FLOPS, Roofline,
+                                             model_flops_for)
+    from repro_torch.runtime.data import DataConfig, SyntheticLM
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=TRAIN_LAYERS)
+    ts, donate = _train_step_graph(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batches = [data.batch(s) for s in range(TRAIN_STEPS)]
+    be = Backend.create("torch", fresh=True, device=ROOFLINE_CARD)
+    cf = be.compile(ts.fn, CompileOptions(level="O2", use_pallas=True,
+                                          donate_argnums=donate))
+    flat = _train_state(ts, cfg, ROOFLINE_CARD)
+    _, host_ms, counts, flat = _train_steps(cf, flat, batches,
+                                            required=ALL_KERNELS,
+                                            label="roofline train")
+    per_step = {k: counts[-1][k]["launches"] for k in counts[-1]}
+    want = READINGS.get("train", {}).get("per_step")
+    if want is not None:
+        require(per_step == want, f"roofline train: launches per step "
+                f"{per_step}, phase 8's {want}")
+    b = batches[-1]
+    kernels.reset_counters()
+    ms = _replay_ms(lambda: cf.raw(b["tokens"], b["labels"],
+                                   np.int32(TRAIN_STEPS), *flat))
+    measured = statistics.median(ms)
+    n_params = sum(int(np.prod(s.shape))
+                   for s in ts.graphs.builder.params.values())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # phase 8's model FLOPs: 6 x the parameters less the embedding table
+    matmul_flops = 6 * (n_params - cfg.vocab * cfg.d_model) * tokens
+    mfu = matmul_flops / (measured / 1e3) / PEAK_FLOPS
+    host_replay = statistics.median(host_ms[2:])
+    ref = READINGS.get("train", {}).get("replay_ms", host_replay)
+    against = "phase 8" if "train" in READINGS else "host-timed replays"
+    mfu_ref = matmul_flops / (ref / 1e3) / PEAK_FLOPS
+    require(abs(mfu / mfu_ref - 1) <= MFU_AGREEMENT,
+            f"roofline train: MFU {mfu:.5f} vs {against}'s {mfu_ref:.5f}")
+    plan = cf.memory_plan
+    ir = function_cost(ts.fn, attn_impl="chunked", by_op=True)
+    rl = Roofline(
+        arch=cfg.name, shape=f"train {TRAIN_BATCH}x{TRAIN_SEQ}",
+        mesh="1xH100", n_devices=1, hlo_flops=cf.cost.flops,
+        hlo_bytes=cf.cost.bytes, ir_flops=ir.flops, ir_bytes=ir.bytes,
+        collective_bytes=0.0,
+        model_flops=model_flops_for(ts.graphs.builder, cfg, "train",
+                                    TRAIN_SEQ, TRAIN_BATCH),
+        collectives={}, coll_bytes_by_kind={},
+        per_device_memory=float(plan.peak_live_bytes + plan.io_bytes))
+    line = _roofline_terms("roofline train", rl, measured, ir)
+    say("roofline", path="train", model=f"deepseek-7b full width, "
+        f"{TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}", **line,
+        replays_ms=json.dumps([round(m, 2) for m in ms]),
+        host_replay_ms=f"{host_replay:.2f}",
+        model_flops=f"{rl.model_flops:.4e}",
+        matmul_model_flops=f"{matmul_flops:.4e}",
+        mfu=f"{mfu:.5f}", mfu_against=against, mfu_ref=f"{mfu_ref:.5f}",
+        mfu_model_flops=f"{rl.model_flops / (measured / 1e3) / PEAK_FLOPS:.5f}",
+        ir_flops=f"{ir.flops:.4e}", ir_bytes=f"{ir.bytes:.4e}",
+        useful_flops_ratio=f"{rl.useful_flops_ratio:.4f}",
+        roofline_fraction=f"{rl.roofline_fraction:.6f}",
+        memory_plan_gb=f"{rl.per_device_memory / 1e9:.2f}",
+        launches_per_step=json.dumps(per_step), card=repr(smi))
+    del cf, be, flat
+    _free_card()
+
+
+def _roofline_tp(smi: str) -> None:
+    """Phase 12's O2 chunk graph at tp=2: the collective census beside
+    what phase 12 measured (the gathers' ``cat`` ms and the captured
+    dispatch), the census's AllGather and AllReduce nodes equal to the
+    pass's stats."""
+    from repro_torch.backend.sharding import partition_profile
+    from repro_torch.core.cost import function_cost
+    from repro_torch.core.passes import PartitionGraph, run_pipeline
+    from repro_torch.launch.roofline import (Roofline, census_collectives,
+                                             model_flops_for)
+    from repro_torch.models.lm import build_dense_chunk
+
+    cfg, _, _ = _tp_config()
+    steps = MAIN_ENGINE["chunk_steps"]
+    g = build_dense_chunk(cfg, MAIN_ENGINE["max_len"], SLOTS, steps,
+                          page_size=MAIN_ENGINE["page_size"])
+    pg = PartitionGraph.from_profile(partition_profile("tp"), (TP,))
+    fused = {"swiglu": True, "norm_matmul": True, "rotary_qkv": True}
+    fn, rep = run_pipeline(g.fn, "O2", fuse=fused, partition=pg)
+    stats = dict(rep.stats["partition"])
+    seen = READINGS.get("tp", {})
+    if "stats" in seen:
+        require(stats == seen["stats"], f"roofline tp: the pass's stats "
+                f"{stats}, phase 12's {seen['stats']}")
+    census = census_collectives(fn, {"model": TP})
+    nodes = {"all-gather": stats.get("all_gather", 0),
+             "all-reduce": stats.get("all_reduce", 0)}
+    require({k: census.nodes.get(k, 0) for k in nodes} == nodes,
+            f"roofline tp: census nodes {census.nodes}, the pass's "
+            f"stats {stats}")
+    hlo = function_cost(fn, attn_impl="chunked")
+    ir = function_cost(g.fn, attn_impl="chunked", by_op=True)
+    rl = Roofline(
+        arch=cfg.name, shape="paged_chunk", mesh=f"tp{TP} (NVLink)",
+        n_devices=TP, hlo_flops=hlo.flops, hlo_bytes=hlo.bytes,
+        ir_flops=ir.flops, ir_bytes=ir.bytes,
+        collective_bytes=census.total_bytes,
+        model_flops=model_flops_for(g.builder, cfg, "decode", 1,
+                                    SLOTS * steps),
+        collectives=census.counts, coll_bytes_by_kind=census.bytes_by_kind,
+        per_device_memory=0.0, coll_bytes_by_axis=census.bytes_by_axis)
+    line = _roofline_terms("roofline tp", rl, seen.get("wall_ms"), ir)
+    say("roofline", path=f"tp={TP}", model=f"deepseek-7b full width, "
+        f"{cfg.n_layers} layers, O2 paged decode chunk", **line,
+        census_nodes=json.dumps(census.nodes),
+        census_counts=json.dumps(census.counts),
+        census_wire_bytes=json.dumps({k: f"{v:.4e}" for k, v in
+                                      census.bytes_by_kind.items()}),
+        partition=json.dumps(stats),
+        cat_ms=seen.get("cat_ms", "not measured (phase 12 did not run)"),
+        card=repr(smi))
+
+
+def phase_roofline(report: dict, smi: str) -> None:
+    """The IR cost model's roofline (``launch/roofline.py``, H100
+    data-sheet constants) read against what the card measured, on three
+    paths the script already runs: phase 4's paged decode chunk (its
+    launches equal phase 4's), phase 8's train step (the MFU agrees with
+    phase 8's to 1%) and phase 12's tp=2 chunk graph (the census's
+    gathers equal the pass's stats).  Every term finite, and no fraction
+    of a measured time above :data:`ROOFLINE_LIMIT`."""
+    _free_card()
+    _roofline_main(report, smi)
+    _roofline_train(report, smi)
+    _roofline_tp(smi)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3307,6 +3595,9 @@ def main() -> int:
     if "--tp-only" in sys.argv[1:]:
         phase_tp(report, smi)
         return 0    # phase 12 alone: no result line
+    if "--roofline-only" in sys.argv[1:]:
+        phase_roofline(report, smi)
+        return 0    # phase 13 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -3318,6 +3609,7 @@ def main() -> int:
     phase_recurrent(report, smi)
     phase_multimodal(report, smi)
     phase_tp(report, smi)
+    phase_roofline(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

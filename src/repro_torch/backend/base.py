@@ -178,7 +178,7 @@ class Backend:
             fuse={"swiglu": options.fuse_swiglu,
                   "norm_matmul": options.fuse_norm_matmul,
                   "rotary_qkv": options.fuse_rotary_qkv},
-            partition=self._partition_pass(options))
+            partition=self._partition_pass(options, fn))
         call, raw, lower = self._codegen(opt_fn, options)
         compiled = CompiledFunction(
             opt_fn, call, backend=self.name, options=options,
@@ -190,11 +190,17 @@ class Backend:
                 memory_plan=compiled.memory_plan, cost=compiled.cost)
         return compiled
 
-    def _partition_pass(self, options: CompileOptions):
+    def _partition_pass(self, options: CompileOptions, fn: Function):
         """The configured PartitionGraph pass for these options (None when
-        not partitioning).  ``mode='shardmap'`` cuts the graph explicitly;
-        ``mode='pjit'`` leaves partitioning to GSPMD via the policy's
-        shardings, so no pass runs there."""
+        not partitioning).  ``mode='shardmap'`` cuts the graph under
+        ``options.partition``'s profile.  ``mode='pjit'`` always cuts it:
+        the port has no GSPMD, so the pass runs under the profile
+        ("default" when None) over the mesh, seeded with
+        ``options.in_shardings`` when given
+        (:func:`~repro_torch.backend.sharding.pjit_partition`)."""
+        if options.mode == "pjit":
+            from .sharding import pjit_partition
+            return pjit_partition(options, fn)
         if options.partition is None or options.mode != "shardmap":
             return None
         from ..core.passes import PartitionGraph

@@ -26,6 +26,14 @@ class InterpreterBackend(Backend):
     name = "interpreter"
     default_level = "O0"
 
+    def _partition_pass(self, options: CompileOptions, fn: Function):
+        """The oracle runs the global graph under ``mode='pjit'`` (the
+        mesh is ignored, as the reference's interpreter ignores it);
+        ``mode='shardmap'`` partitions as on any backend."""
+        if options.mode == "pjit":
+            return None
+        return super()._partition_pass(options, fn)
+
     def _codegen(self, fn: Function, options: CompileOptions
                  ) -> Tuple[Callable, Optional[Callable], Optional[Callable]]:
         arena = options.arena

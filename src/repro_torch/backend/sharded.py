@@ -30,6 +30,12 @@ A mesh whose shards all name the backend's device is one stream, so
 walk, splits and joins included, and writes donated inputs back from the
 joined outputs.  Shards on different devices run eagerly, and their
 collectives copy with ``.to(device)``.
+
+``sole_shard=True`` (a dry run's meta mesh of hundreds of shards) walks
+shard 0 alone: its piece of each input, each collective a meta tensor
+of its IR out type (:data:`SOLE_COLLECTIVES`), each Scan body once
+(every trip has the same shapes), and each output a meta tensor of its
+global type.
 """
 from __future__ import annotations
 
@@ -81,17 +87,21 @@ class ShardLayout:
         """One piece of ``t`` per shard, on the shard's device: the
         shard's block of each dim ``spec`` names an axis for (a copy),
         else ``t`` itself."""
-        cuts = [(d, self.axis_names.index(a), t.shape[d] // self.sizes[a])
-                for d, a in enumerate(spec) if a]
-        pieces = []
-        for c, dev in zip(self.coords, self.devices):
-            p = t
-            for d, k, blk in cuts:
-                p = p.narrow(d, c[k] * blk, blk)
-            if cuts:
-                p = p.contiguous()
-            pieces.append(p if p.device == dev else p.to(dev))
-        return pieces
+        return [self.piece(t, spec, i) for i in range(self.n)]
+
+    def piece(self, t: torch.Tensor, spec: Spec, i: int) -> torch.Tensor:
+        """Shard ``i``'s piece of ``t`` (see :meth:`split`)."""
+        c, dev = self.coords[i], self.devices[i]
+        p = t
+        cut = False
+        for d, a in enumerate(spec):
+            if a:
+                blk = t.shape[d] // self.sizes[a]
+                p = p.narrow(d, c[self.axis_names.index(a)] * blk, blk)
+                cut = True
+        if cut:
+            p = p.contiguous()
+        return p if p.device == dev else p.to(dev)
 
     def join(self, pieces: Sequence[torch.Tensor], spec: Spec,
              home: torch.device) -> torch.Tensor:
@@ -112,9 +122,33 @@ class ShardLayout:
         return build(0, {})
 
 
+def _sole_collective(node, argss, ctxs):
+    """A collective seen from shard 0 alone: a meta tensor of its IR out
+    type (the other shards' values are not walked)."""
+    return [[torch.empty(t.shape, dtype=torch_dtype(t.dtype),
+                         device=c.device) for t in node.out_types]
+            for c in ctxs]
+
+
+SOLE_COLLECTIVES = {op: _sole_collective for op in COLLECTIVES}
+
+
+class _SoleShard:
+    """Shard 0 as a group of one, over its mesh's axes."""
+
+    def __init__(self, layout: ShardLayout):
+        self.axis_names = layout.axis_names
+
+    def groups(self, axis: str) -> List[List[int]]:
+        if axis not in self.axis_names:
+            raise ValueError(f"collective over {axis!r}; the mesh has "
+                             f"axes {self.axis_names}")
+        return [[0]]
+
+
 def _execute_group(plan: List[tuple], envs: List[List[Any]],
                    ctxs: List[EmitCtx], layout: ShardLayout,
-                   name: str) -> None:
+                   name: str, collectives=COLLECTIVES) -> None:
     """Run ``plan`` over every shard's environment in place, step by
     step: an op once per shard, a collective once per group, a Scan as a
     group walk (:func:`_group_scan`)."""
@@ -122,15 +156,15 @@ def _execute_group(plan: List[tuple], envs: List[List[Any]],
         for emit, node, ins, out0, dead in plan:
             argss = [[env[s] for s in ins] for env in envs]
             op = node.op
-            if op in COLLECTIVES:
+            if op in collectives:
                 outss: List[Any] = [None] * len(envs)
                 for g in layout.groups(node.attrs["axis_name"]):
-                    res = COLLECTIVES[op](node, [argss[i] for i in g],
+                    res = collectives[op](node, [argss[i] for i in g],
                                           [ctxs[i] for i in g])
                     for i, r in zip(g, res):
                         outss[i] = r
             elif op == "Scan":
-                outss = _group_scan(node, argss, ctxs, layout)
+                outss = _group_scan(node, argss, ctxs, layout, collectives)
             else:
                 outss = [emit(node, a, c) for a, c in zip(argss, ctxs)]
             for env, outs in zip(envs, outss):
@@ -145,7 +179,8 @@ def _execute_group(plan: List[tuple], envs: List[List[Any]],
 
 
 def _group_scan(node, argss: List[List[Any]], ctxs: List[EmitCtx],
-                layout: ShardLayout) -> List[List[Any]]:
+                layout: ShardLayout, collectives=COLLECTIVES
+                ) -> List[List[Any]]:
     """The ``Scan`` emitter over a group: the body's loop-invariant
     prologue once per Scan, then each step, each as a group walk
     (``torch_emit.ScanBody``'s plans)."""
@@ -167,8 +202,13 @@ def _group_scan(node, argss: List[List[Any]], ctxs: List[EmitCtx],
             for s, v in zip(body.const_slots, a[nc + nx:]):
                 env[s] = v
             bases.append(env)
-        _execute_group(body.pro_plan, bases, ctxs, layout, body.name)
+        _execute_group(body.pro_plan, bases, ctxs, layout, body.name,
+                       collectives)
     order = range(length - 1, -1, -1) if at["reverse"] else range(length)
+    if collectives is SOLE_COLLECTIVES:
+        # a meta walk: every trip has the same shapes, so one trip stands
+        # for all (a 4096-step time Scan walks once)
+        order = order[:1]
     for t in order:
         envs = []
         for i, a in enumerate(argss):
@@ -177,7 +217,8 @@ def _group_scan(node, argss: List[List[Any]], ctxs: List[EmitCtx],
             for s, v in zip(body.variant_slots, variant):
                 env[s] = v
             envs.append(env)
-        _execute_group(body.step_plan, envs, ctxs, layout, body.name)
+        _execute_group(body.step_plan, envs, ctxs, layout, body.name,
+                       collectives)
         for i, env in enumerate(envs):
             outs = [env[s] for s in sl.results]
             carries[i] = outs[:nc]
@@ -187,7 +228,10 @@ def _group_scan(node, argss: List[List[Any]], ctxs: List[EmitCtx],
     for i, c in enumerate(ctxs):
         stacked = []
         for j in range(n_ys):
-            if length:
+            if length and collectives is SOLE_COLLECTIVES:
+                y = ys[i][j][order[0]]
+                stacked.append(y.unsqueeze(0).expand(length, *y.shape))
+            elif length:
                 stacked.append(torch.stack(ys[i][j]))
             else:
                 ty = node.out_types[nc + j]
@@ -219,12 +263,18 @@ class ShardedProgram:
     def __init__(self, fn: Function, mesh, ctx_for: Callable[[torch.device],
                                                             EmitCtx],
                  home: torch.device, in_specs: Optional[Sequence[Spec]] = None,
-                 out_specs: Optional[Sequence[Spec]] = None):
+                 out_specs: Optional[Sequence[Spec]] = None,
+                 sole_shard: bool = False):
         self.layout = lay = ShardLayout(mesh)
         g_in, g_out = graph_specs(fn)
         self.in_specs = [tuple(s) for s in (in_specs or g_in)]
         self.out_specs = [tuple(s) for s in (out_specs or g_out)]
-        self.ctxs = [ctx_for(d) for d in lay.devices]
+        self.sole_shard = bool(sole_shard)
+        if self.sole_shard and any(d.type != "meta" for d in lay.devices):
+            raise ValueError("sole_shard walks shard 0 of a meta mesh; "
+                             f"this mesh has {lay.devices[0]}")
+        self.ctxs = [ctx_for(d) for d in
+                     (lay.devices[:1] if self.sole_shard else lay.devices)]
         self.home = torch.device(home)
         self.name = fn.name
         self.slots, self.plan = function_plan(fn, self.ctxs[0])
@@ -232,6 +282,7 @@ class ShardedProgram:
                          for t, s in zip(fn.in_types, self.in_specs)]
         self.out_types = [lay.global_type(t, s)
                           for t, s in zip(fn.out_types, self.out_specs)]
+        self.local_out_types = list(fn.out_types)
         self.donation: Dict[int, int] = {}
         self.__name__ = f"ngraph_{fn.name}_x{lay.n}"
 
@@ -240,6 +291,8 @@ class ShardedProgram:
         if len(args) != len(sl.params):
             raise TypeError(f"{self.name}: expected {len(sl.params)} args, "
                             f"got {len(args)}")
+        if self.sole_shard:
+            return self._walk_sole(args)
         envs: List[List[Any]] = [[None] * sl.n for _ in range(lay.n)]
         for s, a, spec in zip(sl.params, args, self.in_specs):
             t = a if isinstance(a, torch.Tensor) else as_tensor(a, self.home)
@@ -251,6 +304,31 @@ class ShardedProgram:
         _execute_group(self.plan, envs, self.ctxs, lay, self.name)
         return tuple(lay.join([env[s] for env in envs], spec, self.home)
                      for s, spec in zip(sl.results, self.out_specs))
+
+    def _walk_sole(self, args):
+        sl, lay = self.slots, self.layout
+        env: List[Any] = [None] * sl.n
+        for s, a, spec, ty in zip(sl.params, args, self.in_specs,
+                                  self.in_types):
+            t = a if isinstance(a, torch.Tensor) else as_tensor(a, self.home)
+            if tuple(t.shape) != tuple(ty.shape):
+                raise ValueError(f"{self.name}: an input of shape "
+                                 f"{tuple(t.shape)}, the graph's is "
+                                 f"{tuple(ty.shape)}")
+            env[s] = lay.piece(t, spec, 0)
+        for s, t in sl.leaves_for(self.ctxs[0]).items():
+            env[s] = t
+        _execute_group(self.plan, [env], self.ctxs, _SoleShard(lay),
+                       self.name, SOLE_COLLECTIVES)
+        for s, ty in zip(sl.results, self.local_out_types):
+            got = env[s]
+            if tuple(got.shape) != ty.shape or \
+                    got.dtype != torch_dtype(ty.dtype):
+                raise ValueError(f"{self.name}: shard 0 gave "
+                                 f"{tuple(got.shape)} {got.dtype}, the "
+                                 f"graph's result is {ty}")
+        return tuple(torch.empty(ty.shape, dtype=torch_dtype(ty.dtype),
+                                 device=self.home) for ty in self.out_types)
 
 
 def shard_map(cf, mesh, in_specs: Sequence[Spec],

@@ -15,10 +15,19 @@ Several shards may name one device: on a one-card machine
 ``make_mesh((2,), ("model",), devices=["cuda:0"] * 2)`` runs two shards
 side by side on ``cuda:0``, and on the CPU every shard names ``cpu``.
 
-The reference's pjit glue (``param_shardings``, ``data_shardings``,
-``graph_shardings``, ``train_step_shardings``,
-``make_production_mesh``) serves only its dry-run tooling and is not
-ported here.
+The pjit glue (``param_shardings``, ``data_shardings``,
+``graph_shardings``, ``train_step_shardings``) gives
+``CompileOptions(mode="pjit", in_shardings=...)`` its per-parameter
+specs, as the reference's gives jit its shardings.  The port
+has no GSPMD: ``mode="pjit"`` runs the PartitionGraph pass with those
+specs stamped on the Parameters (:func:`pjit_partition`).  The pass
+shards a dim over one mesh axis, so a mesh with a ``pod`` axis is folded
+for it: pod x data become one ``data`` axis (:func:`fold_pods`; see
+there for what that changes).
+
+``make_production_mesh`` is 256 H100s as 32 HGX nodes of 8, the
+``model`` axis inside a node's NVLink; with no devices named its
+devices are ``meta`` (a dry run attaches no card).
 """
 from __future__ import annotations
 
@@ -112,10 +121,24 @@ class ShardingPolicy:
         lead = axes if len(axes) > 1 else (axes[0] if axes else None)
         return (lead,) + (None,) * (rank - 1)
 
+    def sharding_for(self, info: ParamInfo, mesh) -> Tuple[Any, ...]:
+        """The spec of ``info`` on ``mesh`` (the reference's
+        ``NamedSharding`` is its ``PartitionSpec`` here)."""
+        return self.spec_for(info, mesh)
+
+    def replicated(self, mesh) -> Tuple[Any, ...]:
+        """Every dim replicated (``PartitionSpec()``)."""
+        return ()
+
     def as_rules(self) -> Dict[str, Tuple[str, ...]]:
         """Flat logical->mesh-axes table: every known logical name,
         resolved."""
         return {k: self.resolve(k) for k in self.rules if k is not None}
+
+    def input_sharding(self, mesh, shape, logical_spec) -> Tuple[Any, ...]:
+        """The spec of a data input from its logical per-dim spec."""
+        info = ParamInfo("_input", tuple(shape), None, tuple(logical_spec))
+        return self.sharding_for(info, mesh)
 
 
 def policy_for(profile: str = "default", mesh=None) -> ShardingPolicy:
@@ -150,6 +173,11 @@ ARCH_PROFILES: Dict[str, str] = {
 
 def policy_for_arch(arch_name: str) -> ShardingPolicy:
     return policy_for(ARCH_PROFILES.get(arch_name, "default"))
+
+
+def profile_for_arch(arch_name: str) -> str:
+    """The arch's profile name, for ``CompileOptions(partition=...)``."""
+    return ARCH_PROFILES.get(arch_name, "default")
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +304,44 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return DeviceMesh(arr.reshape(shape), axes)
 
 
+def make_production_mesh(multi_pod: bool = False,
+                         devices: Optional[Sequence[Any]] = None
+                         ) -> DeviceMesh:
+    """The production mesh: 256 H100s as 32 HGX nodes of 8, ``(32, 8)``
+    over ``("data", "model")``, the ``model`` axis inside a node's NVLink;
+    with ``multi_pod`` two such pods, ``(2, 32, 8)`` over ``("pod",
+    "data", "model")``.  With no ``devices`` named every device is
+    ``meta``: a dry run compiles and walks the plan with no card."""
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if devices is None:
+        devices = ["meta"] * math.prod(shape)
+    return make_mesh(shape, axes, devices=devices)
+
+
+def production_mesh_name(multi_pod: bool) -> str:
+    return "hgx2x32x8" if multi_pod else "hgx32x8"
+
+
+def make_host_mesh(model_parallel: Optional[int] = None,
+                   devices: Optional[Sequence[Any]] = None) -> DeviceMesh:
+    """A ``(data, model)`` mesh over ``devices``, by default every
+    attached card (``devices=["cpu"]`` for the CPU)."""
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError(
+                "make_host_mesh: no card is attached (name the devices: "
+                "make_host_mesh(devices=['cpu']))")
+    n = len(devices)
+    mp = model_parallel or 1
+    return make_mesh((n // mp, mp), ("data", "model"), devices=devices)
+
+
+def is_meta(mesh) -> bool:
+    return all(torch.device(d).type == "meta" for d in mesh.devices.flat)
+
+
 def mesh_axis_sizes(mesh) -> dict:
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
@@ -319,3 +385,146 @@ def mesh_for_options(options, device: Any = None) -> Optional[DeviceMesh]:
                 f"{shared_card_recipe(options.mesh_shape, prof.axes)}))")
         devs = [f"cuda:{i}" for i in range(n)]
     return make_mesh(options.mesh_shape, prof.axes, devices=devs)
+
+
+# ---------------------------------------------------------------------------
+# mode="pjit": the partition pass under the policy's specs
+# ---------------------------------------------------------------------------
+def fold_pods(mesh) -> DeviceMesh:
+    """The mesh the partition pass and the shard executor see for a pjit
+    compile.  The pass shards a dim over one mesh axis, so a ``("pod",
+    "data", ...)`` mesh becomes ``("data", ...)`` with pod x data folded
+    into one axis (pods are the major axis, so the fold is a reshape and
+    shard ``i`` keeps its device).  A dim the policy shards over
+    ``("pod", "data")`` (batch; ZeRO under the ``zero3_pod`` profiles)
+    keeps its 64 shards.  A dim it shards over ``data`` alone (ZeRO's
+    ``embed`` under the other profiles: 32 shards, replicated across the
+    pods) is sharded over all 64 here: the pods do not replicate it.
+    A mesh without a ``pod`` axis is returned as it is."""
+    names = tuple(mesh.axis_names)
+    if "pod" not in names:
+        return mesh
+    if names[:2] != ("pod", "data"):
+        raise ValueError(f"a pod axis folds into the data axis after it; "
+                         f"the mesh has axes {names}")
+    shape = tuple(mesh.devices.shape)
+    return DeviceMesh(mesh.devices.reshape((shape[0] * shape[1],) +
+                                           shape[2:]), ("data",) + names[2:])
+
+
+def pass_spec(spec: Sequence[Any], shape: Sequence[int],
+              sizes: Dict[str, int], name: str = "") -> Tuple[Any, ...]:
+    """An ``in_shardings`` spec (one entry per dim: an axis, a tuple of
+    axes or None; shorter than the rank means the rest replicated) as
+    the pass's, one axis per dim over the folded mesh's ``sizes``:
+    ``pod`` is ``data`` (:func:`fold_pods`), and of several axes the
+    first is kept, as :func:`_policy_pass_rules` keeps it.  A dim the
+    policy shards over ``pod`` alone (a batch of 32 on the 2 x 32 x 8
+    mesh) has no cut on the folded axis: the pods replicate it
+    (:func:`pods_replicate` names them).  An axis the mesh lacks, or a
+    dim its axis does not divide, raises."""
+    spec = tuple(spec)
+    if len(spec) > len(shape):
+        raise ValueError(f"{name}: spec {spec} has more entries than the "
+                         f"shape {tuple(shape)} has dims")
+    out: List[Optional[str]] = []
+    for dim, e in zip(shape, spec + (None,) * (len(shape) - len(spec))):
+        axes = (e,) if isinstance(e, str) else tuple(e or ())
+        if axes == ("pod",):
+            axes = ()
+        axes = tuple(dict.fromkeys("data" if a == "pod" else a
+                                   for a in axes))
+        if not axes:
+            out.append(None)
+            continue
+        a = axes[0]
+        if a not in sizes:
+            raise ValueError(f"{name}: spec {spec} names {a!r}; the mesh "
+                             f"has axes {tuple(sizes)}")
+        if dim % sizes[a]:
+            raise ValueError(f"{name}: dim {dim} of {tuple(shape)} does "
+                             f"not divide over {a}={sizes[a]}")
+        out.append(a)
+    return tuple(out)
+
+
+def pods_replicate(in_shardings, params) -> List[str]:
+    """The parameters with a dim the policy shards over ``pod`` alone,
+    which the folded mesh replicates (:func:`pass_spec`)."""
+    def pod_only(e) -> bool:
+        return ((e,) if isinstance(e, str) else tuple(e or ())) == ("pod",)
+
+    return [p.name for s, p in zip(in_shardings, params)
+            if any(pod_only(e) for e in s)]
+
+
+def pjit_partition(options, fn):
+    """The PartitionGraph pass of a ``mode="pjit"`` compile: the profile
+    ``options.partition`` names ("default" when None) over the folded
+    ``options.mesh``'s axis sizes, its Parameters seeded with
+    ``options.in_shardings`` (:func:`pass_spec`) when given, else from
+    their logical axes.  A mesh that shares no axis with the profile
+    raises: nothing falls back to an unpartitioned compile."""
+    from ..core.passes import PartitionGraph
+    profile = partition_profile(options.partition or "default")
+    sizes = mesh_axis_sizes(fold_pods(options.mesh))
+    shared = {a: n for a, n in sizes.items() if a in profile.axes}
+    if not shared:
+        raise ValueError(
+            f"mode='pjit': partition profile {profile.name!r} has axes "
+            f"{profile.axes}, the mesh {tuple(sizes)}")
+    specs = None
+    if options.in_shardings is not None:
+        params = fn.parameters
+        if len(options.in_shardings) != len(params):
+            raise ValueError(
+                f"mode='pjit': {len(options.in_shardings)} in_shardings "
+                f"for {len(params)} parameters of {fn.name}")
+        specs = [pass_spec(s, p.out_types[0].shape, sizes, p.name)
+                 for s, p in zip(options.in_shardings, params)]
+    return PartitionGraph(profile.rules, sizes, profile.last_dim_only,
+                          profile.anywhere, param_specs=specs)
+
+
+# ---------------------------------------------------------------------------
+# per-graph pjit glue
+# ---------------------------------------------------------------------------
+def param_shardings(builder, mesh, policy: ShardingPolicy) -> list:
+    out = []
+    for name in builder.param_names():
+        s = builder.params[name]
+        info = ParamInfo(s.name, s.shape, s.dtype, s.logical_axes)
+        out.append(policy.sharding_for(info, mesh))
+    return out
+
+
+def data_shardings(builder, mesh, policy: ShardingPolicy) -> list:
+    out = []
+    for node in builder.inputs:
+        spec = builder.input_specs[node.name]
+        out.append(policy.input_sharding(mesh, node.out_types[0].shape, spec))
+    return out
+
+
+def graph_shardings(graphs, mesh, policy: Optional[ShardingPolicy] = None):
+    """(in_shardings, axis_rules) for a prefill/decode graph."""
+    policy = policy or policy_for_arch(graphs.cfg.name)
+    ins = data_shardings(graphs.builder, mesh, policy) + \
+        param_shardings(graphs.builder, mesh, policy)
+    return tuple(ins), policy.as_rules()
+
+
+def train_step_shardings(ts, mesh, policy: Optional[ShardingPolicy] = None):
+    """(in_shardings, out_shardings, donate_argnums, axis_rules) for a
+    train-step Function: (data..., step, *params, *m, *v) ->
+    (loss, *params', *m', *v')."""
+    policy = policy or policy_for_arch(ts.graphs.cfg.name)
+    b = ts.graphs.builder
+    data = data_shardings(b, mesh, policy)
+    repl = policy.replicated(mesh)
+    pshard = param_shardings(b, mesh, policy)
+    ins = tuple(data) + (repl,) + tuple(pshard) * 3
+    outs = (repl,) + tuple(pshard) * 3
+    n_data = len(data)
+    donate = tuple(range(n_data + 1, n_data + 1 + 3 * len(pshard)))
+    return ins, outs, donate, policy.as_rules()

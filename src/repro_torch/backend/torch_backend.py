@@ -32,6 +32,15 @@ graph through the shard executor (:mod:`.sharded`) over a mesh of N
 shards (:func:`.sharding.mesh_for_options`; ``mesh=`` names the devices,
 e.g. two shards on one card).  Callers pass and receive global tensors.
 A mesh on the backend's own device is captured whole like any program.
+
+``CompileOptions(mode="pjit", mesh=..., in_shardings=...)`` is the same
+pass and executor with the specs the pjit glue gives
+(:func:`.sharding.pjit_partition`; a ``pod`` axis folded into ``data``).
+On a meta mesh (``make_production_mesh()``), or with
+``device="meta"``, the compile emits the plan and a call walks shard 0
+on meta tensors (``ShardedProgram(sole_shard=True)``): shapes, types,
+``.cost`` and ``.memory_plan`` with no card.  The numpy convention
+(``cf(...)``) returns meta tensors there, which hold no values.
 """
 from __future__ import annotations
 
@@ -45,9 +54,9 @@ from ..transformers.torch_emit import EmitCtx, emit_callable
 from . import diskcache
 from .base import Backend, register_backend
 from .graphed import GraphedProgram, pair_donations
-from .options import CompileOptions, OptionsError
+from .options import CompileOptions
 from .sharded import ShardedProgram
-from .sharding import mesh_for_options
+from .sharding import fold_pods, is_meta, mesh_for_options
 
 
 @register_backend
@@ -90,12 +99,6 @@ class TorchBackend(Backend):
 
     def _codegen(self, fn: Function, options: CompileOptions
                  ) -> Tuple[Callable, Optional[Callable], Optional[Callable]]:
-        if options.mode == "pjit":
-            raise OptionsError(
-                "mode='pjit' (GSPMD partitioning from shardings) has no "
-                "torch counterpart; partitioned graphs run through "
-                "mode='shardmap'")
-
         def ctx_for(device):
             return EmitCtx(device, use_pallas=options.use_pallas,
                            attn_impl=options.attn_impl,
@@ -108,7 +111,10 @@ class TorchBackend(Backend):
             in_types, out_types = fn.in_types, fn.out_types
             one_stream = True
         else:
-            run = ShardedProgram(fn, mesh, ctx_for, home=dev)
+            sole = is_meta(mesh)
+            home = torch.device("meta") if sole else dev
+            run = ShardedProgram(fn, mesh, ctx_for, home=home,
+                                 sole_shard=sole)
             in_types, out_types = run.in_types, run.out_types
             one_stream = all(d == dev for d in run.layout.devices)
         if dev.type == "cuda" and options.static_jit and one_stream:
@@ -129,7 +135,7 @@ class TorchBackend(Backend):
             outs = run(*args)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            return [to_numpy(o) for o in outs]
+            return [o if o.is_meta else to_numpy(o) for o in outs]
 
         return call, run, None
 
@@ -139,7 +145,10 @@ class TorchBackend(Backend):
         Active only when the PartitionGraph pass actually ran (parameters
         carry ``pspec`` attrs): plain ``mode='shardmap'`` compiles with
         hand-written collectives are left alone (run them through
-        :func:`.sharded.shard_map`)."""
+        :func:`.sharded.shard_map`).  A pjit mesh is folded
+        (:func:`.sharding.fold_pods`), as the pass saw it."""
+        if options.mode == "pjit":
+            return fold_pods(options.mesh)
         if options.mode != "shardmap":
             return None
         if not any("pspec" in p.attrs for p in fn.parameters):

@@ -38,6 +38,9 @@ class CSE(Pass):
                 node.op,
                 tuple((id(v.node), v.index) for v in new_inputs),
                 tuple(sorted((k, _attr_key(v)) for k, v in node.attrs.items())),
+                # an Iota's shape is its out type alone: two Iotas of one
+                # dim and different shapes are different values
+                tuple((t.shape, str(t.dtype)) for t in node.out_types),
             )
             if key in table:
                 stats["merged"] += 1

@@ -80,11 +80,16 @@ class PartitionGraph(Pass):
 
     def __init__(self, rules: Dict[str, str], axis_sizes: Dict[str, int],
                  last_dim_only: bool = False,
-                 anywhere: Sequence[str] = ()):
+                 anywhere: Sequence[str] = (),
+                 param_specs: Optional[Sequence[Spec]] = None):
         self.rules = dict(rules)
         self.sizes = {a: int(n) for a, n in axis_sizes.items()}
         self.last_dim_only = bool(last_dim_only)
         self.anywhere = frozenset(anywhere)
+        # one spec per Parameter, in order, in place of the seeds the
+        # rules give (``mode="pjit"``'s in_shardings)
+        self.param_specs = (None if param_specs is None else
+                            [tuple(s) for s in param_specs])
         # exact profiles never row-parallelize a contraction they could
         # gather instead: split-contraction re-rounding would break
         # bit-identical greedy serving (see backend.sharding docstring)
@@ -132,7 +137,15 @@ class PartitionGraph(Pass):
     def run(self, fn: Function):
         if any("pspec" in p.attrs for p in fn.parameters):
             return fn, {"already_partitioned": 1}
-        inf = _Infer(self, fn, [self.seed_spec(p) for p in fn.parameters])
+        if self.param_specs is None:
+            seeds = [self.seed_spec(p) for p in fn.parameters]
+        elif len(self.param_specs) != len(fn.parameters):
+            raise PartitionError(
+                f"{len(self.param_specs)} parameter specs for "
+                f"{len(fn.parameters)} parameters of {fn.name}")
+        else:
+            seeds = self.param_specs
+        inf = _Infer(self, fn, seeds)
         inf.run()
         rb = _Rebuild(self, inf)
         new_fn = rb.build(fn)
@@ -155,21 +168,66 @@ class _Infer:
         self.failed = set()              # memoized failed force attempts
         self.scan_memo: Dict[Tuple, Tuple[_Step, "_Infer", List[Spec]]] = {}
         self.result_specs: List[Spec] = []
+        # (value, dim) pairs no backward force may shard: floors that a
+        # later spec of the producer's inputs left it unable to honour
+        self.veto: set = set()
 
     def spec(self, v: Value) -> Spec:
         return self.specs[_vkey(v)]
 
     def run(self) -> None:
         nodes = self.fn.nodes()
-        for _ in range(16):
-            if not self._forward(nodes, wish=True):
+        for _ in range(8):
+            for _ in range(16):
+                if not self._forward(nodes, wish=True):
+                    break
+            else:
+                raise PartitionError(
+                    f"partition inference did not converge on "
+                    f"{self.fn.name}")
+            # one wish-free pass so recorded decisions match the fixpoint
+            self._forward(nodes, wish=False)
+            bad = self._unhonoured(nodes)
+            if not bad:
                 break
+            # a floor was set while the producer's inputs could follow it
+            # and a later spec of theirs stopped them: forbid it and infer
+            # again from the seeds
+            self.veto |= bad
+            self.specs.clear()
+            self.floors.clear()
+            self.failed.clear()
+            self.scan_memo.clear()
         else:
             raise PartitionError(
-                f"partition inference did not converge on {self.fn.name}")
-        # one wish-free pass so recorded decisions match the fixpoint
-        self._forward(nodes, wish=False)
+                f"partition floors did not settle on {self.fn.name}")
         self.result_specs = [self.spec(r) for r in self.fn.results]
+
+    def _unhonoured(self, nodes: List[Node]) -> set:
+        """(value, dim) pairs whose stored shard its producer's rule does
+        not give from its inputs' final specs, for the ops whose floors
+        :meth:`_go` pushes into their inputs (a new or size-1 broadcast
+        dim is sharded for free and is not one)."""
+        bad = set()
+        for node in nodes:
+            op = node.op
+            if not (op in _UNARY or op in _BINARY or op in (
+                    "Select", "Transpose", "Softmax", "LogSoftmax", "CumSum",
+                    "Slice", "BroadcastInDim")):
+                continue
+            step = self._step(node, [self.spec(v) for v in node.inputs])
+            free = set()
+            if op == "BroadcastInDim":
+                bdims = tuple(node.attrs["broadcast_dims"])
+                xsh = node.inputs[0].shape
+                free = {d for d in range(len(node.out_types[0].shape))
+                        if d not in bdims or xsh[bdims.index(d)] <= 1}
+            for j in range(node.n_outputs):
+                got = self.spec(node.out(j))
+                for d, (a, b) in enumerate(zip(got, step.out[j])):
+                    if a is not None and b is None and d not in free:
+                        bad.add((_vkey(node.out(j)), d))
+        return bad
 
     def final_step(self, node: Node) -> _Step:
         ins = [self.spec(v) for v in node.inputs]
@@ -247,6 +305,8 @@ class _Infer:
             return False
         add = {d: a for d, a in add.items() if cur[d] != a}
         for d, a in add.items():
+            if (_vkey(v), d) in self.veto:
+                return False
             if cur[d] is not None:        # already sharded differently
                 return False
             if a in cur:                  # axis already used on another dim
@@ -389,8 +449,12 @@ class _Infer:
             out, fixes = _dedupe(out)
             c1 = list(ins[1])
             for pos in fixes:                    # duplicate axis: gather the
-                if ax <= pos < ax + len(c1):     # indices-derived dim
+                if ax <= pos < ax + len(c1):     # dim it came from
                     c1[pos - ax] = None
+                elif pos < ax:
+                    c0[pos] = None
+                else:                            # a table dim after axis
+                    c0[pos - len(c1) + 1] = None
             return _Step([out], [c0, c1])
         if op == "DynamicSlice":
             xsh = node.inputs[0].shape
@@ -753,6 +817,42 @@ class _Rebuild:
             self.newspecs.setdefault(id(v.node), [None] * v.node.n_outputs)
             self.newspecs[id(v.node)][v.index] = tuple(out_specs[v.index])
         return list(outs)
+
+
+# the ops :meth:`_Infer._step` has a rule for; any other op takes the
+# fallback and gathers each sharded operand
+RULED_OPS = _UNARY | _BINARY | frozenset({
+    "Parameter", "Constant", "Iota", "Select", "BroadcastInDim",
+    "Transpose", "Reshape", "Slice", "Pad", "Reverse", "Concat",
+    "ReduceSum", "ReduceMax", "ReduceMin", "Softmax", "LogSoftmax",
+    "CumSum", "ArgMax", "TopK", "RMSNorm", "LayerNorm", "DotGeneral",
+    "Gather", "DynamicSlice", "Attention", "LinearRecurrence", "Scan",
+    "ShardingConstraint"})
+
+
+_COLLECTIVE_OPS = frozenset({"AllGather", "AllReduce", "ReduceScatter",
+                             "AllToAll", "CollectivePermute"})
+
+
+def fallback_gathers(fn: Function) -> Dict[str, int]:
+    """The AllGathers of a partitioned Function that the fallback rule
+    inserted, by the op they feed (nodes of Scan bodies counted once,
+    not by trip count).  The rebuild inserts one gather per consumer
+    edge, so each AllGather that feeds an op outside :data:`RULED_OPS`
+    is one the fallback asked for."""
+    out: Dict[str, int] = collections.Counter()
+
+    def walk(f: Function) -> None:
+        for node in f.nodes():
+            if node.op == "Scan":
+                walk(node.attrs["body"])
+            elif node.op not in RULED_OPS and node.op not in _COLLECTIVE_OPS:
+                n = sum(v.node.op == "AllGather" for v in node.inputs)
+                if n:
+                    out[node.op] += n
+
+    walk(fn)
+    return dict(out)
 
 
 # ---------------------------------------------------------------------------

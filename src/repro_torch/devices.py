@@ -49,9 +49,10 @@ def resolve_device(spec: Any = None) -> torch.device:
     """``device=`` -> a concrete ``torch.device``.
 
     Accepts ``"cpu"``, ``"cuda"``/``"cuda:i"``, an int index of a CUDA
-    device, or a ``torch.device``; None means ``"cuda"``.  A device that
-    is not attached fails here with the available devices listed -- a
-    missing card is an error, never a silent move to the CPU."""
+    device, ``"meta"`` (shapes and types only: a dry run), or a
+    ``torch.device``; None means ``"cuda"``.  A device that is not
+    attached fails here with the available devices listed -- a missing
+    card is an error, never a silent move to the CPU."""
     if spec is None:
         spec = "cuda"
     if isinstance(spec, (int, np.integer)) and not isinstance(spec, bool):
@@ -66,8 +67,8 @@ def resolve_device(spec: Any = None) -> torch.device:
         raise TypeError(
             f"device must be 'cpu', 'cuda[:i]', an int index or a "
             f"torch.device, got {type(spec).__name__}")
-    if spec.type == "cpu":
-        return torch.device("cpu")
+    if spec.type in ("cpu", "meta"):
+        return torch.device(spec.type)
     if spec.type != "cuda":
         raise ValueError(f"unsupported device {spec}; available: "
                          f"{available()}")
@@ -97,6 +98,9 @@ def as_tensor(x: Any, device: torch.device) -> torch.Tensor:
 def to_numpy(t: Any) -> np.ndarray:
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
+    if t.is_meta:
+        raise ValueError(f"a meta tensor {tuple(t.shape)} {t.dtype} has no "
+                         f"values")
     t = t.detach()
     if t.device.type != "cpu":
         t = t.cpu()

@@ -145,6 +145,16 @@ def check(rc: int, name: str) -> None:
             f"{name}: CUDA kernel launch failed with cudaError {rc}")
 
 
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` with ``device`` current, and raise
+    if its launches failed.  The launches (and each kernel's per-device
+    shared-memory limit, ``csrc/common.cuh``'s ``once_per_device``) act
+    on the thread's current device, which need not be the operands'."""
+    with torch.cuda.device(device):
+        rc = getattr(lib(), entry)(*args)
+    check(rc, entry.removeprefix("repro_"))
+
+
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

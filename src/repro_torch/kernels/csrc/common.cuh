@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace repro {
 
 // dtype codes, mirrored by _build.DTYPE_CODES
@@ -24,6 +26,36 @@ constexpr int kWarps = kThreads / 32;
 // dynamic shared memory a block may opt into on sm_90 (227 KB; mirrored
 // by ops._SMEM)
 constexpr int kMaxDynamicSmem = 232448;
+
+// A kernel attribute set once per device.  cudaFuncSetAttribute acts on
+// the current device, so a process-wide "done" would leave every card but
+// the first at the default limit.  Each call site keeps one table (a
+// function-local static of its instantiation), keyed by cudaGetDevice;
+// the first launch on a device runs ``set`` and every later one reuses
+// its result.  The wrappers make the operands' device current
+// (_build.launch).  No runtime call but cudaGetDevice on the launch
+// path, which a CUDA-graph capture may run.
+constexpr int kMaxDevices = 64;
+
+struct PerDevice {
+  std::mutex mu;
+  bool done[kMaxDevices] = {};
+  cudaError_t err[kMaxDevices] = {};
+};
+
+template <typename F>
+inline cudaError_t once_per_device(PerDevice& table, F set) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(table.mu);
+  if (!table.done[dev]) {
+    table.err[dev] = set();
+    table.done[dev] = true;
+  }
+  return table.err[dev];
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {

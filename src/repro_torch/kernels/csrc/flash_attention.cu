@@ -295,11 +295,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int Dk, int Dv, float scale, int causal, int has_window,
                    int window, cudaStream_t s) {
   const size_t smem = smem_bytes<T, BQ>(Dk, Dv);
-  // raise the instantiation's dynamic shared memory limit once, to the
-  // most any call can need (Dk = Dv = 256), off the per-launch path
-  static const cudaError_t limit = cudaFuncSetAttribute(
-      flash_kernel<T, BQ, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<T, BQ>(2 * kFT, 2 * kFT));
+  // raise the instantiation's dynamic shared memory limit once per
+  // device, to the most any call can need (Dk = Dv = 256)
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [] {
+    return cudaFuncSetAttribute(
+        flash_kernel<T, BQ, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<T, BQ>(2 * kFT, 2 * kFT));
+  });
   if (limit != cudaSuccess) return limit;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)Hq, (unsigned)B);
   flash_kernel<T, BQ, RC><<<grid, kFT, smem, s>>>(
@@ -710,11 +713,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       const int* off, int B, int Hq, int Hkv, int Sq,
                       int Skv, int Dk, int Dv, float scale, int causal,
                       int has_window, int window, cudaStream_t s) {
-  // raise the instantiation's dynamic shared memory limit once, to the
-  // most any call can need, off the per-launch path
-  static const cudaError_t limit = cudaFuncSetAttribute(
-      flash_tc_kernel<T, CF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tc_smem<T>(CF::BQ, CF::W, CF::W, CF::STAGES));
+  // raise the instantiation's dynamic shared memory limit once per
+  // device, to the most any call can need
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [] {
+    return cudaFuncSetAttribute(
+        flash_tc_kernel<T, CF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tc_smem<T>(CF::BQ, CF::W, CF::W, CF::STAGES));
+  });
   if (limit != cudaSuccess) return limit;
   const int tiles = (Skv + BK - 1) / BK;
   const int ns = std::min(CF::STAGES, tiles);

@@ -97,11 +97,13 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, class TL>
 cudaError_t launch_tc(const T* A, const T* B, T* C, int M, int K, int N,
                       cudaStream_t s) {
-  // raise the instantiation's dynamic shared memory limit once, off the
-  // per-launch path
-  static const cudaError_t limit = cudaFuncSetAttribute(
-      matmul_tc_kernel<T, TL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TL::SMEM);
+  // raise the instantiation's dynamic shared memory limit once per device
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [] {
+    return cudaFuncSetAttribute(
+        matmul_tc_kernel<T, TL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TL::SMEM);
+  });
   if (limit != cudaSuccess) return limit;
   const bool b_first = tc::b_evict_first((size_t)K * N * sizeof(T));
   dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);

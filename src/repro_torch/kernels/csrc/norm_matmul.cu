@@ -98,17 +98,17 @@ int launch_f32(const float* X, const TG* G, const float* W, float* C, int M,
   constexpr int BN = CG * kVec<float>;
   const size_t smem = (size_t)BM * D * sizeof(float);
   auto kern = norm_matmul_kernel<float, TG, BM>;
-  // once per instantiation, at the card's opt-in limit less the static
-  // arrays (the row tile's size depends on D): no runtime call on the
-  // launch path, which a CUDA-graph capture may run
-  static const cudaError_t limit = [kern] {
+  // once per instantiation and device, at the card's opt-in limit less
+  // the static arrays (the row tile's size depends on D)
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [kern] {
     cudaFuncAttributes fa;
     const cudaError_t e = cudaFuncGetAttributes(&fa, kern);
     if (e != cudaSuccess) return e;
     return cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxDynamicSmem - (int)fa.sharedSizeBytes);
-  }();
+  });
   if (limit != cudaSuccess) return (int)limit;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kern<<<grid, kThreads, smem, s>>>(X, G, W, C, M, D, N, eps);
@@ -265,8 +265,11 @@ int launch_tc(const T* X, const TG* G, const T* W, T* C, float* inv, int M,
               int D, int N, float eps, cudaStream_t s) {
   constexpr int smem = norm_smem<TG, TL>();
   auto kern = norm_matmul_tc_kernel<T, TG, TL>;
-  static const cudaError_t limit = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [kern] {
+    return cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  });
   if (limit != cudaSuccess) return (int)limit;
   norm_matmul_inv_kernel<T><<<(M + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       X, inv, M, D, eps);

@@ -184,11 +184,13 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, class TL>
 cudaError_t launch_gate_up(const T* X, const T* WG, const T* WU, T* H, int M,
                            int D, int F, cudaStream_t s) {
-  // raise the instantiation's dynamic shared memory limit once, off the
-  // per-launch path
-  static const cudaError_t limit = cudaFuncSetAttribute(
-      swiglu_gate_up_kernel<T, TL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  // raise the instantiation's dynamic shared memory limit once per device
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [] {
+    return cudaFuncSetAttribute(
+        swiglu_gate_up_kernel<T, TL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  });
   if (limit != cudaSuccess) return limit;
   constexpr int BF = TL::BN / 2;
   dim3 grid((M + TL::BM - 1) / TL::BM, (F + BF - 1) / BF);
@@ -201,9 +203,12 @@ cudaError_t launch_gate_up(const T* X, const T* WG, const T* WU, T* H, int M,
 template <typename T, class TL>
 cudaError_t launch_down(const T* H, const T* WD, T* C, int M, int F, int Do,
                         cudaStream_t s) {
-  static const cudaError_t limit = cudaFuncSetAttribute(
-      swiglu_down_kernel<T, TL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TL::SMEM);
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [] {
+    return cudaFuncSetAttribute(
+        swiglu_down_kernel<T, TL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TL::SMEM);
+  });
   if (limit != cudaSuccess) return limit;
   dim3 grid((Do + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
   return launch_dependent(swiglu_down_kernel<T, TL>, grid, TL::SMEM, s, H,

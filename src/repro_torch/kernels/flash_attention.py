@@ -98,11 +98,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     off = _offset(q_offset, q.device)
     out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
     win = 0 if window is None else min(int(window), _MAX_WINDOW)
-    rc = _build.lib().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    _build.launch(
+        "repro_flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(),
         off.data_ptr() if off is not None else None, B, Hq, Hkv, Sq, Skv,
         Dk, Dv, float(scale), int(bool(causal)), int(window is not None),
         win, _build.dtype_code(q, "flash_attention"), _build.stream(q))
-    _build.check(rc, "flash_attention")
     launches += 1
     return out

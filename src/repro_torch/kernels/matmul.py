@@ -41,9 +41,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a = _build.operand(a, "matmul", a.device)
     b = _build.operand(b, "matmul", a.device)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    rc = _build.lib().repro_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
-        _build.dtype_code(a, "matmul"), _build.stream(a))
-    _build.check(rc, "matmul")
+    _build.launch(
+        "repro_matmul", a.device, a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), M, K, N, _build.dtype_code(a, "matmul"),
+        _build.stream(a))
     launches += 1
     return out

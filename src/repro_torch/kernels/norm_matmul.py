@@ -64,12 +64,11 @@ def norm_matmul(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     # the rows' inverse RMS, between the tensor-core route's two kernels
     inv = (torch.empty((M,), dtype=torch.float32, device=x.device)
            if plan.route == "tensor_core" else None)
-    rc = _build.lib().repro_norm_matmul(
-        x.data_ptr(), g.data_ptr(), w.data_ptr(), out.data_ptr(),
+    _build.launch(
+        "repro_norm_matmul", x.device, x.data_ptr(), g.data_ptr(),
+        w.data_ptr(), out.data_ptr(),
         inv.data_ptr() if inv is not None else None, M, D, N, plan.bm,
-        float(eps),
-        _build.dtype_code(x, "norm_matmul"),
+        float(eps), _build.dtype_code(x, "norm_matmul"),
         _build.dtype_code(g, "norm_matmul"), _build.stream(x))
-    _build.check(rc, "norm_matmul")
     launches += 1
     return out

@@ -41,10 +41,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     x = _build.operand(x, "rmsnorm", x.device)
     w = _build.operand(w, "rmsnorm", x.device)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    rc = _build.lib().repro_rmsnorm(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d, float(eps),
-        _build.dtype_code(x, "rmsnorm"), _build.dtype_code(w, "rmsnorm"),
-        _build.stream(x))
-    _build.check(rc, "rmsnorm")
+    _build.launch(
+        "repro_rmsnorm", x.device, x.data_ptr(), w.data_ptr(),
+        out.data_ptr(), rows, d, float(eps), _build.dtype_code(x, "rmsnorm"),
+        _build.dtype_code(w, "rmsnorm"), _build.stream(x))
     launches += 1
     return out

@@ -56,10 +56,9 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     # second
     h = torch.empty((M, F), dtype=x.dtype, device=dev)
     out = torch.empty((M, Do), dtype=x.dtype, device=dev)
-    rc = _build.lib().repro_swiglu(
-        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        h.data_ptr(), out.data_ptr(), M, D, F, Do,
-        _build.dtype_code(x, "swiglu"), _build.stream(x))
-    _build.check(rc, "swiglu")
+    _build.launch(
+        "repro_swiglu", dev, x.data_ptr(), w_gate.data_ptr(),
+        w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), out.data_ptr(),
+        M, D, F, Do, _build.dtype_code(x, "swiglu"), _build.stream(x))
     launches += 1
     return out

@@ -22,6 +22,7 @@ from repro.core.function import Function as JFunction  # noqa: E402
 from repro_torch.backend import (Backend, CompileOptions,  # noqa: E402
                                  CompiledFunction, OptionsError,
                                  available_backends)
+from repro_torch.backend.sharding import make_mesh  # noqa: E402
 from repro_torch.core import ops  # noqa: E402
 from repro_torch.core.function import Function  # noqa: E402
 
@@ -262,9 +263,11 @@ def test_later_slices_are_refused_on_every_backend(tmp_path):
     autotuner are ported and accepted on the interpreter as on torch:
     ``compress_grads`` runs CompressAllReduce at O2, a ``partition``
     compile reports the pass's stats, and a partition without
-    ``mode='shardmap'`` is refused with the reference's message.  GSPMD
-    (``mode='pjit'``), which waits for the dry-run tooling, is refused on
-    torch."""
+    ``mode='shardmap'`` is refused with the reference's message.
+    ``mode='pjit'`` compiles on both: on torch the partition pass cuts
+    the graph over the mesh (x's rows over ``data``) and the shard
+    executor runs it, on the interpreter the oracle runs the global
+    graph; both give the jit result."""
     for name in BACKENDS:
         be = _create(name, fresh=True)
         cf = be.compile(_graph(), CompileOptions(level="O2",
@@ -280,6 +283,13 @@ def test_later_slices_are_refused_on_every_backend(tmp_path):
             cache_dir=str(tmp_path / name), autotune=True))
         assert be.cache_stats().disk_misses == 1
         assert cf.options.autotune is False
-    with pytest.raises(OptionsError, match="mode='pjit'"):
-        _create("torch", fresh=True).compile(_graph(), CompileOptions(
-            mode="pjit", mesh=object()))
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    args = _args()
+    want = _create("torch", fresh=True).compile(_graph())(*args)[0]
+    for name in BACKENDS:
+        cf = _create(name, fresh=True).compile(_graph(), CompileOptions(
+            mode="pjit", mesh=mesh, in_shardings=(("data", None), ())))
+        np.testing.assert_allclose(cf(*args)[0], want, rtol=1e-5)
+        if name == "torch":
+            assert cf.function.parameters[0].out_types[0].shape == (2, 16)
+            assert cf.report.stats["partition"]["params_sharded"] == 1

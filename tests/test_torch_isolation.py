@@ -62,6 +62,8 @@ mods = ["repro_torch"]
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
     mods.append(m.name)
+assert all(m in mods for m in ("repro_torch.launch.roofline",
+                               "repro_torch.launch.dryrun")), mods
 import chip_smoke  # noqa: F401  (phases import the port lazily)
 import importlib.util
 for path in {scripts!r}:
@@ -96,6 +98,33 @@ def test_every_port_module_imports_without_jax_or_repro():
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+_DRYRUN = r"""
+import sys
+sys.path.insert(0, {src!r})
+from repro_torch.launch import dryrun
+rc = dryrun.main(["--arch", "xlstm-350m", "--shape", "decode_32k",
+                  "--out-dir", {out!r}])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert rc == 0 and not bad, (rc, bad)
+print("ok")
+"""
+
+
+def test_dry_run_runs_without_jax_or_repro(tmp_path):
+    """The dry run (the pjit glue, mode='pjit' on meta devices, the
+    roofline) runs a full-width cell with neither jax nor the reference
+    imported."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _DRYRUN.format(src=SRC, out=str(tmp_path))],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "DRY-RUN GREEN" in out.stdout and \
+        out.stdout.strip().endswith("ok")
 
 
 def test_engine_and_serve_refuse_a_missing_card():

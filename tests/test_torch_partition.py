@@ -49,6 +49,9 @@ from repro_torch.core.passes import (CompressAllReduce,  # noqa: E402
                                      PartitionGraph, PassStats,
                                      simulate_shards, standard_pipeline)
 from repro_torch.core.passes import run_pipeline  # noqa: E402
+from repro_torch.core.passes.cse import CSE  # noqa: E402
+from repro_torch.transformers.interpreter import \
+    evaluate as EVAL_FN  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.transformers.torch_emit import EMIT, EmitCtx  # noqa: E402
 
@@ -536,9 +539,65 @@ def test_stable_token_keeps_tp_apart():
         tp2.replace(mesh=one).stable_token()
 
 
+def test_gather_keeps_one_axis_per_dim_when_table_and_indices_share_it():
+    """An embedding gather whose table is cut on its columns and whose
+    indices on their rows, both over ``data``: the output keeps the
+    indices' cut and gathers the table's columns (the copied rule kept
+    the columns cut while typing them whole), and the shards give the
+    interpreter's values."""
+    table = _param(ops, (8, 4), (None, "embed"), name="table")
+    idx = ops.parameter((2, 3), "i32", "idx")
+    idx.attrs["logical_axes"] = ("batch", None)
+    y = ops.gather(table.out(), idx.out(), axis=0)
+    fn = Function([table, idx], [ops.multiply(y, y)])
+    pg = PartitionGraph({"embed": "data", "batch": "data"}, {"data": 2})
+    part, _ = pg.run(fn)
+    assert [p.attrs["pspec"] for p in part.parameters] == \
+        [(None, "data"), ("data", None)]
+    assert part.results[0].node.attrs["out_pspecs"][0] == \
+        ("data", None, None)
+    rng = np.random.default_rng(4)
+    args = [rng.normal(size=(8, 4)).astype(np.float32),
+            rng.integers(0, 8, (2, 3)).astype(np.int32)]
+    want = EVAL_FN(fn, args)
+    got = simulate_shards(part, args, {"data": 2})
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+
+
+def test_cse_keeps_iotas_of_different_shapes_apart():
+    """Two Iotas over one dim with different shapes are two values: CSE
+    keys on out types too (the copied key merged them and failed)."""
+    a = ops.iota((2, 3), 0)
+    b = ops.iota((4, 3), 0)
+    fn = Function([], [a, b])
+    out, stats = CSE().run(fn)
+    assert [r.shape for r in out.results] == [(2, 3), (4, 3)]
+    assert stats["merged"] == 0
+
+
+def _mlp_args():
+    rng = np.random.default_rng(23)
+    return [rng.normal(size=s).astype(np.float32)
+            for s in ((2, 8), (8, 16), (16, 4))]
+
+
 def test_pjit_mode_is_refused():
-    """GSPMD partitioning from shardings has no torch counterpart: the
-    partitioned graphs run through mode='shardmap'."""
-    mesh = sharding.make_mesh((1,), ("model",), devices=["cpu"])
-    with pytest.raises(OptionsError, match="shardmap"):
-        _cpu().compile(_mlp(), CompileOptions(mode="pjit", mesh=mesh))
+    """mode='pjit' is the partition pass under the policy's profile
+    ("default": ffn on model) over the mesh, run by the shard executor:
+    on a (2, 2) CPU mesh it gives the jit result, with explicit
+    in_shardings (x's rows over data) as with the profile's seeds.  Only
+    a mesh that shares no axis with the profile is refused."""
+    mesh = sharding.make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    x, w1, w2 = _mlp_args()
+    want = _cpu().compile(_mlp(), CompileOptions())(x, w1, w2)[0]
+    for ins in (None, (("data", None), (None, "model"), ())):
+        cf = _cpu().compile(_mlp(), CompileOptions(mode="pjit", mesh=mesh,
+                                                   in_shardings=ins))
+        specs = [p.attrs["pspec"] for p in cf.function.parameters]
+        assert specs[1] == (None, "model")
+        assert specs[0] == ((None, None) if ins is None else ("data", None))
+        np.testing.assert_allclose(cf(x, w1, w2)[0], want, rtol=1e-5,
+                                   atol=1e-6)
+    other = sharding.make_mesh((2,), ("x",), devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="has axes"):
+        _cpu().compile(_mlp(), CompileOptions(mode="pjit", mesh=other))
