@@ -10,6 +10,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --multimodal-only # phases 1-3 and 11, no result line
     python3 chip_smoke.py --tp-only        # phases 1-3 and 12, no result line
     python3 chip_smoke.py --roofline-only  # phases 1-3 and 13, no result line
+    python3 chip_smoke.py --matrix-only    # phases 1-3 and 14, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -223,8 +224,41 @@ without printing a result:
                  finite; a fraction max(t_*) / measured above 1.05
                  fails, naming the top ops of the cost.  [roofline]
                  lines.
+ 14. matrix   -- the serving matrix (runs last, after phase 13's graphs
+                 are freed): scripts/torch_serving_matrix.py's eight
+                 legs (donated, continuous, paged, the shared-prefix
+                 pair with sharing off and on, paged at tp=2 with both
+                 shards on the card, the HTTP front door fed by four
+                 tagged concurrent clients then drained, and the chaos
+                 probe in a process of its own, reduced) through the
+                 serve CLI's own path and report, on deepseek-7b at full
+                 width, as deep as phase 12's reckoning allows two
+                 shards (one f32 weight draw from seed 0 for every leg),
+                 at O2 with the kernels, first in f32, then the seven
+                 engine legs in bf16.  In f32 the unchanged
+                 scripts/check_serving_matrix.py must pass the eight
+                 reports (greedy parity across the legs, no page
+                 leaked, paged under continuous in KV bytes, COW on the
+                 shared pair, tp=2's halved KV bytes, a clean drain,
+                 every chaos scenario).  In bf16 the legs attend
+                 through forms that round apart (flash, the IR
+                 compositions), so the checker may fail them on greedy
+                 parity alone; every split it reports is found and
+                 measured: a prefill of the prompt and the agreed
+                 tokens in bf16 and in f32 gives each leg's pick in
+                 bf16 units below the top logit ([matrix_tie] lines; a
+                 split within one unit is counted a tie).  In
+                 both runs each engine leg launched the kernels
+                 serve.smoke_kernels names for it (flash in the donated
+                 and continuous legs), none refused, all five across
+                 the legs, and every launched shape is held against its
+                 plain version.  [matrix] lines: each leg's tok/s, TTFT
+                 p50/p95, KV bytes per active token, peak GB, seconds;
+                 [matrix_prefill] lines: the prompt prefill (4 x 32 and
+                 1 x 32 rows) in each compute type, its wall ms and its
+                 profiled device ms by kernel.
 
-In phases 4, 5, 7, 8, 9, 10, 11 and 12 no kernel may have been refused
+In phases 4, 5, 7, 8, 9, 10, 11, 12 and 14 no kernel may have been refused
 at full width, but phase 9's counted deepseek-v3 decode attention.
 Phase 6 and phase 8's reduced width count their refusals but do not gate
 them: the reduced vocabulary (257) is no whole number of 16-byte
@@ -3570,6 +3604,272 @@ def phase_roofline(report: dict, smi: str) -> None:
     _roofline_tp(smi)
 
 
+# -- 14. the serving matrix, full width ---------------------------------------
+MATRIX_CARD = "cuda"
+MATRIX_DIR = os.path.join(ROOT, "build", "serving_matrix")
+MATRIX_SEED = 0    # the weights' draw and the prompts
+# the legs attend through different forms -- flash in the donated and
+# continuous prefills and donated's decode, the IR compositions in the
+# paged prefill chunks and the row-position decode -- which round apart
+# in bf16, so there a greedy pick whose top logits lie close goes either
+# way.  The bf16 run (the serving path's compute) may fail the checker's
+# token parity alone, and each split is measured; the f32 run keeps the
+# forms within summation order of each other, and is what the checker's
+# token parity holds.  A split within MATRIX_TIE_ULPS bf16 units is
+# counted a tie.
+MATRIX_TIE_ULPS = 1
+MATRIX_PREFILL_BATCHES = (SLOTS, 1)   # donated's admission, continuous's
+
+
+def _matrix_script():
+    """``scripts/torch_serving_matrix.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_serving_matrix",
+        os.path.join(ROOT, "scripts", "torch_serving_matrix.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _matrix_line(leg: str, doc: dict, info: dict, compute: str,
+                 smi: str) -> None:
+    if leg == "chaos":
+        say("matrix", leg=leg, seconds=f"{info['seconds']:.2f}",
+            scenarios=json.dumps({k: v["ok"] for k, v in
+                                  doc["scenarios"].items()}),
+            counters=json.dumps(doc["counters"]), card=repr(smi))
+        return
+    srv = doc.get("server")
+    kv = doc.get("kv_bytes_per_active_token")
+    say("matrix", leg=leg, compute=compute,
+        mode=doc.get("engine_mode", doc["mode"]),
+        tok_s=f"{(srv['sustained_tok_s'] if srv else doc['tok_s']):.2f}",
+        decode_tok_s=(f"{doc['decode_tok_s']:.2f}" if not srv else "n/a"),
+        ttft_p50_ms=f"{(srv or doc)['ttft_p50_ms']:.1f}",
+        ttft_p95_ms=f"{(srv or doc)['ttft_p95_ms']:.1f}",
+        kv_b_per_active_token=f"{kv:.1f}" if kv else "n/a",
+        peak_gb=("n/a" if info["peak_gb"] is None
+                 else f"{info['peak_gb']:.2f}"),
+        seconds=f"{info['seconds']:.2f}",
+        launches=json.dumps({k: v["launches"]
+                             for k, v in doc["kernels"].items()}),
+        card=repr(smi))
+
+
+def _matrix_legs(report: dict, mx, cfg, params, mesh, legs, smi: str):
+    """Run ``legs`` of the matrix's full-width workload on ``cfg`` into
+    ``MATRIX_DIR/<compute>``: every engine leg launched the kernels
+    ``serve.smoke_kernels`` names for its path and refused none, all
+    five launched across the legs, and every distinct shape they gave a
+    kernel is held against its plain version.  Returns each leg's run
+    info and report."""
+    from repro_torch.launch.serve import smoke_kernels
+    tag = cfg.compute_dtype
+    with _launched_shapes({}) as seen:
+        infos = mx.run_matrix(cfg, MATRIX_CARD, os.path.join(MATRIX_DIR, tag),
+                              params=params, tp_mesh=mesh,
+                              workload=mx.FULL_WORKLOAD, seed=MATRIX_SEED,
+                              legs=legs)
+    total = {k: 0 for k in ALL_KERNELS}
+    docs = {}
+    for leg, info in infos.items():
+        with open(info["path"]) as f:
+            docs[leg] = doc = json.load(f)
+        _matrix_line(leg, doc, info, tag, smi)
+        if leg == "chaos":
+            continue
+        paged = doc.get("engine_mode", doc["mode"]) == "paged"
+        need, may_refuse = smoke_kernels(cfg, attention=not paged)
+        require(not may_refuse, f"matrix {leg}: {may_refuse} may refuse")
+        _record_launches(report, f"matrix_{tag}_{leg}", doc["kernels"], need)
+        for k in total:
+            total[k] += doc["kernels"][k]["launches"]
+    require(all(total.values()), f"matrix {tag}: a kernel never launched "
+            f"across the legs: {total}")
+    by_kernel = _hold_launched(seen, f"deepseek-7b matrix {tag}")
+    say("matrix_shapes", compute=tag, held=sum(by_kernel.values()),
+        by_kernel=json.dumps(by_kernel), launches=json.dumps(total),
+        card=repr(smi))
+    return infos, docs, total
+
+
+def _matrix_splits(cfg, docs: dict) -> dict:
+    """Each first token where a leg leaves the leg the checker holds it
+    to (continuous for the standard workload, the sharing-off leg for the
+    shared pair), by (prompt, tokens both agree on): the legs' picks
+    there and the (leg, request) pairs the checker reports."""
+    from repro_torch.launch.serve import workload_prompts
+    groups = [("continuous", [leg for leg, d in docs.items()
+                              if leg not in ("chaos", "continuous")
+                              and not d.get("workload", {}).get(
+                                  "shared_prefix_len")]),
+              ("paged-shared-base", ["paged-shared-prefix"])]
+    splits = {}
+    for base_leg, legs in groups:
+        w = docs[base_leg]["workload"]
+        base = docs[base_leg]["results"]
+        prompts = workload_prompts(cfg, len(base), w["prompt_len"],
+                                   w.get("shared_prefix_len") or 0,
+                                   MATRIX_SEED)
+        for leg in legs:
+            for rid, toks in docs[leg]["results"].items():
+                b = base[rid]
+                differ = [i for i, (x, y) in enumerate(zip(toks, b)) if x != y]
+                if not differ:
+                    continue
+                j = differ[0]
+                seq = tuple(int(t) for t in np.concatenate(
+                    [prompts[int(rid)], np.asarray(b[:j], np.int64)]))
+                s = splits.setdefault(seq, {"request": rid, "step": j,
+                                            "picks": {base_leg: b[j]},
+                                            "pairs": []})
+                s["picks"][leg] = toks[j]
+                s["pairs"].append((leg, rid))
+    return splits
+
+
+def _matrix_ties(cfg16, cfg32, params, docs: dict, paths: list, mx,
+                 smi: str) -> tuple:
+    """The bf16 legs' reports (``docs``; with the f32 run's chaos report,
+    ``paths``) before the unchanged checker: it may fail them on greedy
+    parity alone, and every split it reports is found and measured.  At
+    each split a (1, P + j) prefill of the prompt and the tokens the legs
+    agree on, bf16 at O2 with the kernels (the CPU tie test's method),
+    gives each leg's pick in bf16 units below its top logit; the same
+    prefill in f32 gives those gaps at the higher precision, and the
+    spread of bf16 - f32 over the f32 prefill's top 32 tokens (in bf16
+    units) is how far one bf16 form moves a gap there.  A split whose
+    picks all lie within :data:`MATRIX_TIE_ULPS` of the bf16 top is a
+    tie; the others are counted, not gated (PERF.md section 7, ROADMAP
+    Queue 3).  Returns (splits, ties)."""
+    proc = mx.check_reports(paths)
+    fails = [ln for ln in proc.stderr.splitlines()
+             if ln.startswith("MATRIX FAIL")]
+    say("matrix_bf16_checker", rc=proc.returncode, fails=len(fails),
+        parity_fails=sum("diverged from" in ln for ln in fails),
+        out=repr(proc.stdout.strip()[:60]), card=repr(smi))
+    require(proc.returncode == 0 or all("diverged from" in ln
+                                        for ln in fails),
+            f"matrix bf16: the checker failed on more than parity: {fails}")
+    splits = _matrix_splits(cfg16, docs)
+    pairs = sum(len(s["pairs"]) for s in splits.values())
+    require(pairs == len(fails), f"matrix bf16: {pairs} splits found, "
+            f"the checker reports {len(fails)}: {fails}")
+    ties = 0
+    for seq, s in splits.items():
+        lg = {c.compute_dtype: _prefill_logits(c, params, MATRIX_CARD, seq)
+              for c in (cfg16, cfg32)}
+        gaps = {}
+        for dt, x in lg.items():
+            top = int(np.argmax(x))
+            unit = _ulp(x[top], torch.bfloat16)
+            gaps[dt] = {"top": top, "top_logit": float(x[top]),
+                        "pick_gap_ulps": {leg: float(x[top] - x[t]) / unit
+                                          for leg, t in s["picks"].items()}}
+        near = np.argsort(-lg["f32"], kind="stable")[:32]
+        drift = (lg["bf16"][near] - lg["f32"][near]) / _ulp(
+            lg["f32"][near[0]], torch.bfloat16)
+        tie = max(gaps["bf16"]["pick_gap_ulps"].values()) <= MATRIX_TIE_ULPS
+        ties += tie
+        say("matrix_tie", request=s["request"], step=s["step"],
+            prompt_len=len(seq) - s["step"],
+            picks=json.dumps(s["picks"]), pairs=len(s["pairs"]),
+            bf16=json.dumps(gaps["bf16"]), f32=json.dumps(gaps["f32"]),
+            bf16_drift_spread_ulps=f"{float(drift.max() - drift.min()):.3f}",
+            tie=tie, card=repr(smi))
+    return len(splits), ties
+
+
+def _matrix_prefill_profile(cfg, params, batch: int, smi: str) -> None:
+    """Where a leg's first token goes: the matrix's prompt prefill at
+    ``batch`` x 32 rows, eager as a first call runs, timed on the host
+    and traced by ``torch.profiler`` (device ms by kernel wrapper)."""
+    from repro_torch.backend import Backend, CompileOptions
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.serve import workload_prompts
+    from repro_torch.models.lm import build_graphs
+    P = 32
+    g = build_graphs(cfg, ShapeConfig("prefill", "prefill", P, batch), batch)
+    cf = Backend.create("torch", device=MATRIX_CARD).compile(
+        g.fn, CompileOptions(level="O2", use_pallas=True, static_jit=False))
+    toks = np.stack(workload_prompts(cfg, batch, P, 0, MATRIX_SEED))
+    args = [params[n] for n in g.builder.param_names()]
+    cf(toks, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cf(toks, *args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows, union, ours, _ = _profile(lambda: cf(toks, *args))
+    say("matrix_prefill", compute=cfg.compute_dtype, rows=batch * P,
+        layers=cfg.n_layers, wall_ms=f"{wall:.3f}",
+        device_union_ms=(f"{union / 1e3:.3f}" if union else None),
+        by_kernel=json.dumps({k: [round(v[0], 3), v[1]]
+                              for k, v in ours.items()}),
+        top=json.dumps([[round(ms, 3), n, key[:60]]
+                        for ms, n, key in rows[:6]]),
+        card=repr(smi))
+
+
+def phase_matrix(report: dict, smi: str) -> None:
+    """The serving matrix's eight legs (``scripts/torch_serving_matrix.py``,
+    ``FULL_WORKLOAD``) on full-width deepseek-7b, as deep as phase 12's
+    reckoning allows two shards on the card (:func:`_tp_config`), one f32
+    weight draw from seed 0 for every leg, at O2 with the kernels; the tp
+    leg's two shards share the card.  In f32 the unchanged
+    ``scripts/check_serving_matrix.py`` must pass the eight reports.  In
+    bf16 the seven engine legs run again: the checker may fail them on
+    greedy parity alone, and each split is measured
+    (:func:`_matrix_ties`).  Both runs gate
+    their kernels (:func:`_matrix_legs`).  Then the prompt prefill's
+    trace in each compute type."""
+    from repro_torch.backend.sharding import make_mesh
+    from repro_torch.launch.serve import full_width_builder
+    from repro_torch.models.weights import init_params_on_device
+
+    t0 = time.perf_counter()
+    _free_card()
+    mx = _matrix_script()
+    cfg, reckoned, why = _tp_config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="f32")
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bf16")
+    params = init_params_on_device(full_width_builder(cfg, 64, SLOTS),
+                                   MATRIX_SEED, MATRIX_CARD)
+    mesh = make_mesh((TP,), ("model",), devices=[MATRIX_CARD] * TP)
+    infos, _, total = _matrix_legs(report, mx, cfg32, params, mesh, mx.LEGS,
+                                   smi)
+    _free_card()
+    proc = mx.check_reports([info["path"] for info in infos.values()])
+    require(proc.returncode == 0 and "serving matrix ok" in proc.stdout,
+            f"matrix: check_serving_matrix.py rc {proc.returncode}: "
+            f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    t_f32 = time.perf_counter() - t0
+    infos16, docs16, total16 = _matrix_legs(
+        report, mx, cfg16, params, mesh,
+        tuple(leg for leg in mx.LEGS if leg != "chaos"), smi)
+    del mesh
+    _free_card()
+    splits, ties = _matrix_ties(cfg16, cfg32, params, docs16,
+                                [info["path"] for info in infos16.values()]
+                                + [infos["chaos"]["path"]], mx, smi)
+    _free_card()
+    for c in (cfg16, cfg32):
+        for batch in MATRIX_PREFILL_BATCHES:
+            _matrix_prefill_profile(c, params, batch, smi)
+        _free_card()
+    del params
+    _free_card()
+    say("matrix", checker=repr(proc.stdout.strip()[:40]), legs=len(infos),
+        model=cfg.name, layers=cfg.n_layers, depth=repr(why),
+        compute="f32 (checker), bf16 (splits measured)",
+        bf16_splits=splits, bf16_ties=ties,
+        reckoned_tp_peak_gb=f"{reckoned:.2f}",
+        launches_f32=json.dumps(total), launches_bf16=json.dumps(total16),
+        result="ok", seconds_f32=f"{t_f32:.2f}",
+        seconds=f"{time.perf_counter() - t0:.2f}", card=repr(smi))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -3598,6 +3898,9 @@ def main() -> int:
     if "--roofline-only" in sys.argv[1:]:
         phase_roofline(report, smi)
         return 0    # phase 13 alone: no result line
+    if "--matrix-only" in sys.argv[1:]:
+        phase_matrix(report, smi)
+        return 0    # phase 14 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -3610,6 +3913,7 @@ def main() -> int:
     phase_multimodal(report, smi)
     phase_tp(report, smi)
     phase_roofline(report, smi)
+    phase_matrix(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,39 @@ import traceback
 from typing import List, Optional
 
 
+def compile_cell(cfg, shape, mesh, *, attn_impl: str = "auto",
+                 remat: bool = False, n_micro: int = 1):
+    """Compile one cell's graph (the train step for a train shape) on the
+    meta device with the pjit glue's specs over ``mesh``: the partition
+    pass under the arch's profile, then the shard executor's plan.
+    Returns (the compiled function, the IR function, the model graphs,
+    the input shardings)."""
+    from ..backend import Backend, CompileOptions
+    from ..backend.sharding import (graph_shardings, profile_for_arch,
+                                    train_step_shardings)
+    from ..models.lm import build_graphs
+    from ..models.train_graph import make_train_step
+
+    mb = shape.global_batch // n_micro if shape.kind == "train" else \
+        shape.global_batch
+    graphs = build_graphs(cfg, shape, mb)
+    backend = Backend.create("torch", device="meta")
+    if shape.kind == "train":
+        ts = make_train_step(graphs, cfg, n_micro=n_micro)
+        ins, outs, donate, rules = train_step_shardings(ts, mesh)
+        fn = ts.fn
+        kw = dict(in_shardings=ins, out_shardings=outs,
+                  donate_argnums=donate)
+    else:
+        ins, rules = graph_shardings(graphs, mesh)
+        fn = graphs.fn
+        kw = dict(in_shardings=ins)
+    cf = backend.compile(fn, CompileOptions(
+        mode="pjit", mesh=mesh, axis_rules=rules, attn_impl=attn_impl,
+        partition=profile_for_arch(cfg.name), remat_scan=remat, **kw))
+    return cf, fn, graphs, ins
+
+
 def _cell(arch: str, shape_name: str, multi_pod: bool, attn_impl: str = "auto",
           out_dir: str = "results/dryrun_torch", remat: bool = False,
           force: bool = False, save: bool = True,
@@ -47,18 +80,14 @@ def _cell(arch: str, shape_name: str, multi_pod: bool, attn_impl: str = "auto",
     from ..core import autodiff
     autodiff.set_attention_vjp(attn_vjp)
 
-    from ..backend import Backend, CompileOptions
-    from ..backend.sharding import (fold_pods, graph_shardings,
-                                    make_production_mesh, mesh_axis_sizes,
-                                    pods_replicate, production_mesh_name,
-                                    profile_for_arch, train_step_shardings)
+    from ..backend.sharding import (fold_pods, make_production_mesh,
+                                    mesh_axis_sizes, pods_replicate,
+                                    production_mesh_name)
     from ..configs import get_config
     from ..configs.base import SHAPES, supported_shapes
     from ..core.cost import function_cost
     from ..core.passes.partition import fallback_gathers
     from ..devices import torch_dtype
-    from ..models.lm import build_graphs
-    from ..models.train_graph import make_train_step
     from .roofline import Roofline, census_collectives, model_flops_for
 
     mesh_name = (production_mesh_name(multi_pod) if mesh is None else
@@ -79,25 +108,8 @@ def _cell(arch: str, shape_name: str, multi_pod: bool, attn_impl: str = "auto",
     t0 = time.time()
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     n_dev = int(mesh.devices.size)
-    mb = shape.global_batch // n_micro if shape.kind == "train" else \
-        shape.global_batch
-    graphs = build_graphs(cfg, shape, mb)
-    backend = Backend.create("torch", device="meta")
-
-    if shape.kind == "train":
-        ts = make_train_step(graphs, cfg, n_micro=n_micro)
-        ins, outs, donate, rules = train_step_shardings(ts, mesh)
-        fn = ts.fn
-        kw = dict(in_shardings=ins, out_shardings=outs,
-                  donate_argnums=donate)
-    else:
-        ins, rules = graph_shardings(graphs, mesh)
-        fn = graphs.fn
-        kw = dict(in_shardings=ins)
-
-    cf = backend.compile(fn, CompileOptions(
-        mode="pjit", mesh=mesh, axis_rules=rules, attn_impl=attn_impl,
-        partition=profile_for_arch(cfg.name), remat_scan=remat, **kw))
+    cf, fn, graphs, ins = compile_cell(cfg, shape, mesh, attn_impl=attn_impl,
+                                       remat=remat, n_micro=n_micro)
     t_build = time.time() - t0
     t_lower = cf.report.seconds
     args = [torch.empty(t.shape, dtype=torch_dtype(t.dtype), device="meta")

@@ -71,7 +71,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -125,7 +125,64 @@ def smoke_kernels(cfg, attention: bool = True):
     return need, ({"flash_attention"} if cfg.mla else set())
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def workload_prompts(cfg, n_req: int, prompt_len: int, shared: int,
+                     seed: int) -> List[np.ndarray]:
+    """The CLI's synthetic prompts: the load generator's recipe (so a
+    client of --serve-http sends the prompts the local path submits), or
+    with ``shared`` > 0 one drawn prefix of that many tokens that every
+    prompt starts with."""
+    from .loadgen import make_prompts
+    if not shared:
+        return make_prompts(n_req, prompt_len, cfg.vocab, seed)
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, cfg.vocab, size=(shared,))
+    return [head.copy() if shared == prompt_len else np.concatenate(
+        [head, rng.integers(0, cfg.vocab, size=(prompt_len - shared,))])
+        for _ in range(n_req)]
+
+
+def engine_report(engine, rep, rids, counts, args, n_req: int,
+                  max_len: int) -> dict:
+    """An engine leg's ``--report-json`` document, the shape
+    ``scripts/check_serving_matrix.py`` reads: the EngineReport, the
+    tokens keyed by request id, the kernels' counts of the run and the
+    workload, ``tp`` included."""
+    doc = dataclasses.asdict(rep)
+    doc["leg"] = args.report_leg or rep.mode
+    doc["results"] = {str(r): rep.results[r].tolist() for r in rids}
+    doc["device"] = str(engine.device)
+    doc["kernels"] = counts
+    doc["workload"] = {"requests": n_req, "prompt_len": args.prompt_len,
+                       "gen": args.gen, "slots": args.batch,
+                       "max_len": max_len, "seed": args.seed,
+                       "level": args.level, "kernels": args.kernels,
+                       "temperature": args.temperature,
+                       "top_k": args.top_k,
+                       "shared_prefix_len": args.shared_prefix_len,
+                       "prefix_sharing": engine.prefix_sharing,
+                       "prefill_chunk": engine.prefill_chunk,
+                       "tp": engine.tp}
+    doc["pool_verify"] = (engine.pool.verify()
+                          if engine.pool is not None else [])
+    return doc
+
+
+def write_report(doc: dict, path: str) -> None:
+    with open(path, "w") as fh:
+        json.dump(doc, fh, indent=2, sort_keys=True, default=str)
+        fh.write("\n")
+    print(f"[report] wrote {path}")
+
+
+def main(argv: Optional[List[str]] = None, *, cfg=None, params=None,
+         mesh=None, drive: Optional[Callable[[str], None]] = None) -> int:
+    """The CLI.  An in-process caller (``scripts/torch_serving_matrix.py``)
+    may pass the model config (``cfg``, e.g. cut in depth; ``--arch`` and
+    ``--reduced`` then only say how the weights are drawn), the weights
+    (``params``, by name), the tensor-parallel mesh (``mesh``, e.g. two
+    shards on one card) and, with ``--serve-http``, ``drive``: called
+    with the server's base URL once it listens, in place of waiting for
+    SIGTERM; the server drains when it returns."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b")
     ap.add_argument("--mode", default=None,
@@ -204,11 +261,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..configs import get_config
     from ..models.weights import init_params_on_device
     from .engine import EngineConfig, ServeEngine
-    from .loadgen import make_prompts
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     n_req = args.requests or args.batch
     P, G = args.prompt_len, args.gen
     max_len = args.max_len or (P + G)
@@ -259,8 +316,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             prefix_sharing=(False if args.no_prefix_sharing else None),
             prefill_chunk=args.prefill_chunk, cache_dir=args.cache_dir,
             autotune=args.autotune)
-        params = None
-        if not args.reduced:   # full width: draw the weights on the device
+        if params is None and not args.reduced:
+            # full width: draw the weights on the device
             # every mode's graphs declare the parameter names of the
             # family's own decode graph
             params = init_params_on_device(
@@ -268,25 +325,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                 args.device)
         engine = ServeEngine(cfg, dataclasses.replace(econf, params=params),
                              options=CompileOptions(level=args.level,
-                                                    use_pallas=args.kernels))
+                                                    use_pallas=args.kernels,
+                                                    mesh=mesh))
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
     if args.serve_http:
-        return _serve_http(engine, args, cfg, max_len)
+        return _serve_http(engine, args, cfg, max_len, drive)
     sampling = {}
     if paged and (args.temperature or args.top_k):
         sampling = dict(temperature=args.temperature, top_k=args.top_k)
     S = args.shared_prefix_len
-    if not S:
-        # the load generator's recipe, so a client of --serve-http sends
-        # the prompts this path submits
-        prompts = make_prompts(n_req, P, cfg.vocab, args.seed)
-    else:
-        rng = np.random.default_rng(args.seed)
-        shared = rng.integers(0, cfg.vocab, size=(S,))
-        prompts = [shared.copy() if S == P else np.concatenate(
-            [shared, rng.integers(0, cfg.vocab, size=(P - S,))])
-            for _ in range(n_req)]
+    prompts = workload_prompts(cfg, n_req, P, S, args.seed)
     kernels.reset_counters()
     rids = [engine.submit(prompts[i], G,
                           deadline_s=args.request_timeout,
@@ -357,25 +406,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             assert all(counts[k]["launches"] > 0 for k in need), counts
         print("[smoke] ok")
     if args.report_json:
-        doc = dataclasses.asdict(rep)
-        doc["leg"] = args.report_leg or rep.mode
-        doc["results"] = {str(r): rep.results[r].tolist() for r in rids}
-        doc["device"] = str(engine.device)
-        doc["kernels"] = counts
-        doc["workload"] = {"requests": n_req, "prompt_len": P, "gen": G,
-                           "slots": args.batch, "max_len": max_len,
-                           "seed": args.seed, "level": args.level,
-                           "kernels": args.kernels,
-                           "temperature": args.temperature,
-                           "top_k": args.top_k, "shared_prefix_len": S,
-                           "prefix_sharing": engine.prefix_sharing,
-                           "prefill_chunk": engine.prefill_chunk}
-        doc["pool_verify"] = (engine.pool.verify()
-                              if engine.pool is not None else [])
-        with open(args.report_json, "w") as fh:
-            json.dump(doc, fh, indent=2, sort_keys=True, default=str)
-            fh.write("\n")
-        print(f"[report] wrote {args.report_json}")
+        write_report(engine_report(engine, rep, rids, counts, args, n_req,
+                                   max_len), args.report_json)
     if args.min_disk_hits is not None:
         assert st.disk_hits >= args.min_disk_hits, (
             f"expected >= {args.min_disk_hits} persistent-cache disk hits, "
@@ -390,9 +422,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
-def _serve_http(engine, args, cfg, max_len) -> int:
+def _serve_http(engine, args, cfg, max_len, drive=None) -> int:
     """The --serve-http path: front door up, drain on SIGTERM/SIGINT
-    (the handlers go on the main thread's event loop), then print and
+    (the handlers go on the main thread's event loop) or, for an
+    in-process caller, once ``drive(base_url)`` returns; then print and
     emit the served-request report."""
     from .. import kernels
     from .server import ServeHTTPServer
@@ -400,12 +433,24 @@ def _serve_http(engine, args, cfg, max_len) -> int:
     srv = ServeHTTPServer(engine, host=args.host, port=args.port,
                           max_wait_queue=args.max_wait_queue,
                           max_body_bytes=args.max_body_bytes)
+
+    def ready():
+        print(f"[serve-http:{engine.mode}] {cfg.name} on {engine.device} "
+              f"({args.level}{' kernels' if args.kernels else ''}) "
+              f"listening on {srv.base_url} (slots={args.batch} "
+              f"max_len={max_len} wait_queue={args.max_wait_queue})",
+              flush=True)
+
     kernels.reset_counters()
-    srv.serve_forever(on_ready=lambda: print(
-        f"[serve-http:{engine.mode}] {cfg.name} on {engine.device} "
-        f"({args.level}{' kernels' if args.kernels else ''}) listening on "
-        f"{srv.base_url} (slots={args.batch} max_len={max_len} "
-        f"wait_queue={args.max_wait_queue})", flush=True))
+    if drive is None:
+        srv.serve_forever(on_ready=ready)
+    else:
+        srv.start_in_thread()
+        ready()
+        try:
+            drive(srv.base_url)
+        finally:
+            srv.shutdown()
     counts = kernels.counters()
 
     snap = srv.stats.snapshot()
@@ -434,10 +479,7 @@ def _serve_http(engine, args, cfg, max_len) -> int:
                            "kernels": args.kernels,
                            "temperature": args.temperature,
                            "top_k": args.top_k}
-        with open(args.report_json, "w") as fh:
-            json.dump(doc, fh, indent=2, sort_keys=True, default=str)
-            fh.write("\n")
-        print(f"[report] wrote {args.report_json}")
+        write_report(doc, args.report_json)
     if not srv.drain_ok:
         print("[serve-http] ERROR: drain left engine state behind "
               "(see report)", flush=True)

@@ -1,9 +1,8 @@
 """The torch port stands alone: it imports torch and numpy, never jax and
 nothing of the JAX package ``repro``; and its entry points run on the
 card unless the caller asks for the CPU.  The port's package, its
-``chip_smoke.py`` and its scripts (``scripts/torch_serve_load.py``,
-``scripts/torch_chaos_probe.py``, ``scripts/torch_cache_tool.py``,
-``scripts/torch_profile_edges.py``) are held to that;
+``chip_smoke.py``, its scripts (``scripts/torch_*.py``) and its examples
+(``examples/torch_*.py``) are held to that;
 ``scripts/check_torch_parity.py`` is the one file outside the tests that
 imports both packages, by design."""
 import ast
@@ -20,7 +19,17 @@ SRC = os.path.join(ROOT, "src")
 PKG = os.path.join(SRC, "repro_torch")
 SCRIPTS = [os.path.join(ROOT, "scripts", f"{n}.py")
            for n in ("torch_serve_load", "torch_chaos_probe",
-                     "torch_cache_tool", "torch_profile_edges")]
+                     "torch_cache_tool", "torch_profile_edges",
+                     "torch_serving_matrix", "torch_probe_buffers",
+                     "torch_make_tables", "torch_smoke_all")]
+# the examples whose work sits behind ``if __name__ == "__main__"``: the
+# probe imports them; torch_quickstart and torch_bridge_demo run when
+# imported, and tests/test_torch_tooling.py runs them isolated
+EXAMPLES = [os.path.join(ROOT, "examples", f"torch_{n}.py")
+            for n in ("serve_lm", "train_lm", "multi_arch_dryrun",
+                      "serving_demo")]
+EXAMPLES_RUN = [os.path.join(ROOT, "examples", f"torch_{n}.py")
+                for n in ("quickstart", "bridge_demo")]
 
 
 def _port_files():
@@ -30,6 +39,8 @@ def _port_files():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield from SCRIPTS
+    yield from EXAMPLES
+    yield from EXAMPLES_RUN
 
 
 def _forbidden(name: str) -> bool:
@@ -66,7 +77,7 @@ assert all(m in mods for m in ("repro_torch.launch.roofline",
                                "repro_torch.launch.dryrun")), mods
 import chip_smoke  # noqa: F401  (phases import the port lazily)
 import importlib.util
-for path in {scripts!r}:
+for path in {scripts!r} + {examples!r}:
     spec = importlib.util.spec_from_file_location("script", path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -94,7 +105,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     env.pop("PYTHONPATH", None)
     out = subprocess.run(
         [sys.executable, "-c",
-         _PROBE.format(src=SRC, root=ROOT, scripts=SCRIPTS)],
+         _PROBE.format(src=SRC, root=ROOT, scripts=SCRIPTS,
+                       examples=EXAMPLES)],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().endswith("ok")
