@@ -11,6 +11,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --tp-only        # phases 1-3 and 12, no result line
     python3 chip_smoke.py --roofline-only  # phases 1-3 and 13, no result line
     python3 chip_smoke.py --matrix-only    # phases 1-3 and 14, no result line
+    python3 chip_smoke.py --train-families-only  # phases 1-3 and 15, likewise
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -257,8 +258,42 @@ without printing a result:
                  [matrix_prefill] lines: the prompt prefill (4 x 32 and
                  1 x 32 rows) in each compute type, its wall ms and its
                  profiled device ms by kernel.
+ 15. train_families -- the six non-dense families train on the card (runs
+                 last, each family's graphs and state freed before the
+                 next): mixtral-8x22b, deepseek-v3-671b, recurrentgemma-9b,
+                 xlstm-350m, whisper-medium and llama-3.2-vision-11b at
+                 published widths, each as deep as the train builder's
+                 census reckons its peak under 70 GB
+                 (_reckon_train_peak_gb: p, g, m, v, the bf16 casts, the
+                 experts' f32 copies, the logits and their gradient, the
+                 frames or images) and the emitted plan's walk agrees
+                 (_plan_peak_gb); deepseek-v3 its dense prefix and MTP
+                 head (one MoE layer's state exceeds a card).  Batch 4 x
+                 512 of SyntheticLM (whisper 4 x 448, its decoder's
+                 context), frames and images from the trainer's
+                 step_data, f32 parameters drawn on the card, bf16
+                 compute, the IR train step at O2 with the kernels, p, m
+                 and v donated.  Four steps (eager, capture, two
+                 replays): losses finite, every kernel serve.smoke_kernels
+                 names launched on every step and none refused, the state
+                 written back into the same tensors; a replay's profile
+                 shows each kernel at its counted launches; the same four
+                 steps eagerly give the same losses bit for bit; every
+                 launched shape is held against its plain version; whisper
+                 checkpointed after two steps and restored into fresh card
+                 tensors gives steps 3-4 bit for bit; and each family at a
+                 reduced f32 width (phases 9-11's, flash on the card) five
+                 steps on the card against the CPU, loss, moments and
+                 update norm within 1e-4, the update's direction within
+                 1e-2 (the CPU tests' bound for the port against JAX:
+                 AdamW turns a gradient element within rounding of zero
+                 into an update of +-lr).  [train_family] lines: depth
+                 and why, parameters,
+                 reckoned and measured peak GB, step ms (eager, capture,
+                 median replay), tok/s, model TFLOP/s and its share of
+                 989, launches per step, the card.
 
-In phases 4, 5, 7, 8, 9, 10, 11, 12 and 14 no kernel may have been refused
+In phases 4, 5, 7, 8, 9, 10, 11, 12, 14 and 15 no kernel may have been refused
 at full width, but phase 9's counted deepseek-v3 decode attention.
 Phase 6 and phase 8's reduced width count their refusals but do not gate
 them: the reduced vocabulary (257) is no whole number of 16-byte
@@ -1922,13 +1957,16 @@ def _free_card() -> float:
     return torch.cuda.memory_allocated() / 1e9
 
 
-def _train_step_graph(cfg, batch: int, seq: int):
-    """The train step of ``cfg`` (IR autodiff + AdamW) and the indices of
-    its donated state (p, m and v)."""
+def _train_step_graph(cfg, batch: int, seq: int, g=None):
+    """The train step of ``cfg`` (IR autodiff + AdamW; over its forward
+    graphs ``g`` when given) and the indices of its donated state (p, m
+    and v)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.lm import build_graphs
     from repro_torch.models.train_graph import make_train_step
-    g = build_graphs(cfg, ShapeConfig("train", "train", seq, batch), batch)
+    if g is None:
+        g = build_graphs(cfg, ShapeConfig("train", "train", seq, batch),
+                         batch)
     ts = make_train_step(g, cfg)
     n_data, n_p = len(g.builder.inputs), ts.n_params
     return ts, tuple(range(n_data + 1, n_data + 1 + 3 * n_p))
@@ -1990,11 +2028,23 @@ def _require_state(gaps: dict, dtype: str, what: str) -> None:
             f"{STATE_LIMITS[dtype]}")
 
 
+def _train_batches(cfg, ts, batch: int, seq: int, steps, seed: int = 0):
+    """Each of ``steps``' data arguments as the trainer passes them
+    (``launch/train.py::step_data``): SyntheticLM's tokens and labels at
+    ``seed``, and whisper's frames or vlm's images drawn for that step."""
+    from repro_torch.launch.train import step_data
+    from repro_torch.runtime.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(cfg.vocab, seq, batch, seed=seed))
+    return [step_data(cfg, ts.graphs.builder, data.batch(s), seed, s, batch)
+            for s in steps]
+
+
 def _train_steps(cf, flat: list, batches, first: int = 0,
                  required=ALL_KERNELS, label: str = "train"):
-    """Run ``len(batches)`` steps of ``cf.raw`` from step ``first``; each
-    step's counters are set to 0 just before it and read just after.
-    Returns (losses, step ms, per-step counters, the state after)."""
+    """Run ``len(batches)`` steps of ``cf.raw`` from step ``first``, each
+    on its data arguments (:func:`_train_batches`); each step's counters
+    are set to 0 just before it and read just after.  Returns (losses,
+    step ms, per-step counters, the state after)."""
     from repro_torch import kernels
     from repro_torch.backend.graphed import GraphedProgram
     losses, ms, counts = [], [], []
@@ -2002,8 +2052,7 @@ def _train_steps(cf, flat: list, batches, first: int = 0,
         kernels.reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs = cf.raw(batch["tokens"], batch["labels"], np.int32(first + k),
-                      *flat)
+        outs = cf.raw(*batch, np.int32(first + k), *flat)
         loss = outs[0].item()
         ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
@@ -2046,7 +2095,6 @@ def phase_train(report: dict, smi: str) -> None:
     import tempfile
     from repro_torch.backend import Backend, CompileOptions
     from repro_torch.configs import get_config
-    from repro_torch.runtime.data import DataConfig, SyntheticLM
 
     held = _free_card()
     cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=TRAIN_LAYERS)
@@ -2054,8 +2102,9 @@ def phase_train(report: dict, smi: str) -> None:
              cfg.compute_dtype, cfg.param_dtype) ==
             (D, HEADS, DH, F, V, "bf16", "f32"), f"deepseek-7b: {cfg}")
     ts, donate = _train_step_graph(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
-    batches = [data.batch(s) for s in range(TRAIN_STEPS)]
+    batches = _train_batches(cfg, ts, TRAIN_BATCH, TRAIN_SEQ,
+                             range(TRAIN_STEPS + 1))
+    extra = batches.pop()
     n_params = sum(int(np.prod(s.shape))
                    for s in ts.graphs.builder.params.values())
     n_matmul = n_params - cfg.vocab * cfg.d_model   # all but the embedding
@@ -2096,16 +2145,8 @@ def phase_train(report: dict, smi: str) -> None:
         stash_s = time.perf_counter() - t0
         # one more replay, outside the counted run, under the profiler:
         # where the step's device time goes
-        extra = data.batch(TRAIN_STEPS)
-        rows, union, ours, _ = _profile(lambda: cf.raw(
-            extra["tokens"], extra["labels"], np.int32(TRAIN_STEPS),
-            *flat)[0].item())
-        for name in ALL_KERNELS:
-            want = per_step[name] * KERNEL_FUNCS[name][1]
-            got = ours.get(name, [0.0, 0])[1]
-            require(got == want, f"train: {name}: {got} device kernels in "
-                    f"a replay's profile, the counters say "
-                    f"{per_step[name]} calls ({want} kernels)")
+        rows, union, ours = _train_profile("train", cf, extra, TRAIN_STEPS,
+                                           flat, per_step)
         del cf, be, flat
         _free_card()
 
@@ -2206,12 +2247,11 @@ def phase_train_small() -> None:
     from repro_torch.devices import to_numpy
     from repro_torch.models.lm import build_graphs
     from repro_torch.runtime.checkpoint import CheckpointManager
-    from repro_torch.runtime.data import DataConfig, SyntheticLM
 
     cfg = get_config("deepseek-7b").reduced(**TRAIN_SMALL)
     ts, donate = _train_step_graph(cfg, SMALL_BATCH, SMALL_SEQ)
-    data = SyntheticLM(DataConfig(cfg.vocab, SMALL_SEQ, SMALL_BATCH, seed=0))
-    batches = [data.batch(s) for s in range(SMALL_STEPS)]
+    batches = _train_batches(cfg, ts, SMALL_BATCH, SMALL_SEQ,
+                             range(SMALL_STEPS))
     params = ts.graphs.builder.init_params(0)
     names = ts.param_names
     host = [params[n] for n in names] + \
@@ -3473,12 +3513,11 @@ def _roofline_train(report: dict, smi: str) -> None:
     from repro_torch.core.cost import function_cost
     from repro_torch.launch.roofline import (PEAK_FLOPS, Roofline,
                                              model_flops_for)
-    from repro_torch.runtime.data import DataConfig, SyntheticLM
 
     cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=TRAIN_LAYERS)
     ts, donate = _train_step_graph(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
-    batches = [data.batch(s) for s in range(TRAIN_STEPS)]
+    batches = _train_batches(cfg, ts, TRAIN_BATCH, TRAIN_SEQ,
+                             range(TRAIN_STEPS))
     be = Backend.create("torch", fresh=True, device=ROOFLINE_CARD)
     cf = be.compile(ts.fn, CompileOptions(level="O2", use_pallas=True,
                                           donate_argnums=donate))
@@ -3493,8 +3532,7 @@ def _roofline_train(report: dict, smi: str) -> None:
                 f"{per_step}, phase 8's {want}")
     b = batches[-1]
     kernels.reset_counters()
-    ms = _replay_ms(lambda: cf.raw(b["tokens"], b["labels"],
-                                   np.int32(TRAIN_STEPS), *flat))
+    ms = _replay_ms(lambda: cf.raw(*b, np.int32(TRAIN_STEPS), *flat))
     measured = statistics.median(ms)
     n_params = sum(int(np.prod(s.shape))
                    for s in ts.graphs.builder.params.values())
@@ -3870,6 +3908,348 @@ def phase_matrix(report: dict, smi: str) -> None:
         seconds=f"{time.perf_counter() - t0:.2f}", card=repr(smi))
 
 
+# -- 15. the non-dense families' training, published widths ------------------
+TF_ARCHS = ("mixtral-8x22b", "deepseek-v3-671b", "recurrentgemma-9b",
+            "xlstm-350m", "whisper-medium", "llama-3.2-vision-11b")
+TF_BATCH, TF_SEQ, TF_STEPS = 4, 512, 4
+# whisper's decoder context as published (n_text_ctx 448, arXiv:2212.04356)
+TF_WHISPER_SEQ = 448
+TF_PEAK_LIMIT_GB = 70.0
+TF_CARD = "cuda"
+TF_RESUME_AT = 2     # whisper: a checkpoint after two steps, then steps 3-4
+# card against CPU at a reduced f32 width whose attention takes flash
+TF_SMALL = {**MOE_SMALL, **REC_SMALL, **MM_SMALL}
+# those five steps' update direction (L2 over its norm), card against CPU:
+# tests/test_torch_recurrent.py's UPDATE_L2, the port against JAX.
+# AdamW scales each gradient element to about +-lr, so an element whose
+# gradient lies within f32 rounding of zero moves its update by up to
+# 2 lr; STATE_LIMITS' 1e-4 holds the rest (loss, m, v, update norm)
+TF_UPDATE_L2 = 1e-2
+
+
+def _tf_seq(cfg) -> int:
+    return TF_WHISPER_SEQ if cfg.family == "encdec" else TF_SEQ
+
+
+def _reckon_train_peak_gb(cfg, builder, batch: int, seq: int) -> float:
+    """A train step's peak as the train builder's parameter census
+    reckons it: p and g in ``param_dtype``, AdamW's m and v in
+    ``opt_dtype``; the bf16 casts of every weight; the f32 copies of the
+    cast routed-expert stacks that the emitter's batched einsum makes;
+    the logits and their gradient in f32 (twice with an MTP head); and
+    the stubbed frames or images in f32, as the trainer draws them."""
+    from repro_torch.core.types import as_dtype
+
+    def size(dt: str) -> int:
+        return np.dtype(as_dtype(dt)).itemsize
+
+    n = sum(math.prod(s.shape) for s in builder.params.values())
+    experts = sum(math.prod(s.shape) for k, s in builder.params.items()
+                  if "moe_we_" in k)
+    state = n * 2 * (size(cfg.param_dtype) + size(cfg.opt_dtype))
+    logits = batch * seq * cfg.vocab * 4 * 2 * (2 if cfg.mtp else 1)
+    media = 0
+    if cfg.family == "encdec":
+        media = batch * cfg.enc_seq * cfg.d_model * 4
+    elif cfg.family == "vlm":
+        media = batch * cfg.vision_tokens * cfg.vision_dim * 4
+    return (state + 2 * n + 4 * experts + logits + media) / 1e9
+
+
+def _plan_peak_gb(ts, donate) -> float:
+    """The train step's state plus the most bytes its emitted plan holds
+    at once (``torch_emit.plan_peak_bytes``, the donated p, m and v taken
+    back as soon as they are dead), compiled at O2 with the kernels on
+    the meta device: shapes only, no card."""
+    from repro_torch.backend import Backend, CompileOptions
+    from repro_torch.backend.graphed import pair_donations
+    from repro_torch.transformers.torch_emit import plan_peak_bytes
+    fn = Backend.create("torch", fresh=True, device="meta").compile(
+        ts.fn, CompileOptions(level="O2", use_pallas=True,
+                              donate_argnums=donate)).function
+    state = sum(t.nbytes for t in fn.in_types)
+    return (state + plan_peak_bytes(fn, pair_donations(
+        fn.in_types, fn.out_types, donate))) / 1e9
+
+
+def _tf_depths(cfg) -> tuple:
+    """(the depths a family may train at, deepest first; why the others
+    are out).  deepseek-v3 trains its dense prefix alone (``n_layers ==
+    first_dense``, its MoE Scan of length 0) with the MTP head: one MoE
+    layer's routed experts are 256 x 3 x 7168 x 2048 = 11.27e9
+    parameters, ~135 GB of state, more than one card holds.  vlm keeps
+    whole groups of ``cross_every`` layers (one cross-attention block
+    each); rg at least one (rec, rec, attn) group."""
+    if cfg.mla:
+        return ([dict(n_layers=k, first_dense=k)
+                 for k in range(cfg.first_dense, 0, -1)],
+                "MoE layers out: one layer's experts alone hold ~135 GB "
+                "of state")
+    if cfg.family == "vlm":
+        return ([dict(n_layers=k) for k in range(
+            cfg.n_layers, cfg.cross_every - 1, -cfg.cross_every)], "")
+    if cfg.family == "rg_hybrid":
+        return ([dict(n_layers=k) for k in range(
+            cfg.n_layers, len(cfg.pattern) - 1, -1)], "")
+    return [dict(n_layers=k) for k in range(cfg.n_layers, 0, -1)], ""
+
+
+def _tf_config(arch: str) -> tuple:
+    """(config, train step, donated indices, reckoned peak GB, plan peak
+    GB, why this depth): ``arch`` at published width, as deep as both
+    :func:`_reckon_train_peak_gb` and :func:`_plan_peak_gb` stay under
+    :data:`TF_PEAK_LIMIT_GB` (:func:`_tf_depths`).  The census misses
+    the AdamW update's f32 temporaries, which the plan counts: at 3
+    dense layers deepseek-v3's census is 64.3 GB, its plan 77.0 GB, and
+    the card ran out of memory there."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.lm import build_graphs
+    full = get_config(arch)
+    depths, out = _tf_depths(full)
+    over_limit = []
+    for over in depths:
+        cfg = dataclasses.replace(full, **over)
+        seq = _tf_seq(cfg)
+        g = build_graphs(cfg, ShapeConfig("train", "train", seq, TF_BATCH),
+                         TF_BATCH)
+        gb = _reckon_train_peak_gb(cfg, g.builder, TF_BATCH, seq)
+        plan = None
+        if gb < TF_PEAK_LIMIT_GB:
+            ts, donate = _train_step_graph(cfg, TF_BATCH, seq, g)
+            plan = _plan_peak_gb(ts, donate)
+        if plan is not None and plan < TF_PEAK_LIMIT_GB:
+            why = f"{cfg.n_layers} of {full.n_layers} layers: " + (
+                "; ".join(over_limit) if over_limit
+                else "the deepest allowed")
+            return (cfg, ts, donate, gb, plan,
+                    "; ".join(w for w in (why, out) if w))
+        over_limit.append(
+            f"{cfg.n_layers} reckoned {gb:.1f} GB" + (
+                f", plan {plan:.1f} GB" if plan is not None else "")
+            + f" >= {TF_PEAK_LIMIT_GB}")
+        del over_limit[:-1]
+    raise AssertionError(f"{arch}: no depth under {TF_PEAK_LIMIT_GB} GB: "
+                         f"{over_limit}")
+
+
+def _train_profile(label: str, cf, batch, step: int, flat,
+                   per_step: dict) -> tuple:
+    """One more replay of a captured train step on the run's own state,
+    outside the counted run, under the profiler: each kernel of the port
+    shows by name as often as the counters of a replayed step say
+    (:data:`KERNEL_FUNCS`' device kernels per call).  Returns the
+    profile's rows, union and the port's kernels."""
+    replays = cf.raw.replays
+    rows, union, ours, edges = _profile(lambda: cf.raw(
+        *batch, np.int32(step), *flat)[0].item())
+    require(cf.raw.replays == replays + edges["calls"],
+            f"{label}: the profiled calls were not replays")
+    for name, n in per_step.items():
+        want = n * KERNEL_FUNCS[name][1]
+        got = ours.get(name, [0.0, 0])[1]
+        require(got == want, f"{label}: {name}: {got} device kernels in "
+                f"a replay's profile, the counters say {n} calls "
+                f"({want} kernels)")
+    return rows, union, ours
+
+
+def _tf_small(arch: str) -> dict:
+    """``arch`` at :data:`TF_SMALL`'s reduced f32 width (attention on
+    flash on the card; vlm's gates open; AdamW's moments in f32, where
+    deepseek-v3 keeps them in bf16): five train steps of the same numpy
+    state on the card with the kernels and on the CPU with their plain
+    versions; the losses and the state after them within the f32
+    :data:`STATE_LIMITS`, the update's direction within
+    :data:`TF_UPDATE_L2`.  Returns the gaps."""
+    from repro_torch.backend import Backend, CompileOptions
+    from repro_torch.configs import get_config
+    from repro_torch.devices import to_numpy
+    from repro_torch.launch.serve import smoke_kernels
+
+    cfg = get_config(arch).reduced(opt_dtype="f32", **TF_SMALL[arch])
+    ts, donate = _train_step_graph(cfg, SMALL_BATCH, SMALL_SEQ)
+    batches = _train_batches(cfg, ts, SMALL_BATCH, SMALL_SEQ,
+                             range(SMALL_STEPS))
+    params = ts.graphs.builder.init_params(0)
+    for name in MM_GATES:
+        if name in params:
+            params[name][...] = 0.5
+    host = [params[n] for n in ts.param_names]
+    host += [np.zeros_like(a) for a in host] * 2
+    need = {"flash_attention"} & smoke_kernels(cfg)[0]
+    runs = {}
+    for dev in (TF_CARD, "cpu"):
+        cf = Backend.create("torch", fresh=True, device=dev).compile(
+            ts.fn, CompileOptions(level="O2", use_pallas=True,
+                                  donate_argnums=donate))
+        flat = [torch.from_numpy(a.copy()).to(dev) for a in host]
+        losses, _, _, flat = _train_steps(
+            cf, flat, batches, required=need if dev != "cpu" else (),
+            label=f"{arch} small {dev}")
+        runs[dev] = (losses, [to_numpy(t) for t in flat])
+        del cf, flat
+    (lc, pc), (lh, ph) = runs[TF_CARD], runs["cpu"]
+    loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(lc, lh))
+    require(loss_err <= STATE_LIMITS["f32"]["update"],
+            f"{arch} small: card losses {lc} vs CPU {lh}")
+    gaps = _state_gaps(host[:len(ts.param_names)], ph, pc)
+    _require_state({k: g for k, g in gaps.items() if k != "update"}, "f32",
+                   f"{arch} small: card vs CPU")
+    require(gaps["update"] <= TF_UPDATE_L2,
+            f"{arch} small: card vs CPU update direction {gaps['update']}")
+    return {"loss": loss_err, **gaps}
+
+
+def _train_family(report: dict, arch: str, smi: str) -> dict:
+    """Phase 15 for one family; returns its launches per kernel over the
+    captured run's steps."""
+    import resource
+    import shutil
+    import tempfile
+    from repro_torch.backend import Backend, CompileOptions
+    from repro_torch.launch.serve import smoke_kernels
+    from repro_torch.runtime.checkpoint import CheckpointManager
+
+    held = _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, ts, donate, reckoned, plan_gb, why = _tf_config(arch)
+    seq = _tf_seq(cfg)
+    need, _ = smoke_kernels(cfg)
+    t0 = time.perf_counter()
+    batches = _train_batches(cfg, ts, TF_BATCH, seq, range(TF_STEPS + 1))
+    extra = batches.pop()
+    data_s = time.perf_counter() - t0
+    n_params = sum(math.prod(s.shape)
+                   for s in ts.graphs.builder.params.values())
+    tokens = TF_BATCH * seq
+    flops = 6 * (n_params - cfg.vocab * cfg.d_model) * tokens
+    opts = CompileOptions(level="O2", use_pallas=True, donate_argnums=donate)
+    resume = cfg.family == "encdec"
+    label = f"train_families {cfg.name}"
+
+    # captured: eager first call, capture, replays
+    be = Backend.create("torch", fresh=True, device=TF_CARD)
+    t0 = time.perf_counter()
+    cf = be.compile(ts.fn, opts)
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = _train_state(ts, cfg, TF_CARD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cut = TF_RESUME_AT if resume else TF_STEPS
+    tmp = tempfile.mkdtemp(prefix="train_family_",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        with _launched_shapes({}) as seen:
+            losses, ms, counts, flat = _train_steps(
+                cf, flat, batches[:cut], required=need, label=label)
+            if resume:
+                mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+                mgr.save(cut, {f"s{i}": t for i, t in enumerate(flat)})
+            more, ms2, counts2, flat = _train_steps(
+                cf, flat, batches[cut:], first=cut, required=need,
+                label=label)
+        losses, ms, counts = losses + more, ms + ms2, counts + counts2
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        reserved = torch.cuda.max_memory_reserved() / 1e9
+        require((cf.raw.captures, cf.raw.replays) == (1, TF_STEPS - 1),
+                f"{label}: {cf.raw.captures} captures, {cf.raw.replays} "
+                f"replays")
+        total = {k: {"launches": sum(c[k]["launches"] for c in counts),
+                     "rejected": sum(c[k]["rejected"] for c in counts)}
+                 for k in counts[0]}
+        _record_launches(report, f"train_families_{cfg.name}", total, need)
+        per_step = {k: counts[-1][k]["launches"] for k in counts[-1]}
+        if resume:
+            # restored into fresh card tensors: the same steps 3-4
+            _, got, _ = mgr.restore(device=TF_CARD)
+            again = [got[f"s{i}"] for i in range(len(flat))]
+            del got
+            back, _, _, again = _train_steps(
+                cf, again, batches[cut:], first=cut, required=need,
+                label=f"{label} resumed")
+            require(back == more, f"{label}: resumed losses {back} != "
+                    f"{more}")
+            require(all(_bitwise(a, b) for a, b in zip(again, flat)),
+                    f"{label}: the resumed state differs from the run's")
+            del again
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows, union, ours = _train_profile(label, cf, extra, TF_STEPS, flat,
+                                       per_step)
+    del cf, be, flat
+    _free_card()
+
+    # the same steps eagerly, from the same state
+    be = Backend.create("torch", fresh=True, device=TF_CARD)
+    cf = be.compile(ts.fn, opts.replace(static_jit=False))
+    flat = _train_state(ts, cfg, TF_CARD)
+    eager, eager_ms, _, flat = _train_steps(cf, flat, batches, required=need,
+                                            label=f"{label} eager")
+    require(eager == losses, f"{label}: captured losses {losses} != eager "
+            f"{eager}")
+    del cf, be, flat
+    _free_card()
+    by_kernel = _hold_launched(seen, cfg.name)
+    require(set(by_kernel) == need,
+            f"{label}: shapes held {by_kernel}, the path's {need}")
+    gaps = _tf_small(arch)
+    replay_ms = statistics.median(ms[2:])
+    rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    say("train_family", arch=cfg.name, family=cfg.family,
+        layers=cfg.n_layers, depth=repr(why), params=n_params,
+        param_dtype=cfg.param_dtype, opt_dtype=cfg.opt_dtype,
+        batch=TF_BATCH, seq=seq, reckoned_peak_gb=f"{reckoned:.2f}",
+        plan_peak_gb=f"{plan_gb:.2f}", peak_gb=f"{peak:.2f}",
+        peak_reserved_gb=f"{reserved:.2f}",
+        card_allocated_gb_before=f"{held:.2f}",
+        losses=json.dumps(losses), captured_vs_eager="bitwise",
+        resumed_steps_3_4="bitwise" if resume else "n/a",
+        eager_step_ms=f"{ms[0]:.1f}", capture_step_ms=f"{ms[1]:.1f}",
+        replay_step_ms=f"{replay_ms:.1f}",
+        replay_steps_ms=json.dumps([round(t, 2) for t in ms[2:]]),
+        eager_run_ms=json.dumps([round(t, 1) for t in eager_ms]),
+        tok_s=f"{tokens / replay_ms * 1e3:.1f}",
+        model_tflop_s=f"{flops / replay_ms / 1e9:.2f}",
+        share_of_989=f"{flops / replay_ms / 1e9 / 989:.4f}",
+        launches_per_step=json.dumps(per_step),
+        refused=json.dumps({k: v["rejected"] for k, v in total.items()}),
+        device_busy_ms=f"{sum(r[0] for r in rows):.1f}",
+        device_union_ms=(f"{union / 1e3:.1f}" if union is not None
+                         else "not measured"),
+        port_kernels_ms=json.dumps({k: round(v[0], 3)
+                                    for k, v in ours.items()}),
+        top=json.dumps([[k[:48], round(t, 3), n] for t, n, k in rows[:6]]),
+        shapes_held=json.dumps(by_kernel),
+        small_card_vs_cpu=json.dumps({k: f"{g:.3e}" for k, g in
+                                      gaps.items()}),
+        compile_s=f"{compile_s:.2f}", init_s=f"{init_s:.2f}",
+        data_s=f"{data_s:.2f}",
+        host_peak_rss_gb=f"{rss_kb / 1e6:.2f}",
+        card=repr(smi))
+    return {k: v["launches"] for k, v in total.items()}
+
+
+def phase_train_families(report: dict, smi: str) -> None:
+    """The six non-dense families train on the card at published widths
+    (:func:`_train_family` each, the depth from the census), their
+    graphs and state freed between them; then every kernel launched on
+    this phase's main path."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in report}
+    for arch in TF_ARCHS:
+        for name, n in _train_family(report, arch, smi).items():
+            total[name] += n
+    for name in report:
+        report[name]["launches_by_phase"]["train_families"] = total[name]
+    require(all(total[k] > 0 for k in ALL_KERNELS),
+            f"train_families: a kernel never launched: {total}")
+    say("train_families", families=len(TF_ARCHS), result="ok",
+        launches=json.dumps(total),
+        seconds=f"{time.perf_counter() - t0:.2f}", card=repr(smi))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -3901,6 +4281,9 @@ def main() -> int:
     if "--matrix-only" in sys.argv[1:]:
         phase_matrix(report, smi)
         return 0    # phase 14 alone: no result line
+    if "--train-families-only" in sys.argv[1:]:
+        phase_train_families(report, smi)
+        return 0    # phase 15 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -3914,6 +4297,7 @@ def main() -> int:
     phase_tp(report, smi)
     phase_roofline(report, smi)
     phase_matrix(report, smi)
+    phase_train_families(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

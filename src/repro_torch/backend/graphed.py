@@ -17,7 +17,11 @@ The replay contract:
 
 - *Host arguments* (numpy arrays, scalars) are copied into the graph's
   static device buffers before each replay; a copy from pageable host
-  memory is not allowed while a stream captures.
+  memory is not allowed while a stream captures.  A buffer takes its
+  argument's element type, as the eager call reads it: the trainer's
+  f32 frames for a bf16 ``frames`` input are f32 in every call, and a
+  call with host arguments of other types captures another graph, as
+  ``jax.jit`` traces again for new argument types.
 - *Device tensors* are bound by address: the graph reads the caller's
   own tensors and is replayed only for tensors at those addresses.  It
   writes to no input that was not donated, and holds no reference to an
@@ -192,43 +196,46 @@ class GraphedProgram:
         self.calls += 1
         if self.calls == 1:
             return tuple(write_back(args, list(self._run(*args)), pairs))
+        host = {i: self._host(i, a) for i, a in enumerate(args)
+                if i not in on_device}
         key = tuple((i, args[i].data_ptr(), args[i].stride())
-                    for i in on_device)
+                    for i in on_device) + \
+            tuple((i, t.dtype) for i, t in host.items())
         g = self._graphs.get(key)
         if g is None:
-            g = self._capture(args, on_device, pairs)
+            g = self._capture(args, host, pairs)
             self._graphs[key] = g
             if len(self._graphs) > MAX_GRAPHS:
                 self._graphs.popitem(last=False)
         else:
             self._graphs.move_to_end(key)
-        return self._replay(g, args)
+        return self._replay(g, host, args)
 
     # -- arguments ------------------------------------------------------------
     def _host(self, i: int, a: Any) -> torch.Tensor:
-        """Argument ``i`` as a CPU tensor of the parameter's type."""
+        """Argument ``i`` as a CPU tensor of the parameter's shape, in its
+        own element type."""
         t = as_tensor(a, torch.device("cpu"))
-        self._check(i, t)
+        self._check(i, t, dtype=False)
         return t
 
-    def _check(self, i: int, t: torch.Tensor) -> None:
+    def _check(self, i: int, t: torch.Tensor, dtype: bool = True) -> None:
         if tuple(t.shape) != self.in_shapes[i] or \
-                t.dtype != self.in_dtypes[i]:
+                (dtype and t.dtype != self.in_dtypes[i]):
             raise ValueError(
                 f"graph {self.name}: argument {i} is {tuple(t.shape)} "
                 f"{t.dtype}, the graph takes {self.in_shapes[i]} "
                 f"{self.in_dtypes[i]}")
 
     # -- capture and replay ---------------------------------------------------
-    def _capture(self, args, on_device: Sequence[int],
+    def _capture(self, args, host: Dict[int, torch.Tensor],
                  pairs: Dict[int, int]) -> _Graph:
         dev = self.device
         inputs = list(args)
         buffers = {}
-        for i, a in enumerate(args):
-            if i not in on_device:
-                buffers[i] = inputs[i] = torch.empty(
-                    self.in_shapes[i], dtype=self.in_dtypes[i], device=dev)
+        for i, t in host.items():
+            buffers[i] = inputs[i] = torch.empty(
+                self.in_shapes[i], dtype=t.dtype, device=dev)
         # the cached blocks of earlier eager calls are released before
         # the graph's pool grows
         torch.cuda.synchronize(dev)
@@ -272,9 +279,9 @@ class GraphedProgram:
         outputs = [None if j in returns else o for j, o in enumerate(outs)]
         return _Graph(graph, buffers, outputs, returns, self.launches)
 
-    def _replay(self, g: _Graph, args):
+    def _replay(self, g: _Graph, host: Dict[int, torch.Tensor], args):
         for i, buf in g.buffers.items():
-            buf.copy_(self._host(i, args[i]))
+            buf.copy_(host[i])
         g.graph.replay()
         self.replays += 1
         kernels.add_counts(g.launches)

@@ -24,7 +24,10 @@ written.  On the CPU, or with
 ``static_jit=False``, the emitted program runs eagerly op by op, and
 ``donate_argnums`` means "may reuse": the program drops every value
 after its last use, so a donated input the caller no longer references
-is free for the allocator to reuse within the dispatch.
+is free for the allocator to reuse within the dispatch.  On the card,
+eager or captured, a donated input given as a device tensor takes its
+output as soon as nothing reads it any more and is returned in its
+place (:func:`..transformers.torch_emit.emit_callable`).
 
 ``CompileOptions(mode="shardmap", partition="tp", mesh_shape=(N,))``
 runs the PartitionGraph pass last in the pipeline and the partitioned
@@ -107,7 +110,8 @@ class TorchBackend(Backend):
         dev = self.device
         mesh = self._shardmap_mesh(fn, options)
         if mesh is None:
-            run = emit_callable(fn, ctx_for(dev))
+            run = emit_callable(fn, ctx_for(dev), pair_donations(
+                fn.in_types, fn.out_types, options.donate_argnums))
             in_types, out_types = fn.in_types, fn.out_types
             one_stream = True
         else:

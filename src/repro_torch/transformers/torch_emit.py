@@ -845,17 +845,101 @@ class _Slots:
                 for i, (emit, n, ins, out0) in enumerate(steps)]
 
 
+# ops whose emitter returns new memory: no output shares storage with an
+# input.  Any other op may return an input or a view of one (a Reshape,
+# a same-type Convert, a Scan's carries); a Scan's stacked ys are new.
+_FRESH = frozenset(_UNARY) | frozenset(_BINOP) | frozenset((
+    "Not", "Select", "Concat", "CumSum", "ArgMax", "TopK", "DotGeneral",
+    "Gather", "ScatterAdd", "DynamicUpdateSlice", "Softmax", "LogSoftmax",
+    "RMSNorm", "LayerNorm", "SwiGLU", "NormMatmul", "RotaryQKV",
+    "Attention", "SoftmaxCrossEntropy"))
+
+
+def _write_steps(sl: _Slots, plan: List[_Step],
+                 donation: Dict[int, int]) -> Dict[int, List[Tuple[int, int]]]:
+    """Where each donated input can take its output early: ``{step:
+    [(input index, result slot)]}``, the step after which the input and
+    every value that may share its memory are read no more and the
+    output exists.  An input that a result may share memory with, or an
+    output that may share an input's, or one returned twice, is left to
+    the caller (:func:`repro_torch.backend.graphed.write_back`)."""
+    roots: Dict[int, frozenset] = {sl.params[i]: frozenset((i,))
+                                   for i in donation}
+    last = {i: -1 for i in donation}
+    made: Dict[int, int] = {}
+    for t, (_emit, node, ins, out0, _dead) in enumerate(plan):
+        read = frozenset().union(*(roots.get(s, ()) for s in ins))
+        for i in read:
+            last[i] = t
+        n_out = len(node.out_types)
+        if node.op == "Scan":
+            n_alias = node.attrs["n_carry"]
+        else:
+            n_alias = 0 if node.op in _FRESH else n_out
+        for k in range(n_out):
+            made[out0 + k] = t
+            if read and k < n_alias:
+                roots[out0 + k] = read
+    for r in sl.results:
+        for i in roots.get(r, ()):
+            last[i] = len(plan)
+    steps: Dict[int, List[Tuple[int, int]]] = {}
+    for i, j in donation.items():
+        r = sl.results[j]
+        if r not in made or r in roots or sl.results.count(r) > 1 \
+                or last[i] >= len(plan):
+            continue
+        steps.setdefault(max(made[r], last[i]), []).append((i, r))
+    return steps
+
+
+def plan_peak_bytes(fn: Function,
+                    donation: Optional[Dict[int, int]] = None) -> int:
+    """The most bytes of intermediate values that ``fn``'s emitted plan
+    holds at once on the card: a value made by an op of :data:`_FRESH`,
+    a type-changing ``Convert`` or a Scan's stacked ys counts its type's
+    bytes from the step that makes it to its last use (or, taken into a
+    donated input, :func:`_write_steps`); any other value may be a view
+    and counts nothing.  The inputs are not counted.  Shapes only: the
+    plan is built on the meta device."""
+    sl, plan = function_plan(fn, EmitCtx(torch.device("meta")))
+    writes = _write_steps(sl, plan, donation) if donation else {}
+    live: Dict[int, int] = {}
+    cur = peak = 0
+    for t, (_emit, node, ins, out0, dead) in enumerate(plan):
+        for k, ty in enumerate(node.out_types):
+            made = node.op in _FRESH or (
+                node.op == "Scan" and k >= node.attrs["n_carry"]) or (
+                node.op == "Convert" and node.inputs[0].type.dtype != ty.dtype)
+            if made:
+                live[out0 + k] = ty.nbytes
+                cur += ty.nbytes
+        peak = max(peak, cur)
+        for s in dead + [r for _i, r in writes.get(t, ())]:
+            cur -= live.pop(s, 0)
+    return peak
+
+
 def _execute(plan: List[_Step], env: List[Any], ctx: EmitCtx,
-             name: str) -> None:
-    """Run ``plan`` over ``env`` in place.  An exception leaves with a
+             name: str, writes=None) -> None:
+    """Run ``plan`` over ``env`` in place.  ``writes`` (``{step: [(donated
+    input tensor, result slot)]}``) copies each such output into its
+    input right after the step and puts the input in its slot, so the
+    output's memory is free from there on.  An exception leaves with a
     note naming the op it came from (a capture that fails names it)."""
     try:
-        for emit, node, ins, out0, dead in plan:
+        for t, (emit, node, ins, out0, dead) in enumerate(plan):
             outs = emit(node, [env[s] for s in ins], ctx)
             for j, o in enumerate(outs):
                 env[out0 + j] = o
             for s in dead:
                 env[s] = None
+            if writes and t in writes:
+                for inp, r in writes[t]:
+                    o = env[r]
+                    if o.shape == inp.shape and o.dtype == inp.dtype:
+                        inp.copy_(o)
+                        env[r] = inp
     except Exception as exc:
         exc.add_note(f"while running {node.op} {node.name!r} in {name}")
         raise
@@ -929,7 +1013,8 @@ def function_plan(fn: Function, ctx: EmitCtx) -> Tuple[_Slots, List[_Step]]:
     return sl, plan
 
 
-def emit_callable(fn: Function, ctx: EmitCtx) -> Callable:
+def emit_callable(fn: Function, ctx: EmitCtx,
+                  donation: Optional[Dict[int, int]] = None) -> Callable:
     """Emit ``fn`` as a Python callable over torch tensors on
     ``ctx.device``.
 
@@ -937,11 +1022,19 @@ def emit_callable(fn: Function, ctx: EmitCtx) -> Callable:
     flattened into a list of steps over integer value slots, and a value
     is dropped from the slot table right after its last use, so a
     dispatch holds only the live intermediates (and a donated input the
-    caller no longer references can be reused by the allocator)."""
+    caller no longer references can be reused by the allocator).
+
+    ``donation`` (``{input index: output index}``) on a CUDA device: a
+    donated input passed as a tensor on the device takes its output as
+    soon as nothing reads the input any more (:func:`_write_steps`), and
+    is returned in the output's place, as XLA aliases a donated buffer.
+    A train step then holds its parameters and moments once, not twice."""
     sl, plan = function_plan(fn, ctx)
     dev = ctx.device
     name = fn.name
     n_params = len(fn.parameters)
+    writes = _write_steps(sl, plan, donation) \
+        if donation and dev.type == "cuda" else {}
 
     def run(*args):
         if len(args) != n_params:
@@ -953,7 +1046,11 @@ def emit_callable(fn: Function, ctx: EmitCtx) -> Callable:
                 else as_tensor(a, dev)
         for s, t in sl.leaves.items():
             env[s] = t
-        _execute(plan, env, ctx, name)
+        into = {t: [(args[i], r) for i, r in pairs
+                    if isinstance(args[i], torch.Tensor)
+                    and args[i].device == dev]
+                for t, pairs in writes.items()}
+        _execute(plan, env, ctx, name, into)
         return tuple(env[s] for s in sl.results)
 
     run.__name__ = f"ngraph_{fn.name}"
