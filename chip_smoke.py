@@ -12,6 +12,7 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --roofline-only  # phases 1-3 and 13, no result line
     python3 chip_smoke.py --matrix-only    # phases 1-3 and 14, no result line
     python3 chip_smoke.py --train-families-only  # phases 1-3 and 15, likewise
+    python3 chip_smoke.py --bench-only     # phases 1-3 and 16, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
@@ -113,9 +114,12 @@ without printing a result:
                  card against the CPU (loss and state within 1e-4 of
                  scale), a checkpoint after step 3 restored into fresh
                  card tensors gives steps 4-5 bit for bit, the card's
-                 checkpoint restores on the CPU bit for bit, and an
+                 checkpoint restores on the CPU bit for bit, an
                  autotune sweep of the prefill graph writes a valid
-                 record that a fresh backend re-resolves with no sweep.
+                 record that a fresh backend re-resolves with no sweep,
+                 and five steps each with two microbatches and under
+                 the WSD and constant schedules: captured == eager bit
+                 for bit, card == CPU within the f32 state limits.
                  The lines report step ms (eager, capture, median
                  replay), tok/s, model TFLOP/s (6 x non-embedding
                  parameters x tokens per step) and its share of 989,
@@ -292,8 +296,22 @@ without printing a result:
                  reckoned and measured peak GB, step ms (eager, capture,
                  median replay), tok/s, model TFLOP/s and its share of
                  989, launches per step, the card.
+ 16. bench    -- the benchmark harness (runs last, after phase 15's
+                 graphs are freed): a dry-run cell (xlstm-350m
+                 decode_32k) for the scaling section, then
+                 scripts/torch_bench_to_json.py's snapshot of all 18
+                 sections of scripts/torch_bench.py on deepseek-7b at
+                 published widths, 4 layers, O2 with the kernels
+                 (results/bench_torch.json, its CSV beside it), and its
+                 --check: every parity row 1, every section's kernel
+                 rows launched and none refused but the kernels
+                 section's one refusal probe, all five kernels
+                 launched, every launched shape held against its plain
+                 version.  [bench] lines: each section's seconds and
+                 launches; [bench_bf16_forms]: the cross-form parity
+                 comparisons in bf16, recorded beside their f32 gates.
 
-In phases 4, 5, 7, 8, 9, 10, 11, 12, 14 and 15 no kernel may have been refused
+In phases 4, 5, 7, 8, 9, 10, 11, 12, 14, 15 and 16 no kernel may have been refused
 at full width, but phase 9's counted deepseek-v3 decode attention.
 Phase 6 and phase 8's reduced width count their refusals but do not gate
 them: the reduced vocabulary (257) is no whole number of 16-byte
@@ -2355,6 +2373,72 @@ def phase_train_small() -> None:
         autotune_ms=json.dumps([round(c["ms"], 3)
                                 for c in rec["candidates"]]),
         re_resolve_sweeps=st2.autotune_sweeps)
+    for label, (over, n_micro) in SMALL_VARIANTS.items():
+        _train_small_variant(cfg, label, over, n_micro)
+
+
+# the train step's other paths at phase 8's small width: gradient
+# accumulation over two microbatches (``_microbatch_grads``), and
+# ``lr_schedule``'s WSD and constant branches; WSD decays over the last
+# three of its five steps (total_steps 5, decay_frac 0.6), so steps 3 and
+# 4 take a decayed rate
+SMALL_VARIANTS = {
+    "n_micro=2": ({}, 2),
+    "wsd": (dict(schedule="wsd", total_steps=SMALL_STEPS, decay_frac=0.6),
+            1),
+    "constant": (dict(schedule="constant"), 1),
+}
+
+
+def _train_small_variant(cfg, label: str, over: dict, n_micro: int,
+                         card: str = "cuda") -> dict:
+    """Five steps of ``cfg`` with ``over`` and ``n_micro`` microbatches
+    from the builder's seed-0 weights: on ``card`` captured, then eagerly
+    (the same losses and state bit for bit), and on the CPU (loss within
+    1e-4 of scale, the state within ``STATE_LIMITS["f32"]``)."""
+    from repro_torch.backend import Backend, CompileOptions
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.devices import to_numpy
+    from repro_torch.models.lm import build_graphs
+    from repro_torch.models.train_graph import make_train_step
+
+    vcfg = dataclasses.replace(cfg, **over)
+    mb = SMALL_BATCH // n_micro
+    g = build_graphs(vcfg, ShapeConfig("train", "train", SMALL_SEQ, mb), mb)
+    ts = make_train_step(g, vcfg, n_micro=n_micro)
+    n_data, n_p = len(g.builder.inputs), ts.n_params
+    donate = tuple(range(n_data + 1, n_data + 1 + 3 * n_p))
+    batches = _train_batches(vcfg, ts, SMALL_BATCH, SMALL_SEQ,
+                             range(SMALL_STEPS))
+    params = g.builder.init_params(0)
+    host = [params[n] for n in ts.param_names] + \
+        [np.zeros_like(params[n]) for n in ts.param_names] * 2
+    runs = {}
+    for what, dev, static in (("captured", card, True),
+                              ("eager", card, False), ("cpu", "cpu", True)):
+        cf = Backend.create("torch", fresh=True, device=dev).compile(
+            ts.fn, CompileOptions(level="O2", use_pallas=True,
+                                  donate_argnums=donate, static_jit=static))
+        flat = [torch.from_numpy(a.copy()).to(dev) for a in host]
+        need = ("flash_attention",) if dev == "cuda" else ()
+        losses, _, _, flat = _train_steps(cf, flat, batches, required=need,
+                                          label=f"small {label} {what}")
+        runs[what] = (losses, [to_numpy(t) for t in flat])
+        del cf, flat
+    (lc, pc), (le, pe), (lh, ph) = runs["captured"], runs["eager"], \
+        runs["cpu"]
+    require(lc == le and all(np.array_equal(a, b) for a, b in zip(pc, pe)),
+            f"small {label}: captured {lc} != eager {le} (or the state)")
+    loss_err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(lc, lh))
+    require(loss_err <= 1e-4, f"small {label}: card vs CPU loss "
+            f"{loss_err:.3e} of scale")
+    gaps = _state_gaps(host[:n_p], ph, pc)
+    _require_state(gaps, "f32", f"small {label}: card vs CPU")
+    say("train_small", variant=label, steps=SMALL_STEPS,
+        card_losses=json.dumps(lc), captured_vs_eager="bitwise",
+        card_vs_cpu_loss=f"{loss_err:.3e}",
+        card_vs_cpu_gaps=json.dumps({k: f"{v:.3e}" for k, v in gaps.items()}))
+    return {"losses": lc, "loss_err": loss_err, "gaps": gaps}
 
 
 # -- 9. the mixture-of-experts families, full width -----------------------------
@@ -4250,6 +4334,90 @@ def phase_train_families(report: dict, smi: str) -> None:
         seconds=f"{time.perf_counter() - t0:.2f}", card=repr(smi))
 
 
+# -- 16. the benchmark harness, full width ------------------------------------
+BENCH_CARD = "cuda"
+BENCH_LAYERS = 4     # phase 8's depth: the train_loop section's state fits
+BENCH_OUT = os.path.join(ROOT, "results", "bench_torch.json")
+BENCH_CSV = os.path.join(ROOT, "results", "bench_torch.csv")
+BENCH_DRYRUN = ("xlstm-350m", "decode_32k")   # a cell for E8 to read
+
+
+def _bench_script():
+    """``scripts/torch_bench_to_json.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_bench_to_json",
+        os.path.join(ROOT, "scripts", "torch_bench_to_json.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_bench(report: dict, smi: str) -> None:
+    """The benchmark harness (``scripts/torch_bench.py``) on the card: a
+    snapshot of all 18 sections (``torch_bench_to_json.py``) at
+    deepseek-7b's published widths, :data:`BENCH_LAYERS` deep, O2 with
+    the kernels, then its ``--check``.  Every section runs; each of the
+    five kernels launches and none is refused but the kernels section's
+    one deliberate refusal (``matmul_refused_count``); every shape the
+    harness launched is held against its plain version."""
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    _free_card()
+    t0 = time.perf_counter()
+    arch, shape = BENCH_DRYRUN
+    require(dryrun.main(["--arch", arch, "--shape", shape, "--out-dir",
+                         os.path.join(ROOT, "results", "dryrun_torch")]) == 0,
+            f"bench: the dry run of {arch} {shape} failed")
+    snap = _bench_script()
+    names = list(snap.harness().SECTIONS)
+    seen = {}
+    os.makedirs(os.path.dirname(BENCH_CSV), exist_ok=True)
+    kernels.reset_counters()
+    with open(BENCH_CSV, "w") as csv, _launched_shapes(seen):
+        doc = snap.snapshot(names, BENCH_OUT, device=BENCH_CARD,
+                            layers=BENCH_LAYERS, csv=csv)
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    t_run = time.perf_counter() - t0
+    require(snap.check(BENCH_OUT) == 0, f"bench: {BENCH_OUT} failed --check")
+    model = doc["model"]
+    require(not model["reduced"] and model["d_model"] == 4096
+            and model["layers"] == BENCH_LAYERS,
+            f"bench: ran at {model}, not full width at {BENCH_LAYERS}")
+    require(sorted(doc["section_stats"]) == sorted(names),
+            f"bench: sections run {sorted(doc['section_stats'])}")
+    rows = {(r["section"], r["name"]): r["value"] for r in doc["rows"]}
+    parity = {k: v for k, v in rows.items()
+              if ("matches" in k[1] or "parity" in k[1])
+              and not k[1].endswith("_bf16")}
+    require(parity and all(v == "1" for v in parity.values()),
+            f"bench: parity rows {parity}")
+    probe = int(rows[("E14_kernels", "matmul_refused_count")])
+    require(probe >= 1 and counts["matmul"]["rejected"] == probe,
+            f"bench: matmul refusals {counts['matmul']['rejected']}, the "
+            f"kernels section's probe {probe}")
+    counts = dict(counts, matmul=dict(counts["matmul"], rejected=0))
+    _record_launches(report, "bench", counts, ALL_KERNELS)
+    for name, st in doc["section_stats"].items():
+        say("bench", section=name, seconds=f"{st['seconds']:.2f}",
+            launches=json.dumps(st["launches"]),
+            rejected=sum(st["rejected"].values()))
+    held = _hold_launched(seen, "bench")
+    say("bench_shapes", shapes=sum(held.values()), held=json.dumps(held),
+        calls=sum(seen.values()))
+    # the cross-form comparisons in bf16, recorded beside the f32 gates
+    say("bench_bf16_forms", **{k[1]: v for k, v in sorted(rows.items())
+                               if k[1].endswith("_bf16")
+                               and ("matches" in k[1] or "parity" in k[1])})
+    say("bench", sections=len(names), model=f"{model['name']} full width",
+        layers=model["layers"], run_seconds=f"{t_run:.2f}",
+        seconds=f"{time.perf_counter() - t0:.2f}", snapshot=BENCH_OUT,
+        csv=BENCH_CSV, launches=json.dumps(
+            {k: c["launches"] for k, c in counts.items()}),
+        card=repr(smi))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -4284,6 +4452,9 @@ def main() -> int:
     if "--train-families-only" in sys.argv[1:]:
         phase_train_families(report, smi)
         return 0    # phase 15 alone: no result line
+    if "--bench-only" in sys.argv[1:]:
+        phase_bench(report, smi)
+        return 0    # phase 16 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -4298,6 +4469,7 @@ def main() -> int:
     phase_roofline(report, smi)
     phase_matrix(report, smi)
     phase_train_families(report, smi)
+    phase_bench(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

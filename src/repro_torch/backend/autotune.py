@@ -227,11 +227,13 @@ def sweep(backend, fn: Function, static: CompileOptions,
     A candidate whose options refuse the shapes (:data:`REFUSALS`, e.g. a
     chunk size the KV length does not divide) is skipped; candidate 0 (the
     static default) must run, so the sweep cannot come back empty.  Any
-    other failure is raised: a sweep never hides a kernel that fails."""
+    other failure is raised: a sweep never hides a kernel that fails.
+    On a card the zero arguments are made there once: as numpy they
+    would cross the bus on every timed call, weights and all."""
     if families is None:
         families = tunable_families(fn, static, backend) or \
             frozenset({"attention"})
-    args = [np.zeros(t.shape, t.dtype) for t in fn.in_types]
+    args = _zero_args(fn, getattr(backend, "device", None))
     timed: List[Dict] = []
     for cand in candidate_grid(static, families):
         try:
@@ -251,6 +253,17 @@ def sweep(backend, fn: Function, static: CompileOptions,
     winner = min(timed, key=lambda c: c["ms"])
     return SweepResult(key=key, candidates=timed, winner=_knobs(winner),
                        swept=True)
+
+
+def _zero_args(fn: Function, device) -> list:
+    """A sweep's zero inputs: tensors on a CUDA device, else numpy."""
+    if device is None or device.type != "cuda":
+        return [np.zeros(t.shape, t.dtype) for t in fn.in_types]
+    import torch
+
+    from ..devices import torch_dtype
+    return [torch.zeros(t.shape, dtype=torch_dtype(t.dtype), device=device)
+            for t in fn.in_types]
 
 
 def _knobs(doc: Dict) -> Dict:
