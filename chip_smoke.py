@@ -13,13 +13,15 @@ Run from the root of a checkout, on a machine with a CUDA card:
     python3 chip_smoke.py --matrix-only    # phases 1-3 and 14, no result line
     python3 chip_smoke.py --train-families-only  # phases 1-3 and 15, likewise
     python3 chip_smoke.py --bench-only     # phases 1-3 and 16, no result line
+    python3 chip_smoke.py --prefix-only    # phases 1-3 and 17, no result line
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing a result:
 
   1. device   -- the card's name and power limit (nvidia-smi) and torch's
                  name for it;
-  2. build    -- nvcc builds the five Hopper kernels from
+  2. build    -- nvcc builds the Hopper kernels (the five ports and the
+                 fixed-order batched matmul) from
                  src/repro_torch/kernels/csrc/ (sm_90a) at first use, one
                  process per source, all started together;
   3. kernels  -- each kernel against its plain PyTorch version at the
@@ -31,7 +33,13 @@ without printing a result:
                  determinism checks: two launches on the same inputs give
                  the same bits, and a probe row gives the same bits alone
                  and inside batches of 4, 64 and 512 rows (matmul,
-                 rmsnorm, norm_matmul, swiglu); swiglu called on two
+                 rmsnorm, norm_matmul, swiglu); the batched matmul (no
+                 TPU kernel: the emitter's route for every other
+                 floating contraction) at the paged decode's attention,
+                 a 64-row prefill chunk's, deepseek-v3's expert FFN and
+                 phase 8's backward products, with a probe (batch entry,
+                 row) bitwise equal in batches of 1, 3, 4 and 32 at M of
+                 1 to 64, and zero-padded K bitwise equal; swiglu called on two
                  inputs in turn gives each its own bits; for flash attention
                  two launches, a probe (slot, head) alone and inside 4
                  slots, and decode at position p against row p of the
@@ -55,8 +63,9 @@ without printing a result:
                  6 greedy requests, two sharing a 32-token prefix, run to
                  drain, once eagerly (static_jit=False) and once with the
                  dispatch captured as CUDA graphs (the default): the same
-                 tokens bit for bit; the four kernels of this path (its
-                 chunked prefill holds no Attention op) must have
+                 tokens bit for bit; the five kernels of this path (its
+                 chunked prefill holds no Attention op; its attention
+                 compositions take the batched kernel) must have
                  launched, and a replay's profile (the decode chunk and
                  a prefill chunk) must show each of them by name as often
                  as its counter says;
@@ -69,8 +78,9 @@ without printing a result:
                  prefills launch it too.  Each eagerly, then three times
                  captured (first calls, capture, replays): the same
                  tokens, and a replay's profile of the donated chunk and
-                 of a dense prefill as in phase 4.  All five kernels must
-                 launch;
+                 of a dense prefill as in phase 4.  All five ported
+                 kernels must launch (the donated path holds no other
+                 contraction; the paged one also the batched kernel);
      sampled  -- 4 keyed requests at temperature 0.8 over the whole
                  vocabulary through the captured paged graphs, twice:
                  the same tokens;
@@ -90,7 +100,7 @@ without printing a result:
                  fault site).  Every stream must equal the direct engine's
                  tokens bit for bit; the disconnect is counted and
                  cancelled, the drain is clean (drain_ok, no page in use);
-                 the four paged-path kernels launched; and the line
+                 the five paged-path kernels launched; and the line
                  reports TTFT, inter-token gaps and sustained tok/s from
                  /v1/metrics beside the card's name and power limit.
 
@@ -101,8 +111,10 @@ without printing a result:
                  parameters, bf16 compute, the IR train step (autodiff +
                  AdamW) at O2 with the kernels, p, m and v donated.  Six
                  steps (eager first call, capture, four replays): losses
-                 finite, all five kernels launched on every step (the
-                 forward and the backward scan's recompute) and none
+                 finite, all six kernels launched on every step (the
+                 forward and the backward scan's recompute; the
+                 batched kernel takes the backward's transposed
+                 products) and none
                  refused, the state written back into the same tensors;
                  a replay's profile shows each kernel at its counted
                  launches.  The same six steps eagerly from the same
@@ -245,9 +257,13 @@ without printing a result:
                  reports (greedy parity across the legs, no page
                  leaked, paged under continuous in KV bytes, COW on the
                  shared pair, tp=2's halved KV bytes, a clean drain,
-                 every chaos scenario).  In bf16 the legs attend
-                 through forms that round apart (flash, the IR
-                 compositions), so the checker may fail them on greedy
+                 every chaos scenario).  In bf16 the paged-form legs
+                 (paged, paged tp=2 and the front door; the shared pair)
+                 must agree token for token per request
+                 ([matrix_bf16_paged_parity]: their contractions take the
+                 fixed-order kernels); donated and continuous prefill
+                 through flash, a form that rounds apart from the IR
+                 compositions, so the checker may fail them on greedy
                  parity alone; every split it reports is found and
                  measured: a prefill of the prompt and the agreed
                  tokens in bf16 and in f32 gives each leg's pick in
@@ -255,7 +271,7 @@ without printing a result:
                  split within one unit is counted a tie).  In
                  both runs each engine leg launched the kernels
                  serve.smoke_kernels names for it (flash in the donated
-                 and continuous legs), none refused, all five across
+                 and continuous legs), none refused, all six across
                  the legs, and every launched shape is held against its
                  plain version.  [matrix] lines: each leg's tok/s, TTFT
                  p50/p95, KV bytes per active token, peak GB, seconds;
@@ -305,18 +321,30 @@ without printing a result:
                  (results/bench_torch.json, its CSV beside it), and its
                  --check: every parity row 1, every section's kernel
                  rows launched and none refused but the kernels
-                 section's one refusal probe, all five kernels
+                 section's one refusal probe, all six kernels
                  launched, every launched shape held against its plain
                  version.  [bench] lines: each section's seconds and
                  launches; [bench_bf16_forms]: the cross-form parity
                  comparisons in bf16, recorded beside their f32 gates.
+ 17. prefix   -- one request's greedy tokens across graph shapes (runs
+                 last): scripts/torch_prefix_shapes.py's legs (E16's
+                 32-token prompt, page 4, 8 new tokens) on deepseek-7b at
+                 published widths, 4 layers, O2 with the kernels,
+                 eagerly, in bf16 and in f32: three slots, then one slot
+                 at prefill chunks 16, 5, 8 and 32 must give the same
+                 tokens and bit-identical first-decode-step logits; the
+                 dense leg (chunk 0, another form) is printed, not held.
+                 While the legs run, torch.einsum is wrapped and no call
+                 on CUDA float operands may reach it (the integer one-hot
+                 picks' f64 products are counted apart).  [prefix_shapes]
+                 lines per leg, launches per kernel.
 
-In phases 4, 5, 7, 8, 9, 10, 11, 12, 14, 15 and 16 no kernel may have been refused
+In phases 4, 5, 7, 8, 9, 10, 11, 12, 14, 15, 16 and 17 no kernel may have been refused
 at full width, but phase 9's counted deepseek-v3 decode attention.
 Phase 6 and phase 8's reduced width count their refusals but do not gate
 them: the reduced vocabulary (257) is no whole number of 16-byte
-vectors, so the unembed takes the plain version there, as the
-reference's fallback rule says.  Then one JSON line with
+vectors, so the matmul kernel refuses the unembed there, as the
+reference's fallback rule says, and the batched kernel takes it.  Then one JSON line with
 every kernel's numbers, the card's name and power limit, and the result
 line {"ok": true, "device": {...}}.
 """
@@ -360,12 +388,19 @@ REPLACES = {
     "swiglu": "src/repro/kernels/swiglu.py:22",
     "rmsnorm": "src/repro/kernels/rmsnorm.py:18",
     "flash_attention": "src/repro/kernels/flash_attention.py:41",
+    # no TPU kernel: the reference's XLA lax.dot_general; repairs Queue 3
+    "batched_matmul": "none (src/repro/transformers/jax_backend.py:254, "
+                      "XLA's lax.dot_general; repairs ROADMAP Queue 3)",
 }
 # the kernels each serving path must launch: the paged path's chunked
-# prefill attends through an IR composition, every other path holds an
-# Attention op at d_head 128
-PAGED_KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm")
-ALL_KERNELS = PAGED_KERNELS + ("flash_attention",)
+# prefill and decode attend through IR compositions, whose contractions
+# take the batched kernel; the donated path holds an Attention op at
+# d_head 128 and no other contraction
+PAGED_KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm",
+                 "batched_matmul")
+PORTED_KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm",
+                  "flash_attention")
+ALL_KERNELS = PORTED_KERNELS + ("batched_matmul",)
 # what phases 8 and 12 measured, for phase 13 to read its meter against
 READINGS: dict = {}
 
@@ -456,6 +491,7 @@ def _case_makers(gen, cases: list):
     from repro_torch.kernels import matmul as km, norm_matmul as kn
     from repro_torch.kernels import rmsnorm as kr, swiglu as ks
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import batched_matmul as kb
     from repro_torch.kernels import ref
     import torch.nn.functional as Fn
     bf, f32 = torch.bfloat16, torch.float32
@@ -533,7 +569,26 @@ def _case_makers(gen, cases: list):
                             + B * Hkv * rows * (dk + dv)) * s,
                       2 * B * Hq * pairs * (dk + dv), dt))
 
-    return mm, nm, sw, rn, fa
+    def bm(label, batch, M, N, K, dt, a_t=False, b_t=False, out=f32):
+        # A as (K, M) and B as (N, K) where transposed: strided views, as
+        # the emitter hands them over; the yardstick is torch.bmm on the
+        # same operands (f32 with TF32 off, or the 16-bit type's cuBLAS
+        # GEMM, which rounds its output to that type)
+        a = _rand((batch, K, M), dt, gen).transpose(1, 2) if a_t else \
+            _rand((batch, M, K), dt, gen)
+        b = (_rand((batch, N, K), dt, gen, K ** -0.5).transpose(1, 2)
+             if b_t else _rand((batch, K, N), dt, gen, K ** -0.5))
+        s = a.element_size()
+        cases.append(("batched_matmul", label,
+                      lambda: kb.batched_matmul(a, b, out),
+                      lambda: ref.batched_matmul_ref(a, b, out),
+                      lambda: torch.bmm(a, b),
+                      batch * (M * K + K * N) * s
+                      + batch * M * N * torch.empty((), dtype=out)
+                      .element_size(),
+                      2 * batch * M * N * K, dt))
+
+    return mm, nm, sw, rn, fa, bm
 
 
 def kernel_cases(gen):
@@ -545,7 +600,23 @@ def kernel_cases(gen):
     shape its runs launch, :func:`_launched_cases`)."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
-    mm, nm, sw, rn, fa = _case_makers(gen, cases)
+    mm, nm, sw, rn, fa, bm = _case_makers(gen, cases)
+    # the fixed-order batched kernel: the paged decode's q.k^T (4 slots x
+    # 32 kv heads, one query row, over 256 keys of the cache read as (N,
+    # K)) first -- the case the result line reports -- then its p.V, a
+    # 64-row prefill chunk's scores (f32) and p.V (bf16, p rounded to the
+    # cache's type), deepseek-v3's expert FFN at decode (256 experts x 8
+    # rows) and phase 8's backward products (dX against a transposed
+    # weight, dW from a transposed activation, attention's f32 scores)
+    bm("paged decode q.k^T (128x1x128)@(128x128x256)", SLOTS * HEADS, 1,
+       256, DH, f32, b_t=True)
+    bm("paged decode p.V (128x1x256)@(128x256x128)", SLOTS * HEADS, 1, DH,
+       256, f32)
+    bm(f"prefill chunk q.k^T (32x{CHUNK}x128)@(32x128x256)", HEADS, CHUNK,
+       256, DH, f32, b_t=True)
+    bm(f"prefill chunk p.V (32x{CHUNK}x256)@(32x256x128) bf16", HEADS,
+       CHUNK, DH, 256, bf, out=bf)
+    bm("sampler pick (4x1x102400)@(4x102400x1) f32", SLOTS, 1, 1, V, f32)
     mm("decode wo (4x4096)@(4096x4096)", SLOTS, D, D, bf)
     mm("prefill wo (64x4096)@(4096x4096)", CHUNK, D, D, bf)
     mm("prefill unembed (1x4096)@(4096x102400)", 1, D, V, bf)
@@ -584,6 +655,16 @@ def kernel_cases(gen):
     nm(f"train ({T}x4096)(4096x11008)", T, F, bf)
     nm(f"train final+unembed ({T}x4096)(4096x102400) g f32", T, V, f32)
     sw(f"train ({T}x4096) F=11008", T, bf)
+    bm(f"train dX ({T}x4096)@(4096x4096)^T", 1, T, D, D, bf, b_t=True,
+       out=bf)
+    bm(f"train dW ({T}x4096)^T@({T}x11008)", 1, D, F, T, bf, a_t=True,
+       out=bf)
+    bm(f"train attention scores ({TRAIN_BATCH * HEADS}x{TRAIN_SEQ}x128)@"
+       f"(..x128x{TRAIN_SEQ}) f32", TRAIN_BATCH * HEADS, TRAIN_SEQ,
+       TRAIN_SEQ, DH, f32, b_t=True)
+    # phase 15's xlstm: the sLSTM scan's backward, ~12,000 a step
+    bm("xlstm sLSTM backward (4x4x1024)@(4x1024x256) f32", 4, 4, 256, 1024,
+       f32)
     rn(f"train ({T}x4096)", T, bf)
     fa(f"train ({TRAIN_BATCH}x32x{TRAIN_SEQ}) causal", TRAIN_BATCH, HEADS,
        HEADS, TRAIN_SEQ, TRAIN_SEQ, None, bf)
@@ -598,6 +679,12 @@ def kernel_cases(gen):
     nq = v3.n_heads * (v3.d_nope + v3.d_rope)
     nm(f"moe wq_b ({V3_ROWS}x{v3.q_lora})({v3.q_lora}x{nq}) (deepseek-v3)",
        V3_ROWS, nq, bf, K=v3.q_lora)
+    bm(f"moe expert FFN up ({v3.n_experts}x8x{v3.d_model})@(..x"
+       f"{v3.d_model}x{v3.expert_d_ff}) (deepseek-v3)", v3.n_experts, 8,
+       v3.expert_d_ff, v3.d_model, bf, out=bf)
+    bm(f"moe expert FFN down ({v3.n_experts}x8x{v3.expert_d_ff})@(..x"
+       f"{v3.expert_d_ff}x{v3.d_model}) (deepseek-v3)", v3.n_experts, 8,
+       v3.d_model, v3.expert_d_ff, bf, out=bf)
     for f, what in ((v3.d_ff, "dense MLP"), (v3.expert_d_ff,
                                              "shared expert")):
         for m in (SLOTS, V3_ROWS):
@@ -794,9 +881,69 @@ def check_determinism(gen) -> None:
         model="recurrentgemma-9b", heads="16:1 Dk 256",
         window_decode_vs_prefill_rows=",".join(map(str, rows)),
         window_decode_vs_prefill="bitwise")
+    check_bmm_determinism(gen)
     check_in_capture(gen)
     check_fixed_order_scans(gen)
     check_linear_recurrence(gen)
+
+
+# the batched kernel's probe: batch counts and row counts of the paged
+# decode (4 slots x 32 kv heads, one row), a prefill chunk (up to 64 rows)
+# and the one- and three-slot runs of E16 (32 and 96 batch entries)
+BMM_BATCHES = (1, 3, 4, 32)
+BMM_ROWS = (1, 3, 5, 8, 16, 32, 64)
+
+
+def check_bmm_determinism(gen) -> None:
+    """The fixed-order batched matmul: a probe (batch entry, row) gives
+    the same bits alone and inside batches of :data:`BMM_BATCHES` entries
+    at :data:`BMM_ROWS` rows, at another place in each; two launches give
+    the same bits; zeros appended to K (a padded cache width) give the
+    same bits.  At the paged attention's shapes: q.k^T against a cache
+    read as (N, K) in f32, and p.V in bf16; and over 20 f32 chunks (K
+    5000), where the batches and rows take each f32 tile and the block
+    per output."""
+    from repro_torch.kernels import batched_matmul as kb
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def operands(batch, m, n, k, dt, b_t):
+        a = _rand((batch, m, k), dt, gen)
+        b = (_rand((batch, n, k), dt, gen, k ** -0.5).transpose(1, 2)
+             if b_t else _rand((batch, k, n), dt, gen, k ** -0.5))
+        return a, b
+
+    for label, n, k, dt, b_t in (("q.k^T", 256, DH, f32, True),
+                                 ("p.V", DH, 256, bf, False),
+                                 ("K 5000", 64, 5000, f32, False)):
+        pa, pb = operands(1, 1, n, k, dt, b_t)
+        alone = kb.batched_matmul(pa, pb, f32)
+        for batch in BMM_BATCHES:
+            for m in BMM_ROWS:
+                a, b = operands(batch, m, n, k, dt, b_t)
+                i, row = (7 * batch + m) % batch, (5 * m + batch) % m
+                a[i, row] = pa[0, 0]
+                b[i] = pb[0]
+                out = kb.batched_matmul(a, b, f32)
+                require(_bitwise(out, kb.batched_matmul(a, b, f32)),
+                        f"batched_matmul {label}: two launches at batch "
+                        f"{batch} x {m} rows differ")
+                require(_bitwise(out[i, row], alone[0, 0]),
+                        f"batched_matmul {label}: the probe at batch {batch}"
+                        f" x {m} rows (entry {i}, row {row}) differs from it "
+                        f"alone: max |diff| "
+                        f"{float((out[i, row] - alone[0, 0]).abs().max())}")
+        pad = 24 if k < 4096 else 300
+        padded = kb.batched_matmul(torch.nn.functional.pad(pa, (0, pad)),
+                                   torch.nn.functional.pad(pb,
+                                                           (0, 0, 0, pad)),
+                                   f32)
+        require(_bitwise(padded, alone), f"batched_matmul {label}: K "
+                f"zero-padded by {pad} differs")
+        say("determinism", kernel="batched_matmul", case=repr(label),
+            dtype=str(dt).split(".")[-1], k=k, runs="bitwise",
+            batches=",".join(map(str, BMM_BATCHES)),
+            rows=",".join(map(str, BMM_ROWS)), probe="bitwise",
+            zero_padded_k="bitwise")
 
 
 def check_swiglu_alternation(label, wg, wu, wd, gen) -> None:
@@ -1112,6 +1259,8 @@ KERNEL_FUNCS = {
                 "swiglu_gate_up_f32_kernel", "swiglu_down_f32_kernel"), 2),
     "rmsnorm": (("rmsnorm_kernel",), 1),
     "flash_attention": (("flash_kernel", "flash_tc_kernel"), 1),
+    "batched_matmul": (("bmm_tc_kernel", "bmm_f32_kernel",
+                        "bmm_f32_split_kernel"), 1),
 }
 
 
@@ -1510,7 +1659,7 @@ def phase_flash(report: dict, cfg, params) -> None:
                 f"donated: {len(graphs)} graphs captured, 2 expected "
                 f"(the prefill and the 15-step chunk)")
         _record_launches(report, f"flash_donated_{what}", counts,
-                         ALL_KERNELS, main=what == "replayed")
+                         PORTED_KERNELS, main=what == "replayed")
         if what == "replayed":
             for key, (_, cf, pvals) in list(eng._chunks.items()) + \
                     list(eng._prefill.items()):
@@ -1648,7 +1797,8 @@ def _kernels_held_to_plain(readings: dict):
     from repro_torch.kernels import MODULES, ref
     plain = {"matmul": ref.matmul_ref, "norm_matmul": ref.norm_matmul_ref,
              "swiglu": ref.swiglu_ref, "rmsnorm": ref.rmsnorm_ref,
-             "flash_attention": ref.flash_attention_ref}
+             "flash_attention": ref.flash_attention_ref,
+             "batched_matmul": ref.batched_matmul_ref}
     saved = {name: getattr(mod, name) for name, mod in MODULES.items()}
 
     def held(name, fn):
@@ -2480,11 +2630,17 @@ def _launched_shapes(seen: dict):
     def recording(name, fn):
         def call(*args, **kw):
             if args[0].is_cuda:
+                # the batched kernel's operands are strided views: which
+                # of them is transposed is part of what it launched
+                extra = tuple(a for a in args
+                              if not isinstance(a, torch.Tensor))
+                if name == "batched_matmul":
+                    extra += (args[0].stride(-1) != 1,
+                              args[1].stride(-1) != 1)
                 sig = (name,
                        tuple((tuple(a.shape), a.dtype) for a in args
                              if isinstance(a, torch.Tensor)),
-                       tuple(a for a in args
-                             if not isinstance(a, torch.Tensor)),
+                       extra,
                        tuple(sorted((k, "tensor" if isinstance(
                            v, torch.Tensor) else v) for k, v in kw.items())))
                 seen[sig] = seen.get(sig, 0) + 1
@@ -2509,7 +2665,7 @@ def _launched_case(gen, sig, calls: int, model: str):
     decode step at the cache's last row: every key in the window
     visible)."""
     cases = []
-    mm, nm, sw, rn, fa = _case_makers(gen, cases)
+    mm, nm, sw, rn, fa, bm = _case_makers(gen, cases)
     name, tensors, extra, kw = sig
     shp = [s for s, _ in tensors]
     dts = [d for _, d in tensors]
@@ -2530,6 +2686,12 @@ def _launched_case(gen, sig, calls: int, model: str):
     elif name == "rmsnorm":
         x, (d,) = shp
         rn(label, math.prod(x[:-1]), dts[1], d=d, dt=dts[0], eps=eps)
+    elif name == "batched_matmul":
+        (batch, M, K), (_, _, N) = shp
+        out, a_t, b_t = (extra if len(extra) == 3
+                         else (kw.get("out_dtype"),) + extra)
+        bm(label, batch, M, N, K, dts[0], a_t=a_t, b_t=b_t,
+           out=out or (dts[0] if dts[0] == dts[1] else torch.float32))
     else:
         (B, Hq, Sq, dk), (_, Hkv, Skv, _), (*_, dv) = shp
         off = Skv - Sq if kw.get("q_offset") == "tensor" else None
@@ -3369,7 +3531,8 @@ def phase_tp(report: dict, smi: str) -> None:
     t_init = time.perf_counter() - t0
     gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
     prompts = _prompts(cfg.vocab, (17, 33, 48, 64, 81, 100), 32)
-    need = {"O2": PAGED_KERNELS, "O1": ("matmul", "rmsnorm")}
+    need = {"O2": PAGED_KERNELS,
+            "O1": ("matmul", "rmsnorm", "batched_matmul")}
     reference = None
     shapes = contextlib.ExitStack()
     seen = shapes.enter_context(_launched_shapes({}))
@@ -3816,6 +3979,34 @@ def _matrix_legs(report: dict, mx, cfg, params, mesh, legs, smi: str):
     return infos, docs, total
 
 
+# the legs that decode through one form, the paged composition, at other
+# batch shapes or prefill chunks: paged, its tp=2 split and the front
+# door (requests arriving over time), and the shared pair (prefix
+# sharing moves where a prefill chunk starts)
+MATRIX_PAGED_FORM = (("paged", "paged-tp2", "server"),
+                     ("paged-shared-base", "paged-shared-prefix"))
+
+
+def _matrix_paged_parity(docs: dict, smi: str) -> None:
+    """In bf16 every request's greedy tokens are equal across the legs
+    of each :data:`MATRIX_PAGED_FORM` group: their contractions take the
+    fixed-order kernels, whose bits do not follow the batch's shape."""
+    for group in MATRIX_PAGED_FORM:
+        base = docs[group[0]]["results"]
+        for leg in group[1:]:
+            got = docs[leg]["results"]
+            bad = sorted(r for r in base if got.get(r) != base[r])
+            require(got.keys() == base.keys() and not bad,
+                    f"matrix bf16: {leg} differs from {group[0]} on "
+                    f"requests {bad}: "
+                    f"{[(got.get(r), base[r]) for r in bad[:2]]}")
+    say("matrix_bf16_paged_parity",
+        groups=json.dumps([list(g) for g in MATRIX_PAGED_FORM]),
+        requests=json.dumps([len(docs[g[0]]["results"])
+                             for g in MATRIX_PAGED_FORM]),
+        tokens="equal", card=repr(smi))
+
+
 def _matrix_splits(cfg, docs: dict) -> dict:
     """Each first token where a leg leaves the leg the checker holds it
     to (continuous for the standard workload, the sharing-off leg for the
@@ -3941,8 +4132,10 @@ def phase_matrix(report: dict, smi: str) -> None:
     weight draw from seed 0 for every leg, at O2 with the kernels; the tp
     leg's two shards share the card.  In f32 the unchanged
     ``scripts/check_serving_matrix.py`` must pass the eight reports.  In
-    bf16 the seven engine legs run again: the checker may fail them on
-    greedy parity alone, and each split is measured
+    bf16 the seven engine legs run again: the paged-form legs must agree
+    token for token (:func:`_matrix_paged_parity`); the checker may fail
+    the others (donated and continuous prefill through the Attention
+    op) on greedy parity alone, and each split is measured
     (:func:`_matrix_ties`).  Both runs gate
     their kernels (:func:`_matrix_legs`).  Then the prompt prefill's
     trace in each compute type."""
@@ -3970,6 +4163,7 @@ def phase_matrix(report: dict, smi: str) -> None:
     infos16, docs16, total16 = _matrix_legs(
         report, mx, cfg16, params, mesh,
         tuple(leg for leg in mx.LEGS if leg != "chaos"), smi)
+    _matrix_paged_parity(docs16, smi)
     del mesh
     _free_card()
     splits, ties = _matrix_ties(cfg16, cfg32, params, docs16,
@@ -4199,7 +4393,7 @@ def _train_family(report: dict, arch: str, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cfg, ts, donate, reckoned, plan_gb, why = _tf_config(arch)
     seq = _tf_seq(cfg)
-    need, _ = smoke_kernels(cfg)
+    need, _ = smoke_kernels(cfg, train=True)
     t0 = time.perf_counter()
     batches = _train_batches(cfg, ts, TF_BATCH, seq, range(TF_STEPS + 1))
     extra = batches.pop()
@@ -4418,6 +4612,83 @@ def phase_bench(report: dict, smi: str) -> None:
         card=repr(smi))
 
 
+# -- 17. one request across graph shapes ---------------------------------------------
+PREFIX_LAYERS = BENCH_LAYERS   # E16's depth in phase 16
+
+
+@contextlib.contextmanager
+def _einsum_calls(calls: dict):
+    """While open, each ``torch.einsum`` call on CUDA operands adds one to
+    ``calls["float"]`` (an f32, bf16 or f16 operand) or ``calls["f64"]``
+    (the emitter's integer one-hot picks, an exact f64 product)."""
+    plain = torch.einsum
+
+    def counted(spec, *ops):
+        ts = [t for t in ops if isinstance(t, torch.Tensor)]
+        if any(t.is_cuda for t in ts):
+            kind = "float" if any(t.dtype in (torch.float32, torch.bfloat16,
+                                              torch.float16) for t in ts) \
+                else "f64"
+            calls[kind] = calls.get(kind, 0) + 1
+        return plain(spec, *ops)
+
+    torch.einsum = counted
+    try:
+        yield calls
+    finally:
+        torch.einsum = plain
+
+
+def phase_prefix(report: dict, smi: str) -> None:
+    """``scripts/torch_prefix_shapes.py``'s legs at deepseek-7b's published
+    widths, :data:`PREFIX_LAYERS` deep, O2 with the kernels, run eagerly
+    in bf16 and in f32: E16's request alone on three slots, then on one
+    slot at prefill chunks 16, 5, 8 and 32, must give the same greedy
+    tokens and bit-identical first-decode-step logits (the dense leg,
+    chunk 0, attends through the Attention op: printed, not held).  No
+    ``torch.einsum`` call on CUDA float operands while the legs run."""
+    from repro_torch import kernels
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_bench as tb
+    import torch_prefix_shapes as ps
+    _free_card()
+    t0 = time.perf_counter()
+    tb.configure("cuda", False, PREFIX_LAYERS)
+    cfg = tb._cfg()
+    kernels.reset_counters()
+    calls = {}
+    legs = {}
+    with _einsum_calls(calls):
+        for model in (cfg, tb._f32(cfg)):
+            legs[model.compute_dtype] = ps.run_legs(tb, model)
+            tb.free()
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    for dt, rows in legs.items():
+        for slots, chunk, tokens, logits, same_t, same_l in rows:
+            held = chunk != 0
+            say("prefix_shapes", compute=dt, slots=slots,
+                chunk="default" if chunk is None else chunk,
+                tokens=json.dumps(tokens), same_tokens=same_t,
+                same_first_step_logits=same_l,
+                held="yes" if held else "no (dense prefill: another form)")
+            require(not held or (same_t and same_l),
+                    f"prefix {dt}: slots={slots} chunk={chunk} tokens "
+                    f"{tokens} (same {same_t}), first-step logits same "
+                    f"{same_l}, against the three-slot run "
+                    f"{rows[0][2]}")
+    require(not calls.get("float"),
+            f"prefix: {calls.get('float')} torch.einsum calls on CUDA "
+            f"float operands in the emitted program")
+    _record_launches(report, "prefix", counts, ALL_KERNELS, main=False)
+    say("prefix_shapes", layers=cfg.n_layers, model=f"{cfg.name} full "
+        "width", einsum_cuda_float=calls.get("float", 0),
+        einsum_cuda_f64=calls.get("f64", 0),
+        launches=json.dumps({k: c["launches"] for k, c in counts.items()}),
+        seconds=f"{time.perf_counter() - t0:.2f}", card=repr(smi))
+    tb.free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
@@ -4455,6 +4726,9 @@ def main() -> int:
     if "--bench-only" in sys.argv[1:]:
         phase_bench(report, smi)
         return 0    # phase 16 alone: no result line
+    if "--prefix-only" in sys.argv[1:]:
+        phase_prefix(report, smi)
+        return 0    # phase 17 alone: no result line
     cfg, params, prompts, tokens = phase_main(report, smi)
     phase_flash(report, cfg, params)
     phase_sampled(cfg, params)
@@ -4470,6 +4744,7 @@ def main() -> int:
     phase_matrix(report, smi)
     phase_train_families(report, smi)
     phase_bench(report, smi)
+    phase_prefix(report, smi)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

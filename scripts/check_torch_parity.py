@@ -253,7 +253,8 @@ def required_kernels(kind: str, cfg) -> List[str]:
     from repro_torch.devices import torch_dtype
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import smoke_kernels
-    need, _ = smoke_kernels(cfg, attention=kind in ATTENTION_KINDS)
+    need, _ = smoke_kernels(cfg, attention=kind in ATTENTION_KINDS,
+                            train=kind == "train_step")
     # the dense and moe train loss graphs' one NormMatmul is the final
     # norm and the unembedding, which the kernels' shape rule refuses at
     # the reduced vocabulary (257); the train step's backward forms

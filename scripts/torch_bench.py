@@ -14,8 +14,9 @@ d_head 128, d_ff 11008, vocab 102400) with the depth cut to ``--layers``
 O2 with the kernels and ``static_jit`` on -- the main path's options; with
 ``--reduced`` it runs ``.reduced()``, as the reference does.  Each model
 section emits its depth (``layers``) and, on the card, the launches and
-refusals of each of the five kernels it caused (``launches_<kernel>``,
-``rejected_<kernel>``).
+refusals of each kernel it caused (``launches_<kernel>``,
+``rejected_<kernel>``: the five ported kernels and the fixed-order
+``batched_matmul``).
 
 The sections keep the reference's workloads and rows.  Where the port has
 no counterpart of what a row measured, the row is renamed:
@@ -48,13 +49,15 @@ no counterpart of what a row measured, the row is renamed:
 
 A parity row whose two legs attend through different forms (the dense
 prefill's Attention op, which takes the flash kernel at d_head 128, against
-the paged path's chunked-prefill composition) or decode at different batch
-shapes (E16's one-slot chunk legs against its three-slot run: on the card
-the emitter's f32 products give other bits at another shape, and a 16-bit
-greedy token can turn on them) is taken in f32, where the legs agree; the
-same comparison in the main path's 16-bit compute is emitted beside it with
-a ``_bf16`` suffix and not gated.  Rows that compare one form at one shape
-with itself stay in the main path's compute type.
+the paged path's chunked-prefill composition: E12's continuous against
+paged, E16's continuous leg and its dense leg) is taken in f32, where the
+legs agree; the same comparison in the main path's 16-bit compute is
+emitted beside it with a ``_bf16`` suffix and not gated.  Rows whose legs
+share one form are gated in the main path's compute type, at any batch
+shape or prefill chunk: E16's chunk legs on one slot against its
+three-slot run, and sharing against the run alone.  Every contraction of
+the paged form runs on a kernel whose sums have one order whatever the
+batch (``kernels/batched_matmul.py``), so those legs give the same bits.
 """
 from __future__ import annotations
 
@@ -75,7 +78,8 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 import torch  # noqa: E402
 
 ROWS = []  # (section, name, value, unit) as emitted, for JSON snapshots
-KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm", "flash_attention")
+KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm", "flash_attention",
+           "batched_matmul")
 DEFAULT_LAYERS = 4   # full-width depth: phase 8's
 
 
@@ -697,8 +701,9 @@ def bench_kernels():
     _kernel_rows(sec, before)
 
     # an odd shape (N = 33 is no whole number of 16-byte vectors) through
-    # the emitter: the kernel's predicate refuses it, counted, and the
-    # plain product answers -- never a hidden fallback
+    # the emitter: the matmul kernel's predicate refuses it, counted, and
+    # the fixed-order batched kernel (the plain product on the CPU)
+    # answers -- never a hidden fallback
     rng = np.random.default_rng(7)
     am = rng.normal(size=(7, 100)).astype(np.float32)
     bm = rng.normal(size=(100, 33)).astype(np.float32)
@@ -1003,11 +1008,13 @@ def bench_prefix():
     bytes per active token of the unshared paged pool, while greedy
     outputs stay token-identical to continuous mode and to each request
     run alone.  Continuous mode and the dense prefill (``prefill_chunk=0``)
-    attend through the dense prefill's Attention op, the paged legs
-    through the chunked-prefill composition, and the chunk-size legs
-    decode on one slot where the run they are held to decodes on three:
-    those comparisons are taken in f32, sharing against the run alone
-    (one form, one shape) in the main path's compute type.  The stall rows
+    attend through the dense prefill's Attention op and the paged legs
+    through the chunked-prefill composition: the continuous and dense
+    comparisons are taken in f32 (``prefix_dense_prefill_parity`` is the
+    dense leg's own row).  Sharing against the run alone, and the chunk
+    legs (5 and 16 on one slot) against the three-slot run alone, share
+    the paged form and are gated in the main path's compute type.  The
+    stall rows
     show why prefill moved in-graph and chunked: a long prompt admitted
     mid-decode stalls a short victim's inter-token p95 for one whole
     dense prefill, vs one bounded chunk at a time."""
@@ -1053,6 +1060,8 @@ def bench_prefix():
         aref = alone(cfg)
         same_alone, same_cont = parity_of(srids, srep, crids, crep, aref)
         if cfg32 is not cfg:
+            # sharing against alone stays in the compute type; against
+            # continuous (another form) in f32
             emit("E16_prefix", "prefix_parity_bf16",
                  int(same_alone and same_cont), "bool")
             s32, c32 = run_paged(True, model=cfg32), continuous(cfg32)
@@ -1081,20 +1090,23 @@ def bench_prefix():
         assert p.cow_copies >= 1 and p.shared_attaches >= 1
 
         # chunked prefill exactness: every chunk size (ragged tails
-        # included) and the dense path decode the same tokens, each leg
-        # on one slot against the three-slot run alone
-        def chunk_legs(model, ref):
-            return all(np.array_equal(alone(model, 1, prefill_chunk=c), ref)
-                       for c in (5, 16, 0))
-
-        chunk_ok = chunk_legs(cfg, aref)
-        if cfg32 is not cfg:
-            emit("E16_prefix", "prefix_chunked_prefill_parity_bf16",
-                 int(chunk_ok), "bool")
-            chunk_ok = chunk_legs(cfg32, alone(cfg32))
+        # included) decodes the same tokens on one slot as the three-slot
+        # run alone, in the compute type; the dense path (another form)
+        # in f32
+        chunk_ok = all(np.array_equal(alone(cfg, 1, prefill_chunk=c), aref)
+                       for c in (5, 16))
         emit("E16_prefix", "prefix_chunked_prefill_parity", int(chunk_ok),
              "bool")
-        assert chunk_ok, "chunked prefill diverged from dense prefill"
+        assert chunk_ok, "chunked prefill diverged between chunk sizes"
+        dense_ok = np.array_equal(alone(cfg, 1, prefill_chunk=0), aref)
+        if cfg32 is not cfg:
+            emit("E16_prefix", "prefix_dense_prefill_parity_bf16",
+                 int(dense_ok), "bool")
+            dense_ok = np.array_equal(alone(cfg32, 1, prefill_chunk=0),
+                                      alone(cfg32))
+        emit("E16_prefix", "prefix_dense_prefill_parity", int(dense_ok),
+             "bool")
+        assert dense_ok, "chunked prefill diverged from dense prefill"
 
         # prefill stall: a short victim decodes while a 32-token prompt is
         # admitted mid-stream; the victim's p95 inter-token gap under

@@ -17,8 +17,8 @@ positive tok/s; the paged section's ``paged_kv_bytes_ratio < 1`` and
 parity == 1; the server section over-subscribed, with parity and a clean
 drain; the kernels section's ``*_selected_over_unfused <= 1`` and its
 re-resolve and refusal invariants; the faults section's recovery rows ==
-1; the prefix section's ``prefix_kv_bytes_ratio <= 0.6``, both parity rows
-== 1 and a copy-on-write; the partition section's tp=2 parity,
+1; the prefix section's ``prefix_kv_bytes_ratio <= 0.6``, its three parity
+rows == 1 and a copy-on-write; the partition section's tp=2 parity,
 ``kv_bytes_per_device_ratio <= 0.5``, an all-gather and a sharded
 parameter.  When the snapshot's device is a card it also fails a section
 whose kernel-launch rows sum to 0 or whose refusal rows are above 0, and
@@ -89,6 +89,7 @@ REQUIRED_PREFIX_ROWS = (
     "prefix_kv_bytes_ratio",
     "prefix_cow_copies", "prefix_shared_attaches",
     "prefix_parity", "prefix_chunked_prefill_parity",
+    "prefix_dense_prefill_parity",
     "prefix_stall_p95_ms_chunked", "prefix_stall_p95_ms_dense",
 )
 # ``partition_all_reduce`` is deliberately not required positive: the
@@ -108,7 +109,8 @@ ONE_ROWS = {
     "kernels": ("matmul_reresolve_sweep_free", "matmul_refused_ok"),
     "faults": ("faults_dispatch_contained", "faults_pages_reclaimed",
                "faults_uninjected_parity"),
-    "prefix": ("prefix_parity", "prefix_chunked_prefill_parity"),
+    "prefix": ("prefix_parity", "prefix_chunked_prefill_parity",
+               "prefix_dense_prefill_parity"),
     "partition": ("tp2_matches_tp1",),
 }
 LAUNCH_PREFIX, REFUSAL_PREFIX = "launches_", "rejected_"

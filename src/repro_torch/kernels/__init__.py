@@ -1,5 +1,8 @@
 """The port's hand-written Hopper kernels (CUDA C++ for sm_90a, built from
-``csrc/`` at first use; see :mod:`._build`).
+``csrc/`` at first use; see :mod:`._build`): the five ports of the
+reference's Pallas kernels, and ``batched_matmul``, which replaces no
+TPU kernel (the emitter's fixed-order route for every other floating
+contraction).
 
 Each kernel module holds one wrapper, its plain PyTorch version (in
 :mod:`.ref`) for CPU tensors, a ``supported`` shape predicate, and two
@@ -10,6 +13,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from . import batched_matmul as _batched_matmul
 from . import flash_attention as _flash_attention
 from . import matmul as _matmul
 from . import norm_matmul as _norm_matmul
@@ -23,6 +27,7 @@ MODULES = {
     "swiglu": _swiglu,
     "rmsnorm": _rmsnorm,
     "flash_attention": _flash_attention,
+    "batched_matmul": _batched_matmul,
 }
 
 

@@ -42,6 +42,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -51,6 +52,8 @@ SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _F, _I, _I, _I, _I, _P],
+    "repro_batched_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                             _L, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -52,6 +52,15 @@
 //     one is a programmatic dependent launch of.  The prologue puts B's
 //     first stages in flight, waits for that kernel (griddepcontrol.wait)
 //     and only then copies A.
+//   - strided operands (kStrided): the policy object's ``load(slot, s)``
+//     fills stage s of the ring slot itself -- B's [kKS][BN] and then A's
+//     [BM][kKS] in the plain GEMM's swizzled layout, zero outside the
+//     matrices -- from operands read through any strides
+//     (batched_matmul.cu).  Only the copy changes: the fragments and the
+//     K order are the plain GEMM's.  A strided source with K below one
+//     stage skips the warps whose k slice lies past K (their partials
+//     would be exact zeros, and adding them changes no bit), so it need
+//     copy only the rows up to 32 * ceil(K / 32).
 #pragma once
 
 #include "common.cuh"
@@ -186,13 +195,13 @@ __device__ __forceinline__ int swz(int r, int c) {
 
 // B's source and the prologue's order (see the header).
 struct PlainB {
-  static constexpr bool kPair = false, kWaitA = false;
+  static constexpr bool kPair = false, kWaitA = false, kStrided = false;
 };
 struct PairB {
-  static constexpr bool kPair = true, kWaitA = false;
+  static constexpr bool kPair = true, kWaitA = false, kStrided = false;
 };
 struct WaitA {
-  static constexpr bool kPair = false, kWaitA = true;
+  static constexpr bool kPair = false, kWaitA = true, kStrided = false;
 };
 
 // Copy stage ``s`` (k from s * KS) of B's columns [n0, n0 + BN) into
@@ -262,20 +271,26 @@ __device__ __forceinline__ void load_a(T* as, const T* A, int lda, int M,
 // synchronised; ``smem`` is the dynamic shared memory of TL::SMEM bytes.
 // ``b_first``: B's lines are the first L2 evicts (a weight read once).
 // ``ax``: the A transform; ``BX``: B's source and the prologue's order,
-// ``B2`` the second matrix of a paired B (see the header).
+// ``B2`` the second matrix of a paired B, ``bx`` a strided source's
+// loader (see the header).
 template <typename T, class TL, class AX = IdentityA, class BX = PlainB>
 __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
                                           const T* __restrict__ B, int M,
                                           int K, int N, int m0, int n0,
                                           bool b_first, unsigned char* smem,
                                           const AX& ax = AX(),
-                                          const T* __restrict__ B2 = nullptr) {
+                                          const T* __restrict__ B2 = nullptr,
+                                          const BX& bx = BX()) {
   constexpr int MF = TL::MF, NF = TL::NF, BN = TL::BN;
   constexpr int STAGES = TL::STAGES, STAGE = TL::STAGE;
   constexpr int PITCH = TL::RED_PITCH;
   T* ring = reinterpret_cast<T*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nst = (K + kKS - 1) / kKS;
+  // warps whose k slices hold data: all of them, but for a strided
+  // source whose K is under one stage (see the header)
+  const int live = BX::kStrided && K < kKS ? (K + kWarpK - 1) / kWarpK
+                                           : kWarps;
   const bool a_vec = (lda & 7) == 0;
   const uint64_t b_policy = b_first ? l2_policy_evict_first()
                                     : l2_policy_evict_normal();
@@ -312,9 +327,13 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
       if (s < nst) {
-        load_b<T, TL, BX>(ring + s * STAGE, B, B2, K, N, n0, s, b_policy);
-        load_a<T, TL, AX>(ring + s * STAGE + kKS * BN, A, lda, M, K, m0, s,
-                          a_vec, ax);
+        if constexpr (BX::kStrided) {
+          bx.load(ring + s * STAGE, s);
+        } else {
+          load_b<T, TL, BX>(ring + s * STAGE, B, B2, K, N, n0, s, b_policy);
+          load_a<T, TL, AX>(ring + s * STAGE + kKS * BN, A, lda, M, K, m0,
+                            s, a_vec, ax);
+        }
       }
       cp_async_commit();
     }
@@ -329,12 +348,17 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
     const int nxt = s + STAGES - 1;
     if (nxt < nst) {
       T* slot = ring + (nxt % STAGES) * STAGE;
-      load_b<T, TL, BX>(slot, B, B2, K, N, n0, nxt, b_policy);
-      load_a<T, TL, AX>(slot + kKS * BN, A, lda, M, K, m0, nxt, a_vec, ax);
+      if constexpr (BX::kStrided) {
+        bx.load(slot, nxt);
+      } else {
+        load_b<T, TL, BX>(slot, B, B2, K, N, n0, nxt, b_policy);
+        load_a<T, TL, AX>(slot + kKS * BN, A, lda, M, K, m0, nxt, a_vec, ax);
+      }
     }
     cp_async_commit();
     const T* bs = ring + (s % STAGES) * STAGE;
     const T* as = bs + kKS * BN;
+    if (warp >= live) continue;   // uniform in the warp; no barrier below
 #pragma unroll
     for (int ks = 0; ks < kWarpK / 16; ++ks) {
       const int k = warp * kWarpK + ks * 16;
@@ -366,21 +390,24 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
 
   float* red = reinterpret_cast<float*>(smem);
   const int r = lane >> 2, q = (lane & 3) * 2;
+  if (warp < live) {
 #pragma unroll
-  for (int i = 0; i < MF; ++i)
+    for (int i = 0; i < MF; ++i)
 #pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      float* p = red + (warp * TL::BM + i * 16 + r) * PITCH + j * 8 + q;
-      *reinterpret_cast<float2*>(p) = make_float2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<float2*>(p + 8 * PITCH) =
-          make_float2(acc[i][j][2], acc[i][j][3]);
-    }
+      for (int j = 0; j < NF; ++j) {
+        float* p = red + (warp * TL::BM + i * 16 + r) * PITCH + j * 8 + q;
+        *reinterpret_cast<float2*>(p) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(p + 8 * PITCH) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+  }
   __syncthreads();
   for (int e = threadIdx.x; e < TL::BM * BN; e += kThreads) {
     const int m = e / BN, n = e % BN;
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[(w * TL::BM + m) * PITCH + n];
+    for (int w = 0; w < live; ++w) sum += red[(w * TL::BM + m) * PITCH + n];
     red[m * PITCH + n] = sum;   // (m, n) is this thread's alone
   }
   __syncthreads();

@@ -330,3 +330,113 @@ def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],
     return (_ok_dims(B * Hq * Sq * Dk, B * Hkv * Skv * Dk,
                      B * Hkv * Skv * Dv, B * Hq * Sq * Dv)
             and flash_plan(q_shape, k_shape, v_shape, dtype).smem <= _SMEM)
+
+
+# -- batched matmul -----------------------------------------------------------------
+# mirrors csrc/batched_matmul.cu.  f32: k in chunks of 256, each chunk one
+# fmaf chain and the chunk sums added in order; register tiles sized by M
+# (BMM_F32_TILES: rows, columns, k per shared-memory tile), and a block
+# per output (the chunks in parallel) for at most 8192 outputs over
+# K >= 2048.  bf16/f16: matmul's tensor-core mainloop and tiles
+# (tc_tile).  A grid of (output tiles, batch blocks) whose blocks walk the
+# batches past 65535.
+BMM_CHUNK = 256
+# (most rows, (rows, columns, k tile)) in order
+BMM_F32_TILES = ((1, (2, 128, 64)), (4, (4, 64, 64)), (16, (16, 64, 32)),
+                 (None, (64, 64, 32)))
+BMM_SPLIT_MAX_OUTPUTS = 8192
+BMM_SPLIT_MIN_K = 8 * BMM_CHUNK
+BMM_BATCH_GRID = 65535
+
+
+class BatchedMatmulPlan(NamedTuple):
+    route: str        # "tensor_core" (both bf16 or both f16) or "cuda_core"
+    bm: int           # rows per block
+    bn: int           # columns per block
+    grid: Tuple[int, int]   # (output tiles, batch blocks)
+    stages: int       # cp.async ring depth (0: no ring)
+    k_stage: int      # k per stage or shared-memory tile
+    smem: int         # dynamic shared-memory bytes per block
+    a_copy: str       # A's stage copies: "rows", "columns" or "elements"
+    b_copy: str       # B's stage copies (see batched_matmul_copy)
+    lanes: int        # partial sums per output, added in lane order
+    lane_k: int       # consecutive k a lane takes per stage
+
+
+def batched_matmul_supported(batch: int, m: int, n: int, k: int,
+                             a_dtype: torch.dtype,
+                             b_dtype: torch.dtype) -> bool:
+    """Every shape of the float types the kernels read (f32, bf16, f16,
+    in any pair: a mixed pair runs in f32): any batch, M, N and K of at
+    least 1 within 32-bit counts; strides are 64-bit and masked edges
+    need no alignment.  Only other types are refused."""
+    return (a_dtype in KERNEL_DTYPES and b_dtype in KERNEL_DTYPES
+            and _ok_dims(batch, m, n, k))
+
+
+def batched_matmul_copy(s_row: int, s_col: int, s_batch: int, n_row: int,
+                        n_col: int, aligned: bool = True) -> str:
+    """How the 16-bit route copies an operand's stage (csrc's
+    ``copy_mode``): ``"rows"`` (16-byte cp.async along the ring's rows,
+    B's n or A's k, where that index is contiguous), ``"columns"``
+    (16-byte loads along the other index, stored element by element: a
+    transposed operand) or ``"elements"``.  A vector needs a 16-byte
+    aligned start, batch stride and cross stride in whole 8-element
+    chunks, and an extent along it in whole chunks."""
+    if not aligned or s_batch % 8:
+        return "elements"
+    if s_row == 1 and s_col % 8 == 0 and n_row % 8 == 0:
+        return "rows"
+    if s_col == 1 and s_row % 8 == 0 and n_col % 8 == 0:
+        return "columns"
+    return "elements"
+
+
+def batched_matmul_plan(batch: int, m: int, n: int, k: int,
+                        dtype: torch.dtype, a_trans: bool = False,
+                        b_trans: bool = False) -> BatchedMatmulPlan:
+    """How csrc/batched_matmul.cu launches ``(batch, m, k) @ (batch, k,
+    n)`` on dense operands, A given as (k, m) when ``a_trans`` and B as
+    (n, k) when ``b_trans`` (read through strides, not copied), each
+    16-byte aligned.  ``dtype`` is the operands' type (f32 for a mixed
+    pair).  The K order (:func:`batched_matmul_k_order`) is a function
+    of ``k`` and the route alone."""
+    bb = min(batch, BMM_BATCH_GRID)
+    if dtype == torch.float32:
+        chunks = -(-k // BMM_CHUNK)
+        if k >= BMM_SPLIT_MIN_K and batch * m * n <= BMM_SPLIT_MAX_OUTPUTS:
+            return BatchedMatmulPlan("cuda_core", 1, 1, (m * n, bb), 0,
+                                     BMM_CHUNK, 0, "elements", "elements",
+                                     chunks, BMM_CHUNK)
+        bm, bn, bk = next(t for most, t in BMM_F32_TILES
+                          if most is None or m <= most)
+        return BatchedMatmulPlan("cuda_core", bm, bn,
+                                 (-(-m // bm) * -(-n // bn), bb), 0, bk, 0,
+                                 "elements", "elements", chunks, BMM_CHUNK)
+    bm, bn, stages = tc_tile(m, n)
+    a_copy = batched_matmul_copy(m if a_trans else 1, 1 if a_trans else k,
+                                 m * k, k, m)
+    b_copy = batched_matmul_copy(k if b_trans else 1, 1 if b_trans else n,
+                                 k * n, n, k)
+    return BatchedMatmulPlan("tensor_core", bm, bn,
+                             (-(-m // bm) * -(-n // bn), bb), stages, TC_KS,
+                             tc_smem_bytes(bm, bn, stages), a_copy, b_copy,
+                             _WARPS, TC_WARP_K)
+
+
+def batched_matmul_k_order(plan: BatchedMatmulPlan,
+                           k: int) -> Tuple[Tuple[int, ...], ...]:
+    """The order in which the kernel sums one output over ``k``: one
+    tuple per partial sum (lane), each listing its k in accumulation
+    order, the lanes added in tuple order.  CUDA cores: lane c is chunk c,
+    k in [c * 256, (c + 1) * 256).  Tensor cores: lane (warp) w takes k
+    in [s * k_stage + w * lane_k, s * k_stage + (w + 1) * lane_k) over the
+    stages s in order.  Nothing here reads the plan's tile or grid."""
+    if plan.route == "cuda_core":
+        return tuple(tuple(range(c, min(c + plan.lane_k, k)))
+                     for c in range(0, k, plan.lane_k))
+    return tuple(
+        tuple(kk for s in range(0, k, plan.k_stage)
+              for kk in range(s + w * plan.lane_k,
+                              min(s + (w + 1) * plan.lane_k, k)))
+        for w in range(plan.lanes))

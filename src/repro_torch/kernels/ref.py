@@ -25,6 +25,15 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(_f32(a), _f32(b)).to(a.dtype)
 
 
+def batched_matmul_ref(a: torch.Tensor, b: torch.Tensor,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """(batch, M, K) @ (batch, K, N) in f32 (16-bit operands upcast, as
+    ``lax.dot_general(..., preferred_element_type=f32)``), cast to
+    ``out_dtype``."""
+    return torch.matmul(_f32(a), _f32(b)).to(out_dtype)
+
+
 def swiglu_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor) -> torch.Tensor:
     """matmul(silu(x @ w_gate) * (x @ w_up), w_down), f32 accumulate;

@@ -89,7 +89,7 @@ def full_width_builder(cfg, max_len: int, batch: int):
                         batch).builder
 
 
-def smoke_kernels(cfg, attention: bool = True):
+def smoke_kernels(cfg, attention: bool = True, train: bool = False):
     """(the kernels a path of ``cfg`` on the card must launch, the kernels
     allowed to refuse a shape there) -- the one statement of this rule,
     which the serving smoke, the parity script, ``chip_smoke.py`` and the
@@ -107,10 +107,16 @@ def smoke_kernels(cfg, attention: bool = True):
     MLA's absorbed decode, whose latent head (kv_lora + d_rope) is wider
     than the kernel takes.  Nothing else is refused at full width:
     xlstm's input/forget gate projection (N = 2 x heads = 8) is one
-    16-byte bf16 vector wide, which the matmul kernel takes, and a tied
-    unembedding (whisper's 51865-wide vocabulary) never asks the kernel:
-    the pass pipeline folds the table's transpose into the dot, whose
-    contraction over the table's second axis stays a plain product."""
+    16-byte bf16 vector wide, which the matmul kernel takes.  The
+    fixed-order batched kernel takes every floating contraction that is
+    not the matmul kernel's 2-D product: the paged and row-position
+    attention compositions (a path without an Attention op), the
+    experts of moe and mla_moe (and MLA's absorbed products), the
+    recurrent families' block products, a tied unembedding (the pass
+    pipeline folds the table's transpose into the dot, which contracts
+    over the table's second axis), and in every family a train step's
+    backward (``train``: products against transposed weights and
+    activations); it takes every float shape, so it refuses nothing."""
     from ..transformers.torch_emit import FLASH_HEAD_MULTIPLE
     need = {"matmul"}
     if cfg.norm == "rms":
@@ -122,6 +128,9 @@ def smoke_kernels(cfg, attention: bool = True):
     if attention and cfg.family != "xlstm" and \
             width % FLASH_HEAD_MULTIPLE == 0:
         need.add("flash_attention")
+    if not attention or train or cfg.tie_embeddings or cfg.family in (
+            "moe", "mla_moe", "rg_hybrid", "xlstm"):
+        need.add("batched_matmul")
     return need, ({"flash_attention"} if cfg.mla else set())
 
 

@@ -22,7 +22,12 @@ The kernel-selection points mirror the reference: ``DotGeneral``,
 ``RMSNorm``, ``SwiGLU``, ``NormMatmul`` (and ``RotaryQKV``'s projections)
 go to the hand-written Hopper kernels (:mod:`repro_torch.kernels`) under
 ``use_pallas`` when the reference's dtype conditions and the kernel's
-shape predicate hold.  ``Attention`` goes to the flash-attention kernel
+shape predicate hold.  Under ``use_pallas`` every other floating
+``DotGeneral`` (and the products of the Attention op's plain and
+chunked compositions, on CUDA) goes to the fixed-order batched kernel
+(:mod:`repro_torch.kernels.batched_matmul`): a cuBLAS GEMM picks its
+algorithm by shape, so a request's bits would follow the batch it
+shares.  ``Attention`` goes to the flash-attention kernel
 under ``use_pallas`` where the kernel takes the shapes and the query
 head width is a multiple of :data:`FLASH_HEAD_MULTIPLE` (64), else to
 the chunked composition where the reference selects its chunked XLA
@@ -57,6 +62,7 @@ from ..core.function import Function
 from ..core.node import Node
 from ..core.types import is_float
 from ..devices import as_tensor, numpy_dtype, torch_dtype
+from ..kernels import batched_matmul as _k_bmm
 from ..kernels import flash_attention as _k_flash
 from ..kernels import matmul as _k_matmul
 from ..kernels import norm_matmul as _k_norm_matmul
@@ -370,8 +376,9 @@ def _(node, args, ctx):
     contracting = tuple(tuple(x) for x in node.attrs["contracting"])
     batch = tuple(tuple(x) for x in node.attrs["batch"])
     # plain matmul-shaped dots route through the Hopper tiled kernel when
-    # the kernel takes the shape; batched einsums and one-hot
-    # contractions stay plain products
+    # the kernel takes the shape; every other floating contraction goes
+    # to the fixed-order batched kernel, whose bits do not follow the
+    # batch's shape; integer one-hot contractions stay exact products
     if ctx.use_pallas and b.ndim == 2 and a.ndim >= 2 and \
             (contracting, batch) == (((a.ndim - 1,), (0,)), ((), ())) and \
             _np_dtype(a) == _np_dtype(b) == t.dtype and is_float(t.dtype):
@@ -379,6 +386,11 @@ def _(node, args, ctx):
         a2 = a.reshape(rows, a.shape[-1])
         if _k_matmul.supported(a2, b):
             return [_outcast(node, _k_matmul.matmul(a2, b).reshape(t.shape))]
+    if ctx.use_pallas and a.is_floating_point() and b.is_floating_point():
+        a3, b3, shape = _k_bmm.dot_operands(a, b, contracting, batch)
+        if _k_bmm.supported(a3, b3):
+            out = _k_bmm.batched_matmul(a3, b3, torch_dtype(t.dtype))
+            return [_outcast(node, out.reshape(shape))]
     spec = _dot_spec(a.ndim, b.ndim, contracting, batch)
     if a.is_floating_point():
         out = torch.einsum(spec, _f32up(a), _f32up(b))
@@ -577,21 +589,38 @@ def _(node, args, ctx):
 FLASH_HEAD_MULTIPLE = 64
 
 
-def reference_attention(q, k, v, *, causal, window, scale, q_offset=None):
+def reference_attention(q, k, v, *, causal, window, scale, q_offset=None,
+                        kernels: bool = False):
     """Plain attention (BHSD, GQA by head repeat, f32 scores and softmax,
     probabilities cast to v's dtype), the reference's
-    ``reference_attention``."""
-    _B, Hq, Sq, _D = q.shape
+    ``reference_attention``.  With ``kernels`` on CUDA tensors both
+    products run on the fixed-order batched kernel."""
+    B, Hq, Sq, _D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if Hq != Hkv:
         k = torch.repeat_interleave(k, Hq // Hkv, dim=1)
         v = torch.repeat_interleave(v, Hq // Hkv, dim=1)
-    scores = torch.einsum("bhqd,bhkd->bhqk", _f32up(q), _f32up(k)) * scale
+    use_kernel = kernels and q.is_cuda
+
+    def bhqd(x):
+        return x.reshape(B * Hq, x.shape[2], x.shape[3])
+
+    if use_kernel:
+        scores = _k_bmm.batched_matmul(
+            bhqd(q), bhqd(k).transpose(1, 2),
+            torch.float32).reshape(B, Hq, Sq, Skv) * scale
+    else:
+        scores = torch.einsum("bhqd,bhkd->bhqk", _f32up(q),
+                              _f32up(k)) * scale
     mask = attention_mask(Sq, Skv, causal=causal, window=window,
                           q_offset=q_offset, device=q.device)
     scores = torch.where(mask, scores, torch.full((), -1e30,
                                                   device=q.device))
     probs = torch.softmax(scores, dim=-1)
+    if use_kernel:
+        return _k_bmm.batched_matmul(
+            bhqd(probs.to(v.dtype)), bhqd(v),
+            torch.float32).to(v.dtype).reshape(B, Hq, Sq, v.shape[-1])
     return torch.einsum("bhqk,bhkd->bhqd", _f32up(probs.to(v.dtype)),
                         _f32up(v)).to(v.dtype)
 
@@ -613,10 +642,11 @@ def _(node, args, ctx):
             and Skv % ctx.attn_chunk == 0):
         return [_outcast(node, chunked_attention(
             q, k, v, causal=at["causal"], window=at["window"],
-            scale=at["scale"], q_offset=q_offset, bk=ctx.attn_chunk))]
+            scale=at["scale"], q_offset=q_offset, bk=ctx.attn_chunk,
+            kernels=ctx.use_pallas))]
     return [_outcast(node, reference_attention(
         q, k, v, causal=at["causal"], window=at["window"],
-        scale=at["scale"], q_offset=q_offset))]
+        scale=at["scale"], q_offset=q_offset, kernels=ctx.use_pallas))]
 
 
 @_em("SoftmaxCrossEntropy")

@@ -584,3 +584,101 @@ def test_cuda_swiglu_alternating_inputs(cuda_device, m, d, f, do, dt):
             first[i % 2] = out
         assert torch.equal(_bits(out), _bits(first[i % 2])), i
     assert not torch.equal(_bits(first[0]), _bits(first[1]))
+
+
+# -- the fixed-order batched matmul on the card ---------------------------------------
+# (batch, M, N, K, a transposed, b transposed): decode attention's q.k^T
+# (B*Hkv 128, M 1, over 256 keys, B read as (N, K)) and its p.V, a
+# chunked prefill's scores, ragged edges and an unaligned K, the
+# backward's transposed A, the sampler's pick of one logit out of the
+# vocabulary and other Ks of many f32 chunks (a block per output, and a
+# thread per output for few rows)
+BMM_CASES = [(128, 1, 256, 128, False, True), (128, 1, 128, 256, False, False),
+             (32, 64, 40, 128, False, True), (3, 5, 13, 7, False, False),
+             (2, 33, 72, 100, True, False), (1, 130, 96, 257, True, True),
+             (4, 1, 1, 102400, False, False), (8, 3, 200, 5000, True, True),
+             (64, 4, 64, 3000, False, False),
+             # 8 x 8 transposed copies of A (K, M) and of B (N, K)
+             (2, 64, 72, 128, True, False), (4, 16, 40, 256, True, True)]
+
+
+def _bmm_operands(gen, device, t_dt, batch, m, n, k, a_t, b_t):
+    def r(*s):
+        return torch.randn(s, generator=gen, device=device).to(t_dt)
+    a = r(batch, k, m).transpose(1, 2) if a_t else r(batch, m, k)
+    b = r(batch, n, k).transpose(1, 2) if b_t else r(batch, k, n)
+    return a, b * k ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("case", BMM_CASES)
+def test_cuda_batched_matmul_matches_plain(cuda_device, case, dt):
+    """The kernel against its plain version within the repo's tolerance
+    (f32 out), strided operands read in place; two launches bitwise."""
+    from repro_torch.kernels import batched_matmul as kb
+    _, t_dt, tol = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(sum(case[:4]))
+    a, b = _bmm_operands(gen, cuda_device, t_dt, *case)
+    before = kb.launches
+    out = kb.batched_matmul(a, b, torch.float32)
+    assert kb.launches == before + 1
+    torch.cuda.synchronize()
+    _close(to_numpy(out), to_numpy(ref.batched_matmul_ref(a, b)), tol)
+    assert torch.equal(_bits(out), _bits(kb.batched_matmul(a, b,
+                                                           torch.float32)))
+    if dt != "f32":   # out in the operands' type: the f32 sum rounded
+        low = kb.batched_matmul(a, b)
+        assert low.dtype == t_dt and torch.equal(_bits(low),
+                                                 _bits(out.to(t_dt)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b_t", [False, True])
+def test_cuda_batched_matmul_probe_is_batch_invariant(cuda_device, b_t, dt):
+    """A probe (batch entry, row) gives the same bits alone and inside
+    batches of 1, 3, 4 and 32 entries at M of 1, 3, 5, 8, 16, 32 and 64
+    (every f32 tile), at another place in each: the k order is a function
+    of K alone."""
+    from repro_torch.kernels import batched_matmul as kb
+    _, t_dt, _ = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    k, n = 128, 40
+    pa, pb = _bmm_operands(gen, cuda_device, t_dt, 1, 1, n, k, False, b_t)
+    alone = kb.batched_matmul(pa, pb, torch.float32)
+    for batch in (1, 3, 4, 32):
+        for m in (1, 3, 5, 8, 16, 32, 64):
+            a, b = _bmm_operands(gen, cuda_device, t_dt, batch, m, n, k,
+                                 False, b_t)
+            i, row = (batch * 7 + m) % batch, (m * 5 + batch) % m
+            a[i, row] = pa[0, 0]
+            b[i] = pb[0]
+            out = kb.batched_matmul(a, b, torch.float32)
+            assert torch.equal(_bits(out[i, row]), _bits(alone[0, 0])), \
+                (batch, m, i, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cuda_batched_matmul_zero_padded_k_gives_the_same_bits(cuda_device,
+                                                               dt):
+    """Zeros appended to K (a padded cache width, here 40 -> 64 and ->
+    300; and 5000 -> 5300, over many f32 chunks) add exact zeros to the
+    same sums."""
+    from repro_torch.kernels import batched_matmul as kb
+    _, t_dt, _ = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    for k, pads in ((40, (24, 260)), (5000, (300,))):
+        a, b = _bmm_operands(gen, cuda_device, t_dt, 4, 16, 128, k, False,
+                             False)
+        want = kb.batched_matmul(a, b, torch.float32)
+        for pad in pads:
+            ap = torch.nn.functional.pad(a, (0, pad))
+            bp = torch.nn.functional.pad(b, (0, 0, 0, pad))
+            assert torch.equal(_bits(kb.batched_matmul(ap, bp,
+                                                       torch.float32)),
+                               _bits(want)), (k, pad)

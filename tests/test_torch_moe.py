@@ -708,7 +708,8 @@ def test_serve_cli_lockstep_fallback_matches_the_reference(monkeypatch,
 def test_smoke_kernels_follow_the_family():
     from repro_torch.launch.serve import smoke_kernels
     need, refuse = smoke_kernels(get_config("mixtral-8x22b"))
-    assert need == {"matmul", "norm_matmul", "rmsnorm", "flash_attention"}
+    assert need == {"matmul", "norm_matmul", "rmsnorm", "flash_attention",
+                    "batched_matmul"}
     assert refuse == set()
     need, refuse = smoke_kernels(get_config("deepseek-v3-671b"))
     assert "swiglu" in need and "flash_attention" in need

@@ -367,10 +367,12 @@ def test_serve_cli_falls_back_to_lockstep(arch, capsys):
 # -- full width: the kernels the card's path launches -------------------------------
 def test_smoke_kernels_name_the_multimodal_paths():
     """whisper: LayerNorm and a GeLU MLP, so matmul and flash (its heads
-    are 64 wide) only; vlm: all five.  Neither may refuse."""
+    are 64 wide), and the batched kernel for its tied unembedding; vlm:
+    all five ported kernels.  Neither may refuse."""
     assert smoke_kernels(get_config(WHISPER)) == (
-        {"matmul", "flash_attention"}, set())
-    assert smoke_kernels(get_config(VLM)) == (set(kernels.MODULES), set())
+        {"matmul", "flash_attention", "batched_matmul"}, set())
+    assert smoke_kernels(get_config(VLM)) == (
+        set(kernels.MODULES) - {"batched_matmul"}, set())
 
 
 @pytest.mark.parametrize("arch,cases", [
@@ -380,8 +382,9 @@ def test_smoke_kernels_name_the_multimodal_paths():
 def test_full_width_census_equals_smoke_kernels(arch, cases):
     """At full width and depth, at ``chip_smoke.py`` phase 11's shapes, a
     meta-device walk launches exactly the kernels ``smoke_kernels``
-    names, refuses none (whisper's tied 51865-wide unembedding is a
-    plain product the kernel is never asked for), and calls flash once
+    names, refuses none (whisper's tied 51865-wide unembedding, whose
+    contraction runs over the table's second axis, is the batched
+    kernel's), and calls flash once
     per Attention op: whisper 24 encoder + 24 self + 24 cross per
     prefill and 24 + 24 per decode step, vlm 8 cross + 40 self."""
     cfg = get_config(arch)

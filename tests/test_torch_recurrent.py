@@ -276,7 +276,8 @@ def five_train_steps(arch, level, **over):
 # -- the full-width kernel census (shapes only, on the meta device) -----------
 _REFS = {"matmul": kref.matmul_ref, "norm_matmul": kref.norm_matmul_ref,
          "swiglu": kref.swiglu_ref, "rmsnorm": kref.rmsnorm_ref,
-         "flash_attention": kref.flash_attention_ref}
+         "flash_attention": kref.flash_attention_ref,
+         "batched_matmul": kref.batched_matmul_ref}
 
 
 @contextlib.contextmanager
@@ -587,7 +588,7 @@ def test_smoke_kernels_name_the_recurrent_paths(arch):
     if arch == ARCH:
         assert need == set(kernels.MODULES)
     else:   # GeLU-gated FFN, no Attention op
-        assert need == {"matmul", "norm_matmul", "rmsnorm"}
+        assert need == {"matmul", "norm_matmul", "rmsnorm", "batched_matmul"}
     assert refuse == set()
 
 

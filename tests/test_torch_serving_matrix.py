@@ -89,7 +89,8 @@ def test_run_matrix_reports_pass_the_unchanged_checker(matrix, capsys):
     for leg in ENGINE_LEGS:
         doc = docs[leg]
         assert doc["device"] == "cpu" and set(doc["kernels"]) == {
-            "matmul", "norm_matmul", "swiglu", "rmsnorm", "flash_attention"}
+            "matmul", "norm_matmul", "swiglu", "rmsnorm", "flash_attention",
+            "batched_matmul"}
         assert doc["workload"]["seed"] == mx.MATRIX_SEED
     assert docs["server"]["results"].keys() == {"0", "1", "2"}
     assert docs["server"]["drain_ok"] is True

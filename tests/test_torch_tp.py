@@ -259,8 +259,9 @@ def test_full_width_tp2_launches(level):
             run(*args)
         assert not refused, (tp, refused)
         counts[tp] = dict(launched)
-    want = {"O1": {"matmul", "rmsnorm"},
-            "O2": {"matmul", "rmsnorm", "norm_matmul", "swiglu"}}[level]
+    want = {"O1": {"matmul", "rmsnorm", "batched_matmul"},
+            "O2": {"matmul", "rmsnorm", "norm_matmul", "swiglu",
+                   "batched_matmul"}}[level]
     assert set(counts[1]) == want
     assert counts[2] == {k: 2 * v for k, v in counts[1].items()}
 
