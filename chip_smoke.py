@@ -617,6 +617,12 @@ def kernel_cases(gen):
     bm(f"prefill chunk p.V (32x{CHUNK}x256)@(32x256x128) bf16", HEADS,
        CHUNK, DH, 256, bf, out=bf)
     bm("sampler pick (4x1x102400)@(4x102400x1) f32", SLOTS, 1, 1, V, f32)
+    # the paged write's one-hot product: phase 4's pool of 1 + 4 x 16
+    # pages of 16 rows, the slots' mask read as (K, M), their new rows
+    P = 1 + SLOTS * (MAIN_ENGINE["max_len"] // MAIN_ENGINE["page_size"])
+    bm(f"paged write one-hot (1x{P * MAIN_ENGINE['page_size']}x{SLOTS})@"
+       f"(1x{SLOTS}x{D}) bf16, A as (K, M)", 1,
+       P * MAIN_ENGINE["page_size"], D, SLOTS, bf, a_t=True, out=bf)
     mm("decode wo (4x4096)@(4096x4096)", SLOTS, D, D, bf)
     mm("prefill wo (64x4096)@(4096x4096)", CHUNK, D, D, bf)
     mm("prefill unembed (1x4096)@(4096x102400)", 1, D, V, bf)
@@ -889,37 +895,60 @@ def check_determinism(gen) -> None:
 
 # the batched kernel's probe: batch counts and row counts of the paged
 # decode (4 slots x 32 kv heads, one row), a prefill chunk (up to 64 rows)
-# and the one- and three-slot runs of E16 (32 and 96 batch entries)
+# and the one- and three-slot runs of E16 (32 and 96 batch entries); the
+# 16-bit rows 1-2048 take each tile (16, 64 and 128 rows, and one lane's
+# at K <= 32), the f32 rows up to 2048 each f32 tile, and K 5000 at few
+# outputs the cluster per output
 BMM_BATCHES = (1, 3, 4, 32)
 BMM_ROWS = (1, 3, 5, 8, 16, 32, 64)
+BMM_WIDE_BATCHES = (1, 3)
+BMM_WIDE_ROWS = (1, 5, 64, 65, 128, 2048)
+# (label, n, k, type, A as (K, M), B as (N, K), batches, rows)
+BMM_PROBES = (
+    ("q.k^T", 256, DH, torch.float32, False, True, BMM_BATCHES,
+     BMM_ROWS + (128, 2048)),
+    ("p.V", DH, 256, torch.bfloat16, False, False, BMM_BATCHES, BMM_ROWS),
+    ("K 5000", 64, 5000, torch.float32, False, False, BMM_BATCHES, BMM_ROWS),
+    ("paged write K 4", D, SLOTS, torch.bfloat16, True, False,
+     BMM_WIDE_BATCHES, BMM_WIDE_ROWS + (1040,)),
+    ("K 32", 256, 32, torch.bfloat16, False, True, BMM_WIDE_BATCHES,
+     BMM_WIDE_ROWS),
+    ("K 128", 256, DH, torch.bfloat16, False, True, BMM_WIDE_BATCHES,
+     BMM_WIDE_ROWS),
+    ("K 300", 256, 300, torch.bfloat16, False, True, BMM_WIDE_BATCHES,
+     BMM_WIDE_ROWS),
+    ("dW K 2048", 128, 2048, torch.bfloat16, True, False, BMM_WIDE_BATCHES,
+     BMM_WIDE_ROWS))
 
 
 def check_bmm_determinism(gen) -> None:
     """The fixed-order batched matmul: a probe (batch entry, row) gives
-    the same bits alone and inside batches of :data:`BMM_BATCHES` entries
-    at :data:`BMM_ROWS` rows, at another place in each; two launches give
-    the same bits; zeros appended to K (a padded cache width) give the
-    same bits.  At the paged attention's shapes: q.k^T against a cache
-    read as (N, K) in f32, and p.V in bf16; and over 20 f32 chunks (K
-    5000), where the batches and rows take each f32 tile and the block
-    per output."""
+    the same bits alone and inside batches at other row counts
+    (:data:`BMM_PROBES`), at another place in each; two launches give the
+    same bits; zeros appended to K (a padded cache width) give the same
+    bits.  At the paged attention's shapes: q.k^T against a cache read as
+    (N, K) in f32, and p.V in bf16; over 20 f32 chunks (K 5000), where the
+    batches and rows take each f32 tile and the cluster per output; and in
+    bf16 at the paged write's K 4 with A read as (K, M), at K 32 (one
+    lane), K 128 and K 300 (B as (N, K)) and K 2048 (A as (K, M)), where
+    the rows take the tiles of 16, 64 and 128 rows: one probe, the same
+    bits in every tile."""
     from repro_torch.kernels import batched_matmul as kb
-    bf, f32 = torch.bfloat16, torch.float32
+    f32 = torch.float32
 
-    def operands(batch, m, n, k, dt, b_t):
-        a = _rand((batch, m, k), dt, gen)
+    def operands(batch, m, n, k, dt, a_t, b_t):
+        a = (_rand((batch, k, m), dt, gen).transpose(1, 2) if a_t
+             else _rand((batch, m, k), dt, gen))
         b = (_rand((batch, n, k), dt, gen, k ** -0.5).transpose(1, 2)
              if b_t else _rand((batch, k, n), dt, gen, k ** -0.5))
         return a, b
 
-    for label, n, k, dt, b_t in (("q.k^T", 256, DH, f32, True),
-                                 ("p.V", DH, 256, bf, False),
-                                 ("K 5000", 64, 5000, f32, False)):
-        pa, pb = operands(1, 1, n, k, dt, b_t)
+    for label, n, k, dt, a_t, b_t, batches, rows in BMM_PROBES:
+        pa, pb = operands(1, 1, n, k, dt, a_t, b_t)
         alone = kb.batched_matmul(pa, pb, f32)
-        for batch in BMM_BATCHES:
-            for m in BMM_ROWS:
-                a, b = operands(batch, m, n, k, dt, b_t)
+        for batch in batches:
+            for m in rows:
+                a, b = operands(batch, m, n, k, dt, a_t, b_t)
                 i, row = (7 * batch + m) % batch, (5 * m + batch) % m
                 a[i, row] = pa[0, 0]
                 b[i] = pb[0]
@@ -941,8 +970,8 @@ def check_bmm_determinism(gen) -> None:
                 f"zero-padded by {pad} differs")
         say("determinism", kernel="batched_matmul", case=repr(label),
             dtype=str(dt).split(".")[-1], k=k, runs="bitwise",
-            batches=",".join(map(str, BMM_BATCHES)),
-            rows=",".join(map(str, BMM_ROWS)), probe="bitwise",
+            batches=",".join(map(str, batches)),
+            rows=",".join(map(str, rows)), probe="bitwise",
             zero_padded_k="bitwise")
 
 
@@ -1259,7 +1288,7 @@ KERNEL_FUNCS = {
                 "swiglu_gate_up_f32_kernel", "swiglu_down_f32_kernel"), 2),
     "rmsnorm": (("rmsnorm_kernel",), 1),
     "flash_attention": (("flash_kernel", "flash_tc_kernel"), 1),
-    "batched_matmul": (("bmm_tc_kernel", "bmm_f32_kernel",
+    "batched_matmul": (("bmm_seq_kernel", "bmm_f32_kernel",
                         "bmm_f32_split_kernel"), 1),
 }
 

@@ -1,0 +1,179 @@
+"""The fixed-order batched matmul's output bits at a fixed list of shapes,
+as sha256 digests, so that two checkouts can be shown to give the same
+bits on the card.  Operands are drawn from ``--seed`` with numpy (a pool
+of normal values, repeated on the card to the size each operand needs),
+launched through ``repro_torch.kernels.batched_matmul`` of the tree
+``--src`` names, and each output's bytes hashed.
+
+    python scripts/torch_bmm_bits.py --src build/parent/src --json results/bits_parent.json
+    python scripts/torch_bmm_bits.py --json results/bits_change.json
+    python scripts/torch_bmm_bits.py --compare results/bits_parent.json results/bits_change.json
+
+Each operand is a fresh (16-byte aligned) tensor, as the emitter hands
+them over; the grid's shapes at M 5 and 128 run again from operands at
+an odd element offset, which the kernels copy element by element.
+``--time`` also times each named shape as ``chip_smoke.py``'s phase 3
+does (the median of 20 launches, each after a 512 MB write that flushes
+L2 and keeps the card busy while the host enqueues), so that one call
+on one card compares the two trees' kernels.  ``--compare`` exits 1
+when a digest differs or a shape is missing.  Needs a card; the compare
+needs none.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import sys
+
+# the named shapes: phase 3's cases of chip_smoke.py (batch, M, N, K,
+# type, A as (K, M), B as (N, K), out type)
+NAMED = (
+    ("paged decode q.k^T", 128, 1, 256, 128, "f32", False, True, "f32"),
+    ("paged decode p.V", 128, 1, 128, 256, "f32", False, False, "f32"),
+    ("prefill chunk q.k^T", 32, 64, 256, 128, "f32", False, True, "f32"),
+    ("prefill chunk p.V bf16", 32, 64, 128, 256, "bf16", False, False,
+     "bf16"),
+    ("sampler pick", 4, 1, 1, 102400, "f32", False, False, "f32"),
+    ("paged write one-hot", 1, 1040, 4096, 4, "bf16", True, False, "bf16"),
+    ("train dX", 1, 2048, 4096, 4096, "bf16", False, True, "bf16"),
+    ("train dW", 1, 4096, 11008, 2048, "bf16", True, False, "bf16"),
+    ("train attention scores f32", 128, 512, 512, 128, "f32", False, True,
+     "f32"),
+    ("xlstm sLSTM backward", 4, 4, 256, 1024, "f32", False, False, "f32"),
+    ("moe expert FFN up (deepseek-v3)", 256, 8, 2048, 7168, "bf16", False,
+     False, "bf16"),
+    ("moe expert FFN down (deepseek-v3)", 256, 8, 7168, 2048, "bf16", False,
+     False, "bf16"),
+)
+# the grid: every M and K below, both orientations of each operand, in
+# f32 and bf16 (f32 out: the sums themselves), batch 2, N 72
+GRID_M = (1, 5, 64, 65, 128, 2048)
+GRID_K = (1, 4, 31, 32, 200, 256, 300, 1024, 4096, 5000)
+GRID_N, GRID_BATCH = 72, 2
+POOL = 4194301   # a prime: the repeated pool lines up with no tile
+
+
+GRID_UNALIGNED_M = (5, 128)
+
+
+def shapes():
+    """(label, (batch, M, N, K, type, A as (K, M), B as (N, K), out type),
+    named, aligned) for every shape."""
+    for name, *rest in NAMED:
+        yield name, tuple(rest), True, True
+    for aligned, ms in ((True, GRID_M), (False, GRID_UNALIGNED_M)):
+        for dt in ("f32", "bf16"):
+            for m in ms:
+                for k in GRID_K:
+                    for a_t in (False, True):
+                        for b_t in (False, True):
+                            yield (f"grid {dt} M{m} K{k} a_t={int(a_t)} "
+                                   f"b_t={int(b_t)}"
+                                   + ("" if aligned else " unaligned"),
+                                   (GRID_BATCH, m, GRID_N, k, dt, a_t, b_t,
+                                    "f32"), False, aligned)
+
+
+def compare(a_path: str, b_path: str) -> int:
+    with open(a_path) as f:
+        a = json.load(f)["digests"]
+    with open(b_path) as f:
+        b = json.load(f)["digests"]
+    bad = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    for k in bad:
+        print(f"[bmm_bits] DIFFERS {k}: {a.get(k)} vs {b.get(k)}")
+    print(f"[bmm_bits] compared {len(set(a) | set(b))} shapes: "
+          f"{len(bad)} differ")
+    return 1 if bad else 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=os.path.join(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))), "src"),
+        help="the tree's src directory (default: this checkout's)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json", help="write the digests (and times) here")
+    ap.add_argument("--time", action="store_true",
+                    help="also time the named shapes")
+    ap.add_argument("--compare", nargs=2, metavar="JSON")
+    args = ap.parse_args(argv)
+    if args.compare:
+        return compare(*args.compare)
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("[bmm_bits] no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.kernels import batched_matmul as kb
+    print(f"[bmm_bits] src={os.path.abspath(args.src)} module={kb.__file__}"
+          f" device={torch.cuda.get_device_name(0)}", flush=True)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    pool = torch.from_numpy(np.random.default_rng(args.seed).standard_normal(
+        POOL).astype(np.float32)).cuda()
+    offset = [0]
+
+    def draw(shape, dt, scale, aligned):
+        # the pool's values from an offset that moves on (odd, so that an
+        # unaligned draw starts off 16 bytes), repeated to the size needed
+        n = int(np.prod(shape))
+        off = offset[0] | 1
+        reps = -(-(n + off) // POOL)
+        x = (pool * scale).to(dt).repeat(reps)[off:off + n]
+        offset[0] = (offset[0] + 7919) % POOL
+        return (x.clone() if aligned else x).reshape(shape)
+
+    def timed(fn, flush):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(20):
+            flush.zero_()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs)
+
+    flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
+    digests, times = {}, {}
+    for label, (batch, m, n, k, dt, a_t, b_t, out), named, aligned in \
+            shapes():
+        t = dts[dt]
+        a = draw((batch, k, m), t, 1.0, aligned).transpose(1, 2) if a_t \
+            else draw((batch, m, k), t, 1.0, aligned)
+        b = draw((batch, n, k), t, k ** -0.5, aligned).transpose(1, 2) \
+            if b_t else draw((batch, k, n), t, k ** -0.5, aligned)
+        o = kb.batched_matmul(a, b, dts[out])
+        torch.cuda.synchronize()
+        h = hashlib.sha256(o.contiguous().view(torch.uint8).cpu().numpy()
+                           .tobytes()).hexdigest()
+        digests[label] = h
+        line = f"[bmm_bits] {label} sha256={h}"
+        if named and args.time:
+            times[label] = timed(lambda: kb.batched_matmul(a, b, dts[out]),
+                                 flush)
+            line += f" ms={times[label]:.4f}"
+        print(line, flush=True)
+        del a, b, o
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                    exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump({"src": os.path.abspath(args.src), "seed": args.seed,
+                       "device": torch.cuda.get_device_name(0),
+                       "digests": digests, "ms": times}, f, indent=1)
+    print(f"[bmm_bits] {len(digests)} shapes", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

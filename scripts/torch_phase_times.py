@@ -7,8 +7,10 @@ card, the parent's unpacked into a git-ignored directory:
     python scripts/torch_phase_times.py --root build/parent train moe train_families
     python scripts/torch_phase_times.py train moe train_families
 
-Phase names are ``chip_smoke.py``'s functions without ``phase_``.  No
-result line is printed; the exit code is non-zero if a phase failed.
+Phase names are ``chip_smoke.py``'s functions without ``phase_``;
+``train_family:<arch>`` runs one family of phase 15 (``_train_family``),
+e.g. ``train_family:xlstm-350m``.  No result line is printed; the exit
+code is non-zero if a phase failed.
 """
 from __future__ import annotations
 
@@ -35,7 +37,10 @@ def main(argv=None) -> int:
               for name in kernels.MODULES}
     for name in args.phases:
         t0 = time.perf_counter()
-        getattr(cs, f"phase_{name}")(report, smi)
+        if name.startswith("train_family:"):
+            cs._train_family(report, name.split(":", 1)[1], smi)
+        else:
+            getattr(cs, f"phase_{name}")(report, smi)
         print(f"[phase_times] phase={name} seconds="
               f"{time.perf_counter() - t0:.2f} card={smi!r}", flush=True)
     return 0

@@ -2,8 +2,8 @@
 // C (batch, M, N) = A (batch, M, K) @ B (batch, K, N), f32 accumulation,
 // C in f32 or in the operands' 16-bit type.  A and B are read through
 // their strides, so A may come as (K, M) (the backward's transposed
-// operands) and B as (N, K) (q.k^T over a (B, H, S, D) cache) with no
-// copy.
+// operands, the paged write's one-hot mask) and B as (N, K) (q.k^T over a
+// (B, H, S, D) cache) with no copy.
 //
 // Replaces: no TPU kernel.  In the reference these products are XLA's
 // lax.dot_general (src/repro/transformers/jax_backend.py); the emitter
@@ -14,7 +14,7 @@
 // p.V took other bits at another slot count or prefill chunk, and in bf16
 // a near-tied greedy token flipped.  This kernel repairs that: it is the
 // one route of every floating contraction the emitted program runs
-// outside the five ported kernels (ROADMAP Queue 3).
+// outside the five ported kernels.
 //
 // The order, fixed by K alone.  No split of K across blocks that changes
 // with the shape, no atomics, and nothing in the order depends on the
@@ -23,36 +23,62 @@
 //   - f32 (and mixed types, upcast by the wrapper): k in chunks of 256;
 //     each chunk one fmaf chain in ascending k from +0, the chunk sums
 //     added in chunk order to a total from +0.  Up to K 256 that is one
-//     chain.  The f32 kernels and tiles differ only in which thread runs
-//     which chain.
-//   - bf16 / f16: tc_gemm.cuh's mainloop, whose K order is matmul's: warp
-//     w sums k in [256 s + 32 w, 256 s + 32 w + 32) over the stages s in
-//     order with mma.sync m16n8k16 into f32, then the 8 warp partials are
-//     added in warp order.  A product of two 16-bit values is exact in
-//     f32, so this keeps the f32 sums the reference asks for without f32
-//     copies of the operands.
-// Zeros past K (a padded cache width) add exact zeros to the same chains
-// and chunks, so trailing zero padding gives the same bits.
+//     chain.
+//   - bf16 / f16: eight lanes; lane w starts at +0 and applies
+//     mma.sync m16n8k16 (f32 accumulators) over the k16 groups
+//     [256 s + 32 w, +16) and [256 s + 32 w + 16, +32) for the stages s
+//     in order; the lanes are added in lane order to a sum from +0, and
+//     for K under 256 only the first ceil(K / 32) lanes are added.  That
+//     is matmul's order (tc_gemm.cuh, lane = warp).  A product of two
+//     16-bit values is exact in f32, so this keeps the f32 sums the
+//     reference asks for without f32 copies of the operands.
+// The order is a property of the sequence of operations each accumulator
+// sees, not of which warp, thread or block runs it, so each kernel below
+// runs it in whatever arrangement suits its shape.  Zeros past K (a padded
+// cache width) add exact zeros to the same chains, so trailing zero
+// padding gives the same bits.
 //
-// Bound on the H100.  At decode the products are batches of
-// (1 x 128) @ (128 x Skv) and their p.V: a few flops per byte of the
-// f32 cache they read, so device-memory bandwidth (3.35 TB/s) bounds
-// them.  The training backward's transposed products and the MoE expert
-// FFN do hundreds of flops per byte: f32 products there are bound by the
-// CUDA cores' 67 TFLOP/s, 16-bit ones by the tensor cores.  A first,
-// simple kernel: the f32 route is a register-blocked SGEMM whose tile
-// follows M (2 x 128 for one query row up to 64 x 64), with k tiles in
-// shared memory (and a block per output for a few outputs over a long K:
-// those are latency- rather than rate-bound); the 16-bit route copies
-// 16-byte
-// vectors where the operand's layout allows (cp.async along the ring's
-// rows, plain loads across them for a transposed operand) and single
-// elements otherwise.  wgmma and TMA are later work.
+// Bound on the H100, and the kernels.
+//   - bf16 / f16 (bmm_seq_kernel): the lanes run one after another in
+//     each warp.  A k-tile is one lane's 32 values of k at one stage; the
+//     block visits the k-tiles in the order (w, s) -- lane 0 over every
+//     stage, then lane 1 -- each copied once by 16-byte cp.async in the
+//     operand's own layout (ldmatrix for k-contiguous rows,
+//     ldmatrix.trans for a transposed A or a row-major B, so no register
+//     transposes), and every warp keeps the running lane sum ``tot``
+//     beside ``acc`` for its own piece of the output.  A thread's copies
+//     keep their place from one k-tile to the next, so their sources and
+//     places are worked out once a block.  Stages of four k-tiles put a
+//     barrier every 8 k16 steps.  The training products (hundreds of
+//     flops a byte: the tensor cores bound them) take 128 x 128 tiles, 64
+//     x 32 a warp; up to 64 rows, 64 x 32 tiles (a 64-row prefill chunk
+//     fills 128 blocks); up to 16 rows (decode, the MoE experts' 8 rows,
+//     bound by the bytes of B they stream), 16 x 128.  One lane (K <= 32:
+//     the paged write's one-hot products, K = the slot count, bound by
+//     the bytes of their output) takes 128 x 128 tiles and keeps no
+//     running sum.  The epilogue stages the tile in shared memory and
+//     writes 16-byte rows.
+//   - f32 on the CUDA cores (bmm_f32_kernel): a register tile sized by M
+//     and N (one row and 64 columns a block at decode, where the f32 cache
+//     read bounds q.k^T and p.V; 128 x 128 with 8 x 8 outputs a thread and
+//     float4 reads of shared memory for the attention scores, bound by the
+//     CUDA cores' 67 TFLOP/s), k tiles streamed by 4- or 16-byte cp.async
+//     through a ring of stages; for K <= 256 (one chunk) no running total.
+//   - f32, few outputs over a long K (bmm_f32_split_kernel): a cluster of
+//     8 blocks per output, each staging 32 chunks at a time in shared
+//     memory and running one chunk's chain per thread; block 0 of the
+//     cluster adds the chunk sums in chunk order from the others' shared
+//     memory (the sampler's pick of one logit out of the vocabulary).
+// wgmma is not used: nothing documents that its sum within a k16 step is
+// mma.sync's, and the order names mma.sync's chain.
+#include <cooperative_groups.h>
+
 #include "tc_gemm.cuh"
 
 namespace {
 
 using namespace repro;
+namespace cg = cooperative_groups;
 
 // A element (b, m, k) at A[b * sab + m * sam + k * sak]; B element
 // (b, k, n) at B[b * sbb + k * sbk + n * sbn].
@@ -62,371 +88,326 @@ struct Strides {
 
 constexpr int kBatchGrid = 65535;   // grid.y; a block walks the rest
 
+unsigned batch_grid(long long rows) {
+  return (unsigned)(rows < kBatchGrid ? rows : kBatchGrid);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 4 bytes global -> shared; with ``valid`` false nothing is read and the
+// destination is zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   tc::smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
 // -- f32: the CUDA cores ---------------------------------------------------
 // The f32 order: k in chunks of kChunk; each chunk is one fmaf chain in
 // ascending k from +0, and the chunk sums are added in chunk order to a
-// total that starts at +0.  Two kernels run it -- register tiles sized by
-// M, and a block per output for few outputs over a long K (the chunks in
+// total that starts at +0.  Two kernels run it -- register tiles, and a
+// cluster per output for few outputs over a long K (the chunks in
 // parallel) -- so which one a shape takes changes no bit.
 constexpr int kChunk = 256;
 // outputs (all batches) up to which a K of at least kSplitMinK runs its
-// chunks in parallel, one block per output
+// chunks in parallel, one cluster per output
 constexpr long long kSplitMaxOutputs = 8192;
 constexpr int kSplitMinK = 8 * kChunk;
 
-// A BM x BN output tile, TM x TN outputs a thread, 256 threads, k in
-// shared-memory tiles of BK.  Every load of a k tile is issued before
-// the barrier, so a tile costs one memory latency, not one per k.
-template <int BM, int BN, int TM, int TN, int BK>
-__global__ void __launch_bounds__(kThreads)
-    bmm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                   void* __restrict__ C, int batch, int M, int N, int K,
-                   Strides st) {
-  static_assert((BM / TM) * (BN / TN) == kThreads, "256 threads");
+// A BM x BN output tile, TM x TN outputs a thread, THREADS threads, k in
+// tiles of BK through a ring of STAGES stages in shared memory: As[k][m]
+// and Bs[k][n], pitches BM + 4 and BN + 4 (16-byte rows).  Thread rows
+// and columns come in groups of 4 where TM (TN) is a multiple of 4, read
+// as float4, the groups BM / (TM / 4) apart; else one apart, BM / TM
+// apart.
+template <int BM_, int BN_, int TM_, int TN_, int BK_, int THREADS_,
+          int STAGES_>
+struct F32Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = BK_;
+  static constexpr int THREADS = THREADS_, STAGES = STAGES_;
+  static constexpr int AP = BM + 4, BP = BN + 4;
+  static constexpr int STAGE = BK * (AP + BP);   // floats
+  static constexpr int SMEM = STAGES * STAGE * 4;
+  static constexpr int TX = BN / TN;             // threads along n
+  static_assert((BM / TM) * (BN / TN) == THREADS, "one output tile");
   static_assert(kChunk % BK == 0, "a k tile lies in one chunk");
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-  constexpr int TX = BN / TN;
+  static_assert(STAGES >= 2, "ring");
+};
+
+template <int T, int B>
+__device__ __forceinline__ int f32_pos(int t, int i) {
+  if constexpr (T % 4 == 0)
+    return (i / 4) * (B / (T / 4)) + t * 4 + i % 4;
+  else
+    return t + i * (B / T);
+}
+
+template <int T, int B>
+__device__ __forceinline__ void f32_frag(const float* row, int t,
+                                         float (&v)[T]) {
+  if constexpr (T % 4 == 0) {
+#pragma unroll
+    for (int g = 0; g < T / 4; ++g) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(row + g * (B / (T / 4)) + t * 4);
+      v[g * 4] = x.x;
+      v[g * 4 + 1] = x.y;
+      v[g * 4 + 2] = x.z;
+      v[g * 4 + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < T; ++i) v[i] = row[t + i * (B / T)];
+  }
+}
+
+// Copies i = 0..N-1 of a k tile: ``copy(i)`` returns false past the
+// tile.  Unrolled, but rolled (ROLL) for the one-row tile, which streams
+// the bytes of B and then keeps more blocks on an SM.
+template <int N, bool ROLL, class F>
+__device__ __forceinline__ void f32_copies(F&& copy) {
+  if constexpr (ROLL) {
+#pragma unroll 1
+    for (int i = 0; i < N; ++i)
+      if (!copy(i)) break;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (!copy(i)) break;
+  }
+}
+
+// One k tile of an operand X (A: x = m; B: x = n) into Xs[k][x], pitch
+// XP, extent BX, from X(k, x) at p + k * sk + x * sx: 16-byte vectors
+// along x where ``vec`` (x contiguous, 16-byte aligned rows, an extent in
+// whole vectors), else 4-byte elements with the threads along whichever
+// index is contiguous.  Copy i of a thread keeps its place along the
+// threads' index and steps the other by THREADS / (that extent), so the
+// sources and places are a base and a fixed stride.
+template <int BX, int XP, int BK, int THREADS, bool ROLL>
+__device__ __forceinline__ void f32_load(float* xs, const float* p,
+                                         long long sk, long long sx, int x0,
+                                         int X, int k0, int K, bool vec) {
+  const int t = threadIdx.x;
+  if (BX % 4 == 0 && vec) {
+    constexpr int CX = BX % 4 == 0 ? BX / 4 : 1;   // vectors along x
+    static_assert(THREADS % CX == 0, "");
+    constexpr int STEP = THREADS / CX, N = (BK + STEP - 1) / STEP;
+    const int x = (t % CX) * 4, k = t / CX;
+    const bool xok = x0 + x < X;
+    const float* src = p + (k0 + k) * sk + x0 + x;
+    f32_copies<N, ROLL>([&](int i) {
+      if (BK % STEP && k + i * STEP >= BK) return false;
+      const bool ok = xok && k0 + k + i * STEP < K;
+      tc::cp_async16(xs + (k + i * STEP) * XP + x,
+                     ok ? src + i * STEP * sk : p, ok);
+      return true;
+    });
+  } else if (sx == 1) {   // the threads along x
+    constexpr int STEP = THREADS / BX, N = (BK + STEP - 1) / STEP;
+    static_assert(THREADS % BX == 0, "");
+    const int x = t % BX, k = t / BX;
+    const bool xok = x0 + x < X;
+    const float* src = p + (k0 + k) * sk + x0 + x;
+    f32_copies<N, ROLL>([&](int i) {
+      if (BK % STEP && k + i * STEP >= BK) return false;
+      const bool ok = xok && k0 + k + i * STEP < K;
+      cp_async4(xs + (k + i * STEP) * XP + x, ok ? src + i * STEP * sk : p,
+                ok);
+      return true;
+    });
+  } else {   // the threads along k
+    constexpr int STEP = THREADS / BK;
+    constexpr int N = (BX + STEP - 1) / STEP;
+    static_assert(THREADS % BK == 0, "");
+    const int k = t % BK, x = t / BK;
+    const bool kok = k0 + k < K;
+    const float* src = p + (k0 + k) * sk + (x0 + x) * sx;
+    f32_copies<N, ROLL>([&](int i) {
+      if (BX % STEP && x + i * STEP >= BX) return false;
+      const bool ok = kok && x0 + x + i * STEP < X;
+      cp_async4(xs + k * XP + x + i * STEP, ok ? src + i * STEP * sx : p,
+                ok);
+      return true;
+    });
+  }
+}
+
+// ONE: K <= 256, one chunk: the output is +0 plus its chain, and no
+// running total is kept (half the registers of the 8 x 8 tile: two blocks
+// an SM).
+template <class TL, bool ONE>
+__global__ void __launch_bounds__(TL::THREADS,
+                                  ONE && TL::THREADS == kThreads ? 2 : 1)
+    bmm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   float* __restrict__ C, int batch, int M, int N, int K,
+                   Strides st, bool a_vec, bool b_vec) {
+  constexpr int BM = TL::BM, BN = TL::BN, TM = TL::TM, TN = TL::TN;
+  constexpr int BK = TL::BK, STAGES = TL::STAGES, TX = TL::TX;
+  constexpr int AP = TL::AP, BP = TL::BP, STAGE = TL::STAGE;
+  extern __shared__ __align__(16) float fsm[];
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int tiles_n = (N + BN - 1) / BN;
   const int m0 = (blockIdx.x / tiles_n) * BM;
   const int n0 = (blockIdx.x % tiles_n) * BN;
-  // which index runs along the threads of a load: the contiguous one
-  const bool a_k_fast = st.sak == 1;
-  const bool b_n_fast = st.sbn == 1;
-  float* out = static_cast<float*>(C);
+  const int nk = (K + BK - 1) / BK;
   for (int b = blockIdx.y; b < batch; b += gridDim.y) {
     const float* Ab = A + b * st.sab;
     const float* Bb = B + b * st.sbb;
-    float acc[TM][TN], tot[TM][TN];
+    auto load = [&](int t) {
+      float* as = fsm + (t % STAGES) * STAGE;
+      f32_load<BM, AP, BK, TL::THREADS, BM == 1>(as, Ab, st.sak, st.sam,
+                                                 m0, M, t * BK, K, a_vec);
+      f32_load<BN, BP, BK, TL::THREADS, BM == 1>(as + BK * AP, Bb, st.sbk,
+                                                 st.sbn, n0, N, t * BK, K,
+                                                 b_vec);
+    };
+    float acc[TM][TN], tot[ONE ? 1 : TM][ONE ? 1 : TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = tot[i][j] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      for (int e = threadIdx.x; e < BM * BK; e += kThreads) {
-        const int m = a_k_fast ? e / BK : e % BM;
-        const int k = a_k_fast ? e % BK : e / BM;
-        const bool ok = m0 + m < M && k0 + k < K;
-        As[k][m] = ok ? Ab[(m0 + m) * st.sam + (k0 + k) * st.sak] : 0.f;
+      for (int j = 0; j < TN; ++j) {
+        acc[i][j] = 0.f;
+        if constexpr (!ONE) tot[i][j] = 0.f;
       }
-#pragma unroll 4
-      for (int e = threadIdx.x; e < BN * BK; e += kThreads) {
-        const int n = b_n_fast ? e % BN : e / BK;
-        const int k = b_n_fast ? e / BN : e % BK;
-        const bool ok = n0 + n < N && k0 + k < K;
-        Bs[k][n] = ok ? Bb[(k0 + k) * st.sbk + (n0 + n) * st.sbn] : 0.f;
-      }
-      __syncthreads();
+#pragma unroll
+    for (int t = 0; t < STAGES - 1; ++t) {
+      if (t < nk) load(t);
+      tc::cp_async_commit();
+    }
+    for (int t = 0; t < nk; ++t) {
+      tc::cp_async_wait<STAGES - 2>();   // tile t has landed
+      __syncthreads();                   // ... for all; slot t-1 is free
+      if (t + STAGES - 1 < nk) load(t + STAGES - 1);
+      tc::cp_async_commit();
+      const float* as = fsm + (t % STAGES) * STAGE;
+      const float* bs = as + BK * AP;
       // one fmaf per output per k, in ascending k
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
         float a[TM], bv[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * (BM / TM)];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + j * TX];
+        f32_frag<TM, BM>(as + kk * AP, ty, a);
+        f32_frag<TN, BN>(bs + kk * BP, tx, bv);
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
           for (int j = 0; j < TN; ++j)
             acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
       }
-      __syncthreads();
-      if ((k0 + BK) % kChunk == 0 || k0 + BK >= K) {   // a chunk ends
+      if constexpr (!ONE) {
+        const int k1 = (t + 1) * BK;
+        if (k1 % kChunk == 0 || k1 >= K) {   // a chunk ends
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
+          for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            tot[i][j] += acc[i][j];
-            acc[i][j] = 0.f;
-          }
+            for (int j = 0; j < TN; ++j) {
+              tot[i][j] += acc[i][j];
+              acc[i][j] = 0.f;
+            }
+        }
       }
     }
+    tc::cp_async_wait<0>();
+    __syncthreads();   // the next batch's ring reuses the slots
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int m = m0 + ty + i * (BM / TM);
+      const int m = m0 + f32_pos<TM, BM>(ty, i);
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        const int n = n0 + tx + j * TX;
-        if (m < M && n < N) out[((size_t)b * M + m) * N + n] = tot[i][j];
+        const int n = n0 + f32_pos<TN, BN>(tx, j);
+        if (m < M && n < N) {
+          if constexpr (ONE)
+            C[((size_t)b * M + m) * N + n] = 0.f + acc[i][j];
+          else
+            C[((size_t)b * M + m) * N + n] = tot[i][j];
+        }
       }
     }
   }
 }
 
-// One chunk's chain, k in [c0, c1), from global memory.
-__device__ __forceinline__ float chunk_chain(const float* a, long long sak,
-                                             const float* b, long long sbk,
-                                             int c0, int c1) {
-  float acc = 0.f;
-#pragma unroll 8
-  for (int k = c0; k < c1; ++k)
-    acc = fmaf(__ldg(a + k * sak), __ldg(b + k * sbk), acc);
-  return acc;
-}
-
 // Few outputs over a long K (the sampler's pick of one logit out of the
-// vocabulary: M = N = 1, K = 102400): one block per output, thread t runs
-// chunks t, t + 256, ...; thread 0 adds the chunk sums in chunk order.
-__global__ void __launch_bounds__(kThreads)
-    bmm_f32_split_kernel(const float* __restrict__ A,
-                         const float* __restrict__ B, void* __restrict__ C,
-                         int batch, int M, int N, int K, Strides st) {
-  __shared__ float part[kThreads];
-  const int m = blockIdx.x / N, n = blockIdx.x % N;
+// vocabulary: M = N = 1, K = 102400): a cluster of kSplitCluster blocks
+// per output.  In each round the cluster takes kSplitCluster *
+// kSplitRound chunks in order, block r the r-th run of kSplitRound; a
+// block stages its chunks of A's row and B's column in shared memory
+// (4-byte cp.async, the threads along k; rows of 257 floats, so the
+// chains below read 32 distinct banks), thread i runs chunk i's chain,
+// and thread 0 of block 0 adds the round's chunk sums in chunk order,
+// reading the other blocks' shared memory across the cluster.
+constexpr int kSplitCluster = 8;
+constexpr int kSplitRound = 32;
+constexpr int kSplitPitch = kChunk + 1;
+constexpr int kSplitSmem = (2 * kSplitRound * kSplitPitch + kSplitRound) * 4;
+
+__global__ void __cluster_dims__(kSplitCluster, 1, 1)
+    __launch_bounds__(kThreads)
+        bmm_f32_split_kernel(const float* __restrict__ A,
+                             const float* __restrict__ B,
+                             float* __restrict__ C, int batch, int M, int N,
+                             int K, Strides st) {
+  extern __shared__ __align__(16) float ssm[];
+  float* sa = ssm;
+  float* sb = sa + kSplitRound * kSplitPitch;
+  float* part = sb + kSplitRound * kSplitPitch;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int o = blockIdx.x / kSplitCluster;
+  const int m = o / N, n = o % N;
   const int chunks = (K + kChunk - 1) / kChunk;
-  float* out = static_cast<float*>(C);
+  constexpr int kPerRound = kSplitCluster * kSplitRound;
   for (int b = blockIdx.y; b < batch; b += gridDim.y) {
     const float* a = A + b * st.sab + m * st.sam;
     const float* bb = B + b * st.sbb + n * st.sbn;
     float tot = 0.f;
-    for (int g = 0; g < chunks; g += kThreads) {
-      const int c = g + threadIdx.x;
-      part[threadIdx.x] =
-          c < chunks ? chunk_chain(a, st.sak, bb, st.sbk, c * kChunk,
-                                   min(c * kChunk + kChunk, K))
-                     : 0.f;
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        const int n_here = min(kThreads, chunks - g);
-        for (int i = 0; i < n_here; ++i) tot += part[i];
+    for (int g = 0; g < chunks; g += kPerRound) {
+      const int c0 = g + rank * kSplitRound;
+      const int nc = max(0, min(kSplitRound, chunks - c0));
+      for (int e = threadIdx.x; e < nc * kChunk; e += kThreads) {
+        const int i = e / kChunk, kk = e % kChunk;
+        const int k = (c0 + i) * kChunk + kk;
+        const bool ok = k < K;
+        cp_async4(sa + i * kSplitPitch + kk, ok ? a + k * st.sak : a, ok);
+        cp_async4(sb + i * kSplitPitch + kk, ok ? bb + k * st.sbk : bb, ok);
       }
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
       __syncthreads();
+      if (threadIdx.x < nc) {
+        const float* x = sa + threadIdx.x * kSplitPitch;
+        const float* y = sb + threadIdx.x * kSplitPitch;
+        const int len = min(kChunk, K - (c0 + threadIdx.x) * kChunk);
+        float acc = 0.f;
+#pragma unroll 8
+        for (int kk = 0; kk < len; ++kk) acc = fmaf(x[kk], y[kk], acc);
+        part[threadIdx.x] = acc;
+      }
+      cluster.sync();   // every block's chunk sums are in place
+      if (rank == 0 && threadIdx.x == 0) {
+        for (int r = 0; r < kSplitCluster; ++r) {
+          const int nr =
+              max(0, min(kSplitRound, chunks - (g + r * kSplitRound)));
+          const float* p = cluster.map_shared_rank(part, r);
+          for (int i = 0; i < nr; ++i) tot += p[i];
+        }
+      }
+      cluster.sync();   // ... and read: the next round may overwrite them
     }
-    if (threadIdx.x == 0) out[((size_t)b * M + m) * N + n] = tot;
+    if (rank == 0 && threadIdx.x == 0)
+      C[((size_t)b * M + m) * N + n] = tot;
   }
 }
 
-unsigned batch_grid(long long rows) {
-  return (unsigned)(rows < kBatchGrid ? rows : kBatchGrid);
-}
-
-template <int BM, int BN, int TM, int TN, int BK>
-cudaError_t launch_f32_tile(const float* A, const float* B, void* C,
+template <class TL, bool ONE>
+cudaError_t launch_f32_tile(const float* A, const float* B, float* C,
                             int batch, int M, int N, int K, const Strides& st,
                             cudaStream_t s) {
-  const long long tiles =
-      (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  dim3 grid((unsigned)tiles, batch_grid(batch));
-  bmm_f32_kernel<BM, BN, TM, TN, BK><<<grid, kThreads, 0, s>>>(
-      A, B, C, batch, M, N, K, st);
-  return cudaSuccess;
-}
-
-// the f32 kernels, mirrored by kernels/ops.py:batched_matmul_plan
-cudaError_t launch_f32(const float* A, const float* B, void* C, int batch,
-                       int M, int N, int K, const Strides& st,
-                       cudaStream_t s) {
-  const long long outs = (long long)batch * M * N;
-  if (K >= kSplitMinK && outs <= kSplitMaxOutputs) {
-    dim3 grid((unsigned)((long long)M * N), batch_grid(batch));
-    bmm_f32_split_kernel<<<grid, kThreads, 0, s>>>(A, B, C, batch, M, N, K,
-                                                   st);
-    return cudaSuccess;
-  }
-  if (M == 1) return launch_f32_tile<2, 128, 1, 1, 64>(A, B, C, batch, M, N,
-                                                       K, st, s);
-  if (M <= 4)
-    return launch_f32_tile<4, 64, 1, 1, 64>(A, B, C, batch, M, N, K, st, s);
-  if (M <= 16)
-    return launch_f32_tile<16, 64, 1, 4, 32>(A, B, C, batch, M, N, K, st, s);
-  return launch_f32_tile<64, 64, 4, 4, 32>(A, B, C, batch, M, N, K, st, s);
-}
-
-// -- bf16 / f16: the tensor cores ---------------------------------------------
-// How a stage of one operand is copied into the ring (mirrored by
-// kernels/ops.py:batched_matmul_plan): 16-byte cp.async along the stage's
-// rows (B's n, A's k) where that index is the contiguous one; for a
-// transposed operand (B as (N, K), A as (K, M)) 8 x 8 blocks, loaded as
-// 8 16-byte vectors along the contiguous index, transposed in registers
-// and stored as 8 vectors along the rows; else element by element with
-// the threads along whichever index is contiguous.  A
-// vector copy needs its chunk of 8 aligned and wholly inside or wholly
-// outside the matrix.
-enum CopyMode { kElements = 0, kRows = 1, kColumns = 2 };
-
-// rows[r] holds 8 16-bit values (r, 0..7); cols[c] gets (0..7, c)
-__device__ __forceinline__ void transpose8x8(const uint4 (&rows)[8],
-                                             uint4 (&cols)[8]) {
-  const unsigned short* in = reinterpret_cast<const unsigned short*>(rows);
-  unsigned short* out = reinterpret_cast<unsigned short*>(cols);
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-#pragma unroll
-    for (int r = 0; r < 8; ++r) out[c * 8 + r] = in[r * 8 + c];
-}
-
-// tc_gemm.cuh's strided source: one batch's A and B through their strides.
-template <typename T, class TL>
-struct StridedSource {
-  static constexpr bool kWaitA = false, kStrided = true;
-  const T* A;
-  const T* B;
-  long long sam, sak, sbk, sbn;
-  int M, N, K, m0, n0;
-  int a_mode, b_mode;
-
-  // the rows of a stage any warp reads: all, but for K under one stage
-  // only the live warps' slices (tc_gemm.cuh's ``live``)
-  __device__ __forceinline__ int rows_read() const {
-    return K < tc::kKS ? (K + tc::kWarpK - 1) / tc::kWarpK * tc::kWarpK
-                       : tc::kKS;
-  }
-
-  // B's stage: bs[k][n], k in [k0, k0 + KS), n in [n0, n0 + BN)
-  __device__ __forceinline__ void load_b(T* bs, int k0) const {
-    constexpr int BN = TL::BN, KS = tc::kKS;
-    const T zero = from_f32<T>(0.f);
-    const int kr = rows_read();
-    if (b_mode == kRows) {
-      constexpr int CB = BN / 8;
-#pragma unroll
-      for (int i = 0; i < KS * CB / kThreads; ++i) {
-        const int e = threadIdx.x + i * kThreads;
-        const int k = e / CB, c = e % CB;
-        if (k >= kr) break;   // e grows with i
-        const bool ok = k0 + k < K && n0 + c * 8 < N;
-        tc::cp_async16(bs + tc::swz<BN>(k, c),
-                       ok ? B + (k0 + k) * sbk + n0 + c * 8 : B, ok);
-      }
-    } else if (b_mode == kColumns) {
-      // B (N, K): a thread loads an 8 (n) x 8 (k) block as 8 vectors of
-      // k, transposes it in registers and stores 8 vectors of n
-      constexpr int KB = KS / 8, BLOCKS = BN / 8 * KB;
-#pragma unroll
-      for (int i = 0; i < (BLOCKS + kThreads - 1) / kThreads; ++i) {
-        const int e = threadIdx.x + i * kThreads;
-        if (BLOCKS % kThreads && e >= BLOCKS) break;
-        const int nc = e / KB, k = (e % KB) * 8;
-        if (k >= kr) continue;
-        uint4 rows[8], cols[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const int n = n0 + nc * 8 + r;
-          rows[r] = n < N && k0 + k < K
-                        ? __ldg(reinterpret_cast<const uint4*>(
-                              B + n * sbn + k0 + k))
-                        : make_uint4(0, 0, 0, 0);
-        }
-        transpose8x8(rows, cols);
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          *reinterpret_cast<uint4*>(bs + tc::swz<BN>(k + c, nc)) = cols[c];
-      }
-    } else {
-      const bool n_fast = sbn == 1;
-      for (int e = threadIdx.x; e < KS * BN; e += kThreads) {
-        const int n = n_fast ? e % BN : e / KS;
-        const int k = n_fast ? e / BN : e % KS;
-        if (k >= kr) continue;
-        const bool ok = k0 + k < K && n0 + n < N;
-        bs[tc::swz<BN>(k, n >> 3) + (n & 7)] =
-            ok ? B[(k0 + k) * sbk + (n0 + n) * sbn] : zero;
-      }
-    }
-  }
-
-  // A's stage: as[m][k], m in [m0, m0 + BM), k in [k0, k0 + KS)
-  __device__ __forceinline__ void load_a(T* as, int k0) const {
-    constexpr int BM = TL::BM, KS = tc::kKS;
-    const T zero = from_f32<T>(0.f);
-    const int kr = rows_read();
-    if (a_mode == kRows) {
-      constexpr int CA = KS / 8;
-#pragma unroll
-      for (int i = 0; i < BM * CA / kThreads; ++i) {
-        const int e = threadIdx.x + i * kThreads;
-        const int m = e / CA, c = e % CA;
-        if (c * 8 >= kr) continue;
-        const bool ok = m0 + m < M && k0 + c * 8 < K;
-        tc::cp_async16(as + tc::swz<KS>(m, c),
-                       ok ? A + (m0 + m) * sam + k0 + c * 8 : A, ok);
-      }
-    } else if (a_mode == kColumns) {
-      // A (K, M): a thread loads an 8 (k) x 8 (m) block as 8 vectors of
-      // m, transposes it in registers and stores 8 vectors of k
-      constexpr int MB = BM / 8, BLOCKS = MB * (KS / 8);
-#pragma unroll
-      for (int i = 0; i < (BLOCKS + kThreads - 1) / kThreads; ++i) {
-        const int e = threadIdx.x + i * kThreads;
-        if (BLOCKS % kThreads && e >= BLOCKS) break;
-        const int mc = e % MB, kc = e / MB;
-        if (kc * 8 >= kr) break;   // e grows with i
-        uint4 rows[8], cols[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const int k = k0 + kc * 8 + r;
-          rows[r] = m0 + mc * 8 < M && k < K
-                        ? __ldg(reinterpret_cast<const uint4*>(
-                              A + k * sak + m0 + mc * 8))
-                        : make_uint4(0, 0, 0, 0);
-        }
-        transpose8x8(rows, cols);
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          *reinterpret_cast<uint4*>(as + tc::swz<KS>(mc * 8 + c, kc)) =
-              cols[c];
-      }
-    } else {
-      const bool k_fast = sak == 1;
-      for (int e = threadIdx.x; e < BM * KS; e += kThreads) {
-        const int m = k_fast ? e / KS : e % BM;
-        const int k = k_fast ? e % KS : e / BM;
-        if (k >= kr) continue;
-        const bool ok = m0 + m < M && k0 + k < K;
-        as[tc::swz<KS>(m, k >> 3) + (k & 7)] =
-            ok ? A[(m0 + m) * sam + (k0 + k) * sak] : zero;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void load(T* slot, int s) const {
-    load_b(slot, s * tc::kKS);
-    load_a(slot + tc::kKS * TL::BN, s * tc::kKS);
-  }
-};
-
-template <typename T, class TL>
-__global__ void __launch_bounds__(kThreads)
-    bmm_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                  void* __restrict__ C, int batch, int M, int N, int K,
-                  Strides st, int a_mode, int b_mode, bool out_f32) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int BN = TL::BN;
-  const int tiles_n = (N + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * TL::BM;
-  const int n0 = (blockIdx.x % tiles_n) * BN;
-  for (int b = blockIdx.y; b < batch; b += gridDim.y) {
-    const StridedSource<T, TL> src{A + b * st.sab, B + b * st.sbb, st.sam,
-                                   st.sak, st.sbk, st.sbn, M, N, K, m0, n0,
-                                   a_mode, b_mode};
-    const float* sum = tc::gemm_tc<T, TL, tc::IdentityA, StridedSource<T, TL>>(
-        src.A, 0, src.B, M, K, N, m0, n0, false, smem, tc::IdentityA(),
-        nullptr, src);
-    for (int e = threadIdx.x; e < TL::BM * BN; e += kThreads) {
-      const int m = e / BN, n = e % BN;
-      if (m0 + m < M && n0 + n < N) {
-        const float v = sum[m * TL::RED_PITCH + n];
-        const size_t o = ((size_t)b * M + m0 + m) * N + n0 + n;
-        if (out_f32)
-          static_cast<float*>(C)[o] = v;
-        else
-          static_cast<T*>(C)[o] = from_f32<T>(v);
-      }
-    }
-    __syncthreads();   // the next batch's ring reuses the sums' memory
-  }
-}
-
-template <typename T, class TL>
-cudaError_t launch_tc(const T* A, const T* B, void* C, int batch, int M,
-                      int N, int K, const Strides& st, int a_mode,
-                      int b_mode, bool out_f32, cudaStream_t s) {
   static PerDevice limit_set;
   const cudaError_t limit = once_per_device(limit_set, [] {
-    return cudaFuncSetAttribute(bmm_tc_kernel<T, TL>,
+    return cudaFuncSetAttribute(bmm_f32_kernel<TL, ONE>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 TL::SMEM);
   });
@@ -434,19 +415,499 @@ cudaError_t launch_tc(const T* A, const T* B, void* C, int batch, int M,
   const long long tiles =
       (long long)((M + TL::BM - 1) / TL::BM) * ((N + TL::BN - 1) / TL::BN);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  // 16-byte vectors along m (n): a contiguous index whose rows start on
+  // 16 bytes, and an extent in whole vectors, so that a vector lies wholly
+  // inside or outside the matrix
+  const bool ok16 = aligned16(A) && aligned16(B);
+  const bool a_vec = ok16 && st.sam == 1 && st.sak % 4 == 0 &&
+                     st.sab % 4 == 0 && M % 4 == 0;
+  const bool b_vec = ok16 && st.sbn == 1 && st.sbk % 4 == 0 &&
+                     st.sbb % 4 == 0 && N % 4 == 0;
   dim3 grid((unsigned)tiles, batch_grid(batch));
-  bmm_tc_kernel<T, TL><<<grid, kThreads, TL::SMEM, s>>>(
-      A, B, C, batch, M, N, K, st, a_mode, b_mode, out_f32);
+  bmm_f32_kernel<TL, ONE><<<grid, TL::THREADS, TL::SMEM, s>>>(
+      A, B, C, batch, M, N, K, st, a_vec, b_vec);
   return cudaSuccess;
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+template <class TL>
+cudaError_t launch_f32_tile(const float* A, const float* B, float* C,
+                            int batch, int M, int N, int K, const Strides& st,
+                            cudaStream_t s) {
+  if (K <= kChunk)
+    return launch_f32_tile<TL, true>(A, B, C, batch, M, N, K, st, s);
+  return launch_f32_tile<TL, false>(A, B, C, batch, M, N, K, st, s);
 }
 
-// The copy mode of an operand whose index ``row`` (B's n, A's k) runs
-// along the ring's rows, ``col`` along its columns, with strides
-// ``s_row``, ``s_col`` and ``s_batch`` and extents ``n_row``, ``n_col``.
+// the f32 kernels, mirrored by kernels/ops.py:batched_matmul_plan
+cudaError_t launch_f32(const float* A, const float* B, float* C, int batch,
+                       int M, int N, int K, const Strides& st,
+                       cudaStream_t s) {
+  const long long outs = (long long)batch * M * N;
+  if (K >= kSplitMinK && outs <= kSplitMaxOutputs) {
+    static PerDevice limit_set;
+    const cudaError_t limit = once_per_device(limit_set, [] {
+      return cudaFuncSetAttribute(bmm_f32_split_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kSplitSmem);
+    });
+    if (limit != cudaSuccess) return limit;
+    dim3 grid((unsigned)((long long)M * N * kSplitCluster), batch_grid(batch));
+    bmm_f32_split_kernel<<<grid, kThreads, kSplitSmem, s>>>(A, B, C, batch, M,
+                                                           N, K, st);
+    return cudaSuccess;
+  }
+  if (M == 1)
+    return launch_f32_tile<F32Tile<1, 64, 1, 1, 32, 64, 4>>(A, B, C, batch, M,
+                                                           N, K, st, s);
+  if (M <= 4)
+    return launch_f32_tile<F32Tile<4, 16, 1, 1, 32, 64, 4>>(A, B, C, batch, M,
+                                                           N, K, st, s);
+  if (M <= 16)
+    return launch_f32_tile<F32Tile<16, 64, 1, 4, 32, 256, 3>>(A, B, C, batch,
+                                                             M, N, K, st, s);
+  if (M <= 64 || N <= 64)
+    return launch_f32_tile<F32Tile<64, 64, 4, 4, 32, 256, 3>>(A, B, C, batch,
+                                                             M, N, K, st, s);
+  return launch_f32_tile<F32Tile<128, 128, 8, 8, 16, 256, 3>>(A, B, C, batch,
+                                                             M, N, K, st, s);
+}
+
+// -- bf16 / f16: the lanes in sequence ----------------------------------------
+// Element offset of 16-byte chunk ``c`` of row ``r`` in rows of W
+// elements, XOR-swizzled so that the 8 rows an ldmatrix phase reads at one
+// logical chunk lie in 8 distinct bank quads.
+template <int W>
+__device__ __forceinline__ int sw(int r, int c) {
+  constexpr int CW = W / 8;
+  static_assert(CW == 2 || CW == 4 || CW % 8 == 0, "row width");
+  if constexpr (CW % 8 == 0)
+    return r * W + ((c ^ (r & 7)) << 3);
+  else if constexpr (CW == 4)
+    return r * W + ((c ^ ((r >> 1) & 3)) << 3);
+  else
+    return r * W + ((c ^ ((r >> 2) & 1)) << 3);
+}
+
+// The block's BM x BN tile: WARPS_M x (8 / WARPS_M) warps, each a WM x WN
+// piece (MF x NF mma fragments), and a ring of STAGES stages of KG
+// k-tiles of kKT = 32 (one lane's k at one stage of the order), each
+// k-tile B's then A's.
+constexpr int kKT = tc::kWarpK;
+
+template <int BM_, int BN_, int WARPS_M_, int STAGES_, int KG_>
+struct SeqTile {
+  static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_;
+  static constexpr int STAGES = STAGES_, KG = KG_;
+  static constexpr int WARPS_N = kWarps / WARPS_M;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  static constexpr int MF = WM / 16, NF = WN / 8;
+  static constexpr int KTILE = kKT * (BM + BN);   // elements of a k-tile
+  static constexpr int STAGE = KG * KTILE;
+  // the largest ring; a launch takes only the stages its k-tiles fill,
+  // and at least the epilogue's staging (mirrored by ops.BMM_SEQ_TILES)
+  static constexpr int RING = STAGES * STAGE * 2;
+  static_assert(WM % 16 == 0 && NF % 2 == 0 && WARPS_M * WARPS_N == kWarps,
+                "warp tile");
+};
+
+// the epilogue's row pitch (elements) when the tile is staged in shared
+// memory: 16 bytes past the row
+template <typename O, class TL>
+__host__ __device__ constexpr int seq_out_pitch() {
+  return TL::BN + 16 / (int)sizeof(O);
+}
+
+template <class TL, typename T>
+int seq_smem(int tiles, bool out_f32) {
+  const int used = (tiles + TL::KG - 1) / TL::KG;
+  const int ring =
+      (used < TL::STAGES ? used : TL::STAGES) * TL::STAGE * 2;
+  const int epi = out_f32 ? TL::BM * seq_out_pitch<float, TL>() * 4
+                          : TL::BM * seq_out_pitch<T, TL>() * 2;
+  return ring > epi ? ring : epi;
+}
+
+// One operand's 16-byte copies of a k-tile into a tile of X_EXT rows or
+// columns (A's m, B's n): KFAST, the tile is [x][32] and the chunks run
+// along k (k contiguous); else [k][X_EXT] and they run along x.  A
+// thread's chunks keep their row, column and place in the tile from one
+// k-tile to the next, so they are worked out once a block: each k-tile
+// adds its k to the source and checks it against K.
+template <typename T, int X_EXT, bool KFAST>
+struct VecSlots {
+  static constexpr int CHUNKS = KFAST ? X_EXT * 4 : kKT * (X_EXT / 8);
+  static constexpr int N = (CHUNKS + kThreads - 1) / kThreads;
+  long long src[N];   // element offset of the chunk at k0 = 0
+  int off[N];         // element offset in the tile
+  int kk[N];          // the chunk's k within the k-tile
+  bool ok[N];         // inside the matrix along x (and a chunk at all)
+
+  __device__ __forceinline__ void init(long long sx, long long sk, int x0,
+                                       int X) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if constexpr (KFAST) {
+        const int x = e >> 2, c = e & 3;
+        ok[i] = e < CHUNKS && x0 + x < X;
+        src[i] = ok[i] ? (x0 + x) * sx + c * 8 : 0;
+        off[i] = sw<kKT>(x & (X_EXT - 1), c);
+        kk[i] = c * 8;
+      } else {
+        constexpr int CX = X_EXT / 8;
+        const int k = e / CX, c = e % CX;
+        ok[i] = e < CHUNKS && x0 + c * 8 < X;
+        src[i] = ok[i] ? k * sk + x0 + c * 8 : 0;
+        off[i] = sw<X_EXT>(k & (kKT - 1), c);
+        kk[i] = k;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void load(T* tile, const T* p, long long sk,
+                                       int k0, int K) const {
+    const long long kofs = KFAST ? k0 : k0 * sk;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (N * kThreads > CHUNKS && threadIdx.x + i * kThreads >= CHUNKS)
+        break;
+      const bool v = ok[i] && k0 + kk[i] < K;
+      tc::cp_async16(tile + off[i], v ? p + src[i] + kofs : p, v);
+    }
+  }
+};
+
+// One k-tile (k in [k0, k0 + 32)) of both operands, in the layout of each
+// operand's contiguous index: B as bs[k][BN] (B_K false: n contiguous) or
+// bs[n][32] (B_K: k contiguous), A as as[m][32] (A_K: k contiguous) or
+// as[k][BM].  16-byte cp.async where ``vec`` (VecSlots), else element by
+// element with the threads along the tile's rows; everything outside the
+// matrices is zero.
+template <typename T, class TL, bool A_K, bool B_K>
+struct SeqLoader {
+  const T* A;
+  const T* B;
+  long long sam, sak, sbk, sbn;
+  int M, N, K, m0, n0;
+  bool a_vec, b_vec;
+  VecSlots<T, TL::BM, A_K> av;
+  VecSlots<T, TL::BN, B_K> bv;
+
+  __device__ __forceinline__ void init() {
+    if (a_vec) av.init(sam, sak, m0, M);
+    if (b_vec) bv.init(sbn, sbk, n0, N);
+  }
+
+  __device__ __forceinline__ void load(T* tile, int k0) const {
+    constexpr int BM = TL::BM, BN = TL::BN;
+    const T zero = from_f32<T>(0.f);
+    T* bs = tile;
+    T* as = tile + kKT * BN;
+    if (b_vec) {
+      bv.load(bs, B, sbk, k0, K);
+    } else if constexpr (B_K) {
+      for (int e = threadIdx.x; e < BN * kKT; e += kThreads) {
+        const int n = e / kKT, k = e % kKT;
+        const bool ok = n0 + n < N && k0 + k < K;
+        bs[sw<kKT>(n, k >> 3) + (k & 7)] =
+            ok ? B[(k0 + k) * sbk + (n0 + n) * sbn] : zero;
+      }
+    } else {
+      for (int e = threadIdx.x; e < BN * kKT; e += kThreads) {
+        const int k = e / BN, n = e % BN;
+        const bool ok = n0 + n < N && k0 + k < K;
+        bs[sw<BN>(k, n >> 3) + (n & 7)] =
+            ok ? B[(k0 + k) * sbk + (n0 + n) * sbn] : zero;
+      }
+    }
+    if (a_vec) {
+      av.load(as, A, sak, k0, K);
+    } else if constexpr (A_K) {
+      for (int e = threadIdx.x; e < BM * kKT; e += kThreads) {
+        const int m = e / kKT, k = e % kKT;
+        const bool ok = m0 + m < M && k0 + k < K;
+        as[sw<kKT>(m, k >> 3) + (k & 7)] =
+            ok ? A[(m0 + m) * sam + (k0 + k) * sak] : zero;
+      }
+    } else {
+      for (int e = threadIdx.x; e < BM * kKT; e += kThreads) {
+        const int k = e / BM, m = e % BM;
+        const bool ok = m0 + m < M && k0 + k < K;
+        as[sw<BM>(k, m >> 3) + (m & 7)] =
+            ok ? A[(m0 + m) * sam + (k0 + k) * sak] : zero;
+      }
+    }
+  }
+};
+
+// One k16 step's fragments of a warp's piece: A's MF m16k16 and B's NF
+// n8k16 (two per ldmatrix.x4), from the k-tile at ``tile``, k in
+// [kk, kk + 16).
+template <typename T, class TL, bool A_K, bool B_K>
+struct SeqFrags {
+  unsigned a[TL::MF][4];
+  unsigned b[TL::NF / 2][4];
+
+  __device__ __forceinline__ void load(const T* tile, int kk, int wm0,
+                                       int wn0, int lane) {
+    const T* bs = tile;
+    const T* as = tile + kKT * TL::BN;
+#pragma unroll
+    for (int h = 0; h < TL::NF / 2; ++h) {
+      const int nb = wn0 + h * 16;
+      if constexpr (B_K) {
+        const int n = nb + (lane & 7) + ((lane >> 4) << 3);
+        tc::ldmatrix_x4(b[h], bs + sw<kKT>(n, (kk >> 3) + ((lane >> 3) & 1)));
+      } else {
+        const int k = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        tc::ldmatrix_x4_trans(b[h], bs + sw<TL::BN>(k, (nb >> 3) +
+                                                           (lane >> 4)));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TL::MF; ++i) {
+      const int mb = wm0 + i * 16;
+      if constexpr (A_K) {
+        tc::ldmatrix_x4(a[i], as + sw<kKT>(mb + (lane & 15),
+                                           (kk >> 3) + (lane >> 4)));
+      } else {
+        const int k = kk + (lane & 7) + ((lane >> 4) << 3);
+        tc::ldmatrix_x4_trans(
+            a[i], as + sw<TL::BM>(k, (mb >> 3) + ((lane >> 3) & 1)));
+      }
+    }
+  }
+};
+
+// The epilogue: a warp's values ``v`` (rows r, r + 8 and columns qc,
+// qc + 1 of each fragment) into C's rows row0 + m.  Where rows of C hold
+// whole 16-byte vectors, the tile is staged in shared memory (the ring's,
+// free by now) and written a 16-byte vector a thread, rows in full; else
+// from registers, two values (or one) a store.
+template <typename O, typename T, class TL>
+__device__ __forceinline__ void seq_store(const float (&v)[TL::MF][TL::NF][4],
+                                          O* C, size_t row0, int M, int N,
+                                          int m0, int n0, int wm0, int wn0,
+                                          int r, int qc, unsigned char* smem) {
+  constexpr int V = 16 / (int)sizeof(O), P = seq_out_pitch<O, TL>();
+  if (N % V == 0) {
+    O* stage = reinterpret_cast<O*>(smem);
+#pragma unroll
+    for (int i = 0; i < TL::MF; ++i)
+#pragma unroll
+      for (int n = 0; n < TL::NF; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          O* p = stage + (wm0 + i * 16 + r + h * 8) * P + wn0 + n * 8 + qc;
+          if constexpr (sizeof(O) == 4)
+            *reinterpret_cast<float2*>(p) =
+                make_float2(v[i][n][2 * h], v[i][n][2 * h + 1]);
+          else
+            *reinterpret_cast<unsigned*>(p) =
+                pack2<T>(v[i][n][2 * h], v[i][n][2 * h + 1]);
+        }
+    __syncthreads();
+    constexpr int CV = TL::BN / V;
+    for (int e = threadIdx.x; e < TL::BM * CV; e += kThreads) {
+      const int row = e / CV, c = e % CV;
+      const int m = m0 + row, n = n0 + c * V;
+      if (m < M && n < N)
+        *reinterpret_cast<uint4*>(C + (row0 + m) * N + n) =
+            *reinterpret_cast<const uint4*>(stage + row * P + c * V);
+    }
+    return;
+  }
+  const bool pairs = (N & 1) == 0;   // (m, qc) starts on a pair
+#pragma unroll
+  for (int i = 0; i < TL::MF; ++i)
+#pragma unroll
+    for (int n = 0; n < TL::NF; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm0 + i * 16 + r + h * 8;
+        const int col = n0 + wn0 + n * 8 + qc;
+        if (m >= M || col >= N) continue;
+        const float v0 = v[i][n][2 * h], v1 = v[i][n][2 * h + 1];
+        O* c = C + (row0 + m) * N + col;
+        if constexpr (sizeof(O) == 4) {
+          if (pairs) {
+            *reinterpret_cast<float2*>(c) = make_float2(v0, v1);
+          } else {
+            c[0] = v0;
+            if (col + 1 < N) c[1] = v1;
+          }
+        } else {
+          if (pairs) {
+            *reinterpret_cast<unsigned*>(c) = pack2<T>(v0, v1);
+          } else {
+            c[0] = from_f32<T>(v0);
+            if (col + 1 < N) c[1] = from_f32<T>(v1);
+          }
+        }
+      }
+}
+
+// ONE: the order has one lane (K <= 32): the output is +0 + that lane's
+// chain, and no running sum is kept.
+template <typename T, class TL, bool A_K, bool B_K, bool ONE>
+__global__ void __launch_bounds__(kThreads,
+                                  TL::BM * TL::BN >= 128 * 128 ? 1 : 2)
+    bmm_seq_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                   void* __restrict__ C, int batch, int M, int N, int K,
+                   Strides st, bool a_vec, bool b_vec, bool out_f32) {
+  constexpr int BM = TL::BM, BN = TL::BN, MF = TL::MF, NF = TL::NF;
+  constexpr int STAGES = TL::STAGES, STAGE = TL::STAGE, KG = TL::KG;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm0 = (warp % TL::WARPS_M) * TL::WM;
+  const int wn0 = (warp / TL::WARPS_M) * TL::WN;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM;
+  const int n0 = (blockIdx.x % tiles_n) * BN;
+  const int nst = (K + tc::kKS - 1) / tc::kKS;
+  // the lanes that hold data: all 8, but ceil(K / 32) for K under a stage
+  const int live = K < tc::kKS ? (K + kKT - 1) / kKT : kWarps;
+  const int tiles = live * nst;   // k-tile t: lane t / nst, stage t % nst
+  const int nstage = (tiles + KG - 1) / KG;
+  for (int b = blockIdx.y; b < batch; b += gridDim.y) {
+    SeqLoader<T, TL, A_K, B_K> ld{A + b * st.sab, B + b * st.sbb, st.sam,
+                                  st.sak, st.sbk, st.sbn, M, N, K, m0, n0,
+                                  a_vec, b_vec};
+    ld.init();
+    // the next k-tile to load: lane lw at stage ls of the order
+    int lw = 0, ls = 0;
+    auto load_stage = [&](int j) {
+      T* slot = ring + (j % STAGES) * STAGE;
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        if (j * KG + g < tiles) {
+          ld.load(slot + g * TL::KTILE, ls * tc::kKS + lw * kKT);
+          if (++ls == nst) {
+            ls = 0;
+            ++lw;
+          }
+        }
+      }
+    };
+    float acc[MF][NF][4], tot[MF][NF][4];   // tot: unused when ONE
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+    if constexpr (!ONE) {
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) tot[i][j][v] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) {
+      if (j < nstage) load_stage(j);
+      tc::cp_async_commit();
+    }
+    int cs = 0;   // the stage of the order of the k-tile multiplied next
+    for (int j = 0; j < nstage; ++j) {
+      tc::cp_async_wait<STAGES - 2>();   // stage j has landed
+      __syncthreads();                   // ... for all; slot j-1 is free
+      if (j + STAGES - 1 < nstage) load_stage(j + STAGES - 1);
+      tc::cp_async_commit();
+      const T* slot = ring + (j % STAGES) * STAGE;
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        if (j * KG + g >= tiles) break;   // uniform: the last stage's tail
+#pragma unroll
+        for (int kk = 0; kk < kKT; kk += 16) {
+          SeqFrags<T, TL, A_K, B_K> f;
+          f.load(slot + g * TL::KTILE, kk, wm0, wn0, lane);
+#pragma unroll
+          for (int i = 0; i < MF; ++i)
+#pragma unroll
+            for (int n = 0; n < NF; ++n)
+              tc::mma16816<T>(acc[i][n], f.a[i], f.b[n >> 1][(n & 1) * 2],
+                              f.b[n >> 1][(n & 1) * 2 + 1]);
+        }
+        if constexpr (!ONE) {
+          if (++cs == nst) {   // a lane ends: add it in lane order
+            cs = 0;
+#pragma unroll
+            for (int i = 0; i < MF; ++i)
+#pragma unroll
+              for (int n = 0; n < NF; ++n)
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                  tot[i][n][v] += acc[i][n][v];
+                  acc[i][n][v] = 0.f;
+                }
+          }
+        }
+      }
+    }
+    tc::cp_async_wait<0>();
+    __syncthreads();   // the ring is free: the epilogue stages the tile
+    // the output values, +0 plus the lanes in order: (row r, columns qc,
+    // qc + 1) and row r + 8 of each fragment
+    const int r = lane >> 2, qc = (lane & 3) * 2;
+    const size_t row0 = (size_t)b * M;
+    if constexpr (ONE) {
+#pragma unroll
+      for (int i = 0; i < MF; ++i)
+#pragma unroll
+        for (int n = 0; n < NF; ++n)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[i][n][v] = 0.f + acc[i][n][v];
+    }
+    const float(&out)[MF][NF][4] = ONE ? acc : tot;
+    if (out_f32)
+      seq_store<float, T, TL>(out, static_cast<float*>(C), row0, M, N, m0, n0,
+                              wm0, wn0, r, qc, smem);
+    else
+      seq_store<T, T, TL>(out, static_cast<T*>(C), row0, M, N, m0, n0, wm0,
+                          wn0, r, qc, smem);
+    __syncthreads();   // the next batch's ring reuses the staging
+  }
+}
+
+template <typename T, class TL, bool A_K, bool B_K, bool ONE>
+cudaError_t launch_seq(const T* A, const T* B, void* C, int batch, int M,
+                       int N, int K, const Strides& st, bool a_vec,
+                       bool b_vec, bool out_f32, cudaStream_t s) {
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [] {
+    constexpr int epi = TL::BM * seq_out_pitch<float, TL>() * 4;
+    return cudaFuncSetAttribute(bmm_seq_kernel<T, TL, A_K, B_K, ONE>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                TL::RING > epi ? TL::RING : epi);
+  });
+  if (limit != cudaSuccess) return limit;
+  const long long grid_tiles =
+      (long long)((M + TL::BM - 1) / TL::BM) * ((N + TL::BN - 1) / TL::BN);
+  if (grid_tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int nst = (K + tc::kKS - 1) / tc::kKS;
+  const int live = K < tc::kKS ? (K + kKT - 1) / kKT : kWarps;
+  dim3 grid((unsigned)grid_tiles, batch_grid(batch));
+  bmm_seq_kernel<T, TL, A_K, B_K, ONE>
+      <<<grid, kThreads, seq_smem<TL, T>(live * nst, out_f32), s>>>(
+          A, B, C, batch, M, N, K, st, a_vec, b_vec, out_f32);
+  return cudaSuccess;
+}
+
+// How an operand is copied (mirrored by kernels/ops.py:
+// batched_matmul_copy): 16-byte cp.async along its contiguous index, where
+// that is B's n or A's k (kRows) or B's k or A's m (kColumns); else element
+// by element.  A vector copy needs its chunk of 8 aligned and wholly
+// inside or wholly outside the matrix.
+enum CopyMode { kElements = 0, kRows = 1, kColumns = 2 };
+
+// The copy mode of an operand whose index ``row`` (B's n, A's k) is
+// ``s_row`` apart, ``col`` (B's k, A's m) ``s_col`` apart, ``s_batch``
+// between batches, with extents ``n_row``, ``n_col``.  The k-tile keeps
+// the layout the copy reads: kRows B as [k][n] and A as [m][k], kColumns
+// B as [n][k] and A as [k][m].
 int copy_mode(const void* p, long long s_row, long long s_col,
               long long s_batch, int n_row, int n_col) {
   if (!aligned16(p) || s_batch % 8) return kElements;
@@ -455,6 +916,33 @@ int copy_mode(const void* p, long long s_row, long long s_col,
   return kElements;
 }
 
+// bmm_seq_kernel for one tile: the slot layouts follow the copy modes (an
+// element copy keeps the layout of whichever index is contiguous)
+template <typename T, class TL, bool ONE>
+cudaError_t launch_seq_tile(const T* A, const T* B, void* C, int batch,
+                            int M, int N, int K, const Strides& st,
+                            int a_mode, int b_mode, bool out_f32,
+                            cudaStream_t s) {
+  const bool a_k = a_mode == kRows ||
+                   (a_mode == kElements && !(st.sam == 1 && st.sak != 1));
+  const bool b_k = b_mode == kColumns ||
+                   (b_mode == kElements && st.sbk == 1 && st.sbn != 1);
+  const bool a_vec = a_mode != kElements, b_vec = b_mode != kElements;
+  if (a_k && b_k)
+    return launch_seq<T, TL, true, true, ONE>(A, B, C, batch, M, N, K, st,
+                                              a_vec, b_vec, out_f32, s);
+  if (a_k)
+    return launch_seq<T, TL, true, false, ONE>(A, B, C, batch, M, N, K, st,
+                                               a_vec, b_vec, out_f32, s);
+  if (b_k)
+    return launch_seq<T, TL, false, true, ONE>(A, B, C, batch, M, N, K, st,
+                                               a_vec, b_vec, out_f32, s);
+  return launch_seq<T, TL, false, false, ONE>(A, B, C, batch, M, N, K, st,
+                                              a_vec, b_vec, out_f32, s);
+}
+
+// the 16-bit kernels and tiles, mirrored by kernels/ops.py:
+// batched_matmul_plan
 template <typename T>
 cudaError_t launch_16bit(const void* a, const void* b, void* c, int batch,
                          int M, int N, int K, const Strides& st, bool out_f32,
@@ -463,10 +951,17 @@ cudaError_t launch_16bit(const void* a, const void* b, void* c, int batch,
   const T* B = static_cast<const T*>(b);
   const int a_mode = copy_mode(A, st.sak, st.sam, st.sab, K, M);
   const int b_mode = copy_mode(B, st.sbn, st.sbk, st.sbb, N, K);
-  return tc::with_matmul_tile(M, N, [&](auto tile) {
-    return launch_tc<T, decltype(tile)>(A, B, c, batch, M, N, K, st, a_mode,
-                                        b_mode, out_f32, s);
-  });
+  if (K <= kKT)   // one lane (the paged write)
+    return launch_seq_tile<T, SeqTile<128, 128, 2, 2, 1>, true>(
+        A, B, c, batch, M, N, K, st, a_mode, b_mode, out_f32, s);
+  if (M <= 16)
+    return launch_seq_tile<T, SeqTile<16, 128, 1, 3, 4>, false>(
+        A, B, c, batch, M, N, K, st, a_mode, b_mode, out_f32, s);
+  if (M <= 64)
+    return launch_seq_tile<T, SeqTile<64, 32, 4, 3, 4>, false>(
+        A, B, c, batch, M, N, K, st, a_mode, b_mode, out_f32, s);
+  return launch_seq_tile<T, SeqTile<128, 128, 2, 3, 4>, false>(
+      A, B, c, batch, M, N, K, st, a_mode, b_mode, out_f32, s);
 }
 
 }  // namespace
@@ -487,8 +982,8 @@ extern "C" int repro_batched_matmul(const void* a, const void* b, void* c,
     case kF32:
       if (out_f32)
         err = launch_f32(static_cast<const float*>(a),
-                         static_cast<const float*>(b), c, batch, M, N, K, st,
-                         s);
+                         static_cast<const float*>(b), static_cast<float*>(c),
+                         batch, M, N, K, st, s);
       break;
     case kBF16:
       err = launch_16bit<__nv_bfloat16>(a, b, c, batch, M, N, K, st,

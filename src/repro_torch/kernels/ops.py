@@ -335,32 +335,62 @@ def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],
 # -- batched matmul -----------------------------------------------------------------
 # mirrors csrc/batched_matmul.cu.  f32: k in chunks of 256, each chunk one
 # fmaf chain and the chunk sums added in order; register tiles sized by M
-# (BMM_F32_TILES: rows, columns, k per shared-memory tile), and a block
-# per output (the chunks in parallel) for at most 8192 outputs over
-# K >= 2048.  bf16/f16: matmul's tensor-core mainloop and tiles
-# (tc_tile).  A grid of (output tiles, batch blocks) whose blocks walk the
-# batches past 65535.
+# and N (BMM_F32_TILES) with k tiles through a cp.async ring, and a
+# cluster of BMM_SPLIT_CLUSTER blocks per output (the chunks in parallel,
+# block 0 adding their sums in order) for at most 8192 outputs over K >=
+# 2048.  bf16/f16: matmul's K order (tc_gemm.cuh), its lanes run in
+# sequence in every warp over 32-deep k-tiles (BMM_SEQ_TILES).  A grid of
+# (output tiles, batch blocks) whose blocks walk the batches past 65535.
 BMM_CHUNK = 256
-# (most rows, (rows, columns, k tile)) in order
-BMM_F32_TILES = ((1, (2, 128, 64)), (4, (4, 64, 64)), (16, (16, 64, 32)),
-                 (None, (64, 64, 32)))
+# (most rows, (rows, columns, k tile, threads, stages)) in order; the
+# last only where N > 64 too (else the one before it)
+BMM_F32_TILES = ((1, (1, 64, 32, 64, 4)), (4, (4, 16, 32, 64, 4)),
+                 (16, (16, 64, 32, 256, 3)), (64, (64, 64, 32, 256, 3)),
+                 (None, (128, 128, 16, 256, 3)))
 BMM_SPLIT_MAX_OUTPUTS = 8192
 BMM_SPLIT_MIN_K = 8 * BMM_CHUNK
+BMM_SPLIT_CLUSTER = 8     # blocks per output
+BMM_SPLIT_ROUND = 32      # chunks a block stages at a time
+BMM_SPLIT_SMEM = (2 * BMM_SPLIT_ROUND * (BMM_CHUNK + 1) + BMM_SPLIT_ROUND) * 4
 BMM_BATCH_GRID = 65535
+# the lanes in sequence: (most rows, (rows, columns, warps along m,
+# stages, k-tiles a stage)) in order, after one lane (K <= 32: the paged
+# write) on BMM_SEQ_ONE; a k-tile is one lane's 32 k at one stage of the
+# order
+BMM_SEQ_K = TC_WARP_K
+BMM_SEQ_ONE = (128, 128, 2, 2, 1)
+BMM_SEQ_TILES = ((16, (16, 128, 1, 3, 4)), (64, (64, 32, 4, 3, 4)),
+                 (None, (128, 128, 2, 3, 4)))
+
+
+def bmm_seq_smem(bm: int, bn: int, stages: int, kg: int, k: int,
+                 out_f32: bool) -> int:
+    """Dynamic shared memory of one launch of the lanes in sequence
+    (csrc's ``seq_smem``): the stages its k-tiles fill, at most
+    ``stages``, and at least the epilogue's staged tile (rows of ``bn``
+    outputs and 16 bytes)."""
+    tiles = (-(-k // TC_WARP_K) if k < TC_KS else _WARPS) * -(-k // TC_KS)
+    ring = min(stages, -(-tiles // kg)) * kg * BMM_SEQ_K * (bm + bn) * 2
+    osize = 4 if out_f32 else 2
+    return max(ring, bm * (bn * osize + 16))
 
 
 class BatchedMatmulPlan(NamedTuple):
     route: str        # "tensor_core" (both bf16 or both f16) or "cuda_core"
     bm: int           # rows per block
     bn: int           # columns per block
-    grid: Tuple[int, int]   # (output tiles, batch blocks)
-    stages: int       # cp.async ring depth (0: no ring)
-    k_stage: int      # k per stage or shared-memory tile
+    grid: Tuple[int, int]   # (output tiles [x cluster], batch blocks)
+    stages: int       # cp.async ring depth (0: none)
+    k_stage: int      # the K order's stage (tensor cores) or the k tile
     smem: int         # dynamic shared-memory bytes per block
-    a_copy: str       # A's stage copies: "rows", "columns" or "elements"
-    b_copy: str       # B's stage copies (see batched_matmul_copy)
+    a_copy: str       # A's copies: "rows", "columns" or "elements" (16-bit,
+    b_copy: str       # see batched_matmul_copy), "vectors" or "elements"
     lanes: int        # partial sums per output, added in lane order
     lane_k: int       # consecutive k a lane takes per stage
+    kernel: str = ""  # the device function (chip_smoke's KERNEL_FUNCS)
+    ring_k: int = 0   # k per ring stage or shared-memory tile
+    threads: int = _THREADS   # per block
+    cluster: int = 1  # blocks per cluster
 
 
 def batched_matmul_supported(batch: int, m: int, n: int, k: int,
@@ -376,13 +406,15 @@ def batched_matmul_supported(batch: int, m: int, n: int, k: int,
 
 def batched_matmul_copy(s_row: int, s_col: int, s_batch: int, n_row: int,
                         n_col: int, aligned: bool = True) -> str:
-    """How the 16-bit route copies an operand's stage (csrc's
-    ``copy_mode``): ``"rows"`` (16-byte cp.async along the ring's rows,
-    B's n or A's k, where that index is contiguous), ``"columns"``
-    (16-byte loads along the other index, stored element by element: a
-    transposed operand) or ``"elements"``.  A vector needs a 16-byte
-    aligned start, batch stride and cross stride in whole 8-element
-    chunks, and an extent along it in whole chunks."""
+    """How the 16-bit route copies an operand (csrc's ``copy_mode``; A's
+    row index is k, B's is n): ``"rows"`` (16-byte cp.async along the
+    row index, where it is contiguous), ``"columns"`` (16-byte vectors
+    along the other index: a transposed operand, A as (K, M) or B as (N,
+    K)) or ``"elements"``.  A k-tile keeps the layout the copy reads,
+    rows or columns, and ldmatrix or ldmatrix.trans takes each fragment
+    from it, so no copy transposes in registers.  A vector needs a
+    16-byte aligned start, batch stride and cross stride in whole
+    8-element chunks, and an extent along it in whole chunks."""
     if not aligned or s_batch % 8:
         return "elements"
     if s_row == 1 and s_col % 8 == 0 and n_row % 8 == 0:
@@ -392,36 +424,67 @@ def batched_matmul_copy(s_row: int, s_col: int, s_batch: int, n_row: int,
     return "elements"
 
 
+def batched_matmul_f32_copy(s_x: int, s_k: int, s_batch: int, n_x: int,
+                            aligned: bool = True) -> str:
+    """How the f32 tiles copy an operand's k tile into ``[k][x]`` (x is
+    A's m or B's n): ``"vectors"`` (16-byte cp.async along a contiguous
+    x, rows and batches on 16 bytes, an extent in whole vectors) or
+    ``"elements"`` (4-byte cp.async, the threads along the contiguous
+    index)."""
+    if aligned and s_x == 1 and s_k % 4 == 0 and s_batch % 4 == 0 and \
+            n_x % 4 == 0:
+        return "vectors"
+    return "elements"
+
+
+def _f32_tile(m: int, n: int) -> Tuple[int, int, int, int, int]:
+    for i, (most, tile) in enumerate(BMM_F32_TILES):
+        if most is None:
+            return tile if n > 64 else BMM_F32_TILES[i - 1][1]
+        if m <= most:
+            return tile
+    raise AssertionError("unreachable")
+
+
 def batched_matmul_plan(batch: int, m: int, n: int, k: int,
                         dtype: torch.dtype, a_trans: bool = False,
-                        b_trans: bool = False) -> BatchedMatmulPlan:
+                        b_trans: bool = False,
+                        out_f32: bool = True) -> BatchedMatmulPlan:
     """How csrc/batched_matmul.cu launches ``(batch, m, k) @ (batch, k,
     n)`` on dense operands, A given as (k, m) when ``a_trans`` and B as
     (n, k) when ``b_trans`` (read through strides, not copied), each
-    16-byte aligned.  ``dtype`` is the operands' type (f32 for a mixed
-    pair).  The K order (:func:`batched_matmul_k_order`) is a function
-    of ``k`` and the route alone."""
+    16-byte aligned, into an f32 output (else the operands' 16-bit type).
+    ``dtype`` is the operands' type (f32 for a mixed pair).  The K order
+    (:func:`batched_matmul_k_order`) is a function of ``k`` and the route
+    alone."""
     bb = min(batch, BMM_BATCH_GRID)
     if dtype == torch.float32:
         chunks = -(-k // BMM_CHUNK)
         if k >= BMM_SPLIT_MIN_K and batch * m * n <= BMM_SPLIT_MAX_OUTPUTS:
-            return BatchedMatmulPlan("cuda_core", 1, 1, (m * n, bb), 0,
-                                     BMM_CHUNK, 0, "elements", "elements",
-                                     chunks, BMM_CHUNK)
-        bm, bn, bk = next(t for most, t in BMM_F32_TILES
-                          if most is None or m <= most)
-        return BatchedMatmulPlan("cuda_core", bm, bn,
-                                 (-(-m // bm) * -(-n // bn), bb), 0, bk, 0,
-                                 "elements", "elements", chunks, BMM_CHUNK)
-    bm, bn, stages = tc_tile(m, n)
+            return BatchedMatmulPlan(
+                "cuda_core", 1, 1, (m * n * BMM_SPLIT_CLUSTER, bb), 0,
+                BMM_CHUNK, BMM_SPLIT_SMEM, "elements", "elements", chunks,
+                BMM_CHUNK, "bmm_f32_split_kernel", BMM_CHUNK, _THREADS,
+                BMM_SPLIT_CLUSTER)
+        bm, bn, bk, threads, stages = _f32_tile(m, n)
+        a_copy = batched_matmul_f32_copy(1 if a_trans else k,
+                                         m if a_trans else 1, m * k, m)
+        b_copy = batched_matmul_f32_copy(k if b_trans else 1,
+                                         1 if b_trans else n, k * n, n)
+        return BatchedMatmulPlan(
+            "cuda_core", bm, bn, (-(-m // bm) * -(-n // bn), bb), stages, bk,
+            stages * bk * (bm + bn + 8) * 4, a_copy, b_copy, chunks,
+            BMM_CHUNK, "bmm_f32_kernel", bk, threads)
     a_copy = batched_matmul_copy(m if a_trans else 1, 1 if a_trans else k,
                                  m * k, k, m)
     b_copy = batched_matmul_copy(k if b_trans else 1, 1 if b_trans else n,
                                  k * n, n, k)
-    return BatchedMatmulPlan("tensor_core", bm, bn,
-                             (-(-m // bm) * -(-n // bn), bb), stages, TC_KS,
-                             tc_smem_bytes(bm, bn, stages), a_copy, b_copy,
-                             _WARPS, TC_WARP_K)
+    bm, bn, _, stages, kg = BMM_SEQ_ONE if k <= BMM_SEQ_K else next(
+        t for most, t in BMM_SEQ_TILES if most is None or m <= most)
+    return BatchedMatmulPlan(
+        "tensor_core", bm, bn, (-(-m // bm) * -(-n // bn), bb), stages,
+        TC_KS, bmm_seq_smem(bm, bn, stages, kg, k, out_f32), a_copy, b_copy,
+        _WARPS, TC_WARP_K, "bmm_seq_kernel", kg * BMM_SEQ_K)
 
 
 def batched_matmul_k_order(plan: BatchedMatmulPlan,

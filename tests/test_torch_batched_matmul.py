@@ -113,7 +113,7 @@ def test_k_order_does_not_depend_on_batch_m_or_n(k, dtype):
             blocks.add((plan.bm, plan.bn))
     assert len(orders) == 1
     if dtype == torch.float32 and k >= kops.BMM_SPLIT_MIN_K:
-        assert len(blocks) == 5   # four tiles and the split kernel
+        assert len(blocks) == 6   # five tiles and the split kernel
     (order,) = orders
     assert sorted(kk for lane in order for kk in lane) == list(range(k))
     assert all(list(lane) == sorted(lane) for lane in order)
@@ -270,3 +270,127 @@ def test_plan_copies_each_layout_as_csrc_does(batch, m, n, k, a_t, b_t,
     plan = kops.batched_matmul_plan(batch, m, n, k, torch.bfloat16, a_t,
                                     b_t)
     assert (plan.a_copy, plan.b_copy) == want
+
+
+# -- the plan at the main path's shapes ---------------------------------------
+# (batch, M, N, K, type, A as (K, M), B as (N, K)) -> (kernel, rows,
+# columns, grid, stages, k per ring stage, threads, cluster, A's copy,
+# B's copy)
+NAMED_PLANS = {
+    # phase 4's paged write: the one-hot mask of 4 slots over 65 pages of
+    # 16 rows, read as (K, M), against the slots' new rows
+    "paged write": ((1, 1040, 4096, 4, torch.bfloat16, True, False),
+                    ("bmm_seq_kernel", 128, 128, (9 * 32, 1), 2, 32, 256, 1,
+                     "columns", "rows")),
+    # phase 8's backward: dX against a transposed weight, dW from a
+    # transposed activation
+    "train dX": ((1, 2048, 4096, 4096, torch.bfloat16, False, True),
+                 ("bmm_seq_kernel", 128, 128, (16 * 32, 1), 3, 128, 256, 1,
+                  "rows", "columns")),
+    "train dW": ((1, 4096, 11008, 2048, torch.bfloat16, True, False),
+                 ("bmm_seq_kernel", 128, 128, (32 * 86, 1), 3, 128, 256, 1,
+                  "columns", "rows")),
+    # deepseek-v3's expert FFN at decode: 16-row tiles, stages of four
+    # k-tiles
+    "expert FFN up": ((256, 8, 2048, 7168, torch.bfloat16, False, False),
+                      ("bmm_seq_kernel", 16, 128, (16, 256), 3, 128, 256, 1,
+                       "rows", "rows")),
+    # a 64-row prefill chunk's bf16 p.V: 64 x 32 tiles, 128 blocks
+    "chunk p.V bf16": ((32, 64, 128, 256, torch.bfloat16, False, False),
+                       ("bmm_seq_kernel", 64, 32, (4, 32), 3, 128, 256, 1,
+                        "rows", "rows")),
+    # bf16 decode scores: one query row against 256 keys, K = d_head
+    "bf16 decode q.k^T": ((128, 1, 256, 128, torch.bfloat16, False, True),
+                          ("bmm_seq_kernel", 16, 128, (2, 128), 3, 128, 256,
+                           1, "rows", "columns")),
+    # the paged decode's f32 attention: one row and 64 columns a block of
+    # 64 threads; the cache's columns of p.V in 16-byte vectors
+    "decode q.k^T": ((128, 1, 256, 128, torch.float32, False, True),
+                     ("bmm_f32_kernel", 1, 64, (4, 128), 4, 32, 64, 1,
+                      "elements", "elements")),
+    "decode p.V": ((128, 1, 128, 256, torch.float32, False, False),
+                   ("bmm_f32_kernel", 1, 64, (2, 128), 4, 32, 64, 1,
+                    "elements", "vectors")),
+    # phase 15's xlstm: 64 blocks of 4 x 16 outputs, not 16 of 4 x 64
+    "xlstm sLSTM backward": ((4, 4, 256, 1024, torch.float32, False, False),
+                             ("bmm_f32_kernel", 4, 16, (16, 4), 4, 32, 64, 1,
+                              "elements", "vectors")),
+    "train scores f32": ((128, 512, 512, 128, torch.float32, False, True),
+                         ("bmm_f32_kernel", 128, 128, (16, 128), 3, 16, 256,
+                          1, "elements", "elements")),
+    # the sampler's pick: a cluster of 8 blocks per output
+    "sampler pick": ((4, 1, 1, 102400, torch.float32, False, False),
+                     ("bmm_f32_split_kernel", 1, 1, (8, 4), 0, 256, 256, 8,
+                      "elements", "elements")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NAMED_PLANS))
+def test_plan_at_the_main_paths_shapes(name):
+    (batch, m, n, k, dt, a_t, b_t), want = NAMED_PLANS[name]
+    p = kops.batched_matmul_plan(batch, m, n, k, dt, a_t, b_t)
+    assert (p.kernel, p.bm, p.bn, p.grid, p.stages, p.ring_k, p.threads,
+            p.cluster, p.a_copy, p.b_copy) == want
+    assert p.smem <= kops._SMEM
+    if p.kernel == "bmm_seq_kernel":   # the ring holds 32-deep k-tiles
+        assert p.ring_k % 32 == 0
+        assert p.k_stage == kops.TC_KS and p.lanes == 8 and p.lane_k == 32
+
+
+def test_seq_shared_memory_follows_the_k_tiles_and_the_epilogue():
+    """The lanes in sequence take the ring's stages their k-tiles fill
+    and at least the staged output tile: the paged write (one k-tile)
+    needs 16 KB of ring but 34 KB of bf16 tile; phase 8's dW the whole
+    3-stage ring of four k-tiles a stage."""
+    plan = kops.batched_matmul_plan
+    bf = torch.bfloat16
+    assert plan(1, 1040, 4096, 4, bf, True, False, out_f32=False).smem == \
+        128 * (128 * 2 + 16)
+    assert plan(1, 1040, 4096, 4, bf, True, False).smem == \
+        128 * (128 * 4 + 16)
+    assert plan(1, 4096, 11008, 2048, bf, True, False).smem == \
+        3 * 4 * 32 * 256 * 2
+    # K 64: two k-tiles, one stage of the 64 x 32 tile's four
+    assert plan(8, 40, 256, 64, bf).smem == 4 * 32 * (64 + 32) * 2
+
+
+def _plans_over(k, dtype):
+    """Plans at shapes that reach every kernel and tile of ``dtype``'s
+    route, at contraction ``k``."""
+    shapes = [(1, 1, 1), (4, 1, 1), (128, 1, 256), (4, 4, 256), (3, 5, 13),
+              (8, 16, 64), (64, 9, 64), (32, 64, 40), (2, 65, 72),
+              (1, 128, 64), (2, 130, 200), (1, 2048, 4096),
+              (1, 1040, 4096), (256, 8, 2048), (70000, 17, 9)]
+    return [kops.batched_matmul_plan(b, m, n, k, dtype, a_t, b_t)
+            for b, m, n in shapes for a_t in (False, True)
+            for b_t in (False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 4, 31, 32, 200, 256, 300, 1024, 4096,
+                               5000])
+def test_k_order_is_the_stated_one_for_every_kernel_and_tile(k, dtype):
+    """Every kernel and tile the plan gives at ``k`` sums in one order,
+    the one the kernel states (``batched_matmul_k_order``): f32 chunks of
+    256 in order, each ascending; 16-bit lanes w = 0..7, lane w the k
+    with k // 32 % 8 == w in ascending k, whatever the tile."""
+    plans = _plans_over(k, dtype)
+    if dtype == torch.float32:
+        want = tuple(tuple(range(c, min(c + 256, k)))
+                     for c in range(0, k, 256))
+    else:
+        want = tuple(tuple(kk for kk in range(k) if kk // 32 % 8 == w)
+                     for w in range(8))
+    kernels = {(p.kernel, p.bm, p.bn) for p in plans}
+    for p in plans:
+        assert kops.batched_matmul_k_order(p, k) == want, p
+    if dtype == torch.float32:
+        assert {kk for kk, _, _ in kernels} >= {"bmm_f32_kernel"}
+        if k >= kops.BMM_SPLIT_MIN_K:
+            assert ("bmm_f32_split_kernel", 1, 1) in kernels
+    else:   # one kernel; one lane on one tile, else a tile by M
+        assert {kk for kk, _, _ in kernels} == {"bmm_seq_kernel"}
+        assert kernels == ({("bmm_seq_kernel", 128, 128)} if k <= 32 else
+                           {("bmm_seq_kernel", 16, 128),
+                            ("bmm_seq_kernel", 64, 32),
+                            ("bmm_seq_kernel", 128, 128)})

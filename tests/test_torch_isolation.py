@@ -23,7 +23,8 @@ SCRIPTS = [os.path.join(ROOT, "scripts", f"{n}.py")
                      "torch_serving_matrix", "torch_probe_buffers",
                      "torch_make_tables", "torch_smoke_all",
                      "torch_bench", "torch_bench_to_json",
-                     "torch_prefix_shapes", "torch_phase_times")]
+                     "torch_prefix_shapes", "torch_phase_times",
+                     "torch_bmm_bits")]
 # the examples whose work sits behind ``if __name__ == "__main__"``: the
 # probe imports them; torch_quickstart and torch_bridge_demo run when
 # imported, and tests/test_torch_tooling.py runs them isolated
