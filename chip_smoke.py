@@ -628,14 +628,25 @@ def kernel_cases(gen):
     mm("prefill unembed (1x4096)@(4096x102400)", 1, D, V, bf)
     mm("dense prefill (512x4096)@(4096x4096)", DENSE, D, D, bf)
     mm("f32 (4x4096)@(4096x4096)", SLOTS, D, D, f32)
+    # the f32 route's arrangements: register tiles at a prefill's rows (a
+    # 32-token prompt, 4 x 16 and 4 x 32: phase 14's f32 prefill), the
+    # chunk lanes over the unembed's 102400 columns
+    for m in F32_PREFILL_ROWS:
+        mm(f"f32 prefill ({m}x4096)@(4096x4096)", m, D, D, f32)
+    mm("f32 prefill unembed (1x4096)@(4096x102400)", 1, D, V, f32)
     nm("decode qkv (4x4096)(4096x4096)", SLOTS, D, bf)
     nm("decode final+unembed (4x4096)(4096x102400) g f32", SLOTS, V, f32)
     nm("prefill qkv (64x4096)(4096x4096)", CHUNK, D, bf)
     nm("dense prefill qkv (512x4096)(4096x4096)", DENSE, D, bf)
+    # norm_matmul's f32 route (common.cuh's k-lanes), the next in the
+    # queue, at phase 14's f32 prefill rows
+    nm("f32 prefill qkv (128x4096)(4096x4096)", 128, D, f32, dt=f32)
     sw("decode (4x4096) F=11008", SLOTS, bf)
     sw("prefill (64x4096) F=11008", CHUNK, bf)
     sw("dense prefill (512x4096) F=11008", DENSE, bf)
     sw("f32 decode (4x4096) F=11008", SLOTS, f32)
+    for m in (32, 128):
+        sw(f"f32 prefill ({m}x4096) F=11008", m, f32)
     rn("decode pre-MLP (4x4096)", SLOTS, bf)
     rn("prefill final (64x4096) w f32", CHUNK, f32)
     rn("dense prefill (512x4096)", DENSE, bf)
@@ -679,6 +690,9 @@ def kernel_cases(gen):
     mx, v3 = get_config("mixtral-8x22b"), get_config("deepseek-v3-671b")
     mm(f"moe router f32 ({SLOTS}x{mx.d_model})@({mx.d_model}x"
        f"{mx.n_experts}) (mixtral)", SLOTS, mx.d_model, mx.n_experts, f32)
+    mm(f"moe router f32 ({MX_LONG}x{mx.d_model})@({mx.d_model}x"
+       f"{mx.n_experts}) (mixtral's long prefill)", MX_LONG, mx.d_model,
+       mx.n_experts, f32)
     kv_a = v3.kv_lora + v3.d_rope
     mm(f"moe wkv_a ({V3_ROWS}x{v3.d_model})@({v3.d_model}x{kv_a}) "
        f"(deepseek-v3)", V3_ROWS, v3.d_model, kv_a, bf)
@@ -825,12 +839,16 @@ def check_determinism(gen) -> None:
     def name(dt):
         return str(dt).split(".")[-1]
 
-    for dt in (bf, f32):
-        b = _rand((D, D), dt, gen, D ** -0.5)
-        probe_rows("matmul", name(dt),
-                   {1: 0, SLOTS: 2, CHUNK: 45, DENSE: 300},
-                   lambda a: km.matmul(a, b),
-                   lambda m: _rand((m, D), dt, gen))
+    b = _rand((D, D), bf, gen, D ** -0.5)
+    dense_pos = {1: 0, SLOTS: 2, CHUNK: 45, DENSE: 300}
+    probe_rows("matmul", name(bf), dense_pos,
+               lambda a: km.matmul(a, b), lambda m: _rand((m, D), bf, gen))
+    # f32: rows that cross every arrangement and tile of the f32 route
+    # (F32_PROBE_ROWS), the probe at another place each time
+    b = _rand((D, D), f32, gen, D ** -0.5)
+    probe_rows("matmul", name(f32),
+               _f32_probe_sizes(F32_PROBE_ROWS, dense_pos),
+               lambda a: km.matmul(a, b), lambda m: _rand((m, D), f32, gen))
     for dt, w_dt in ((bf, bf), (bf, f32), (f32, f32)):
         w = (1 + 0.1 * _rand((D,), f32, gen)).to(w_dt)
         probe_rows("rmsnorm", f"{name(dt)}/w {name(w_dt)}",
@@ -849,7 +867,8 @@ def check_determinism(gen) -> None:
         wu = _rand((D, F), dt, gen, D ** -0.5)
         wd = _rand((F, D), dt, gen, F ** -0.5)
         probe_rows("swiglu", name(dt),
-                   {1: 0, SLOTS: 2, CHUNK: 45, DENSE: 300},
+                   dense_pos if dt == bf
+                   else _f32_probe_sizes(F32_PROBE_ROWS, dense_pos),
                    lambda x: ks.swiglu(x, wg, wu, wd),
                    lambda m: _rand((m, D), dt, gen))
         check_swiglu_alternation(name(dt), wg, wu, wd, gen)
@@ -859,7 +878,9 @@ def check_determinism(gen) -> None:
     mx, v3 = get_config("mixtral-8x22b"), get_config("deepseek-v3-671b")
     d = v3.d_model
     router = _rand((mx.d_model, mx.n_experts), f32, gen, mx.d_model ** -0.5)
-    probe_rows("matmul", f"float32 router N={mx.n_experts}", moe_rows,
+    probe_rows("matmul", f"float32 router N={mx.n_experts}",
+               _f32_probe_sizes(F32_PROBE_ROWS + (V3_ROWS, MX_LONG),
+                                moe_rows),
                lambda a: km.matmul(a, router),
                lambda m: _rand((m, mx.d_model), f32, gen))
     wkv = _rand((d, v3.kv_lora + v3.d_rope), bf, gen, d ** -0.5)
@@ -888,9 +909,58 @@ def check_determinism(gen) -> None:
         window_decode_vs_prefill_rows=",".join(map(str, rows)),
         window_decode_vs_prefill="bitwise")
     check_bmm_determinism(gen)
+    check_f32_one_order(gen)
     check_in_capture(gen)
     check_fixed_order_scans(gen)
     check_linear_recurrence(gen)
+
+
+# f32 matmul and swiglu: row counts that cross each arrangement and tile
+# of matmul's f32 route (csrc/f32_gemm.cuh, ops.matmul_plan: the chunk
+# lanes' 1, 2 and 4 rows, the register tiles on both sides of 32 rows, and
+# at the router's 8 columns over 6144 the cluster per output up to 8 rows)
+# and swiglu's row tiles of 1, 4 and 16 (ops.row_tile)
+F32_PROBE_ROWS = (1, 2, 4, 5, 16, 17, 64, 65, 128, 129, DENSE)
+# phase 3's f32 prefill cases: a 32-token prompt, 4 x 16, 4 x 32
+F32_PREFILL_ROWS = (32, 64, 128)
+
+
+def _f32_probe_sizes(rows, kept) -> dict:
+    """{rows: the probe's position}: ``kept``'s positions where it names
+    the row count (the bf16 probes' places), else the last row at an odd
+    count (the ragged last tile or lane block) and 5/8 of the way in at
+    an even one (past the first tile), so the probe sits at another place
+    and in another block at each count."""
+    return {m: kept.get(m, m - 1 if m % 2 else 5 * m // 8) for m in rows}
+
+
+def check_f32_one_order(gen) -> None:
+    """One f32 order in the port: f32 ``matmul(a, b)`` gives bit for bit
+    ``batched_matmul(a[None], b[None])[0]`` (f32 out) at every row count
+    of :data:`F32_PROBE_ROWS` (deepseek-7b's wo, and mixtral's router,
+    with its 4,224-row prefill) and at the f32 unembed -- whichever
+    arrangement and tile each of the two kernels takes there."""
+    from repro_torch.kernels import batched_matmul as kb, matmul as km
+    from repro_torch.configs import get_config
+    f32 = torch.float32
+    mx = get_config("mixtral-8x22b")
+    shapes = [(m, D, D) for m in F32_PROBE_ROWS]
+    shapes += [(m, mx.d_model, mx.n_experts)
+               for m in F32_PROBE_ROWS + (MX_LONG,)]
+    shapes += [(1, D, V), (3, 40, 8), (17, 300, 24)]
+    for m, k, n in shapes:
+        a = _rand((m, k), f32, gen)
+        b = _rand((k, n), f32, gen, k ** -0.5)
+        mm = km.matmul(a, b)
+        bmm = kb.batched_matmul(a[None], b[None], f32)[0]
+        require(_bitwise(mm, bmm),
+                f"matmul f32 ({m}x{k})@({k}x{n}): differs from the batched "
+                f"kernel's f32 order: max |diff| "
+                f"{float((mm.double() - bmm.double()).abs().max())}")
+        del a, b, mm, bmm
+    say("determinism", kernel="matmul", dtype="float32",
+        one_order="matmul == batched_matmul bitwise",
+        shapes=",".join(f"{m}x{k}x{n}" for m, k, n in shapes))
 
 
 # the batched kernel's probe: batch counts and row counts of the paged
@@ -1277,11 +1347,14 @@ def _prompts(vocab: int, lengths, shared: int, seed: int = 0):
     return ps
 
 
-# each wrapper's device kernels (bf16 route) and how many one call
-# launches: norm_matmul's GEMM follows its inverse-RMS kernel, swiglu's
-# down product its gate/up kernel
+# each wrapper's device kernels (every route and arrangement) and how
+# many one call launches: norm_matmul's GEMM follows its inverse-RMS
+# kernel, swiglu's down product its gate/up kernel; matmul's f32 route is
+# one kernel whichever arrangement a shape takes (and none of its names
+# is the batched kernel's, so a profile's rows go to the right wrapper)
 KERNEL_FUNCS = {
-    "matmul": (("matmul_kernel", "matmul_tc_kernel"), 1),
+    "matmul": (("matmul_tc_kernel", "matmul_f32_kernel",
+                "matmul_f32_lanes_kernel", "matmul_f32_split_kernel"), 1),
     "norm_matmul": (("norm_matmul_kernel", "norm_matmul_inv_kernel",
                      "norm_matmul_tc_kernel"), 2),
     "swiglu": (("swiglu_gate_up_kernel", "swiglu_down_kernel",

@@ -1,23 +1,31 @@
-"""The fixed-order batched matmul's output bits at a fixed list of shapes,
-as sha256 digests, so that two checkouts can be shown to give the same
-bits on the card.  Operands are drawn from ``--seed`` with numpy (a pool
-of normal values, repeated on the card to the size each operand needs),
-launched through ``repro_torch.kernels.batched_matmul`` of the tree
-``--src`` names, and each output's bytes hashed.
+"""Output bits of the fixed-order batched matmul, and of the 16-bit routes
+of matmul and swiglu, at fixed lists of shapes, as sha256 digests, so
+that two checkouts can be shown to give the same bits on the card; with
+``--time``, the kernels' times at phase 3's shapes, so that one call on
+one card compares two checkouts' kernels.  Kernels come from
+``repro_torch.kernels`` of the tree ``--src`` names (the parent unpacked
+into a git-ignored directory):
 
-    python scripts/torch_bmm_bits.py --src build/parent/src --json results/bits_parent.json
-    python scripts/torch_bmm_bits.py --json results/bits_change.json
-    python scripts/torch_bmm_bits.py --compare results/bits_parent.json results/bits_change.json
+    python scripts/torch_bmm_bits.py --src build/parent/src --time --json results/p1.json
+    python scripts/torch_bmm_bits.py --time --json results/c1.json
+    python scripts/torch_bmm_bits.py --time --json results/c2.json
+    python scripts/torch_bmm_bits.py --src build/parent/src --time --json results/p2.json
+    python scripts/torch_bmm_bits.py --compare results/p1.json results/c1.json
 
-Each operand is a fresh (16-byte aligned) tensor, as the emitter hands
-them over; the grid's shapes at M 5 and 128 run again from operands at
-an odd element offset, which the kernels copy element by element.
-``--time`` also times each named shape as ``chip_smoke.py``'s phase 3
-does (the median of 20 launches, each after a 512 MB write that flushes
-L2 and keeps the card busy while the host enqueues), so that one call
-on one card compares the two trees' kernels.  ``--compare`` exits 1
-when a digest differs or a shape is missing.  Needs a card; the compare
-needs none.
+The batched kernel's operands are drawn from ``--seed`` with numpy (a
+pool of normal values, repeated on the card to the size each operand
+needs), each a fresh (16-byte aligned) tensor, as the emitter hands them
+over; the grid's shapes at M 5 and 128 run again from operands at an odd
+element offset, which the kernels copy element by element.  matmul's and
+swiglu's operands are drawn on the card from ``--seed``.  A time is
+``chip_smoke.py``'s phase 3 measure: the median of 20 launches, each
+timed with CUDA events after a 512 MB write that flushes L2 and keeps
+the card busy while the host enqueues; the timed shapes are the batched
+kernel's named ones and the f32 routes of matmul, swiglu and norm_matmul
+(whose f32 bits are not digested: an order may change them by design).
+``--compare`` prints each timed shape side by side and exits 1 when a
+digest differs or a shape is missing.  Needs a card; the compare needs
+none.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import hashlib
 import json
 import os
 import statistics
+import subprocess
 import sys
 
 # the named shapes: phase 3's cases of chip_smoke.py (batch, M, N, K,
@@ -58,6 +67,43 @@ POOL = 4194301   # a prime: the repeated pool lines up with no tile
 
 GRID_UNALIGNED_M = (5, 128)
 
+D, F, V = 4096, 11008, 102400
+# phase 3's f32 shapes of the other kernels, timed: (label, kernel,
+# shape): matmul (M, K, N), swiglu (M, D, F, Do), norm_matmul (M, D, N)
+KERNEL_TIMES = (
+    ("matmul decode (4x4096)@(4096x4096)", "matmul", (4, D, D)),
+    ("matmul one row (1x4096)@(4096x4096)", "matmul", (1, D, D)),
+    ("matmul prefill (32x4096)@(4096x4096)", "matmul", (32, D, D)),
+    ("matmul prefill (64x4096)@(4096x4096)", "matmul", (64, D, D)),
+    ("matmul prefill (128x4096)@(4096x4096)", "matmul", (128, D, D)),
+    ("matmul unembed (1x4096)@(4096x102400)", "matmul", (1, D, V)),
+    ("matmul router (4x6144)@(6144x8) mixtral", "matmul", (4, 6144, 8)),
+    ("matmul router (512x6144)@(6144x8) mixtral", "matmul", (512, 6144, 8)),
+    ("matmul router (4224x6144)@(6144x8) mixtral", "matmul",
+     (4224, 6144, 8)),
+    ("matmul router (4x7168)@(7168x256) deepseek-v3", "matmul",
+     (4, 7168, 256)),
+    ("matmul router (256x7168)@(7168x256) deepseek-v3", "matmul",
+     (256, 7168, 256)),
+    ("swiglu decode (4x4096) F=11008", "swiglu", (4, D, F, D)),
+    ("swiglu prefill (32x4096) F=11008", "swiglu", (32, D, F, D)),
+    ("swiglu prefill (64x4096) F=11008", "swiglu", (64, D, F, D)),
+    ("swiglu prefill (128x4096) F=11008", "swiglu", (128, D, F, D)),
+    ("norm_matmul decode (4x4096)(4096x4096)", "norm_matmul", (4, D, D)),
+    ("norm_matmul prefill (128x4096)(4096x4096)", "norm_matmul",
+     (128, D, D)),
+)
+# the 16-bit routes of matmul and swiglu, digested in bf16 and f16: rows
+# that take each tensor-core tile, at deepseek-7b's widths and at ragged
+# ones
+BITS_ROWS = (1, 4, 16, 17, 64, 65, 512)
+KERNEL_BITS = tuple(
+    [("matmul", (m, D, D)) for m in BITS_ROWS]
+    + [("matmul", (1, D, V)), ("matmul", (5, 96, 24)),
+       ("matmul", (65, 40, 8)), ("matmul", (3, 44, 16))]
+    + [("swiglu", (m, D, F, D)) for m in BITS_ROWS]
+    + [("swiglu", (17, 1000, 200, 24)), ("swiglu", (3, 44, 40, 16))])
+
 
 def shapes():
     """(label, (batch, M, N, K, type, A as (K, M), B as (N, K), out type),
@@ -79,9 +125,13 @@ def shapes():
 
 def compare(a_path: str, b_path: str) -> int:
     with open(a_path) as f:
-        a = json.load(f)["digests"]
+        a = json.load(f)
     with open(b_path) as f:
-        b = json.load(f)["digests"]
+        b = json.load(f)
+    for label, ms in a["ms"].items():
+        print(f"[bmm_bits] {label}: {ms:.4f} -> "
+              f"{b['ms'].get(label, float('nan')):.4f} ms")
+    a, b = a["digests"], b["digests"]
     bad = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
     for k in bad:
         print(f"[bmm_bits] DIFFERS {k}: {a.get(k)} vs {b.get(k)}")
@@ -98,7 +148,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", help="write the digests (and times) here")
     ap.add_argument("--time", action="store_true",
-                    help="also time the named shapes")
+                    help="also time the named shapes and KERNEL_TIMES")
     ap.add_argument("--compare", nargs=2, metavar="JSON")
     args = ap.parse_args(argv)
     if args.compare:
@@ -110,9 +160,14 @@ def main(argv=None) -> int:
         print("[bmm_bits] no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch.kernels import batched_matmul as kb
+    from repro_torch.kernels import batched_matmul as kb, matmul as km
+    from repro_torch.kernels import norm_matmul as kn, swiglu as ks
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
     print(f"[bmm_bits] src={os.path.abspath(args.src)} module={kb.__file__}"
-          f" device={torch.cuda.get_device_name(0)}", flush=True)
+          f" card={card!r}", flush=True)
     dts = {"f32": torch.float32, "bf16": torch.bfloat16}
     pool = torch.from_numpy(np.random.default_rng(args.seed).standard_normal(
         POOL).astype(np.float32)).cuda()
@@ -164,13 +219,51 @@ def main(argv=None) -> int:
             line += f" ms={times[label]:.4f}"
         print(line, flush=True)
         del a, b, o
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+
+    def r(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    def call(kernel, shape, dt):
+        if kernel == "matmul":
+            m, k, n = shape
+            a, b = r((m, k), dt), r((k, n), dt, k ** -0.5)
+            return lambda: km.matmul(a, b)
+        if kernel == "swiglu":
+            m, d, f, do = shape
+            x = r((m, d), dt)
+            wg, wu = r((d, f), dt, d ** -0.5), r((d, f), dt, d ** -0.5)
+            wd = r((f, do), dt, f ** -0.5)
+            return lambda: ks.swiglu(x, wg, wu, wd)
+        m, d, n = shape
+        x, w = r((m, d), dt), r((d, n), dt, d ** -0.5)
+        g = 1 + 0.1 * r((d,), torch.float32)
+        return lambda: kn.norm_matmul(x, g, w, 1e-6)
+
+    for label, kernel, shape in KERNEL_TIMES if args.time else ():
+        times[label] = timed(call(kernel, shape, torch.float32), flush)
+        print(f"[bmm_bits] {label} ms={times[label]:.4f}", flush=True)
+        torch.cuda.empty_cache()
+    for kernel, shape in KERNEL_BITS:
+        for dt in (torch.bfloat16, torch.float16):
+            out = call(kernel, shape, dt)()
+            torch.cuda.synchronize()
+            label = f"{kernel} {'x'.join(map(str, shape))} {dt}"
+            digests[label] = hashlib.sha256(
+                out.contiguous().view(torch.uint8).cpu().numpy()
+                .tobytes()).hexdigest()
+            print(f"[bmm_bits] {label} sha256={digests[label]}", flush=True)
+            del out
+        torch.cuda.empty_cache()
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"src": os.path.abspath(args.src), "seed": args.seed,
-                       "device": torch.cuda.get_device_name(0),
-                       "digests": digests, "ms": times}, f, indent=1)
+                       "card": card, "digests": digests, "ms": times}, f,
+                      indent=1)
     print(f"[bmm_bits] {len(digests)} shapes", flush=True)
     return 0
 

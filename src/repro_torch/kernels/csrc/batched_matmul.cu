@@ -71,14 +71,11 @@
 //     memory (the sampler's pick of one logit out of the vocabulary).
 // wgmma is not used: nothing documents that its sum within a k16 step is
 // mma.sync's, and the order names mma.sync's chain.
-#include <cooperative_groups.h>
-
-#include "tc_gemm.cuh"
+#include "f32_gemm.cuh"
 
 namespace {
 
 using namespace repro;
-namespace cg = cooperative_groups;
 
 // A element (b, m, k) at A[b * sab + m * sam + k * sak]; B element
 // (b, k, n) at B[b * sbb + k * sbk + n * sbn].
@@ -92,257 +89,53 @@ unsigned batch_grid(long long rows) {
   return (unsigned)(rows < kBatchGrid ? rows : kBatchGrid);
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// 4 bytes global -> shared; with ``valid`` false nothing is read and the
-// destination is zero
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   tc::smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 // -- f32: the CUDA cores ---------------------------------------------------
-// The f32 order: k in chunks of kChunk; each chunk is one fmaf chain in
-// ascending k from +0, and the chunk sums are added in chunk order to a
-// total that starts at +0.  Two kernels run it -- register tiles, and a
-// cluster per output for few outputs over a long K (the chunks in
-// parallel) -- so which one a shape takes changes no bit.
-constexpr int kChunk = 256;
-// outputs (all batches) up to which a K of at least kSplitMinK runs its
-// chunks in parallel, one cluster per output
+// The f32 order and its arrangements are f32_gemm.cuh's.  Two of them run
+// here -- register tiles, and a cluster per output for few outputs over a
+// long K (the chunks in parallel) -- so which one a shape takes changes no
+// bit.  Outputs (all batches) up to which a K of at least kSplitMinK runs
+// its chunks in parallel, one cluster per output:
 constexpr long long kSplitMaxOutputs = 8192;
-constexpr int kSplitMinK = 8 * kChunk;
 
-// A BM x BN output tile, TM x TN outputs a thread, THREADS threads, k in
-// tiles of BK through a ring of STAGES stages in shared memory: As[k][m]
-// and Bs[k][n], pitches BM + 4 and BN + 4 (16-byte rows).  Thread rows
-// and columns come in groups of 4 where TM (TN) is a multiple of 4, read
-// as float4, the groups BM / (TM / 4) apart; else one apart, BM / TM
-// apart.
-template <int BM_, int BN_, int TM_, int TN_, int BK_, int THREADS_,
-          int STAGES_>
-struct F32Tile {
-  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = BK_;
-  static constexpr int THREADS = THREADS_, STAGES = STAGES_;
-  static constexpr int AP = BM + 4, BP = BN + 4;
-  static constexpr int STAGE = BK * (AP + BP);   // floats
-  static constexpr int SMEM = STAGES * STAGE * 4;
-  static constexpr int TX = BN / TN;             // threads along n
-  static_assert((BM / TM) * (BN / TN) == THREADS, "one output tile");
-  static_assert(kChunk % BK == 0, "a k tile lies in one chunk");
-  static_assert(STAGES >= 2, "ring");
-};
+// f32_gemm.cuh's register tile with one group of threads, A as As[k][m]
+template <class TL>
+using BmmF32Tile = F32LaneTile<TL, 1, false>;
 
-template <int T, int B>
-__device__ __forceinline__ int f32_pos(int t, int i) {
-  if constexpr (T % 4 == 0)
-    return (i / 4) * (B / (T / 4)) + t * 4 + i % 4;
-  else
-    return t + i * (B / T);
-}
-
-template <int T, int B>
-__device__ __forceinline__ void f32_frag(const float* row, int t,
-                                         float (&v)[T]) {
-  if constexpr (T % 4 == 0) {
-#pragma unroll
-    for (int g = 0; g < T / 4; ++g) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(row + g * (B / (T / 4)) + t * 4);
-      v[g * 4] = x.x;
-      v[g * 4 + 1] = x.y;
-      v[g * 4 + 2] = x.z;
-      v[g * 4 + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < T; ++i) v[i] = row[t + i * (B / T)];
-  }
-}
-
-// Copies i = 0..N-1 of a k tile: ``copy(i)`` returns false past the
-// tile.  Unrolled, but rolled (ROLL) for the one-row tile, which streams
-// the bytes of B and then keeps more blocks on an SM.
-template <int N, bool ROLL, class F>
-__device__ __forceinline__ void f32_copies(F&& copy) {
-  if constexpr (ROLL) {
-#pragma unroll 1
-    for (int i = 0; i < N; ++i)
-      if (!copy(i)) break;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (!copy(i)) break;
-  }
-}
-
-// One k tile of an operand X (A: x = m; B: x = n) into Xs[k][x], pitch
-// XP, extent BX, from X(k, x) at p + k * sk + x * sx: 16-byte vectors
-// along x where ``vec`` (x contiguous, 16-byte aligned rows, an extent in
-// whole vectors), else 4-byte elements with the threads along whichever
-// index is contiguous.  Copy i of a thread keeps its place along the
-// threads' index and steps the other by THREADS / (that extent), so the
-// sources and places are a base and a fixed stride.
-template <int BX, int XP, int BK, int THREADS, bool ROLL>
-__device__ __forceinline__ void f32_load(float* xs, const float* p,
-                                         long long sk, long long sx, int x0,
-                                         int X, int k0, int K, bool vec) {
-  const int t = threadIdx.x;
-  if (BX % 4 == 0 && vec) {
-    constexpr int CX = BX % 4 == 0 ? BX / 4 : 1;   // vectors along x
-    static_assert(THREADS % CX == 0, "");
-    constexpr int STEP = THREADS / CX, N = (BK + STEP - 1) / STEP;
-    const int x = (t % CX) * 4, k = t / CX;
-    const bool xok = x0 + x < X;
-    const float* src = p + (k0 + k) * sk + x0 + x;
-    f32_copies<N, ROLL>([&](int i) {
-      if (BK % STEP && k + i * STEP >= BK) return false;
-      const bool ok = xok && k0 + k + i * STEP < K;
-      tc::cp_async16(xs + (k + i * STEP) * XP + x,
-                     ok ? src + i * STEP * sk : p, ok);
-      return true;
-    });
-  } else if (sx == 1) {   // the threads along x
-    constexpr int STEP = THREADS / BX, N = (BK + STEP - 1) / STEP;
-    static_assert(THREADS % BX == 0, "");
-    const int x = t % BX, k = t / BX;
-    const bool xok = x0 + x < X;
-    const float* src = p + (k0 + k) * sk + x0 + x;
-    f32_copies<N, ROLL>([&](int i) {
-      if (BK % STEP && k + i * STEP >= BK) return false;
-      const bool ok = xok && k0 + k + i * STEP < K;
-      cp_async4(xs + (k + i * STEP) * XP + x, ok ? src + i * STEP * sk : p,
-                ok);
-      return true;
-    });
-  } else {   // the threads along k
-    constexpr int STEP = THREADS / BK;
-    constexpr int N = (BX + STEP - 1) / STEP;
-    static_assert(THREADS % BK == 0, "");
-    const int k = t % BK, x = t / BK;
-    const bool kok = k0 + k < K;
-    const float* src = p + (k0 + k) * sk + (x0 + x) * sx;
-    f32_copies<N, ROLL>([&](int i) {
-      if (BX % STEP && x + i * STEP >= BX) return false;
-      const bool ok = kok && x0 + x + i * STEP < X;
-      cp_async4(xs + k * XP + x + i * STEP, ok ? src + i * STEP * sx : p,
-                ok);
-      return true;
-    });
-  }
-}
-
-// ONE: K <= 256, one chunk: the output is +0 plus its chain, and no
-// running total is kept (half the registers of the 8 x 8 tile: two blocks
-// an SM).
+// ONE: K <= 256, one chunk (f32_lane_tile)
 template <class TL, bool ONE>
 __global__ void __launch_bounds__(TL::THREADS,
                                   ONE && TL::THREADS == kThreads ? 2 : 1)
     bmm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    float* __restrict__ C, int batch, int M, int N, int K,
                    Strides st, bool a_vec, bool b_vec) {
-  constexpr int BM = TL::BM, BN = TL::BN, TM = TL::TM, TN = TL::TN;
-  constexpr int BK = TL::BK, STAGES = TL::STAGES, TX = TL::TX;
-  constexpr int AP = TL::AP, BP = TL::BP, STAGE = TL::STAGE;
+  constexpr int BM = TL::BM, BN = TL::BN, BK = TL::BK, AP = TL::AP;
   extern __shared__ __align__(16) float fsm[];
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int tiles_n = (N + BN - 1) / BN;
   const int m0 = (blockIdx.x / tiles_n) * BM;
   const int n0 = (blockIdx.x % tiles_n) * BN;
-  const int nk = (K + BK - 1) / BK;
   for (int b = blockIdx.y; b < batch; b += gridDim.y) {
     const float* Ab = A + b * st.sab;
     const float* Bb = B + b * st.sbb;
-    auto load = [&](int t) {
-      float* as = fsm + (t % STAGES) * STAGE;
-      f32_load<BM, AP, BK, TL::THREADS, BM == 1>(as, Ab, st.sak, st.sam,
-                                                 m0, M, t * BK, K, a_vec);
-      f32_load<BN, BP, BK, TL::THREADS, BM == 1>(as + BK * AP, Bb, st.sbk,
-                                                 st.sbn, n0, N, t * BK, K,
-                                                 b_vec);
-    };
-    float acc[TM][TN], tot[ONE ? 1 : TM][ONE ? 1 : TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        acc[i][j] = 0.f;
-        if constexpr (!ONE) tot[i][j] = 0.f;
-      }
-#pragma unroll
-    for (int t = 0; t < STAGES - 1; ++t) {
-      if (t < nk) load(t);
-      tc::cp_async_commit();
-    }
-    for (int t = 0; t < nk; ++t) {
-      tc::cp_async_wait<STAGES - 2>();   // tile t has landed
-      __syncthreads();                   // ... for all; slot t-1 is free
-      if (t + STAGES - 1 < nk) load(t + STAGES - 1);
-      tc::cp_async_commit();
-      const float* as = fsm + (t % STAGES) * STAGE;
-      const float* bs = as + BK * AP;
-      // one fmaf per output per k, in ascending k
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[TM], bv[TN];
-        f32_frag<TM, BM>(as + kk * AP, ty, a);
-        f32_frag<TN, BN>(bs + kk * BP, tx, bv);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      if constexpr (!ONE) {
-        const int k1 = (t + 1) * BK;
-        if (k1 % kChunk == 0 || k1 >= K) {   // a chunk ends
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-              tot[i][j] += acc[i][j];
-              acc[i][j] = 0.f;
-            }
-        }
-      }
-    }
-    tc::cp_async_wait<0>();
-    __syncthreads();   // the next batch's ring reuses the slots
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + f32_pos<TM, BM>(ty, i);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + f32_pos<TN, BN>(tx, j);
-        if (m < M && n < N) {
-          if constexpr (ONE)
-            C[((size_t)b * M + m) * N + n] = 0.f + acc[i][j];
-          else
-            C[((size_t)b * M + m) * N + n] = tot[i][j];
-        }
-      }
-    }
+    f32_lane_tile<BmmF32Tile<TL>, ONE>(
+        fsm, K,
+        [&](float* as, int k0, int t) {
+          f32_load<BM, AP, BK, TL::THREADS, BM == 1>(
+              as, Ab, st.sak, st.sam, m0, M, k0, K, a_vec, t);
+        },
+        [&](float* bs, int k0, int t) {
+          f32_load<BN, TL::BP, BK, TL::THREADS, BM == 1>(
+              bs, Bb, st.sbk, st.sbn, n0, N, k0, K, b_vec, t);
+        },
+        [&](int m, int n, float v) {
+          if (m0 + m < M && n0 + n < N)
+            C[((size_t)b * M + m0 + m) * N + n0 + n] = v;
+        });
   }
 }
 
 // Few outputs over a long K (the sampler's pick of one logit out of the
 // vocabulary: M = N = 1, K = 102400): a cluster of kSplitCluster blocks
-// per output.  In each round the cluster takes kSplitCluster *
-// kSplitRound chunks in order, block r the r-th run of kSplitRound; a
-// block stages its chunks of A's row and B's column in shared memory
-// (4-byte cp.async, the threads along k; rows of 257 floats, so the
-// chains below read 32 distinct banks), thread i runs chunk i's chain,
-// and thread 0 of block 0 adds the round's chunk sums in chunk order,
-// reading the other blocks' shared memory across the cluster.
-constexpr int kSplitCluster = 8;
-constexpr int kSplitRound = 32;
-constexpr int kSplitPitch = kChunk + 1;
-constexpr int kSplitSmem = (2 * kSplitRound * kSplitPitch + kSplitRound) * 4;
-
+// per output (f32_split_sum).
 __global__ void __cluster_dims__(kSplitCluster, 1, 1)
     __launch_bounds__(kThreads)
         bmm_f32_split_kernel(const float* __restrict__ A,
@@ -350,53 +143,13 @@ __global__ void __cluster_dims__(kSplitCluster, 1, 1)
                              float* __restrict__ C, int batch, int M, int N,
                              int K, Strides st) {
   extern __shared__ __align__(16) float ssm[];
-  float* sa = ssm;
-  float* sb = sa + kSplitRound * kSplitPitch;
-  float* part = sb + kSplitRound * kSplitPitch;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
   const int o = blockIdx.x / kSplitCluster;
   const int m = o / N, n = o % N;
-  const int chunks = (K + kChunk - 1) / kChunk;
-  constexpr int kPerRound = kSplitCluster * kSplitRound;
   for (int b = blockIdx.y; b < batch; b += gridDim.y) {
-    const float* a = A + b * st.sab + m * st.sam;
-    const float* bb = B + b * st.sbb + n * st.sbn;
-    float tot = 0.f;
-    for (int g = 0; g < chunks; g += kPerRound) {
-      const int c0 = g + rank * kSplitRound;
-      const int nc = max(0, min(kSplitRound, chunks - c0));
-      for (int e = threadIdx.x; e < nc * kChunk; e += kThreads) {
-        const int i = e / kChunk, kk = e % kChunk;
-        const int k = (c0 + i) * kChunk + kk;
-        const bool ok = k < K;
-        cp_async4(sa + i * kSplitPitch + kk, ok ? a + k * st.sak : a, ok);
-        cp_async4(sb + i * kSplitPitch + kk, ok ? bb + k * st.sbk : bb, ok);
-      }
-      tc::cp_async_commit();
-      tc::cp_async_wait<0>();
-      __syncthreads();
-      if (threadIdx.x < nc) {
-        const float* x = sa + threadIdx.x * kSplitPitch;
-        const float* y = sb + threadIdx.x * kSplitPitch;
-        const int len = min(kChunk, K - (c0 + threadIdx.x) * kChunk);
-        float acc = 0.f;
-#pragma unroll 8
-        for (int kk = 0; kk < len; ++kk) acc = fmaf(x[kk], y[kk], acc);
-        part[threadIdx.x] = acc;
-      }
-      cluster.sync();   // every block's chunk sums are in place
-      if (rank == 0 && threadIdx.x == 0) {
-        for (int r = 0; r < kSplitCluster; ++r) {
-          const int nr =
-              max(0, min(kSplitRound, chunks - (g + r * kSplitRound)));
-          const float* p = cluster.map_shared_rank(part, r);
-          for (int i = 0; i < nr; ++i) tot += p[i];
-        }
-      }
-      cluster.sync();   // ... and read: the next round may overwrite them
-    }
-    if (rank == 0 && threadIdx.x == 0)
+    const float tot = f32_split_sum(A + b * st.sab + m * st.sam, st.sak,
+                                    B + b * st.sbb + n * st.sbn, st.sbk, K,
+                                    ssm);
+    if (blockIdx.x % kSplitCluster == 0 && threadIdx.x == 0)
       C[((size_t)b * M + m) * N + n] = tot;
   }
 }
@@ -409,7 +162,7 @@ cudaError_t launch_f32_tile(const float* A, const float* B, float* C,
   const cudaError_t limit = once_per_device(limit_set, [] {
     return cudaFuncSetAttribute(bmm_f32_kernel<TL, ONE>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                TL::SMEM);
+                                BmmF32Tile<TL>::SMEM);
   });
   if (limit != cudaSuccess) return limit;
   const long long tiles =
@@ -424,7 +177,8 @@ cudaError_t launch_f32_tile(const float* A, const float* B, float* C,
   const bool b_vec = ok16 && st.sbn == 1 && st.sbk % 4 == 0 &&
                      st.sbb % 4 == 0 && N % 4 == 0;
   dim3 grid((unsigned)tiles, batch_grid(batch));
-  bmm_f32_kernel<TL, ONE><<<grid, TL::THREADS, TL::SMEM, s>>>(
+  bmm_f32_kernel<TL, ONE>
+      <<<grid, TL::THREADS, BmmF32Tile<TL>::SMEM, s>>>(
       A, B, C, batch, M, N, K, st, a_vec, b_vec);
   return cudaSuccess;
 }

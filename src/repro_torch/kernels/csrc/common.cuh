@@ -196,7 +196,9 @@ __device__ __forceinline__ float row_sumsq(const T* x, int d) {
   return ss;
 }
 
-// row-tile heights the GEMM kernels are instantiated for
+// row-tile heights of swiglu.cu's f32 route (gemm_partial above; matmul's
+// f32 route is f32_gemm.cuh's, norm_matmul's row tile comes from
+// kernels/ops.py)
 inline int pick_bm(int m) { return m <= 1 ? 1 : (m <= 4 ? 4 : 16); }
 
 // Launch ``kern`` (kThreads a block) as the programmatic dependent of the

@@ -44,12 +44,16 @@
 // Design, f32: CUDA-core FMAs (no TF32: f32 means f32), split the same
 // way.  swiglu_gate_up_f32_kernel computes a 32-column F slice of g, then
 // of u, with common.cuh's gemm_partial / reduce_k_lanes and writes h;
-// swiglu_down_f32_kernel is matmul.cu's f32 kernel on h and wd.
+// swiglu_down_f32_kernel runs the same k-lanes GEMM on h and wd
+// (kernels/ops.py:kline_plan), not matmul.cu's f32 order (f32_gemm.cuh):
+// with both on that order phase 15's vlm small-train gate fails (ROADMAP
+// Queue 3).
 //
-// Reduction order: g and u each in matmul's order for K = D, the down
-// product in matmul's order for K = F (tensor cores: tc_gemm.cuh's warp
-// slices; f32: gemm_partial's k-lanes).  Neither depends on M, the row's
-// position or the run: no split of K across blocks, no atomics.
+// Reduction order: tensor cores: g and u each in matmul's order for K =
+// D, the down product in matmul's order for K = F (tc_gemm.cuh's warp
+// slices); f32: gemm_partial's k-lanes for K = D and K = F.  Neither
+// depends on M, the row's position or the run: no split of K across
+// blocks, no atomics.
 #include "tc_gemm.cuh"
 
 namespace {

@@ -35,8 +35,10 @@ def _ok_dims(*dims: int) -> bool:
 
 
 def row_tile(m: int) -> int:
-    """Row-tile height the GEMM kernels are instantiated for (mirrors
-    ``pick_bm`` in csrc/common.cuh)."""
+    """Row-tile height of the f32 routes still on csrc/common.cuh's
+    ``gemm_partial``: swiglu's (``pick_bm``) and norm_matmul's
+    (norm_matmul.cu instantiates 1, 4 and 16 rows; :func:`_norm_f32_tile`
+    lowers it until the rows fit)."""
     return 1 if m <= 1 else (4 if m <= 4 else 16)
 
 
@@ -57,11 +59,18 @@ class MatmulPlan(NamedTuple):
     route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
     bm: int           # rows per block
     bn: int           # columns per block
-    grid: Tuple[int, int]   # (column tiles, row tiles)
+    grid: Tuple[int, int]   # (column tiles, row tiles); split: (blocks, 1)
     stages: int       # cp.async ring depth (0: no ring)
-    k_stage: int      # k per stage
+    k_stage: int      # k per stage (f32: the ring's k tile, or a chunk)
     smem: int         # dynamic shared-memory bytes per block
     b_evict_first: bool     # B's copies carry L2's evict-first policy
+    # f32: "tile" (register tiles), "lanes" (chunks in parallel a block)
+    # or "split" (a cluster per output); the tensor cores: "tile"
+    arrangement: str = "tile"
+    threads: int = _THREADS   # per block
+    cluster: int = 1          # blocks per cluster
+    thread_tile: Tuple[int, int] = (0, 0)   # f32: outputs a thread
+    lanes: int = 1    # f32: chunks a block (split: a cluster) runs at once
 
 
 def tc_tile(m: int, n: int) -> Tuple[int, int, int]:
@@ -79,19 +88,109 @@ def tc_smem_bytes(bm: int, bn: int, stages: int) -> int:
     return max(ring, _WARPS * bm * (bn + 8) * 4)
 
 
+# mirrors csrc/f32_gemm.cuh (the f32 route of matmul, and the batched
+# kernel's f32 order): a cluster of BMM_SPLIT_CLUSTER blocks per
+# output for at most F32_SPLIT_OUTPUTS outputs over K >= BMM_SPLIT_MIN_K;
+# chunk lanes (F32_LANES chunks at once, or F32_LANES_MANY where K has
+# more than F32_LANES chunks; 8 threads a lane, F32_LANE_COLS columns and
+# 1, 2 or 4 rows a block) up to F32_LANE_ROWS rows; else a register tile
+# (rows, columns, rows a thread, columns a thread, k tile, threads a
+# group, stages, groups of threads on different chunks): F32_NARROW for
+# N <= 8, F32_L32X32 up to 32 rows, else F32_L32X64
+F32_SPLIT_OUTPUTS = 64
+F32_LANE_COLS, F32_LANES, F32_LANES_MANY, F32_LANE_ROWS = 32, 16, 32, 4
+F32_NARROW = (32, 8, 1, 1, 32, 256, 3, 1)
+F32_L32X32 = (32, 32, 4, 4, 32, 64, 2, 8)
+F32_L32X64 = (32, 64, 4, 8, 16, 64, 2, 4)
+
+
+def _pow2_rows(m: int) -> int:
+    """The chunk lanes' row tile: 1, 2 or 4 rows."""
+    bm = 1
+    while bm < m:
+        bm *= 2
+    return bm
+
+
+def _f32_tile_plan(m: int, n: int, tile):
+    """(bm, bn, grid, stages, k tile, smem, threads, thread tile, groups)
+    of a register tile: each group's ring of stages (A as [m][k], rows of
+    bk + 4; B as [k][n], rows of bn + 4), and, for more than one group,
+    the groups' chunk sums for the owners."""
+    bm, bn, tm, tn, bk, threads, stages, groups = tile
+    grid = (-(-n // bn), -(-m // bm))
+    stage = bm * (bk + 4) + bk * (bn + 4)
+    part = groups * bm * bn if groups > 1 else 0
+    smem = (groups * stages * stage + part) * 4
+    return (bm, bn, grid, stages, bk, smem, threads * groups, (tm, tn),
+            groups)
+
+
+def _f32_mm_tile(m: int, n: int):
+    if n <= F32_NARROW[1]:
+        return F32_NARROW
+    return F32_L32X32 if m <= 32 else F32_L32X64
+
+
 def matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
-    """How csrc/matmul.cu launches ``(m, k) @ (k, n)``.  The K order of
-    the tensor-core route -- warp ``k // TC_WARP_K % 8`` of stage
-    ``k // TC_KS``, stages in order, then the warps in order -- is a
-    function of ``k`` alone; ``m`` and ``n`` pick only the tile."""
+    """How csrc/matmul.cu launches ``(m, k) @ (k, n)``: one kernel a call.
+    The K order of the tensor-core route -- warp ``k // TC_WARP_K % 8`` of
+    stage ``k // TC_KS``, stages in order, then the warps in order -- and
+    of the f32 route -- chunks of BMM_CHUNK, each one chain, added in
+    order (:func:`matmul_k_order`, the batched kernel's f32 order) -- is a
+    function of ``k`` alone; ``m`` and ``n`` pick only the arrangement and
+    tile."""
     if dtype == torch.float32:
-        bm, bn = row_tile(m), 4 * vec(dtype)
-        return MatmulPlan("cuda_core", bm, bn, (-(-n // bn), -(-m // bm)),
-                          0, 0, 0, False)
+        if k >= BMM_SPLIT_MIN_K and m * n <= F32_SPLIT_OUTPUTS:
+            return MatmulPlan("cuda_core", 1, 1,
+                              (m * n * BMM_SPLIT_CLUSTER, 1), 0, BMM_CHUNK,
+                              BMM_SPLIT_SMEM, False, "split", _THREADS,
+                              BMM_SPLIT_CLUSTER, (0, 0),
+                              BMM_SPLIT_CLUSTER * BMM_SPLIT_ROUND)
+        if m <= F32_LANE_ROWS:
+            bm = _pow2_rows(m)
+            lanes = F32_LANES_MANY if k > F32_LANES * BMM_CHUNK else F32_LANES
+            return MatmulPlan("cuda_core", bm, F32_LANE_COLS,
+                              (-(-n // F32_LANE_COLS), -(-m // bm)), 0,
+                              BMM_CHUNK, 0, False, "lanes",
+                              lanes * F32_LANE_COLS // 4, 1, (bm, 4), lanes)
+        bm, bn, grid, stages, bk, smem, threads, tt, groups = \
+            _f32_tile_plan(m, n, _f32_mm_tile(m, n))
+        return MatmulPlan("cuda_core", bm, bn, grid, stages, bk, smem, False,
+                          "tile", threads, 1, tt, groups)
     bm, bn, stages = tc_tile(m, n)
     return MatmulPlan("tensor_core", bm, bn, (-(-n // bn), -(-m // bm)),
                       stages, TC_KS, tc_smem_bytes(bm, bn, stages),
                       k * n * dtype.itemsize <= TC_EVICT_FIRST_BYTES)
+
+
+def kline_plan(m: int, n: int) -> MatmulPlan:
+    """The first slice's f32 GEMM (csrc/common.cuh's ``gemm_partial`` /
+    ``reduce_k_lanes``: ``row_tile(m)`` rows by 16 columns a block, the k
+    lanes summed in one fixed order), as swiglu.cu's f32 down product
+    launches it for ``(m, k) @ (k, n)``."""
+    bm, bn = row_tile(m), 4 * vec(torch.float32)
+    return MatmulPlan("cuda_core", bm, bn, (-(-n // bn), -(-m // bm)), 0, 0,
+                      0, False, "k_lanes")
+
+
+def matmul_k_order(plan: MatmulPlan, k: int) -> Tuple[Tuple[int, ...], ...]:
+    """The order in which matmul's kernel sums one output over ``k``: one
+    tuple per partial sum, each listing its k in accumulation order, the
+    partials added in tuple order to a sum from +0.  f32: chunk c is k in
+    [c * BMM_CHUNK, (c + 1) * BMM_CHUNK), one fmaf chain from +0 -- the
+    batched kernel's f32 order (:func:`batched_matmul_k_order`).  Tensor
+    cores: warp w takes k in [s * TC_KS + w * TC_WARP_K, + TC_WARP_K) over
+    the stages s in order.  Nothing here reads the plan's tile, grid or
+    arrangement."""
+    if plan.route == "cuda_core":
+        return tuple(tuple(range(c, min(c + BMM_CHUNK, k)))
+                     for c in range(0, k, BMM_CHUNK))
+    return tuple(
+        tuple(kk for s in range(0, k, TC_KS)
+              for kk in range(s + w * TC_WARP_K,
+                              min(s + (w + 1) * TC_WARP_K, k)))
+        for w in range(_WARPS))
 
 
 # -- fused norm + matmul ----------------------------------------------------------
@@ -175,20 +274,23 @@ def swiglu_plan(m: int, d: int, f: int, do: int,
                 dtype: torch.dtype) -> SwigluPlan:
     """How csrc/swiglu.cu launches ``silu(x (m, d) @ wg) * (x @ wu) @ wd
     (f, do)``: a gate/up kernel that writes h (m, f) to a workspace in
-    x's dtype, then the down product as its programmatic dependent --
-    which is matmul's launch ``matmul_plan(m, f, do)``.  The 16-bit
+    x's dtype, then the down product as its programmatic dependent.  The
+    16-bit down launch is matmul's (``matmul_plan(m, f, do)``); the 16-bit
     gate/up runs matmul's tensor-core mainloop on x with B tiles of
     ``bf`` columns of wg beside the same columns of wu, so g and u are
     each reduced in matmul's K order for ``d``, a function of ``d``
     alone.  Its grid walks the row tiles fastest, so the row tiles of one
     F tile share that tile's weight columns through L2.  f32 stays on the
-    CUDA cores (common.cuh's k-lanes; grid (F tiles, row tiles))."""
-    down = matmul_plan(m, f, do, dtype)
+    first slice's CUDA-core kernels (common.cuh's k-lanes, grid (F tiles,
+    row tiles)), its down product too (:func:`kline_plan`): on matmul's
+    f32 order the two products together put the vlm family's f32
+    small-train moment gap past its limit (ROADMAP Queue 3)."""
     if dtype == torch.float32:
         # 8 column vectors an F slice, as common.cuh's gemm_partial reads
         bm, bf = row_tile(m), 8 * vec(dtype)
         return SwigluPlan("cuda_core", bm, bf, (-(-f // bf), -(-m // bm)),
-                          0, 0, 0, False, down)
+                          0, 0, 0, False, kline_plan(m, do))
+    down = matmul_plan(m, f, do, dtype)
     bm, bn, stages = swiglu_tile(m)
     bf = bn // 2
     return SwigluPlan("tensor_core", bm, bf, (-(-m // bm), -(-f // bf)),

@@ -218,10 +218,22 @@ def test_matmul_plan_streams_weights_evict_first():
 
 
 def test_matmul_plan_keeps_f32_on_the_cuda_cores():
+    """f32 stays on the CUDA cores (no TF32) in the batched kernel's f32
+    order: decode rows on the chunk lanes (32 columns a block, no ring),
+    a prefill chunk on a register tile through a cp.async ring."""
     for m in (1, 4, 64):
         plan = kops.matmul_plan(m, 4096, 4096, torch.float32)
-        assert plan.route == "cuda_core" and plan.stages == 0
-        assert plan.bm == kops.row_tile(m) and plan.bn == 16
+        assert plan.route == "cuda_core" and not plan.b_evict_first
+        if m <= kops.F32_LANE_ROWS:
+            assert (plan.arrangement, plan.bm, plan.bn, plan.stages,
+                    plan.k_stage, plan.threads) == ("lanes", m, 32, 0,
+                                                    kops.BMM_CHUNK, 128)
+        else:
+            # 4 groups of threads on different chunks of one 32 x 64 tile
+            assert (plan.arrangement, plan.bm, plan.bn, plan.stages,
+                    plan.thread_tile, plan.lanes) == ("tile", 32, 64, 2,
+                                                      (4, 8), 4)
+            assert kops.BMM_CHUNK % plan.k_stage == 0
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
@@ -338,14 +350,104 @@ def test_swiglu_plan_at_deepseek_widths():
 def test_swiglu_plan_keeps_f32_on_the_cuda_cores(m, d, f, do):
     """f32 keeps the CUDA cores for both launches (no TF32): the gate/up
     kernel on common.cuh's k-lanes in the GEMM row tile for m, and the
-    down product as matmul's f32 launch."""
+    down product on the same k-lanes GEMM (``kline_plan``), which
+    matmul's f32 launch no longer is."""
     plan = kops.swiglu_plan(m, d, f, do, torch.float32)
     assert plan.route == "cuda_core" and plan.stages == 0
     assert plan.smem == 0 and not plan.b_evict_first
     assert plan.bm == kops.row_tile(m) and plan.bf == 32
     assert plan.grid == (-(-f // 32), -(-m // plan.bm))
-    assert plan.down == kops.matmul_plan(m, f, do, torch.float32)
+    assert plan.down == kops.kline_plan(m, do)
     assert plan.down.route == "cuda_core"
+    assert (plan.down.bm, plan.down.bn) == (kops.row_tile(m), 16)
+
+
+# every arrangement and tile of the f32 route (csrc/f32_gemm.cuh): (m, n)
+# pairs that reach the cluster per output, the chunk lanes at 1, 2 and 4
+# rows, the narrow tile and each of the two register tiles
+F32_MATMUL_SHAPES = [(1, 8), (4, 8), (32, 8), (1, 4096), (2, 4096),
+                     (4, 4096), (5, 4096), (16, 4096), (1, 102400),
+                     (17, 8), (4224, 8), (512, 4096), (128, 4096),
+                     (64, 4096), (33, 4096), (17, 256), (256, 256)]
+
+
+@pytest.mark.parametrize("k", [1, 40, 256, 257, 2047, 2048, 4096, 6144,
+                               11008])
+def test_matmul_k_order_is_the_batched_kernels_f32_order(k):
+    """matmul's f32 order is the batched kernel's: chunks of 256, each
+    ascending, added in order -- at every arrangement and tile the plan
+    can give, whatever M and N."""
+    want = kops.batched_matmul_k_order(
+        kops.batched_matmul_plan(1, 1, 1, k, torch.float32), k)
+    assert want == tuple(tuple(range(c, min(c + 256, k)))
+                         for c in range(0, k, 256))
+    arrangements = set()
+    for m, n in F32_MATMUL_SHAPES:
+        plan = kops.matmul_plan(m, k, n, torch.float32)
+        assert plan.route == "cuda_core"
+        assert kops.matmul_k_order(plan, k) == want, (m, n, plan)
+        assert kops.matmul_k_order(plan, k) == kops.batched_matmul_k_order(
+            kops.batched_matmul_plan(1, m, n, k, torch.float32), k)
+        arrangements.add((plan.arrangement, plan.bm, plan.bn))
+    tiles = {(a, bm, bn) for a, bm, bn in arrangements if a == "tile"}
+    assert tiles == {("tile", 32, 8), ("tile", 32, 32), ("tile", 32, 64)}
+    assert {bm for a, bm, _ in arrangements if a == "lanes"} == {1, 2, 4}
+    assert (("split", 1, 1) in arrangements) == (k >= kops.BMM_SPLIT_MIN_K)
+
+
+@pytest.mark.parametrize("k", [40, 4096, 11008])
+def test_matmul_k_order_keeps_the_tensor_cores_warp_slices(k):
+    """The 16-bit route's order: warp w takes k // 32 % 8 == w, stages in
+    order -- the batched kernel's 16-bit order too."""
+    plan = kops.matmul_plan(4, k, 4096, torch.bfloat16)
+    order = kops.matmul_k_order(plan, k)
+    assert order == kops.batched_matmul_k_order(
+        kops.batched_matmul_plan(1, 4, 4096, k, torch.bfloat16), k)
+    assert all(kk // kops.TC_WARP_K % 8 == w
+               for w, lane in enumerate(order) for kk in lane)
+
+
+# (m, k, n) -> (arrangement, bm, bn, grid, stages, k_stage, threads,
+# cluster): the f32 route at the main paths' shapes
+F32_NAMED_MATMULS = {
+    # decode's wo at 4 slots: 128 blocks of 32 columns, 16 chunks a block
+    "decode wo": ((4, 4096, 4096), ("lanes", 4, 32, (128, 1), 0, 256, 128,
+                                    1)),
+    # the unembed of a prefill's last row: 3200 blocks
+    "unembed": ((1, 4096, 102400), ("lanes", 1, 32, (3200, 1), 0, 256, 128,
+                                    1)),
+    # phase 14's f32 prefill: groups of threads on different chunks of
+    # one tile, 8 of 64 up to 32 rows (128 blocks), else 4 (two blocks
+    # an SM)
+    "prefill 32": ((32, 4096, 4096), ("tile", 32, 32, (128, 1), 2, 32, 512,
+                                      1)),
+    "prefill 64": ((64, 4096, 4096), ("tile", 32, 64, (64, 2), 2, 16, 256,
+                                      1)),
+    "prefill 128": ((128, 4096, 4096), ("tile", 32, 64, (64, 4), 2, 16, 256,
+                                        1)),
+    "dense 512": ((512, 4096, 4096), ("tile", 32, 64, (64, 16), 2, 16, 256,
+                                      1)),
+    # deepseek-v3's router at decode: 28 chunks, 32 lanes a block
+    "v3 router decode": ((4, 7168, 256), ("lanes", 4, 32, (8, 1), 0, 256,
+                                          256, 1)),
+    # mixtral's router: a cluster per output at decode (4 x 8 over 6144),
+    # the narrow tile on its 4,224-row prefill
+    "router decode": ((4, 6144, 8), ("split", 1, 1, (256, 1), 0, 256, 256,
+                                     8)),
+    "router 4224": ((4224, 6144, 8), ("tile", 32, 8, (1, 132), 3, 32, 256,
+                                      1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(F32_NAMED_MATMULS))
+def test_matmul_f32_plan_at_the_main_paths_shapes(name):
+    (m, k, n), want = F32_NAMED_MATMULS[name]
+    p = kops.matmul_plan(m, k, n, torch.float32)
+    assert (p.arrangement, p.bm, p.bn, p.grid, p.stages, p.k_stage,
+            p.threads, p.cluster) == want
+    assert p.smem <= 232448
+    if p.arrangement != "split":
+        assert p.grid[0] * p.bn >= n and p.grid[1] * p.bm >= m
 
 
 def test_swiglu_predicate_takes_an_unaligned_d():
@@ -519,6 +621,62 @@ def test_cuda_row_alone_equals_row_in_batch(cuda_device, kernel, shape, dt):
         out = run(batch)
         assert torch.equal(_bits(out[pos:pos + 1]), _bits(alone)), (m, pos)
         assert torch.equal(_bits(out), _bits(run(batch)))
+
+
+F32_PROBE_ROWS = (1, 2, 4, 5, 16, 17, 32, 64, 65, 128, 129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["matmul", "router", "swiglu"])
+def test_cuda_f32_row_alone_equals_row_in_batch_at_every_tile(cuda_device,
+                                                             kernel):
+    """f32 matmul and swiglu: a probe row alone and inside batches whose
+    row counts take each arrangement and tile of matmul's f32 route (for
+    the router's 8 columns, the cluster per output too) and swiglu's row
+    tiles, at a different place in each, gives the same bits."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+
+    def r(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device=cuda_device) * scale
+
+    if kernel == "swiglu":
+        d, f = 4096, 11008
+        wg, wu = r(d, f, scale=d ** -0.5), r(d, f, scale=d ** -0.5)
+        wd = r(f, d, scale=f ** -0.5)
+        run = lambda a: ks.swiglu(a, wg, wu, wd)  # noqa: E731
+    else:
+        d, n = (6144, 8) if kernel == "router" else (4096, 4096)
+        w = r(d, n, scale=d ** -0.5)
+        run = lambda a: km.matmul(a, w)  # noqa: E731
+    probe = r(1, d)
+    alone = run(probe)
+    for m in F32_PROBE_ROWS:
+        # the last row at an odd count (the ragged last tile), else 5/8 of
+        # the way in (past the first tile)
+        pos = m - 1 if m % 2 else 5 * m // 8
+        batch = r(m, d)
+        batch[pos] = probe[0]
+        out = run(batch)
+        assert torch.equal(_bits(out[pos:pos + 1]), _bits(alone)), (m, pos)
+        assert torch.equal(_bits(out), _bits(run(batch)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, 4096, 4096) for m in F32_PROBE_ROWS]
+                         + [(1, 4096, 102400), (4, 6144, 8), (33, 6144, 8),
+                            (4224, 6144, 8), (3, 40, 8), (17, 300, 24)])
+def test_cuda_f32_matmul_is_the_batched_kernels_order(cuda_device, m, k, n):
+    """One f32 order in the port: f32 matmul(a, b) is bit for bit the
+    batched kernel's batched_matmul(a[None], b[None])[0]."""
+    from repro_torch.kernels import batched_matmul as kb
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    a = torch.randn((m, k), generator=gen, device=cuda_device)
+    b = torch.randn((k, n), generator=gen, device=cuda_device) * k ** -0.5
+    assert torch.equal(_bits(km.matmul(a, b)),
+                       _bits(kb.batched_matmul(a[None], b[None],
+                                               torch.float32)[0]))
 
 
 @pytest.mark.cuda
