@@ -39,7 +39,10 @@ without printing a result:
                  a 64-row prefill chunk's, deepseek-v3's expert FFN and
                  phase 8's backward products, with a probe (batch entry,
                  row) bitwise equal in batches of 1, 3, 4 and 32 at M of
-                 1 to 64, and zero-padded K bitwise equal; swiglu called on two
+                 1 to 64, and zero-padded K bitwise equal; one f32 order:
+                 f32 matmul == the batched kernel, f32 swiglu == matmul of
+                 its h and f32 norm_matmul == matmul of its normalised
+                 rows, bitwise; swiglu called on two
                  inputs in turn gives each its own bits; for flash attention
                  two launches, a probe (slot, head) alone and inside 4
                  slots, and decode at position p against row p of the
@@ -638,14 +641,17 @@ def kernel_cases(gen):
     nm("decode final+unembed (4x4096)(4096x102400) g f32", SLOTS, V, f32)
     nm("prefill qkv (64x4096)(4096x4096)", CHUNK, D, bf)
     nm("dense prefill qkv (512x4096)(4096x4096)", DENSE, D, bf)
-    # norm_matmul's f32 route (common.cuh's k-lanes), the next in the
-    # queue, at phase 14's f32 prefill rows
-    nm("f32 prefill qkv (128x4096)(4096x4096)", 128, D, f32, dt=f32)
+    # the f32 routes of norm_matmul and swiglu (matmul's f32 launch after
+    # a row kernel, or after the paired gate/up kernel) at decode and at
+    # phase 14's f32 prefill rows
+    nm("f32 decode qkv (4x4096)(4096x4096)", SLOTS, D, f32, dt=f32)
+    for m in F32_PREFILL_ROWS:
+        nm(f"f32 prefill qkv ({m}x4096)(4096x4096)", m, D, f32, dt=f32)
     sw("decode (4x4096) F=11008", SLOTS, bf)
     sw("prefill (64x4096) F=11008", CHUNK, bf)
     sw("dense prefill (512x4096) F=11008", DENSE, bf)
     sw("f32 decode (4x4096) F=11008", SLOTS, f32)
-    for m in (32, 128):
+    for m in F32_PREFILL_ROWS:
         sw(f"f32 prefill ({m}x4096) F=11008", m, f32)
     rn("decode pre-MLP (4x4096)", SLOTS, bf)
     rn("prefill final (64x4096) w f32", CHUNK, f32)
@@ -856,12 +862,18 @@ def check_determinism(gen) -> None:
                    lambda x: kr.rmsnorm(x, w, 1e-6),
                    lambda m: _rand((m, D), dt, gen))
     w = _rand((D, D), bf, gen, D ** -0.5)
+    norm_pos = {1: 0, SLOTS: 1, CHUNK: 33, DENSE: 200}
     for g_dt in (bf, f32):
         g = (1 + 0.1 * _rand((D,), f32, gen)).to(g_dt)
-        probe_rows("norm_matmul", f"bfloat16/g {name(g_dt)}",
-                   {1: 0, SLOTS: 1, CHUNK: 33, DENSE: 200},
+        probe_rows("norm_matmul", f"bfloat16/g {name(g_dt)}", norm_pos,
                    lambda x: kn.norm_matmul(x, g, w, 1e-6),
                    lambda m: _rand((m, D), bf, gen))
+    w = _rand((D, D), f32, gen, D ** -0.5)
+    g = 1 + 0.1 * _rand((D,), f32, gen)
+    probe_rows("norm_matmul", "float32/g float32",
+               _f32_probe_sizes(F32_PROBE_ROWS, norm_pos),
+               lambda x: kn.norm_matmul(x, g, w, 1e-6),
+               lambda m: _rand((m, D), f32, gen))
     for dt in (bf, f32):
         wg = _rand((D, F), dt, gen, D ** -0.5)
         wu = _rand((D, F), dt, gen, D ** -0.5)
@@ -915,11 +927,11 @@ def check_determinism(gen) -> None:
     check_linear_recurrence(gen)
 
 
-# f32 matmul and swiglu: row counts that cross each arrangement and tile
-# of matmul's f32 route (csrc/f32_gemm.cuh, ops.matmul_plan: the chunk
-# lanes' 1, 2 and 4 rows, the register tiles on both sides of 32 rows, and
-# at the router's 8 columns over 6144 the cluster per output up to 8 rows)
-# and swiglu's row tiles of 1, 4 and 16 (ops.row_tile)
+# f32 matmul, norm_matmul and swiglu: row counts that cross each
+# arrangement and tile of the f32 launches (csrc/f32_gemm.cuh,
+# ops.matmul_plan and ops.swiglu_plan's gate/up: the chunk lanes' 1, 2
+# and 4 rows, the register tiles on both sides of 32 rows, and at the
+# router's 8 columns over 6144 the cluster per output up to 8 rows)
 F32_PROBE_ROWS = (1, 2, 4, 5, 16, 17, 64, 65, 128, 129, DENSE)
 # phase 3's f32 prefill cases: a 32-token prompt, 4 x 16, 4 x 32
 F32_PREFILL_ROWS = (32, 64, 128)
@@ -939,8 +951,15 @@ def check_f32_one_order(gen) -> None:
     ``batched_matmul(a[None], b[None])[0]`` (f32 out) at every row count
     of :data:`F32_PROBE_ROWS` (deepseek-7b's wo, and mixtral's router,
     with its 4,224-row prefill) and at the f32 unembed -- whichever
-    arrangement and tile each of the two kernels takes there."""
+    arrangement and tile each of the two kernels takes there; and f32
+    ``swiglu`` gives bit for bit ``matmul(h, wd)`` on the h its first
+    kernel wrote, and f32 ``norm_matmul`` ``matmul(rows, w)`` on its
+    normalised rows (both read through the wrappers' check-only
+    accessors), at :data:`F32_PROBE_ROWS` and :data:`F32_PREFILL_ROWS`;
+    h and the rows themselves stay within phase 3's f32 limit of their
+    plain versions."""
     from repro_torch.kernels import batched_matmul as kb, matmul as km
+    from repro_torch.kernels import norm_matmul as kn, ref, swiglu as ks
     from repro_torch.configs import get_config
     f32 = torch.float32
     mx = get_config("mixtral-8x22b")
@@ -961,6 +980,36 @@ def check_f32_one_order(gen) -> None:
     say("determinism", kernel="matmul", dtype="float32",
         one_order="matmul == batched_matmul bitwise",
         shapes=",".join(f"{m}x{k}x{n}" for m, k, n in shapes))
+
+    def near(got, plain, what):
+        p = plain.double()
+        err = float((got.double() - p).abs().max())
+        require(err <= TOL[f32] * max(float(p.abs().max()), 1.0),
+                f"{what}: max |kernel - plain| {err}")
+
+    rows = sorted(set(F32_PROBE_ROWS + F32_PREFILL_ROWS))
+    wg = _rand((D, F), f32, gen, D ** -0.5)
+    wu = _rand((D, F), f32, gen, D ** -0.5)
+    wd = _rand((F, D), f32, gen, F ** -0.5)
+    w = _rand((D, D), f32, gen, D ** -0.5)
+    g = 1 + 0.1 * _rand((D,), f32, gen)
+    for m in rows:
+        x = _rand((m, D), f32, gen)
+        out, h = ks.swiglu_with_hidden(x, wg, wu, wd)
+        require(_bitwise(out, km.matmul(h, wd)),
+                f"swiglu f32 at {m} rows: differs from matmul(h, wd)")
+        gp = ref.matmul_ref(x, wg)
+        near(h, gp * torch.reciprocal(torch.exp(-gp) + 1)
+             * ref.matmul_ref(x, wu), f"swiglu f32 h at {m} rows")
+        out, xn = kn.norm_matmul_with_rows(x, g, w, 1e-6)
+        require(_bitwise(out, km.matmul(xn, w)),
+                f"norm_matmul f32 at {m} rows: differs from matmul(rows, w)")
+        near(xn, ref.rmsnorm_ref(x, g, 1e-6),
+             f"norm_matmul f32 rows at {m} rows")
+        del x, out, h, xn
+    say("determinism", kernel="swiglu,norm_matmul", dtype="float32",
+        one_order="swiglu == matmul(h, wd), norm_matmul == matmul(rows, w) "
+        "bitwise", rows=",".join(map(str, rows)))
 
 
 # the batched kernel's probe: batch counts and row counts of the paged
@@ -1273,8 +1322,8 @@ def _captured(fn):
 def check_in_capture(gen) -> None:
     """The programmatic-dependent launches keep their order inside a CUDA
     graph, and flash attention keeps its bits there: a graph of six
-    calls alternating two inputs (swiglu, bf16 and f32; norm_matmul,
-    whose GEMM follows its inverse-RMS kernel the same way), replayed
+    calls alternating two inputs (swiglu and norm_matmul, bf16 and f32:
+    each one's second launch is the first one's dependent), replayed
     twice, gives each call the bits of the eager first call on its input
     -- a dependent that read its producer's output early would read the
     other input's, from the same pool address; and flash's dense prefill
@@ -1286,8 +1335,11 @@ def check_in_capture(gen) -> None:
     for label, dt, m in (("swiglu bfloat16", bf, SLOTS),
                          ("swiglu bfloat16", bf, CHUNK),
                          ("swiglu float32", f32, SLOTS),
+                         ("swiglu float32", f32, CHUNK),
                          ("norm_matmul bfloat16", bf, SLOTS),
-                         ("norm_matmul bfloat16", bf, CHUNK)):
+                         ("norm_matmul bfloat16", bf, CHUNK),
+                         ("norm_matmul float32", f32, SLOTS),
+                         ("norm_matmul float32", f32, CHUNK)):
         xs = [_rand((m, D), dt, gen) for _ in range(2)]
         if label.startswith("swiglu"):
             wg = _rand((D, F), dt, gen, D ** -0.5)
@@ -1295,8 +1347,8 @@ def check_in_capture(gen) -> None:
             wd = _rand((F, D), dt, gen, F ** -0.5)
             call = lambda x: ks.swiglu(x, wg, wu, wd)  # noqa: E731
         else:
-            g = (1 + 0.1 * _rand((D,), f32, gen)).to(bf)
-            w = _rand((D, D), bf, gen, D ** -0.5)
+            g = (1 + 0.1 * _rand((D,), f32, gen)).to(dt)
+            w = _rand((D, D), dt, gen, D ** -0.5)
             call = lambda x: kn.norm_matmul(x, g, w, 1e-6)  # noqa: E731
         firsts = [call(x) for x in xs]
         require(not _bitwise(firsts[0], firsts[1]),
@@ -1352,13 +1404,15 @@ def _prompts(vocab: int, lengths, shared: int, seed: int = 0):
 # kernel, swiglu's down product its gate/up kernel; matmul's f32 route is
 # one kernel whichever arrangement a shape takes (and none of its names
 # is the batched kernel's, so a profile's rows go to the right wrapper)
+# (device kernels, or the tag that names f32_gemm.cuh's f32 matmul
+# kernels for a caller; device kernels per call)
 KERNEL_FUNCS = {
-    "matmul": (("matmul_tc_kernel", "matmul_f32_kernel",
-                "matmul_f32_lanes_kernel", "matmul_f32_split_kernel"), 1),
-    "norm_matmul": (("norm_matmul_kernel", "norm_matmul_inv_kernel",
-                     "norm_matmul_tc_kernel"), 2),
+    "matmul": (("matmul_tc_kernel", "matmul_f32"), 1),
+    "norm_matmul": (("norm_matmul_inv_kernel", "norm_matmul_tc_kernel",
+                     "norm_rows_f32_kernel", "norm_matmul_f32"), 2),
     "swiglu": (("swiglu_gate_up_kernel", "swiglu_down_kernel",
-                "swiglu_gate_up_f32_kernel", "swiglu_down_f32_kernel"), 2),
+                "swiglu_gate_up_f32_kernel",
+                "swiglu_gate_up_f32_lanes_kernel", "swiglu_down_f32"), 2),
     "rmsnorm": (("rmsnorm_kernel",), 1),
     "flash_attention": (("flash_kernel", "flash_tc_kernel"), 1),
     "batched_matmul": (("bmm_seq_kernel", "bmm_f32_kernel",

@@ -24,8 +24,13 @@ the card busy while the host enqueues; the timed shapes are the batched
 kernel's named ones and the f32 routes of matmul, swiglu and norm_matmul
 (whose f32 bits are not digested: an order may change them by design).
 ``--compare`` prints each timed shape side by side and exits 1 when a
-digest differs or a shape is missing.  Needs a card; the compare needs
-none.
+digest differs or a shape is missing; with ``--f32-may-move K0`` an f32
+digest of a contraction longer than K0 may differ (a change of the f32
+order moves them by design: ``--f32-may-move 32`` for sub-chains of 32,
+which leave a K <= 32 sum one chain as before), every 16-bit digest and
+every other f32 digest must not.  Needs a card; the compare needs none.
+
+    python scripts/torch_bmm_bits.py --compare results/p1.json results/c1.json --f32-may-move 32
 """
 from __future__ import annotations
 
@@ -90,6 +95,8 @@ KERNEL_TIMES = (
     ("swiglu prefill (64x4096) F=11008", "swiglu", (64, D, F, D)),
     ("swiglu prefill (128x4096) F=11008", "swiglu", (128, D, F, D)),
     ("norm_matmul decode (4x4096)(4096x4096)", "norm_matmul", (4, D, D)),
+    ("norm_matmul prefill (32x4096)(4096x4096)", "norm_matmul", (32, D, D)),
+    ("norm_matmul prefill (64x4096)(4096x4096)", "norm_matmul", (64, D, D)),
     ("norm_matmul prefill (128x4096)(4096x4096)", "norm_matmul",
      (128, D, D)),
 )
@@ -123,7 +130,11 @@ def shapes():
                                     "f32"), False, aligned)
 
 
-def compare(a_path: str, b_path: str) -> int:
+def compare(a_path: str, b_path: str, f32_may_move=None) -> int:
+    """Exit code of ``--compare``: 1 when a shape is missing from either
+    file or a digest differs, except an f32 digest of a contraction over
+    more than ``f32_may_move`` k (when given), which is counted as moved.
+    Each digest's operand type and K come from the files' ``meta``."""
     with open(a_path) as f:
         a = json.load(f)
     with open(b_path) as f:
@@ -131,12 +142,26 @@ def compare(a_path: str, b_path: str) -> int:
     for label, ms in a["ms"].items():
         print(f"[bmm_bits] {label}: {ms:.4f} -> "
               f"{b['ms'].get(label, float('nan')):.4f} ms")
+    meta = {**a.get("meta", {}), **b.get("meta", {})}
     a, b = a["digests"], b["digests"]
-    bad = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    bad, moved, same = [], [], 0
+    for k in sorted(set(a) | set(b)):
+        if a.get(k) == b.get(k):
+            same += 1
+            continue
+        dt, kk = meta.get(k, ("?", 0))
+        if (k in a and k in b and dt == "f32" and f32_may_move is not None
+                and kk > f32_may_move):
+            moved.append(k)
+        else:
+            bad.append(k)
     for k in bad:
         print(f"[bmm_bits] DIFFERS {k}: {a.get(k)} vs {b.get(k)}")
+    f32_same = sum(1 for k in set(a) & set(b) if a[k] == b[k]
+                   and meta.get(k, ("?", 0))[0] == "f32")
     print(f"[bmm_bits] compared {len(set(a) | set(b))} shapes: "
-          f"{len(bad)} differ")
+          f"{len(bad)} differ, {len(moved)} f32 moved (allowed above K "
+          f"{f32_may_move}), {same} equal ({f32_same} of them f32)")
     return 1 if bad else 0
 
 
@@ -150,9 +175,11 @@ def main(argv=None) -> int:
     ap.add_argument("--time", action="store_true",
                     help="also time the named shapes and KERNEL_TIMES")
     ap.add_argument("--compare", nargs=2, metavar="JSON")
+    ap.add_argument("--f32-may-move", type=int, default=None, metavar="K0",
+                    help="with --compare: f32 digests over K > K0 may move")
     args = ap.parse_args(argv)
     if args.compare:
-        return compare(*args.compare)
+        return compare(*args.compare, f32_may_move=args.f32_may_move)
 
     import numpy as np
     import torch
@@ -199,7 +226,7 @@ def main(argv=None) -> int:
         return statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs)
 
     flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
-    digests, times = {}, {}
+    digests, times, meta = {}, {}, {}
     for label, (batch, m, n, k, dt, a_t, b_t, out), named, aligned in \
             shapes():
         t = dts[dt]
@@ -212,6 +239,7 @@ def main(argv=None) -> int:
         h = hashlib.sha256(o.contiguous().view(torch.uint8).cpu().numpy()
                            .tobytes()).hexdigest()
         digests[label] = h
+        meta[label] = (dt, k)
         line = f"[bmm_bits] {label} sha256={h}"
         if named and args.time:
             times[label] = timed(lambda: kb.batched_matmul(a, b, dts[out]),
@@ -251,6 +279,7 @@ def main(argv=None) -> int:
             out = call(kernel, shape, dt)()
             torch.cuda.synchronize()
             label = f"{kernel} {'x'.join(map(str, shape))} {dt}"
+            meta[label] = ({torch.bfloat16: "bf16"}.get(dt, "f16"), shape[1])
             digests[label] = hashlib.sha256(
                 out.contiguous().view(torch.uint8).cpu().numpy()
                 .tobytes()).hexdigest()
@@ -262,7 +291,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"src": os.path.abspath(args.src), "seed": args.seed,
-                       "card": card, "digests": digests, "ms": times}, f,
+                       "card": card, "digests": digests, "meta": meta,
+                       "ms": times}, f,
                       indent=1)
     print(f"[bmm_bits] {len(digests)} shapes", flush=True)
     return 0

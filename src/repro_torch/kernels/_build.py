@@ -46,8 +46,7 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return int = cudaError_t)
 SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_norm_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                          _P],
+    "repro_norm_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "repro_swiglu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -20,10 +20,11 @@
 // with the shape, no atomics, and nothing in the order depends on the
 // batch count, M, N, the kernel or tile chosen, or an element's place
 // (kernels/ops.py:batched_matmul_k_order):
-//   - f32 (and mixed types, upcast by the wrapper): k in chunks of 256;
-//     each chunk one fmaf chain in ascending k from +0, the chunk sums
-//     added in chunk order to a total from +0.  Up to K 256 that is one
-//     chain.
+//   - f32 (and mixed types, upcast by the wrapper): f32_gemm.cuh's
+//     order: k in chunks of 256, each chunk in sub-chains of 32; each
+//     sub-chain one fmaf chain in ascending k from +0, a chunk's
+//     sub-chain sums added in order to a chunk sum from +0, the chunk
+//     sums added in chunk order to a total from +0.
 //   - bf16 / f16: eight lanes; lane w starts at +0 and applies
 //     mma.sync m16n8k16 (f32 accumulators) over the k16 groups
 //     [256 s + 32 w, +16) and [256 s + 32 w + 16, +32) for the stages s
@@ -63,10 +64,12 @@
 //     read bounds q.k^T and p.V; 128 x 128 with 8 x 8 outputs a thread and
 //     float4 reads of shared memory for the attention scores, bound by the
 //     CUDA cores' 67 TFLOP/s), k tiles streamed by 4- or 16-byte cp.async
-//     through a ring of stages; for K <= 256 (one chunk) no running total.
+//     through a ring of stages; for K <= 256 (one chunk) no running total
+//     and two blocks an SM (the 8 x 8 tile then keeps its chunk sums in
+//     shared memory, over two stages).
 //   - f32, few outputs over a long K (bmm_f32_split_kernel): a cluster of
 //     8 blocks per output, each staging 32 chunks at a time in shared
-//     memory and running one chunk's chain per thread; block 0 of the
+//     memory and running one chunk's sub-chains per thread; block 0 of the
 //     cluster adds the chunk sums in chunk order from the others' shared
 //     memory (the sampler's pick of one logit out of the vocabulary).
 // wgmma is not used: nothing documents that its sum within a k16 step is
@@ -97,9 +100,10 @@ unsigned batch_grid(long long rows) {
 // its chunks in parallel, one cluster per output:
 constexpr long long kSplitMaxOutputs = 8192;
 
-// f32_gemm.cuh's register tile with one group of threads, A as As[k][m]
-template <class TL>
-using BmmF32Tile = F32LaneTile<TL, 1, false>;
+// f32_gemm.cuh's register tile with one group of threads, A as As[k][m];
+// at one chunk the 8 x 8 tile keeps its chunk sums in shared memory
+template <class TL, bool ONE>
+using BmmF32Tile = F32LaneTile<TL, 1, false, ONE && TL::TM * TL::TN >= 64>;
 
 // ONE: K <= 256, one chunk (f32_lane_tile)
 template <class TL, bool ONE>
@@ -116,7 +120,7 @@ __global__ void __launch_bounds__(TL::THREADS,
   for (int b = blockIdx.y; b < batch; b += gridDim.y) {
     const float* Ab = A + b * st.sab;
     const float* Bb = B + b * st.sbb;
-    f32_lane_tile<BmmF32Tile<TL>, ONE>(
+    f32_lane_tile<BmmF32Tile<TL, ONE>, ONE>(
         fsm, K,
         [&](float* as, int k0, int t) {
           f32_load<BM, AP, BK, TL::THREADS, BM == 1>(
@@ -162,7 +166,7 @@ cudaError_t launch_f32_tile(const float* A, const float* B, float* C,
   const cudaError_t limit = once_per_device(limit_set, [] {
     return cudaFuncSetAttribute(bmm_f32_kernel<TL, ONE>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                BmmF32Tile<TL>::SMEM);
+                                BmmF32Tile<TL, ONE>::SMEM);
   });
   if (limit != cudaSuccess) return limit;
   const long long tiles =
@@ -178,7 +182,7 @@ cudaError_t launch_f32_tile(const float* A, const float* B, float* C,
                      st.sbb % 4 == 0 && N % 4 == 0;
   dim3 grid((unsigned)tiles, batch_grid(batch));
   bmm_f32_kernel<TL, ONE>
-      <<<grid, TL::THREADS, BmmF32Tile<TL>::SMEM, s>>>(
+      <<<grid, TL::THREADS, BmmF32Tile<TL, ONE>::SMEM, s>>>(
       A, B, C, batch, M, N, K, st, a_vec, b_vec);
   return cudaSuccess;
 }
@@ -222,8 +226,13 @@ cudaError_t launch_f32(const float* A, const float* B, float* C, int batch,
   if (M <= 64 || N <= 64)
     return launch_f32_tile<F32Tile<64, 64, 4, 4, 32, 256, 3>>(A, B, C, batch,
                                                              M, N, K, st, s);
-  return launch_f32_tile<F32Tile<128, 128, 8, 8, 16, 256, 3>>(A, B, C, batch,
-                                                             M, N, K, st, s);
+  // one chunk (the attention scores over a head): the chunk sums in
+  // shared memory, two stages, two blocks an SM
+  if (K <= kChunk)
+    return launch_f32_tile<F32Tile<128, 128, 8, 8, 16, 256, 2>, true>(
+        A, B, C, batch, M, N, K, st, s);
+  return launch_f32_tile<F32Tile<128, 128, 8, 8, 16, 256, 3>, false>(
+      A, B, C, batch, M, N, K, st, s);
 }
 
 // -- bf16 / f16: the lanes in sequence ----------------------------------------

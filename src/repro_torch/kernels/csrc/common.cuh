@@ -100,87 +100,6 @@ __device__ __forceinline__ unsigned pack2<__half>(float a, float b) {
 // one 16-byte load holds kVec<T> elements
 template <typename T> constexpr int kVec = 16 / sizeof(T);
 
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* out) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < kVec<T>; ++i) out[i] = to_f32(e[i]);
-}
-
-// Partial products of a row tile of A (BM rows, lda, first ``m_valid``
-// rows real) against the CG*kVec<T> columns of B starting at ``n0``.
-// Thread t owns column group t % CG (kVec<T> adjacent columns, one
-// 16-byte load per B row) and k-lane t / CG: it accumulates, in f32 and
-// in ascending k, the products of every k with k % (kThreads / CG) equal
-// to its k-lane.  Columns at or past N (N % kVec<T> == 0) stay zero.
-template <typename T, int BM, int CG>
-__device__ __forceinline__ void gemm_partial(
-    const T* A, int lda, int m_valid, const T* __restrict__ B, int ldb,
-    int K, int n0, int N, float (&acc)[BM][kVec<T>]) {
-  constexpr int V = kVec<T>;
-  constexpr int KL = kThreads / CG;
-  const int cg = threadIdx.x % CG;
-  const int kl = threadIdx.x / CG;
-  const int col = n0 + cg * V;
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[m][v] = 0.f;
-  if (col >= N) return;
-#pragma unroll 4
-  for (int k = kl; k < K; k += KL) {
-    float b[V];
-    load_vec(B + (size_t)k * ldb + col, b);
-#pragma unroll
-    for (int m = 0; m < BM; ++m) {
-      if (m < m_valid) {
-        const float a = to_f32(A[(size_t)m * lda + k]);
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[m][v] = fmaf(a, b[v], acc[m][v]);
-      }
-    }
-  }
-}
-
-// Sum the k-lane partials of gemm_partial in one fixed order: a
-// butterfly over the k-lanes inside each warp, then warps 0..7 in turn.
-// The totals land in red[0][m][c] (c = column within the tile).
-// ``red`` is shared memory of kWarps * BM * CG * kVec<T> floats.
-template <typename T, int BM, int CG>
-__device__ __forceinline__ void reduce_k_lanes(
-    float (&acc)[BM][kVec<T>], float* red) {
-  constexpr int V = kVec<T>;
-  constexpr int BN = CG * V;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      float s = acc[m][v];
-#pragma unroll
-      for (int off = CG; off < 32; off <<= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      acc[m][v] = s;
-    }
-  if (lane < CG) {
-#pragma unroll
-    for (int m = 0; m < BM; ++m)
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        red[(warp * BM + m) * BN + lane * V + v] = acc[m][v];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * BM * BN + i];
-    red[i] = s;  // each i is owned by one thread: no race with warp 0's row
-  }
-  __syncthreads();
-}
-
 // sum of squares of one row, lane-strided then a butterfly over the warp
 template <typename T>
 __device__ __forceinline__ float row_sumsq(const T* x, int d) {
@@ -196,29 +115,32 @@ __device__ __forceinline__ float row_sumsq(const T* x, int d) {
   return ss;
 }
 
-// row-tile heights of swiglu.cu's f32 route (gemm_partial above; matmul's
-// f32 route is f32_gemm.cuh's, norm_matmul's row tile comes from
-// kernels/ops.py)
-inline int pick_bm(int m) { return m <= 1 ? 1 : (m <= 4 ? 4 : 16); }
-
-// Launch ``kern`` (kThreads a block) as the programmatic dependent of the
-// kernel before it on ``s``: it may start once every block of that kernel
-// has run griddepcontrol.launch_dependents (or ended), and must run
-// griddepcontrol.wait before it reads what that kernel writes.
+// Launch ``kern`` (``block`` threads a block) as the programmatic
+// dependent of the kernel before it on ``s``: it may start once every
+// block of that kernel has run griddepcontrol.launch_dependents (or
+// ended), and must run griddepcontrol.wait before it reads what that
+// kernel writes.
 template <typename... P, typename... A>
-cudaError_t launch_dependent(void (*kern)(P...), dim3 grid, int smem,
-                             cudaStream_t s, A... args) {
+cudaError_t launch_pdl(void (*kern)(P...), dim3 grid, dim3 block, int smem,
+                       cudaStream_t s, A... args) {
   cudaLaunchAttribute pdl[1];
   pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   pdl[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = block;
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+// launch_pdl with kThreads a block
+template <typename... P, typename... A>
+cudaError_t launch_dependent(void (*kern)(P...), dim3 grid, int smem,
+                             cudaStream_t s, A... args) {
+  return launch_pdl(kern, grid, dim3(kThreads), smem, s, args...);
 }
 
 }  // namespace repro

@@ -32,108 +32,39 @@
 // streams with the evict-normal policy, where evict-first measured slower.
 //
 // Design, f32: CUDA-core FMAs (no TF32: f32 means f32) in the port's one
-// f32 order, f32_gemm.cuh's: k in chunks of 256, each chunk one fmaf chain
-// in ascending k from +0, the chunk sums added in chunk order from +0 --
-// the batched kernel's order, so f32 matmul(a, b) is bitwise
-// batched_matmul(a[None], b[None])[0] at every shape.  One launch a call,
-// one of three arrangements by shape (f32_gemm.cuh's with_f32_matmul,
-// mirrored by kernels/ops.py:matmul_plan):
-//   - matmul_f32_split_kernel, a cluster of 8 blocks per output, for at
-//     most 64 outputs over K >= 2048 (a router at decode: 4 x 8 outputs
-//     over 6144): the chunks run in parallel and block 0 adds their sums
-//     in order through distributed shared memory;
-//   - matmul_f32_lanes_kernel for at most 4 rows (decode, the unembed of
-//     one row): 16 chunks in flight a block (32 past 16 chunks: a router's
-//     long K), B streamed from device memory as 16-byte vectors straight
-//     into registers, 32 columns a block (128 blocks at N = 4096, 3200 at
-//     the unembed), so the bytes of B bound it as they bound the 16-bit
-//     route;
-//   - matmul_f32_kernel, register tiles through a cp.async ring with A
-//     k-major: 32 x 32 (4 x 4 outputs a thread, 8 groups of threads on
-//     different chunks of the tile) up to 32 rows, 32 x 64 (4 x 8, 4
-//     groups) beyond, so that a prefill's rows fill the card (128 blocks
-//     at 32 rows and N = 4096), and 32 x 8 for N <= 8 (a router's experts
-//     at prefill).  At 128 rows and more the CUDA cores' 67 TFLOP/s bound
-//     it.
+// f32 order, f32_gemm.cuh's: k in chunks of 256, each chunk in sub-chains
+// of 32, each sub-chain one fmaf chain in ascending k from +0, a chunk's
+// sub-chain sums added in order from +0, the chunk sums in chunk order
+// from +0 -- the batched kernel's order, so f32 matmul(a, b) is bitwise
+// batched_matmul(a[None], b[None])[0] at every shape.  One launch a call
+// (f32_gemm.cuh's f32_matmul, which swiglu's f32 down product and
+// norm_matmul's f32 product launch too), one of three arrangements by
+// shape (with_f32_matmul, mirrored by kernels/ops.py:matmul_plan):
+//   - a cluster of 8 blocks per output (f32_mm_split_kernel), for at most
+//     64 outputs over K >= 2048 (a router at decode: 4 x 8 outputs over
+//     6144): the chunks run in parallel and block 0 adds their sums in
+//     order through distributed shared memory;
+//   - chunk lanes (f32_mm_lanes_kernel) for at most 4 rows (decode, the
+//     unembed of one row): 16 chunks in flight a block (32 past 16
+//     chunks: a router's long K), B streamed from device memory as
+//     16-byte vectors straight into registers, 32 columns a block (128
+//     blocks at N = 4096, 3200 at the unembed), so the bytes of B bound
+//     it as they bound the 16-bit route;
+//   - register tiles through a cp.async ring with A k-major
+//     (f32_mm_kernel): 32 x 32 (4 x 4 outputs a thread, 8 groups of
+//     threads on different chunks of the tile) up to 32 rows, 32 x 64 (4
+//     x 8, 4 groups) beyond, so that a prefill's rows fill the card (128
+//     blocks at 32 rows and N = 4096), and 32 x 8 for N <= 8 (a router's
+//     experts at prefill).  At 128 rows and more the CUDA cores' 67
+//     TFLOP/s bound it.
 #include "f32_gemm.cuh"
 
 namespace {
 
 using namespace repro;
 
-// -- f32: the CUDA cores (f32_gemm.cuh) ----------------------------------------
-template <class LT>
-__global__ void __launch_bounds__(LT::THREADS)
-    matmul_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                      float* __restrict__ C, int M, int K, int N, bool a_vec,
-                      bool b_vec) {
-  using TL = typename LT::Tile;
-  extern __shared__ __align__(16) float fsm[];
-  f32_mm_tile<LT>(fsm, A, B, M, K, N, blockIdx.y * TL::BM,
-                  blockIdx.x * TL::BN, a_vec, b_vec,
-                  [&](int m, int n, float v) { C[(size_t)m * N + n] = v; });
-}
-
-template <int BM, int LANES>
-__global__ void __launch_bounds__(LANES * kLaneGroups)
-    matmul_f32_lanes_kernel(const float* __restrict__ A,
-                            const float* __restrict__ B,
-                            float* __restrict__ C, int M, int K, int N,
-                            bool a_vec) {
-  f32_lanes<BM, LANES>(A, K, B, M, N, K, blockIdx.y * BM,
-                       blockIdx.x * kLaneCols, a_vec,
-                       [&](int m, int n, float v) { C[(size_t)m * N + n] = v; });
-}
-
-__global__ void __cluster_dims__(kSplitCluster, 1, 1)
-    __launch_bounds__(kThreads)
-        matmul_f32_split_kernel(const float* __restrict__ A,
-                                const float* __restrict__ B,
-                                float* __restrict__ C, int M, int K, int N) {
-  extern __shared__ __align__(16) float ssm[];
-  const int o = blockIdx.x / kSplitCluster;
-  const int m = o / N, n = o % N;
-  const float tot =
-      f32_split_sum(A + (size_t)m * K, 1, B + n, N, K, ssm);
-  if (blockIdx.x % kSplitCluster == 0 && threadIdx.x == 0)
-    C[(size_t)m * N + n] = tot;
-}
-
-cudaError_t launch_f32(F32Split, const float* A, const float* B, float* C,
-                       int M, int K, int N, cudaStream_t s) {
-  static PerDevice limit_set;
-  const cudaError_t limit =
-      f32_smem_limit(limit_set, matmul_f32_split_kernel, kSplitSmem);
-  if (limit != cudaSuccess) return limit;
-  matmul_f32_split_kernel<<<(unsigned)(M * N * kSplitCluster), kThreads,
-                            kSplitSmem, s>>>(A, B, C, M, K, N);
-  return cudaSuccess;
-}
-
-template <int BM, int LANES>
-cudaError_t launch_f32(F32Lanes<BM, LANES>, const float* A, const float* B,
-                       float* C, int M, int K, int N, cudaStream_t s) {
-  const dim3 grid((N + kLaneCols - 1) / kLaneCols, (M + BM - 1) / BM);
-  matmul_f32_lanes_kernel<BM, LANES><<<grid, LANES * kLaneGroups, 0, s>>>(
-      A, B, C, M, K, N, aligned16(A) && K % 4 == 0);
-  return cudaSuccess;
-}
-
-template <class LT>
-cudaError_t launch_f32(F32Tiles<LT>, const float* A, const float* B,
-                       float* C, int M, int K, int N, cudaStream_t s) {
-  using TL = typename LT::Tile;
-  static PerDevice limit_set;
-  const cudaError_t limit =
-      f32_smem_limit(limit_set, matmul_f32_kernel<LT>, LT::SMEM);
-  if (limit != cudaSuccess) return limit;
-  const dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  matmul_f32_kernel<LT><<<grid, LT::THREADS, LT::SMEM, s>>>(
-      A, B, C, M, K, N, aligned16(A) && K % 4 == 0,
-      aligned16(B) && N % 4 == 0);
-  return cudaSuccess;
-}
+// names matmul's f32 kernels in a profile (f32_gemm.cuh's f32_matmul)
+struct matmul_f32 {};
 
 template <typename T, class TL>
 __global__ void __launch_bounds__(kThreads)
@@ -194,14 +125,11 @@ extern "C" int repro_matmul(const void* a, const void* b, void* c, int M,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (dtype) {
-    case kF32: {
-      const float* A = static_cast<const float*>(a);
-      const float* B = static_cast<const float*>(b);
-      float* C = static_cast<float*>(c);
-      err = with_f32_matmul(M, K, N, [&](auto arrangement) {
-        return launch_f32(arrangement, A, B, C, M, K, N, s);
-      });
-    } break;
+    case kF32:
+      err = f32_matmul<matmul_f32, false>(static_cast<const float*>(a),
+                                          static_cast<const float*>(b),
+                                          static_cast<float*>(c), M, K, N, s);
+      break;
     case kBF16: err = launch_16bit<__nv_bfloat16>(a, b, c, M, K, N, s); break;
     case kF16: err = launch_16bit<__half>(a, b, c, M, K, N, s); break;
     default: break;

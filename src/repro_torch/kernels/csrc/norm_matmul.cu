@@ -33,97 +33,78 @@
 // column tile (at M = 64, 128 tiles x 512 KB), which measured slower at
 // every M above 4.
 //
-// Reduction order: each row's sum of squares by one warp (lane l sums the
-// squares of the row's 16-byte vectors l, l + 32, ... in ascending order,
-// then a butterfly; a scalar lane-strided sum when D is no whole number
-// of vectors), so inv depends on D alone; every product then in matmul's
-// K order, fixed by D alone.  A row gives the same bits alone or in any
-// batch.
+// Reduction order, bf16 and f16: each row's sum of squares by one warp
+// (lane l sums the squares of the row's 16-byte vectors l, l + 32, ... in
+// ascending order, then a butterfly; a scalar lane-strided sum when D is
+// no whole number of vectors), so inv depends on D alone; every product
+// then in matmul's K order, fixed by D alone.  A row gives the same bits
+// alone or in any batch.
 //
-// Design, f32: CUDA-core FMAs (no TF32: f32 means f32).  The block first
-// normalises its 1, 4 or 16 rows into shared memory (inverse RMS by
-// row_sumsq), then runs common.cuh's gemm_partial / reduce_k_lanes
-// against W; the wrapper picks the row tile so the rows fit.
-#include "tc_gemm.cuh"
+// Design, f32: two kernels, the second launched as a programmatic
+// dependent of the first.  norm_rows_f32_kernel gives each row a warp: its
+// inverse RMS in row_sumsq's order (lane l sums the squares of elements l,
+// l + 32, ... in ascending order, then a butterfly; fixed by D alone),
+// then the normalised row (x * inv) * g, in that multiply order, written
+// in f32 to an (M, D) workspace (64 KB at 4 rows, 2 MB at 128: it stays
+// in L2).  The product is matmul's f32 launch (f32_gemm.cuh's
+// f32_matmul) on that workspace and W, in the port's one f32 order, and
+// reads the rows only after griddepcontrol.wait: f32 norm_matmul is bit
+// for bit f32 matmul(normalised rows, W), and nothing of it grows with D.
+#include "f32_gemm.cuh"
 
 namespace {
 
 using namespace repro;
 
-// -- f32: CUDA cores ---------------------------------------------------------
-constexpr int CG = 4;
+// -- f32: CUDA cores (f32_gemm.cuh) -------------------------------------------
+// names the f32 product's kernels in a profile (f32_matmul)
+struct norm_matmul_f32 {};
 
-template <typename T, typename TG, int BM>
+// Row m of the block's kWarps rows to XN: (x * inv) * g in f32, inv in
+// row_sumsq's order.  The product that follows may launch at once
+// (EARLY), or once every block has written its rows: where its blocks
+// would otherwise wait on SMs the scheduler packed two to one
+// (f32_gemm.cuh's f32_packs).
+template <typename TG, bool EARLY>
 __global__ void __launch_bounds__(kThreads)
-    norm_matmul_kernel(const T* __restrict__ X, const TG* __restrict__ G,
-                       const T* __restrict__ W, T* __restrict__ C, int M,
-                       int D, int N, float eps) {
-  constexpr int BN = CG * kVec<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);   // [BM][D] normalized rows
-  __shared__ float red[kWarps * BM * BN];
-  __shared__ float inv[BM];
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int m_valid = min(BM, M - m0);
+    norm_rows_f32_kernel(const float* __restrict__ X,
+                         const TG* __restrict__ G, float* __restrict__ XN,
+                         int M, int D, float eps) {
+  if constexpr (EARLY)
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int m = warp; m < BM; m += kWarps) {
-    float ss = 0.f;
-    if (m < m_valid) ss = row_sumsq(X + (size_t)(m0 + m) * D, D);
-    if (lane == 0) inv[m] = 1.f / sqrtf(ss / (float)D + eps);
+  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (m < M) {   // the whole warp
+    const float* row = X + (size_t)m * D;
+    const float inv = 1.f / sqrtf(row_sumsq(row, D) / (float)D + eps);
+    float* out = XN + (size_t)m * D;
+    for (int d = lane; d < D; d += 32) out[d] = row[d] * inv * to_f32(G[d]);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * D; i += kThreads) {
-    const int m = i / D, d = i % D;
-    float v = 0.f;
-    if (m < m_valid)
-      v = to_f32(X[(size_t)(m0 + m) * D + d]) * inv[m] * to_f32(G[d]);
-    xs[i] = from_f32<T>(v);
-  }
-  __syncthreads();
-  float acc[BM][kVec<T>];
-  gemm_partial<T, BM, CG>(xs, D, m_valid, W, N, D, n0, N, acc);
-  reduce_k_lanes<T, BM, CG>(acc, red);
-  for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
-    const int m = i / BN, n = n0 + i % BN;
-    if (m < m_valid && n < N)
-      C[(size_t)(m0 + m) * N + n] = from_f32<T>(red[i]);
-  }
-}
-
-template <typename TG, int BM>
-int launch_f32(const float* X, const TG* G, const float* W, float* C, int M,
-               int D, int N, float eps, cudaStream_t s) {
-  constexpr int BN = CG * kVec<float>;
-  const size_t smem = (size_t)BM * D * sizeof(float);
-  auto kern = norm_matmul_kernel<float, TG, BM>;
-  // once per instantiation and device, at the card's opt-in limit less
-  // the static arrays (the row tile's size depends on D)
-  static PerDevice limit_set;
-  const cudaError_t limit = once_per_device(limit_set, [kern] {
-    cudaFuncAttributes fa;
-    const cudaError_t e = cudaFuncGetAttributes(&fa, kern);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxDynamicSmem - (int)fa.sharedSizeBytes);
-  });
-  if (limit != cudaSuccess) return (int)limit;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kern<<<grid, kThreads, smem, s>>>(X, G, W, C, M, D, N, eps);
-  return 0;
+  if constexpr (!EARLY)
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 template <typename TG>
-int launch_f32_bm(const float* X, const TG* G, const float* W, float* C,
-                  int M, int D, int N, int bm, float eps, cudaStream_t s) {
-  switch (bm) {
-    case 1: return launch_f32<TG, 1>(X, G, W, C, M, D, N, eps, s);
-    case 4: return launch_f32<TG, 4>(X, G, W, C, M, D, N, eps, s);
-    case 16: return launch_f32<TG, 16>(X, G, W, C, M, D, N, eps, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_f32(const float* X, const TG* G, const float* W, float* C,
+               float* XN, int M, int D, int N, float eps, cudaStream_t s) {
+  int sms = 0;
+  const cudaError_t e = f32_sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  bool packs = false;
+  with_f32_matmul(M, D, N, [&](auto arrangement) {
+    packs = f32_packs(arrangement, M, N, sms);
+    return cudaSuccess;
+  });
+  const unsigned blocks = (M + kWarps - 1) / kWarps;
+  if (packs)
+    norm_rows_f32_kernel<TG, false><<<blocks, kThreads, 0, s>>>(X, G, XN, M,
+                                                              D, eps);
+  else
+    norm_rows_f32_kernel<TG, true><<<blocks, kThreads, 0, s>>>(X, G, XN, M,
+                                                             D, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)f32_matmul<norm_matmul_f32, true>(XN, W, C, M, D, N, s);
 }
 
 // -- bf16, f16: the tensor-core mainloop with the norm as A transform --------
@@ -293,38 +274,35 @@ int launch_16bit(const T* X, const TG* G, const T* W, T* C, float* inv,
 
 }  // namespace
 
-// ``bm`` is the f32 route's row tile (1, 4 or 16), picked by the wrapper
-// so that bm normalized rows of D f32 values fit in shared memory; the
-// 16-bit route picks its tile from M and N and ignores it.  ``inv`` is
-// the 16-bit route's workspace of M floats (the rows' inverse RMS); the
-// f32 route takes null.
+// ``ws`` is a workspace: the 16-bit route's M floats (the rows'
+// inverse RMS), the f32 route's (M, D) floats (the normalised rows).
 extern "C" int repro_norm_matmul(const void* x, const void* g, const void* w,
-                                 void* c, void* inv, int M, int D, int N,
-                                 int bm, float eps, int dtype, int g_dtype,
+                                 void* c, void* ws, int M, int D, int N,
+                                 float eps, int dtype, int g_dtype,
                                  void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  float* ws = static_cast<float*>(inv);
-  if (dtype != kF32 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  float* work = static_cast<float*>(ws);
+  if (work == nullptr) return (int)cudaErrorInvalidValue;
   int rc = 0;
   REPRO_DISPATCH_DTYPE(g_dtype, TG, {
     const TG* G = static_cast<const TG*>(g);
     switch (dtype) {
       case kF32:
-        rc = launch_f32_bm<TG>(static_cast<const float*>(x), G,
-                               static_cast<const float*>(w),
-                               static_cast<float*>(c), M, D, N, bm, eps, s);
+        rc = launch_f32<TG>(static_cast<const float*>(x), G,
+                            static_cast<const float*>(w),
+                            static_cast<float*>(c), work, M, D, N, eps, s);
         break;
       case kBF16:
         rc = launch_16bit<__nv_bfloat16, TG>(
             static_cast<const __nv_bfloat16*>(x), G,
             static_cast<const __nv_bfloat16*>(w),
-            static_cast<__nv_bfloat16*>(c), ws, M, D, N, eps, s);
+            static_cast<__nv_bfloat16*>(c), work, M, D, N, eps, s);
         break;
       case kF16:
         rc = launch_16bit<__half, TG>(static_cast<const __half*>(x), G,
                                       static_cast<const __half*>(w),
-                                      static_cast<__half*>(c), ws, M, D, N,
-                                      eps, s);
+                                      static_cast<__half*>(c), work, M, D,
+                                      N, eps, s);
         break;
       default:
         return (int)cudaErrorInvalidValue;

@@ -41,20 +41,27 @@
 // Do tile), the (M, F) activation makes one trip through L2, and nothing
 // is reduced across blocks.
 //
-// Design, f32: CUDA-core FMAs (no TF32: f32 means f32), split the same
-// way.  swiglu_gate_up_f32_kernel computes a 32-column F slice of g, then
-// of u, with common.cuh's gemm_partial / reduce_k_lanes and writes h;
-// swiglu_down_f32_kernel runs the same k-lanes GEMM on h and wd
-// (kernels/ops.py:kline_plan), not matmul.cu's f32 order (f32_gemm.cuh):
-// with both on that order phase 15's vlm small-train gate fails (ROADMAP
-// Queue 3).
+// Design, f32: CUDA-core FMAs (no TF32: f32 means f32) in the port's one
+// f32 order (f32_gemm.cuh: chunks of 256 k, each in sub-chains of 32),
+// split the same way.  swiglu_gate_up_f32_kernel pairs BN/2 columns of wg
+// with the same BN/2 of wu in its B tile, so each A value it reads feeds
+// both products; at most 4 rows it runs f32_gemm.cuh's chunk lanes over
+// 16 + 16 paired columns (swiglu_gate_up_f32_lanes_kernel: the bytes of
+// wg and wu bind), from 5 rows on matmul's register tiles, 32 x 32 (16 +
+// 16 columns, 8 groups of threads on different chunks) up to 32 rows, 32
+// x 64 (32 + 32, 4 groups) beyond, rows fastest in the grid.  The sums
+// of g and u meet in shared memory and the epilogue writes h in f32 to
+// the (M, F) workspace.  The down product is matmul's f32 launch
+// (f32_gemm.cuh's f32_matmul) on h and wd as the programmatic dependent
+// of the first kernel, reading h only after griddepcontrol.wait: f32
+// swiglu's output is bit for bit f32 matmul(h, wd).
 //
 // Reduction order: tensor cores: g and u each in matmul's order for K =
 // D, the down product in matmul's order for K = F (tc_gemm.cuh's warp
-// slices); f32: gemm_partial's k-lanes for K = D and K = F.  Neither
-// depends on M, the row's position or the run: no split of K across
-// blocks, no atomics.
-#include "tc_gemm.cuh"
+// slices); f32: g and u each in the f32 order for K = D, the down product
+// in the f32 order for K = F.  Neither depends on M, the row's position
+// or the run: no split of K across blocks, no atomics.
+#include "f32_gemm.cuh"
 
 namespace {
 
@@ -72,72 +79,133 @@ __device__ __forceinline__ float silu_mul(float g_sum, float u_sum) {
   return sg * u;   // the caller rounds
 }
 
-// -- f32: CUDA cores -----------------------------------------------------------
-constexpr int CG_GU = 8;   // gate/up column groups: 32 F columns
-constexpr int CG_DN = 4;   // down column groups: matmul.cu's 16 columns
+// -- f32: CUDA cores (f32_gemm.cuh) -------------------------------------------
+// names the f32 down product's kernels in a profile (f32_matmul)
+struct swiglu_down_f32 {};
 
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
+// Register tiles: a BM x BN tile of [g | u], BN/2 F columns of each, rows
+// fastest in the grid.  g and u meet in shared memory (the ring, free on
+// return), where each thread forms h for its share of the tile.  Both
+// f32 gate/up kernels let the down product launch only once they have
+// written h (as norm_matmul.cu's row kernel does, and for its reason).
+template <class LT>
+__global__ void __launch_bounds__(LT::THREADS)
     swiglu_gate_up_f32_kernel(const float* __restrict__ X,
                               const float* __restrict__ WG,
                               const float* __restrict__ WU,
-                              float* __restrict__ H, int M, int D, int F) {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  constexpr int BF = CG_GU * kVec<float>;
-  __shared__ float red[kWarps * BM * BF];
-  __shared__ float gs[BM * BF];
-  const int f0 = blockIdx.x * BF;
-  const int m0 = blockIdx.y * BM;
-  const int m_valid = min(BM, M - m0);
-  const float* Xt = X + (size_t)m0 * D;
-  float acc[BM][kVec<float>];
-  gemm_partial<float, BM, CG_GU>(Xt, D, m_valid, WG, F, D, f0, F, acc);
-  reduce_k_lanes<float, BM, CG_GU>(acc, red);
-  for (int i = threadIdx.x; i < BM * BF; i += kThreads) gs[i] = red[i];
+                              float* __restrict__ H, int M, int D, int F,
+                              bool a_vec, bool b_vec) {
+  using TL = typename LT::Tile;
+  constexpr int BN = TL::BN, BF = BN / 2;
+  extern __shared__ __align__(16) float fsm[];
+  const int m0 = blockIdx.x * TL::BM;
+  const int f0 = blockIdx.y * BF;
+  f32_lane_tile<LT, false>(
+      fsm, D,
+      [&](float* as, int k0, int t) {
+        f32_load_kmajor<TL::BM, TL::BK, TL::THREADS>(as, X, D, m0, M, k0, D,
+                                                     a_vec, t);
+      },
+      [&](float* bs, int k0, int t) {
+        f32_load<BF, TL::BP, TL::BK, TL::THREADS, false>(
+            bs, WG, F, 1, f0, F, k0, D, b_vec, t);
+        f32_load<BF, TL::BP, TL::BK, TL::THREADS, false>(
+            bs + BF, WU, F, 1, f0, F, k0, D, b_vec, t);
+      },
+      [&](int m, int n, float v) { fsm[m * BN + n] = v; });
   __syncthreads();
-  gemm_partial<float, BM, CG_GU>(Xt, D, m_valid, WU, F, D, f0, F, acc);
-  reduce_k_lanes<float, BM, CG_GU>(acc, red);
-  for (int i = threadIdx.x; i < BM * BF; i += kThreads) {
-    const int m = i / BF, f = f0 + i % BF;
-    if (m < m_valid && f < F)
-      H[(size_t)(m0 + m) * F + f] = silu_mul<float>(gs[i], red[i]);
+  for (int e = threadIdx.x; e < TL::BM * BF; e += LT::THREADS) {
+    const int m = e / BF, j = e % BF;
+    if (m0 + m < M && f0 + j < F)
+      H[(size_t)(m0 + m) * F + f0 + j] =
+          silu_mul<float>(fsm[m * BN + j], fsm[m * BN + BF + j]);
   }
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-    swiglu_down_f32_kernel(const float* __restrict__ H,
-                           const float* __restrict__ WD,
-                           float* __restrict__ C, int M, int F, int Do) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  constexpr int BN = CG_DN * kVec<float>;
-  __shared__ float red[kWarps * BM * BN];
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int m_valid = min(BM, M - m0);
-  float acc[BM][kVec<float>];
-  gemm_partial<float, BM, CG_DN>(H + (size_t)m0 * F, F, m_valid, WD, Do, F,
-                                 n0, Do, acc);
-  reduce_k_lanes<float, BM, CG_DN>(acc, red);
-  for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
-    const int m = i / BN, n = n0 + i % BN;
-    if (m < m_valid && n < Do) C[(size_t)(m0 + m) * Do + n] = red[i];
-  }
+// Chunk lanes: BM rows against 16 F columns of wg beside the same 16 of wu
+template <int BM, int LANES>
+__global__ void __launch_bounds__(LANES * kLaneGroups)
+    swiglu_gate_up_f32_lanes_kernel(const float* __restrict__ X,
+                                    const float* __restrict__ WG,
+                                    const float* __restrict__ WU,
+                                    float* __restrict__ H, int M, int D,
+                                    int F, bool a_vec) {
+  constexpr int BF = kLaneCols / 2;
+  const int m0 = blockIdx.x * BM;
+  const int f0 = blockIdx.y * BF;
+  f32_lanes<BM, LANES>(
+      X, D, M, D, m0, a_vec,
+      [&](int c) -> const float* {
+        const int f = f0 + (c < BF ? c : c - BF);
+        return f < F ? (c < BF ? WG : WU) + f : nullptr;
+      },
+      F, [&](const float* sums) {
+        for (int e = threadIdx.x; e < BM * BF; e += LANES * kLaneGroups) {
+          const int m = e / BF, j = e % BF;
+          if (m0 + m < M && f0 + j < F)
+            H[(size_t)(m0 + m) * F + f0 + j] = silu_mul<float>(
+                sums[m * kLaneCols + j], sums[m * kLaneCols + BF + j]);
+        }
+      });
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-template <int BM>
+template <int BM, int LANES>
+cudaError_t launch_gate_up_f32(F32Lanes<BM, LANES>, const float* X,
+                               const float* WG, const float* WU, float* H,
+                               int M, int D, int F, cudaStream_t s) {
+  const dim3 grid((M + BM - 1) / BM, (F + kLaneCols / 2 - 1) / (kLaneCols / 2));
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  swiglu_gate_up_f32_lanes_kernel<BM, LANES>
+      <<<grid, LANES * kLaneGroups, 0, s>>>(X, WG, WU, H, M, D, F,
+                                            aligned16(X) && D % 4 == 0);
+  return cudaGetLastError();
+}
+
+template <class LT>
+cudaError_t launch_gate_up_f32(F32Tiles<LT>, const float* X, const float* WG,
+                               const float* WU, float* H, int M, int D, int F,
+                               cudaStream_t s) {
+  using TL = typename LT::Tile;
+  constexpr int BF = TL::BN / 2;
+  static PerDevice limit_set;
+  const cudaError_t limit =
+      f32_smem_limit(limit_set, swiglu_gate_up_f32_kernel<LT>, LT::SMEM);
+  if (limit != cudaSuccess) return limit;
+  const dim3 grid((M + TL::BM - 1) / TL::BM, (F + BF - 1) / BF);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  swiglu_gate_up_f32_kernel<LT><<<grid, LT::THREADS, LT::SMEM, s>>>(
+      X, WG, WU, H, M, D, F, aligned16(X) && D % 4 == 0,
+      aligned16(WG) && aligned16(WU) && F % 4 == 0);
+  return cudaGetLastError();
+}
+
+// the gate/up arrangement, mirrored by kernels/ops.py:swiglu_plan:
+// with_f32_matmul's chunk lanes and register tiles (no cluster per output,
+// no narrow tile: a paired tile holds at least 16 F columns)
+template <class Fn>
+cudaError_t with_f32_gate_up(int M, int D, Fn&& f) {
+  if (M <= kLaneMaxRows) {
+    const bool many = D > kLanesFew * kChunk;
+    if (M <= 1)
+      return many ? f(F32Lanes<1, kLanesMany>()) : f(F32Lanes<1, kLanesFew>());
+    if (M <= 2)
+      return many ? f(F32Lanes<2, kLanesMany>()) : f(F32Lanes<2, kLanesFew>());
+    return many ? f(F32Lanes<4, kLanesMany>()) : f(F32Lanes<4, kLanesFew>());
+  }
+  if (M <= 32) return f(F32Tiles<F32L32x32>());
+  return f(F32Tiles<F32L32x64>());
+}
+
 cudaError_t launch_f32(const float* X, const float* WG, const float* WU,
                        const float* WD, float* H, float* C, int M, int D,
                        int F, int Do, cudaStream_t s) {
-  constexpr int BF = CG_GU * kVec<float>, BN = CG_DN * kVec<float>;
-  const unsigned row_tiles = (M + BM - 1) / BM;
-  swiglu_gate_up_f32_kernel<BM><<<dim3((F + BF - 1) / BF, row_tiles),
-                                  kThreads, 0, s>>>(X, WG, WU, H, M, D, F);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = with_f32_gate_up(M, D, [&](auto arrangement) {
+    return launch_gate_up_f32(arrangement, X, WG, WU, H, M, D, F, s);
+  });
   if (err != cudaSuccess) return err;
-  return launch_dependent(swiglu_down_f32_kernel<BM>,
-                          dim3((Do + BN - 1) / BN, row_tiles), 0, s,
-                          static_cast<const float*>(H), WD, C, M, F, Do);
+  return f32_matmul<swiglu_down_f32, true>(H, WD, C, M, F, Do, s);
 }
 
 // -- bf16, f16: tensor cores ---------------------------------------------------
@@ -252,21 +320,13 @@ extern "C" int repro_swiglu(const void* x, const void* wg, const void* wu,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (dtype) {
-    case kF32: {
-      const float* X = static_cast<const float*>(x);
-      const float* WG = static_cast<const float*>(wg);
-      const float* WU = static_cast<const float*>(wu);
-      const float* WD = static_cast<const float*>(wd);
-      float* H = static_cast<float*>(h);
-      float* C = static_cast<float*>(out);
-      switch (pick_bm(M)) {
-        case 1: err = launch_f32<1>(X, WG, WU, WD, H, C, M, D, F, Do, s); break;
-        case 4: err = launch_f32<4>(X, WG, WU, WD, H, C, M, D, F, Do, s); break;
-        default:
-          err = launch_f32<16>(X, WG, WU, WD, H, C, M, D, F, Do, s);
-          break;
-      }
-    } break;
+    case kF32:
+      err = launch_f32(static_cast<const float*>(x),
+                       static_cast<const float*>(wg),
+                       static_cast<const float*>(wu),
+                       static_cast<const float*>(wd), static_cast<float*>(h),
+                       static_cast<float*>(out), M, D, F, Do, s);
+      break;
     case kBF16:
       err = launch_16bit<__nv_bfloat16>(x, wg, wu, wd, h, out, M, D, F, Do,
                                         s);

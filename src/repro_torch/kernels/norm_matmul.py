@@ -19,8 +19,12 @@ read inv; each warp then normalises the A fragments of x it reads, in
 registers, so no normalised row is held whole and M = 64 takes matmul's
 64-row tile.  The wrapper counts the pair as one launch.  Each output is
 reduced in matmul's K order, fixed by D alone, so a row gives the same
-bits alone or in any batch.  f32 stays on the CUDA cores with its rows
-normalised into shared memory (``ops.norm_matmul_plan``).
+bits alone or in any batch.  For f32 the small kernel writes the
+normalised rows (its inverse RMS in the order of ``common.cuh``'s
+``row_sumsq``) to an (M, D) f32 workspace, and matmul's f32 launch -- the
+port's one f32 order, ``ops.f32_k_order`` -- is its programmatic
+dependent on them: f32 norm_matmul is bit for bit f32 ``matmul`` of its
+normalised rows, at any D (``ops.norm_matmul_plan``).
 """
 from __future__ import annotations
 
@@ -44,31 +48,45 @@ def supported(x: torch.Tensor, w: torch.Tensor) -> bool:
 
 def norm_matmul(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
-    global launches
     if x.device.type == "cpu":
         return norm_matmul_ref(x, g, w, eps=eps)
+    return _launch(x, g, w, eps)[0]
+
+
+def norm_matmul_with_rows(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                          eps: float = 1e-6):
+    """(out, rows): f32 :func:`norm_matmul` on CUDA tensors, and the
+    normalised rows its first kernel wrote, to check the product against
+    ``matmul(rows, w)``.  For checks only; no path of the port calls
+    it."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError("norm_matmul_with_rows: f32 CUDA tensors only")
+    return _launch(x, g, w, eps)
+
+
+def _launch(x, g, w, eps):
+    global launches
     M, D = x.shape
     D2, N = w.shape
     if D != D2 or tuple(g.shape) != (D,) or x.dtype != w.dtype:
         raise ValueError(
             f"norm_matmul: x {tuple(x.shape)} {x.dtype}, g "
             f"{tuple(g.shape)}, w {tuple(w.shape)} {w.dtype}")
-    plan = ops.norm_matmul_plan(M, D, N, x.dtype, g.dtype)
-    if plan is None or not ops.matmul_supported(M, D, N, x.dtype):
+    if not ops.norm_matmul_supported(M, D, N, x.dtype):
         raise ValueError(f"norm_matmul kernel does not take M={M} D={D} "
                          f"N={N} {x.dtype}")
     x = _build.operand(x, "norm_matmul", x.device)
     g = _build.operand(g, "norm_matmul", x.device)
     w = _build.operand(w, "norm_matmul", x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    # the rows' inverse RMS, between the tensor-core route's two kernels
-    inv = (torch.empty((M,), dtype=torch.float32, device=x.device)
-           if plan.route == "tensor_core" else None)
+    # between the two kernels: the normalised rows (f32), or the rows'
+    # inverse RMS (bf16, f16)
+    ws = torch.empty((M, D) if x.dtype == torch.float32 else (M,),
+                     dtype=torch.float32, device=x.device)
     _build.launch(
         "repro_norm_matmul", x.device, x.data_ptr(), g.data_ptr(),
-        w.data_ptr(), out.data_ptr(),
-        inv.data_ptr() if inv is not None else None, M, D, N, plan.bm,
-        float(eps), _build.dtype_code(x, "norm_matmul"),
+        w.data_ptr(), out.data_ptr(), ws.data_ptr(), M, D, N, float(eps),
+        _build.dtype_code(x, "norm_matmul"),
         _build.dtype_code(g, "norm_matmul"), _build.stream(x))
     launches += 1
-    return out
+    return out, ws

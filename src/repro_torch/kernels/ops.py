@@ -7,8 +7,7 @@ The TPU kernels needed (8, 128)-tiled shapes: rows a multiple of 8 or
 so any row count M >= 1 is taken -- decode's 4 slots, a 64-row prefill
 chunk, the 1-row unembed of a prefill's last position.  What they do
 need is that each weight row splits into 16-byte vectors (the output
-width N a multiple of 16 / itemsize) and, for the f32 fused norm, that
-a normalized row fits in shared memory.
+width N a multiple of 16 / itemsize).
 """
 from __future__ import annotations
 
@@ -32,14 +31,6 @@ def vec(dtype: torch.dtype) -> int:
 
 def _ok_dims(*dims: int) -> bool:
     return all(1 <= int(d) <= _I32 for d in dims)
-
-
-def row_tile(m: int) -> int:
-    """Row-tile height of the f32 routes still on csrc/common.cuh's
-    ``gemm_partial``: swiglu's (``pick_bm``) and norm_matmul's
-    (norm_matmul.cu instantiates 1, 4 and 16 rows; :func:`_norm_f32_tile`
-    lowers it until the rows fit)."""
-    return 1 if m <= 1 else (4 if m <= 4 else 16)
 
 
 # -- matmul --------------------------------------------------------------------
@@ -88,8 +79,9 @@ def tc_smem_bytes(bm: int, bn: int, stages: int) -> int:
     return max(ring, _WARPS * bm * (bn + 8) * 4)
 
 
-# mirrors csrc/f32_gemm.cuh (the f32 route of matmul, and the batched
-# kernel's f32 order): a cluster of BMM_SPLIT_CLUSTER blocks per
+# mirrors csrc/f32_gemm.cuh (the f32 route of matmul, of swiglu's and
+# norm_matmul's products, and the batched kernel's f32 order, all
+# :func:`f32_k_order`): a cluster of BMM_SPLIT_CLUSTER blocks per
 # output for at most F32_SPLIT_OUTPUTS outputs over K >= BMM_SPLIT_MIN_K;
 # chunk lanes (F32_LANES chunks at once, or F32_LANES_MANY where K has
 # more than F32_LANES chunks; 8 threads a lane, F32_LANE_COLS columns and
@@ -136,10 +128,9 @@ def matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
     """How csrc/matmul.cu launches ``(m, k) @ (k, n)``: one kernel a call.
     The K order of the tensor-core route -- warp ``k // TC_WARP_K % 8`` of
     stage ``k // TC_KS``, stages in order, then the warps in order -- and
-    of the f32 route -- chunks of BMM_CHUNK, each one chain, added in
-    order (:func:`matmul_k_order`, the batched kernel's f32 order) -- is a
-    function of ``k`` alone; ``m`` and ``n`` pick only the arrangement and
-    tile."""
+    of the f32 route -- :func:`f32_k_order`, the batched kernel's f32
+    order (:func:`matmul_k_order`) -- is a function of ``k`` alone; ``m``
+    and ``n`` pick only the arrangement and tile."""
     if dtype == torch.float32:
         if k >= BMM_SPLIT_MIN_K and m * n <= F32_SPLIT_OUTPUTS:
             return MatmulPlan("cuda_core", 1, 1,
@@ -164,28 +155,29 @@ def matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
                       k * n * dtype.itemsize <= TC_EVICT_FIRST_BYTES)
 
 
-def kline_plan(m: int, n: int) -> MatmulPlan:
-    """The first slice's f32 GEMM (csrc/common.cuh's ``gemm_partial`` /
-    ``reduce_k_lanes``: ``row_tile(m)`` rows by 16 columns a block, the k
-    lanes summed in one fixed order), as swiglu.cu's f32 down product
-    launches it for ``(m, k) @ (k, n)``."""
-    bm, bn = row_tile(m), 4 * vec(torch.float32)
-    return MatmulPlan("cuda_core", bm, bn, (-(-n // bn), -(-m // bm)), 0, 0,
-                      0, False, "k_lanes")
+def f32_k_order(k: int) -> Tuple[Tuple[Tuple[int, ...], ...], ...]:
+    """The port's one f32 order over ``k`` (csrc/f32_gemm.cuh), in three
+    levels: one tuple per chunk of BMM_CHUNK k, in chunk order; in each,
+    one tuple per sub-chain of F32_SUB consecutive k, in order; in each,
+    its k in accumulation order.  A sub-chain is one fmaf chain from +0, a
+    chunk's sub-chain sums are added in order to a chunk sum from +0, and
+    the chunk sums in order to a total from +0."""
+    return tuple(
+        tuple(tuple(range(s, min(s + F32_SUB, c + BMM_CHUNK, k)))
+              for s in range(c, min(c + BMM_CHUNK, k), F32_SUB))
+        for c in range(0, k, BMM_CHUNK))
 
 
-def matmul_k_order(plan: MatmulPlan, k: int) -> Tuple[Tuple[int, ...], ...]:
-    """The order in which matmul's kernel sums one output over ``k``: one
-    tuple per partial sum, each listing its k in accumulation order, the
-    partials added in tuple order to a sum from +0.  f32: chunk c is k in
-    [c * BMM_CHUNK, (c + 1) * BMM_CHUNK), one fmaf chain from +0 -- the
-    batched kernel's f32 order (:func:`batched_matmul_k_order`).  Tensor
-    cores: warp w takes k in [s * TC_KS + w * TC_WARP_K, + TC_WARP_K) over
-    the stages s in order.  Nothing here reads the plan's tile, grid or
-    arrangement."""
+def matmul_k_order(plan: MatmulPlan, k: int) -> tuple:
+    """The order in which matmul's kernel sums one output over ``k``.
+    f32: :func:`f32_k_order` (chunks of sub-chains of k) -- the batched
+    kernel's f32 order (:func:`batched_matmul_k_order`).  Tensor cores:
+    one tuple per partial sum, each listing its k in accumulation order,
+    the partials added in tuple order to a sum from +0: warp w takes k in
+    [s * TC_KS + w * TC_WARP_K, + TC_WARP_K) over the stages s in order.
+    Nothing here reads the plan's tile, grid or arrangement."""
     if plan.route == "cuda_core":
-        return tuple(tuple(range(c, min(c + BMM_CHUNK, k)))
-                     for c in range(0, k, BMM_CHUNK))
+        return f32_k_order(k)
     return tuple(
         tuple(kk for s in range(0, k, TC_KS)
               for kk in range(s + w * TC_WARP_K,
@@ -203,52 +195,37 @@ class NormMatmulPlan(NamedTuple):
     k_stage: int      # k per stage
     smem: int         # dynamic shared-memory bytes per block
     w_evict_first: bool     # W's copies carry L2's evict-first policy
-
-
-def _norm_f32_tile(m: int, d: int) -> Optional[int]:
-    """The f32 route's row tile: the GEMM tile for ``m``, lowered until
-    ``tile`` normalized f32 rows of width ``d`` plus the block's
-    reduction scratch fit in shared memory; None if one row does not."""
-    bn = 4 * vec(torch.float32)
-    for bm in (16, 4, 1):
-        if bm > row_tile(m):
-            continue
-        static = _WARPS * bm * bn * 4 + bm * 4
-        if bm * d * 4 + static <= _SMEM:
-            return bm
-    return None
+    gemm: Optional[MatmulPlan] = None   # the product: matmul's launch
+    rows_grid: int = 0   # blocks of the first kernel (a warp a row)
 
 
 def norm_matmul_plan(m: int, d: int, n: int, dtype: torch.dtype,
                      g_dtype: Optional[torch.dtype] = None
-                     ) -> Optional[NormMatmulPlan]:
+                     ) -> NormMatmulPlan:
     """How csrc/norm_matmul.cu launches ``rmsnorm(x (m, d), g) @ w (d,
-    n)``, or None where the f32 route's normalized rows do not fit.  The
-    16-bit route's GEMM (after a small kernel that computes the rows'
-    inverse RMS) is matmul's tensor-core launch (``matmul_plan``) with
-    the norm applied to A's fragments and g's slice of each stage in the
-    ring beside it (``g_dtype``, x's dtype when None), so nothing of it
-    grows with ``d``; its K order is matmul's, a function of ``d``
-    alone.  The f32 route keeps whole normalized rows in shared memory
-    (``bm * d * 4`` bytes)."""
-    if dtype == torch.float32:
-        bm = _norm_f32_tile(m, d)
-        if bm is None:
-            return None
-        bn = 4 * vec(dtype)
-        return NormMatmulPlan("cuda_core", bm, bn,
-                              (-(-n // bn), -(-m // bm)), 0, 0, bm * d * 4,
-                              False)
+    n)``: a small kernel with a warp a row (``rows_grid`` blocks), then
+    the product as its programmatic dependent.  The 16-bit route's first
+    kernel computes the rows' inverse RMS, and its product is matmul's
+    tensor-core launch (``matmul_plan``) with the norm applied to A's
+    fragments and g's slice of each stage in the ring beside it
+    (``g_dtype``, x's dtype when None).  The f32 route's first kernel
+    writes the normalised rows to an (m, d) f32 workspace, and its product
+    is matmul's f32 launch on them, in the one f32 order
+    (:func:`f32_k_order`).  Either way nothing grows with ``d``, and the
+    K order is matmul's, a function of ``d`` alone."""
     p = matmul_plan(m, d, n, dtype)
+    rows = -(-m // _WARPS)
+    if dtype == torch.float32:
+        return NormMatmulPlan("cuda_core", p.bm, p.bn, p.grid, p.stages,
+                              p.k_stage, p.smem, False, p, rows)
     g_size = (g_dtype or dtype).itemsize
     return NormMatmulPlan("tensor_core", p.bm, p.bn, p.grid, p.stages,
                           p.k_stage, p.smem + p.stages * TC_KS * g_size,
-                          p.b_evict_first)
+                          p.b_evict_first, p, rows)
 
 
 def norm_matmul_supported(m: int, d: int, n: int, dtype: torch.dtype) -> bool:
-    return (matmul_supported(m, d, n, dtype)
-            and norm_matmul_plan(m, d, n, dtype) is not None)
+    return matmul_supported(m, d, n, dtype)
 
 
 # -- fused swiglu -----------------------------------------------------------------
@@ -262,6 +239,8 @@ class SwigluPlan(NamedTuple):
     smem: int         # gate/up: dynamic shared-memory bytes per block
     b_evict_first: bool     # gate/up: wg and wu carry L2's evict-first
     down: MatmulPlan  # the down launch: matmul's, on h (m, f) and wd
+    # f32: the gate/up's arrangement (bn = 2 * bf: [wg | wu] columns)
+    gate_up: Optional[MatmulPlan] = None
 
 
 def swiglu_tile(m: int) -> Tuple[int, int, int]:
@@ -270,27 +249,43 @@ def swiglu_tile(m: int) -> Tuple[int, int, int]:
     return (16, 128, 3) if m <= 16 else (64, 64, 3)
 
 
+def _f32_gate_up_plan(m: int, d: int, f: int) -> MatmulPlan:
+    """The f32 gate/up launch (csrc/swiglu.cu's ``with_f32_gate_up``):
+    matmul's f32 arrangements but the cluster per output and the narrow
+    tile, over B tiles of ``bn / 2`` columns of wg beside the same columns
+    of wu, its grid (row tiles, F tiles) with the rows fastest."""
+    if m <= F32_LANE_ROWS:
+        bm = _pow2_rows(m)
+        lanes = F32_LANES_MANY if d > F32_LANES * BMM_CHUNK else F32_LANES
+        return MatmulPlan("cuda_core", bm, F32_LANE_COLS,
+                          (-(-m // bm), -(-f // (F32_LANE_COLS // 2))), 0,
+                          BMM_CHUNK, 0, False, "lanes",
+                          lanes * F32_LANE_COLS // 4, 1, (bm, 4), lanes)
+    tile = F32_L32X32 if m <= 32 else F32_L32X64
+    bm, bn, _, stages, bk, smem, threads, tt, groups = \
+        _f32_tile_plan(m, tile[1], tile)
+    return MatmulPlan("cuda_core", bm, bn, (-(-m // bm), -(-f // (bn // 2))),
+                      stages, bk, smem, False, "tile", threads, 1, tt, groups)
+
+
 def swiglu_plan(m: int, d: int, f: int, do: int,
                 dtype: torch.dtype) -> SwigluPlan:
     """How csrc/swiglu.cu launches ``silu(x (m, d) @ wg) * (x @ wu) @ wd
     (f, do)``: a gate/up kernel that writes h (m, f) to a workspace in
-    x's dtype, then the down product as its programmatic dependent.  The
-    16-bit down launch is matmul's (``matmul_plan(m, f, do)``); the 16-bit
-    gate/up runs matmul's tensor-core mainloop on x with B tiles of
-    ``bf`` columns of wg beside the same columns of wu, so g and u are
-    each reduced in matmul's K order for ``d``, a function of ``d``
-    alone.  Its grid walks the row tiles fastest, so the row tiles of one
-    F tile share that tile's weight columns through L2.  f32 stays on the
-    first slice's CUDA-core kernels (common.cuh's k-lanes, grid (F tiles,
-    row tiles)), its down product too (:func:`kline_plan`): on matmul's
-    f32 order the two products together put the vlm family's f32
-    small-train moment gap past its limit (ROADMAP Queue 3)."""
-    if dtype == torch.float32:
-        # 8 column vectors an F slice, as common.cuh's gemm_partial reads
-        bm, bf = row_tile(m), 8 * vec(dtype)
-        return SwigluPlan("cuda_core", bm, bf, (-(-f // bf), -(-m // bm)),
-                          0, 0, 0, False, kline_plan(m, do))
+    x's dtype, then the down product as its programmatic dependent: matmul's
+    launch, ``matmul_plan(m, f, do)``, in either route.  The gate/up
+    kernel's B tiles hold ``bf`` columns of wg beside the same columns of
+    wu, and its grid walks the row tiles fastest, so the row tiles of one
+    F tile share that tile's weight columns through L2.  16-bit: matmul's
+    tensor-core mainloop, so g and u are each reduced in matmul's K order
+    for ``d``.  f32: ``gate_up``, f32_gemm.cuh's chunk lanes (at most 4
+    rows) or register tiles, so g and u are each summed in the one f32
+    order for ``d`` (:func:`f32_k_order`)."""
     down = matmul_plan(m, f, do, dtype)
+    if dtype == torch.float32:
+        gu = _f32_gate_up_plan(m, d, f)
+        return SwigluPlan("cuda_core", gu.bm, gu.bn // 2, gu.grid, gu.stages,
+                          gu.k_stage, gu.smem, False, down, gu)
     bm, bn, stages = swiglu_tile(m)
     bf = bn // 2
     return SwigluPlan("tensor_core", bm, bf, (-(-m // bm), -(-f // bf)),
@@ -435,8 +430,8 @@ def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],
 
 
 # -- batched matmul -----------------------------------------------------------------
-# mirrors csrc/batched_matmul.cu.  f32: k in chunks of 256, each chunk one
-# fmaf chain and the chunk sums added in order; register tiles sized by M
+# mirrors csrc/batched_matmul.cu.  f32: the one f32 order (f32_k_order:
+# chunks of 256 k, each in sub-chains of 32); register tiles sized by M
 # and N (BMM_F32_TILES) with k tiles through a cp.async ring, and a
 # cluster of BMM_SPLIT_CLUSTER blocks per output (the chunks in parallel,
 # block 0 adding their sums in order) for at most 8192 outputs over K >=
@@ -444,11 +439,15 @@ def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],
 # sequence in every warp over 32-deep k-tiles (BMM_SEQ_TILES).  A grid of
 # (output tiles, batch blocks) whose blocks walk the batches past 65535.
 BMM_CHUNK = 256
+F32_SUB = 32   # k a sub-chain of the f32 order
 # (most rows, (rows, columns, k tile, threads, stages)) in order; the
-# last only where N > 64 too (else the one before it)
+# last only where N > 64 too (else the one before it), and then at K of
+# one chunk BMM_F32_ONE_WIDE: two stages, and each thread's chunk sums in
+# shared memory (rows x columns floats), two blocks an SM
 BMM_F32_TILES = ((1, (1, 64, 32, 64, 4)), (4, (4, 16, 32, 64, 4)),
                  (16, (16, 64, 32, 256, 3)), (64, (64, 64, 32, 256, 3)),
                  (None, (128, 128, 16, 256, 3)))
+BMM_F32_ONE_WIDE = (128, 128, 16, 256, 2)
 BMM_SPLIT_MAX_OUTPUTS = 8192
 BMM_SPLIT_MIN_K = 8 * BMM_CHUNK
 BMM_SPLIT_CLUSTER = 8     # blocks per output
@@ -539,10 +538,12 @@ def batched_matmul_f32_copy(s_x: int, s_k: int, s_batch: int, n_x: int,
     return "elements"
 
 
-def _f32_tile(m: int, n: int) -> Tuple[int, int, int, int, int]:
+def _f32_tile(m: int, n: int, k: int) -> Tuple[int, int, int, int, int]:
     for i, (most, tile) in enumerate(BMM_F32_TILES):
         if most is None:
-            return tile if n > 64 else BMM_F32_TILES[i - 1][1]
+            if n <= 64:
+                return BMM_F32_TILES[i - 1][1]
+            return BMM_F32_ONE_WIDE if k <= BMM_CHUNK else tile
         if m <= most:
             return tile
     raise AssertionError("unreachable")
@@ -568,14 +569,16 @@ def batched_matmul_plan(batch: int, m: int, n: int, k: int,
                 BMM_CHUNK, BMM_SPLIT_SMEM, "elements", "elements", chunks,
                 BMM_CHUNK, "bmm_f32_split_kernel", BMM_CHUNK, _THREADS,
                 BMM_SPLIT_CLUSTER)
-        bm, bn, bk, threads, stages = _f32_tile(m, n)
+        tile = _f32_tile(m, n, k)
+        bm, bn, bk, threads, stages = tile
+        sums = bm * bn * 4 if tile == BMM_F32_ONE_WIDE else 0
         a_copy = batched_matmul_f32_copy(1 if a_trans else k,
                                          m if a_trans else 1, m * k, m)
         b_copy = batched_matmul_f32_copy(k if b_trans else 1,
                                          1 if b_trans else n, k * n, n)
         return BatchedMatmulPlan(
             "cuda_core", bm, bn, (-(-m // bm) * -(-n // bn), bb), stages, bk,
-            stages * bk * (bm + bn + 8) * 4, a_copy, b_copy, chunks,
+            stages * bk * (bm + bn + 8) * 4 + sums, a_copy, b_copy, chunks,
             BMM_CHUNK, "bmm_f32_kernel", bk, threads)
     a_copy = batched_matmul_copy(m if a_trans else 1, 1 if a_trans else k,
                                  m * k, k, m)
@@ -589,17 +592,16 @@ def batched_matmul_plan(batch: int, m: int, n: int, k: int,
         _WARPS, TC_WARP_K, "bmm_seq_kernel", kg * BMM_SEQ_K)
 
 
-def batched_matmul_k_order(plan: BatchedMatmulPlan,
-                           k: int) -> Tuple[Tuple[int, ...], ...]:
-    """The order in which the kernel sums one output over ``k``: one
-    tuple per partial sum (lane), each listing its k in accumulation
-    order, the lanes added in tuple order.  CUDA cores: lane c is chunk c,
-    k in [c * 256, (c + 1) * 256).  Tensor cores: lane (warp) w takes k
-    in [s * k_stage + w * lane_k, s * k_stage + (w + 1) * lane_k) over the
-    stages s in order.  Nothing here reads the plan's tile or grid."""
+def batched_matmul_k_order(plan: BatchedMatmulPlan, k: int) -> tuple:
+    """The order in which the kernel sums one output over ``k``.  CUDA
+    cores: :func:`f32_k_order` (chunk c is k in [c * 256, (c + 1) * 256),
+    in sub-chains of 32).  Tensor cores: one tuple per partial sum (lane),
+    each listing its k in accumulation order, the lanes added in tuple
+    order: lane (warp) w takes k in [s * k_stage + w * lane_k, s * k_stage
+    + (w + 1) * lane_k) over the stages s in order.  Nothing here reads
+    the plan's tile or grid."""
     if plan.route == "cuda_core":
-        return tuple(tuple(range(c, min(c + plan.lane_k, k)))
-                     for c in range(0, k, plan.lane_k))
+        return f32_k_order(k)
     return tuple(
         tuple(kk for s in range(0, k, plan.k_stage)
               for kk in range(s + w * plan.lane_k,

@@ -2,8 +2,11 @@
 roundings (each product accumulated in f32 and rounded to x's dtype, the
 down projection accumulated in f32).  Two kernels: gate and up in one
 pass that writes the (M, F) hidden activation h to a workspace small
-enough to stay in L2, then the down product as its programmatic
-dependent (``ops.swiglu_plan``).
+enough to stay in L2, then the down product -- matmul's launch -- as its
+programmatic dependent (``ops.swiglu_plan``).  bf16 and f16 run on the
+tensor cores; f32 on the CUDA cores in the port's one f32 order
+(``ops.f32_k_order``: chunks of 256 k, each in sub-chains of 32), so f32
+swiglu's output is bit for bit f32 ``matmul(h, wd)``.
 
 Replaces ``repro/kernels/swiglu.py:swiglu``; the CUDA source is
 ``csrc/swiglu.cu``.  CPU tensors take the plain version
@@ -31,9 +34,24 @@ def supported(x: torch.Tensor, wg: torch.Tensor, wd: torch.Tensor) -> bool:
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    global launches
     if x.device.type == "cpu":
         return swiglu_ref(x, w_gate, w_up, w_down)
+    return _launch(x, w_gate, w_up, w_down)[0]
+
+
+def swiglu_with_hidden(x: torch.Tensor, w_gate: torch.Tensor,
+                       w_up: torch.Tensor, w_down: torch.Tensor):
+    """(out, h): :func:`swiglu` on CUDA tensors, and the hidden
+    activation its first kernel wrote, to check the down product against
+    ``matmul(h, w_down)``.  For checks only; no path of the port calls
+    it."""
+    if x.device.type != "cuda":
+        raise ValueError("swiglu_with_hidden: CUDA tensors only")
+    return _launch(x, w_gate, w_up, w_down)
+
+
+def _launch(x, w_gate, w_up, w_down):
+    global launches
     M, D = x.shape
     F = w_gate.shape[1]
     Do = w_down.shape[1]
@@ -61,4 +79,4 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(), out.data_ptr(),
         M, D, F, Do, _build.dtype_code(x, "swiglu"), _build.stream(x))
     launches += 1
-    return out
+    return out, h

@@ -115,14 +115,20 @@ def test_k_order_does_not_depend_on_batch_m_or_n(k, dtype):
     if dtype == torch.float32 and k >= kops.BMM_SPLIT_MIN_K:
         assert len(blocks) == 6   # five tiles and the split kernel
     (order,) = orders
+    if dtype == torch.float32:
+        # chunks of 256 in order, each of sub-chains of 32 in order, each
+        # ascending: every k once, in ascending order
+        assert order == kops.f32_k_order(k)
+        assert [kk for chunk in order for sub in chunk for kk in sub] == \
+            list(range(k))
+        assert all(len(chunk) <= 8 and all(len(sub) <= 32 for sub in chunk)
+                   for chunk in order)
+        return
     assert sorted(kk for lane in order for kk in lane) == list(range(k))
     assert all(list(lane) == sorted(lane) for lane in order)
-    if dtype == torch.float32:   # chunks of 256, each ascending
-        assert order == tuple(tuple(range(c, min(c + 256, k)))
-                              for c in range(0, k, 256))
-    else:   # matmul's: warp w takes k with k // 32 % 8 == w
-        assert all(kk // kops.TC_WARP_K % 8 == w
-                   for w, lane in enumerate(order) for kk in lane)
+    # matmul's: warp w takes k with k // 32 % 8 == w
+    assert all(kk // kops.TC_WARP_K % 8 == w
+               for w, lane in enumerate(order) for kk in lane)
 
 
 def test_predicate_takes_every_float_type_and_refuses_the_rest():
@@ -315,8 +321,10 @@ NAMED_PLANS = {
     "xlstm sLSTM backward": ((4, 4, 256, 1024, torch.float32, False, False),
                              ("bmm_f32_kernel", 4, 16, (16, 4), 4, 32, 64, 1,
                               "elements", "vectors")),
+    # phase 8's f32 scores over a 128-wide head (one chunk): the chunk
+    # sums in shared memory, two stages
     "train scores f32": ((128, 512, 512, 128, torch.float32, False, True),
-                         ("bmm_f32_kernel", 128, 128, (16, 128), 3, 16, 256,
+                         ("bmm_f32_kernel", 128, 128, (16, 128), 2, 16, 256,
                           1, "elements", "elements")),
     # the sampler's pick: a cluster of 8 blocks per output
     "sampler pick": ((4, 1, 1, 102400, torch.float32, False, False),
@@ -372,11 +380,13 @@ def _plans_over(k, dtype):
 def test_k_order_is_the_stated_one_for_every_kernel_and_tile(k, dtype):
     """Every kernel and tile the plan gives at ``k`` sums in one order,
     the one the kernel states (``batched_matmul_k_order``): f32 chunks of
-    256 in order, each ascending; 16-bit lanes w = 0..7, lane w the k
-    with k // 32 % 8 == w in ascending k, whatever the tile."""
+    256 in order, each of sub-chains of 32 consecutive k in order, each
+    ascending; 16-bit lanes w = 0..7, lane w the k with k // 32 % 8 == w
+    in ascending k, whatever the tile."""
     plans = _plans_over(k, dtype)
     if dtype == torch.float32:
-        want = tuple(tuple(range(c, min(c + 256, k)))
+        want = tuple(tuple(tuple(range(s, min(s + 32, k)))
+                           for s in range(c, min(c + 256, k), 32))
                      for c in range(0, k, 256))
     else:
         want = tuple(tuple(kk for kk in range(k) if kk // 32 % 8 == w)

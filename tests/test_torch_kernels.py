@@ -158,16 +158,17 @@ def test_predicates_refuse_what_the_kernels_cannot_read():
     assert not kops.swiglu_supported(4, 64, 100, 64, bf)
     assert not kops.matmul_supported(4, 64, 64, torch.float64)
     assert not kops.matmul_supported(0, 64, 64, bf)
-    # an f32 normalized row must fit in shared memory; the 16-bit route
-    # holds no whole row
+    # neither route holds a whole normalized row: both take matmul's
+    # tiles at any width (f32 writes the rows to a workspace first)
     assert kops.norm_matmul_plan(4, 4096, 4096, bf).bm == 16
     assert kops.norm_matmul_plan(64, 4096, 4096, bf).bm == 64
-    assert kops.norm_matmul_plan(64, 16384, 4096, f32).bm == 1
+    assert kops.norm_matmul_plan(64, 16384, 4096, f32).bm == 32
     assert kops.norm_matmul_plan(4, 4096, 4096, f32).bm == 4
-    assert kops.norm_matmul_plan(64, 4096, 4096, f32).bm == 4
-    assert kops.norm_matmul_plan(64, 2048, 4096, f32).bm == 16
-    assert not kops.norm_matmul_supported(1, 1 << 16, 8, f32)
+    assert kops.norm_matmul_plan(64, 4096, 4096, f32).bm == 32
+    assert kops.norm_matmul_plan(64, 2048, 4096, f32).bm == 32
+    assert kops.norm_matmul_supported(1, 1 << 16, 8, f32)
     assert kops.norm_matmul_supported(1, 1 << 16, 8, bf)
+    assert not kops.norm_matmul_supported(4, 64, 258, f32)
     # swiglu's gate/up grid at decode: 64 F columns of each of wg and wu
     # a block
     assert kops.swiglu_plan(4, 4096, 11008, 4096, bf).grid == (1, 172)
@@ -269,13 +270,19 @@ def test_norm_matmul_plan_is_the_matmul_launch(m, n, dt):
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 64])
 @pytest.mark.parametrize("d", [40, 4096, 11008, 16384])
 def test_norm_matmul_plan_keeps_f32_on_the_cuda_cores(m, d):
-    """f32 keeps the CUDA-core kernel and its tile rule: the GEMM row tile
-    for m, lowered until the normalized f32 rows fit one block."""
+    """f32 keeps the CUDA cores: a row kernel (a warp a row) writes the
+    normalised rows, and the product is matmul's f32 launch on them --
+    its arrangement, tile and K order at every width, no row held in
+    shared memory and no width refused."""
     plan = kops.norm_matmul_plan(m, d, 4096, torch.float32)
-    assert plan.route == "cuda_core" and plan.stages == 0
-    assert plan.bn == 16 and plan.bm <= kops.row_tile(m)
-    assert plan.smem == plan.bm * d * 4
-    assert plan.smem + 8 * plan.bm * 16 * 4 + plan.bm * 4 <= 232448
+    mm = kops.matmul_plan(m, d, 4096, torch.float32)
+    assert plan.route == "cuda_core" and not plan.w_evict_first
+    assert plan.gemm == mm and mm.route == "cuda_core"
+    assert (plan.bm, plan.bn, plan.grid, plan.stages, plan.k_stage,
+            plan.smem) == (mm.bm, mm.bn, mm.grid, mm.stages, mm.k_stage,
+                           mm.smem)
+    assert plan.rows_grid * 8 >= m > (plan.rows_grid - 1) * 8
+    assert plan.smem <= 232448
     assert kops.norm_matmul_supported(m, d, 4096, torch.float32)
 
 
@@ -349,17 +356,26 @@ def test_swiglu_plan_at_deepseek_widths():
 @pytest.mark.parametrize("d,f,do", [(4096, 11008, 4096), (44, 40, 16)])
 def test_swiglu_plan_keeps_f32_on_the_cuda_cores(m, d, f, do):
     """f32 keeps the CUDA cores for both launches (no TF32): the gate/up
-    kernel on common.cuh's k-lanes in the GEMM row tile for m, and the
-    down product on the same k-lanes GEMM (``kline_plan``), which
-    matmul's f32 launch no longer is."""
+    kernel on f32_gemm.cuh's chunk lanes up to 4 rows (16 F columns of
+    each of wg and wu a block), else its register tiles (32 x 32 up to 32
+    rows, 32 x 64 beyond), rows fastest; the down product is matmul's f32
+    launch on h."""
     plan = kops.swiglu_plan(m, d, f, do, torch.float32)
-    assert plan.route == "cuda_core" and plan.stages == 0
-    assert plan.smem == 0 and not plan.b_evict_first
-    assert plan.bm == kops.row_tile(m) and plan.bf == 32
-    assert plan.grid == (-(-f // 32), -(-m // plan.bm))
-    assert plan.down == kops.kline_plan(m, do)
-    assert plan.down.route == "cuda_core"
-    assert (plan.down.bm, plan.down.bn) == (kops.row_tile(m), 16)
+    gu = plan.gate_up
+    assert plan.route == "cuda_core" and not plan.b_evict_first
+    assert plan.down == kops.matmul_plan(m, f, do, torch.float32)
+    assert gu.route == "cuda_core" and gu.bn == 2 * plan.bf
+    assert (plan.bm, plan.grid, plan.stages, plan.k_stage, plan.smem) == \
+        (gu.bm, gu.grid, gu.stages, gu.k_stage, gu.smem)
+    if m <= kops.F32_LANE_ROWS:
+        assert (gu.arrangement, plan.bf, plan.smem) == ("lanes", 16, 0)
+    else:
+        assert gu.arrangement == "tile" and plan.bm == 32
+        assert plan.bf == (16 if m <= 32 else 32)
+        assert plan.smem <= 232448
+    # rows fastest; the grid covers every (row, F column)
+    assert plan.grid[0] * plan.bm >= m > (plan.grid[0] - 1) * plan.bm
+    assert plan.grid[1] * plan.bf >= f > (plan.grid[1] - 1) * plan.bf
 
 
 # every arrangement and tile of the f32 route (csrc/f32_gemm.cuh): (m, n)
@@ -374,12 +390,14 @@ F32_MATMUL_SHAPES = [(1, 8), (4, 8), (32, 8), (1, 4096), (2, 4096),
 @pytest.mark.parametrize("k", [1, 40, 256, 257, 2047, 2048, 4096, 6144,
                                11008])
 def test_matmul_k_order_is_the_batched_kernels_f32_order(k):
-    """matmul's f32 order is the batched kernel's: chunks of 256, each
-    ascending, added in order -- at every arrangement and tile the plan
-    can give, whatever M and N."""
+    """matmul's f32 order is the batched kernel's: chunks of 256 added in
+    order, each the sum in order of its sub-chains of 32, each ascending
+    -- at every arrangement and tile the plan can give, whatever M and
+    N."""
     want = kops.batched_matmul_k_order(
         kops.batched_matmul_plan(1, 1, 1, k, torch.float32), k)
-    assert want == tuple(tuple(range(c, min(c + 256, k)))
+    assert want == tuple(tuple(tuple(range(s, min(s + 32, k)))
+                               for s in range(c, min(c + 256, k), 32))
                          for c in range(0, k, 256))
     arrangements = set()
     for m, n in F32_MATMUL_SHAPES:
