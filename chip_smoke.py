@@ -431,18 +431,24 @@ def phase_device() -> str:
 
 
 # -- 2. build --------------------------------------------------------------------
-def phase_build() -> None:
-    from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    lib = _build.lib()
-    secs = time.perf_counter() - t0
-    log = "\n".join(_build.build_log)
+def _spills(log: str) -> list:
+    """The kernels that ptxas -v reports spilling, each with its line."""
     spills, entry = [], ""
     for ln in log.splitlines():   # ptxas -v: entry name, then its spills
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
         elif "spill" in ln and not ln.strip().startswith("0 bytes"):
             spills.append(f"{entry[:160]}: {ln.strip()}")
+    return spills
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    lib = _build.lib()
+    secs = time.perf_counter() - t0
+    log = "\n".join(_build.build_log)
+    spills = _spills(log)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with open(os.path.join(_build.BUILD_DIR, "ptxas.log"), "w") as f:
         f.write(log)
@@ -666,6 +672,34 @@ def kernel_cases(gen):
        None, bf)
     fa("f32 decode (4x32x1) at pos 255", SLOTS, HEADS, HEADS, 1, 256, 255,
        f32)
+    # the f32 route (CUDA cores): phase 14's three launched shapes (the
+    # decode step over a 64-row cache, the prompt prefills of 1 and 4
+    # slots), phase 16's reduced-width prefill, and the families' shapes:
+    # qwen1.5-110b's GQA decode, a 128-token prefill, whisper's
+    # cross-attention (Dk 64, 1500 frames, no mask), MLA's Dk 192 / Dv 128
+    # prefill (deepseek-v3's heads) and recurrentgemma's windowed MQA
+    # decode (Dk 256, past its 2048-token window)
+    fa("f32 decode (4x32x1) over 64 keys at pos 63 (phase 14)", SLOTS,
+       HEADS, HEADS, 1, 64, 63, f32)
+    fa("f32 prompt prefill (1x32x32) causal (phase 14)", 1, HEADS, HEADS, 32,
+       32, None, f32)
+    fa("f32 prompt prefill (4x32x32) causal (phase 14)", SLOTS, HEADS, HEADS,
+       32, 32, None, f32)
+    fa("f32 GQA decode Hq 64 Hkv 8 (qwen1.5-110b) at pos 255", SLOTS, 64, 8,
+       1, 256, 255, f32)
+    fa("f32 prefill (4x32x128) causal", SLOTS, HEADS, HEADS, 128, 128, None,
+       f32)
+    fa("f32 prefill (1x2x256) causal (phase 16)", 1, 2, 2, 256, 256, None,
+       f32)
+    fa("f32 cross-attention (4x16x64) Dk 64 over 1500 keys, no mask "
+       "(whisper-medium)", SLOTS, 16, 16, 64, 1500, None, f32, dk=64, dv=64,
+       causal=False)
+    fa("f32 MLA prefill (4x128x64) Dk 192 Dv 128 causal (deepseek-v3)",
+       SLOTS, 128, 128, 64, 64, None, f32, dk=192, dv=128)
+    fa(f"f32 windowed decode (1x16x1) MQA 16:1 Dk 256 at pos "
+       f"{RG_LONG + RG_LONG_NEW - 1} window 2048 (recurrentgemma-9b)", 1, 16,
+       1, 1, RG_LONG + RG_LONG_NEW, RG_LONG + RG_LONG_NEW - 1, f32, dk=256,
+       dv=256, window=2048)
     fa("GQA decode Hq 64 Hkv 8 (qwen1.5-110b) at pos 255", SLOTS, 64, 8, 1,
        256, 255, bf)
     # more (slot, kv head) pairs than SMs: 512 decode blocks
@@ -787,6 +821,15 @@ def _hold(case, flush) -> tuple:
 
 
 def phase_kernels() -> dict:
+    # the f32 flash route keeps its state in registers: no instantiation
+    # may spill (the log is empty only where another process built the
+    # library)
+    from repro_torch.kernels import _build
+    log = "\n".join(_build.build_log)
+    require(not log or "flash_f32_kernel" in log,
+            "the build log names no flash_f32_kernel")
+    flash_spills = [ln for ln in _spills(log) if "flash_f32_kernel" in ln]
+    require(not flash_spills, f"flash_attention f32 spills: {flash_spills}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
@@ -915,11 +958,13 @@ def check_determinism(gen) -> None:
         del wg, wu, wd
     check_flash_determinism(gen)
     check_moe_flash_determinism(gen)
-    rows = _check_window_rows(get_config("recurrentgemma-9b"), RG_LONG, gen)
-    say("determinism", kernel="flash_attention", dtype="bfloat16",
-        model="recurrentgemma-9b", heads="16:1 Dk 256",
-        window_decode_vs_prefill_rows=",".join(map(str, rows)),
-        window_decode_vs_prefill="bitwise")
+    for dt in (bf, f32):
+        rows = _check_window_rows(get_config("recurrentgemma-9b"), RG_LONG,
+                                  gen, dt)
+        say("determinism", kernel="flash_attention", dtype=name(dt),
+            model="recurrentgemma-9b", heads="16:1 Dk 256",
+            window_decode_vs_prefill_rows=",".join(map(str, rows)),
+            window_decode_vs_prefill="bitwise")
     check_bmm_determinism(gen)
     check_f32_one_order(gen)
     check_in_capture(gen)
@@ -1123,53 +1168,74 @@ def check_swiglu_alternation(label, wg, wu, wd, gen) -> None:
 
 
 def check_flash_determinism(gen) -> None:
-    """Flash attention (bf16, deepseek-7b's heads): two launches give the
-    same bits; a probe (slot, head) gives the same bits alone and inside
-    4 slots; decode at position p gives row p of the causal dense prefill
-    bit for bit (a row's reduction order depends only on the keys it can
-    see, never on the query tile or the batch)."""
+    """Flash attention (bf16, then f32; deepseek-7b's heads): two
+    launches give the same bits; a probe (slot, head) gives the same bits
+    alone and inside 4 slots; decode at position p gives row p of the
+    causal dense prefill bit for bit (a row's reduction order depends only
+    on the keys it can see, never on the query tile or the batch).  f32:
+    a packed GQA decode (Hq 64 over Hkv 8, the 8 query heads of a kv head
+    in one block) gives the bits of its heads launched over K and V
+    repeated to 64 heads (a block per head)."""
     from repro_torch.kernels import flash_attention as kf
     P = 128
-    q, k, v = (_rand((SLOTS, HEADS, P, DH), torch.bfloat16, gen)
-               for _ in range(3))
-    full = kf.flash_attention(q, k, v, causal=True)
-    require(_bitwise(full, kf.flash_attention(q, k, v, causal=True)),
-            "flash_attention: two launches of the dense prefill differ")
-    alone = kf.flash_attention(q[2:3, 7:8], k[2:3, 7:8], v[2:3, 7:8],
-                               causal=True)
-    require(_bitwise(alone, full[2:3, 7:8]), "flash_attention: slot 2 head "
-            "7 alone differs from it inside 4 slots")
-    for p in (0, 63, 64, 127):
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        q, k, v = (_rand((SLOTS, HEADS, P, DH), dt, gen) for _ in range(3))
+        full = kf.flash_attention(q, k, v, causal=True)
+        require(_bitwise(full, kf.flash_attention(q, k, v, causal=True)),
+                f"flash_attention {name}: two launches of the dense prefill "
+                f"differ")
+        alone = kf.flash_attention(q[2:3, 7:8], k[2:3, 7:8], v[2:3, 7:8],
+                                   causal=True)
+        require(_bitwise(alone, full[2:3, 7:8]), f"flash_attention {name}: "
+                f"slot 2 head 7 alone differs from it inside 4 slots")
+        for p in (0, 63, 64, 127):
+            off = torch.tensor(p, dtype=torch.int32, device="cuda")
+            one = kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
+                                     q_offset=off)
+            require(_bitwise(one, kf.flash_attention(
+                q[:, :, p:p + 1], k, v, causal=True, q_offset=off)),
+                f"flash_attention {name}: two decode launches at {p} differ")
+            row = full[:, :, p:p + 1]
+            require(_bitwise(one, row), f"flash_attention {name}: decode at "
+                    f"{p} differs from row {p} of the prefill: max |diff| "
+                    f"{float((one.double() - row.double()).abs().max())}")
+        say("determinism", kernel="flash_attention", dtype=name,
+            runs="bitwise", slot_alone_vs_batch="bitwise",
+            decode_vs_prefill_rows="0,63,64,127",
+            decode_vs_prefill="bitwise")
+    f32, rep = torch.float32, 8
+    q = _rand((SLOTS, 8 * rep, 1, DH), f32, gen)
+    k, v = (_rand((SLOTS, 8, 256, DH), f32, gen) for _ in range(2))
+    kr, vr = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+    for p in (100, 255):
         off = torch.tensor(p, dtype=torch.int32, device="cuda")
-        one = kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
-                                 q_offset=off)
-        require(_bitwise(one, kf.flash_attention(q[:, :, p:p + 1], k, v,
-                                                 causal=True, q_offset=off)),
-                f"flash_attention: two decode launches at {p} differ")
-        row = full[:, :, p:p + 1]
-        require(_bitwise(one, row), f"flash_attention: decode at {p} "
-                f"differs from row {p} of the prefill: max |diff| "
-                f"{float((one.double() - row.double()).abs().max())}")
-    say("determinism", kernel="flash_attention", dtype="bfloat16",
-        runs="bitwise", slot_alone_vs_batch="bitwise",
-        decode_vs_prefill_rows="0,63,64,127", decode_vs_prefill="bitwise")
+        packed = kf.flash_attention(q, k, v, causal=True, q_offset=off)
+        each = kf.flash_attention(q, kr, vr, causal=True, q_offset=off)
+        require(_bitwise(packed, each), f"flash_attention float32: the packed "
+                f"GQA decode (64:8) at {p} differs from its heads over "
+                f"repeated K/V: max |diff| "
+                f"{float((packed.double() - each.double()).abs().max())}")
+    say("determinism", kernel="flash_attention", dtype="float32",
+        gqa="64:8", gqa_positions="100,255",
+        gqa_packed_vs_repeated="bitwise")
 
 
-def _check_window_rows(cfg, length: int, gen) -> tuple:
+def _check_window_rows(cfg, length: int, gen, dt=torch.bfloat16) -> tuple:
     """Flash at ``cfg``'s heads under its sliding window (``window`` or
-    ``local_window``), bf16: two launches of a ``length``-token prefill
-    give the same bits, and decode at p gives row p of it bit for bit,
-    for p on both sides of the window's edge and the last row; returns
-    those rows."""
+    ``local_window``), in ``dt``: two launches of a ``length``-token
+    prefill give the same bits, and decode at p gives row p of it bit for
+    bit, for p on both sides of the window's edge and the last row;
+    returns those rows."""
     from repro_torch.kernels import flash_attention as kf
-    bf, W = torch.bfloat16, cfg.window or cfg.local_window
-    q = _rand((1, cfg.n_heads, length, cfg.head_dim), bf, gen)
-    k, v = (_rand((1, cfg.n_kv_heads, length, cfg.head_dim), bf, gen)
+    W = cfg.window or cfg.local_window
+    q = _rand((1, cfg.n_heads, length, cfg.head_dim), dt, gen)
+    k, v = (_rand((1, cfg.n_kv_heads, length, cfg.head_dim), dt, gen)
             for _ in range(2))
     full = kf.flash_attention(q, k, v, causal=True, window=W)
     require(_bitwise(full, kf.flash_attention(q, k, v, causal=True,
                                               window=W)),
-            f"flash_attention {cfg.name}: two launches of the windowed "
+            f"flash_attention {cfg.name} {dt}: two launches of the windowed "
             f"prefill differ")
     rows = (W - 1, W, length - 1)
     for p in rows:
@@ -1177,9 +1243,10 @@ def _check_window_rows(cfg, length: int, gen) -> tuple:
         one = kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
                                  window=W, q_offset=off)
         row = full[:, :, p:p + 1]
-        require(_bitwise(one, row), f"flash_attention {cfg.name}: windowed "
-                f"decode at {p} differs from row {p} of the prefill: max "
-                f"|diff| {float((one.double() - row.double()).abs().max())}")
+        require(_bitwise(one, row), f"flash_attention {cfg.name} {dt}: "
+                f"windowed decode at {p} differs from row {p} of the "
+                f"prefill: max |diff| "
+                f"{float((one.double() - row.double()).abs().max())}")
     return rows
 
 
@@ -1194,6 +1261,7 @@ def check_moe_flash_determinism(gen) -> None:
     mx, v3 = get_config("mixtral-8x22b"), get_config("deepseek-v3-671b")
     bf = torch.bfloat16
     rows = _check_window_rows(mx, MX_LONG, gen)
+    f32_rows = _check_window_rows(mx, MX_LONG, gen, torch.float32)
     dk = v3.d_nope + v3.d_rope
     q, k = (_rand((SLOTS, v3.n_heads, V3_PROMPT, dk), bf, gen)
             for _ in range(2))
@@ -1209,6 +1277,10 @@ def check_moe_flash_determinism(gen) -> None:
         window_decode_vs_prefill_rows=",".join(map(str, rows)),
         window_decode_vs_prefill="bitwise", mla_dk192_runs="bitwise",
         mla_slot_alone_vs_batch="bitwise")
+    say("determinism", kernel="flash_attention", dtype="float32",
+        model="mixtral-8x22b", heads=f"{mx.n_heads}:{mx.n_kv_heads}",
+        window_decode_vs_prefill_rows=",".join(map(str, f32_rows)),
+        window_decode_vs_prefill="bitwise")
 
 
 def check_fixed_order_scans(gen) -> None:
@@ -1414,7 +1486,7 @@ KERNEL_FUNCS = {
                 "swiglu_gate_up_f32_kernel",
                 "swiglu_gate_up_f32_lanes_kernel", "swiglu_down_f32"), 2),
     "rmsnorm": (("rmsnorm_kernel",), 1),
-    "flash_attention": (("flash_kernel", "flash_tc_kernel"), 1),
+    "flash_attention": (("flash_f32_kernel", "flash_tc_kernel"), 1),
     "batched_matmul": (("bmm_seq_kernel", "bmm_f32_kernel",
                         "bmm_f32_split_kernel"), 1),
 }

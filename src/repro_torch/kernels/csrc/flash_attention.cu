@@ -71,12 +71,44 @@
 // an exact no-op for it (alpha 1, p 0).  So decode at position p gives
 // row p of the causal prefill bit for bit.  No split-KV, no atomics.
 //
-// Design, f32 (CUDA cores; no TF32: f32 means f32): one block of 128
-// threads per (query tile of 1, 4 or 16 rows, head, batch row); each
-// 64-key K and V tile is copied into shared memory and waited for; each
-// score is one thread's dot product in ascending d, each row's max and
-// sum one warp's in a fixed order, each output column one thread's sum
-// over the tile's keys in ascending order, then acc * alpha + pv.
+// Design, f32 (CUDA cores, FMA in f32: no TF32, no 3xTF32 split; f32
+// doubles the bytes, so decode at position 255 reads 33.6 MB, ~10 us):
+// - Blocks of 4 warps; each warp owns 1, 2 or 4 consecutive block rows
+//   (query rows, or at decode the rep query heads that share a kv head,
+//   so K and V are read once for all of them).  The most rows a warp
+//   that still leaves a block an SM, so a short prompt fills the card.
+// - A ring of 64-key K and V tiles, every stage in flight from the start
+//   (as many as the SM's shared memory holds for the blocks it runs, 1 to
+//   4), copied by the TMA unit from tensor maps in boxes of 32 keys x 128
+//   bytes with the 128-byte swizzle, in four groups -- K's first and
+//   second 32 keys, then V's -- each completing its own mbarrier, so a
+//   warp computes on a tile's first keys while the rest land and waits
+//   for nothing else.  (Copies of a row each, 512 bytes, streamed at half
+//   the rate from L2.)
+// - Scores in registers: lane l holds keys l and l + 32 of the tile for
+//   each of its warp's rows; K is read as float4 from the swizzled boxes
+//   (8 lanes, 8 rows, 8 distinct bank quads) and Q as a broadcast float4.
+//   Each row's max and sum: the lane's two keys, then the warp in one
+//   shuffle-xor order.  The exponentials are SFU ex2 (~2 ulp) on scores in
+//   log2 units.  p goes from registers into p.V by shuffles, where lane l
+//   owns output columns 4l..4l+3 (and 128 more past width 128) of every
+//   row of its warp.  No shared-memory round trip for the scores; the
+//   only block barrier is the ring's, before a stage is refilled.
+// - A warp skips a 32-key half that its rows cannot see, and the block
+//   skips tiles no row of it can see (the Pallas kernel's pl.when(run)).
+// Reduction order (kernels/ops.py:flash_f32_order): a score is four fmaf
+// chains over d (chain c takes d = c mod 4, ascending), summed (c0 + c1)
+// + (c2 + c3), times scale * log2(e); a tile's sum is each lane's p(l) +
+// p(l + 32), then the warp's shuffle-xor adds at distances 16, 8, 4, 2,
+// 1; l = alpha * l + sum; the output is acc * alpha, then one fmaf a key
+// over the tile's keys in ascending order, the tiles in ascending order,
+// and out = acc / l.  It depends on Dk, Dv, Skv and the mask alone; a
+// tile or half that is fully masked for a row is an exact no-op for it
+// (alpha 1, p 0), run or skipped.  So decode at position p gives row p of
+// the causal prefill bit for bit, and a packed GQA decode gives the bits
+// of its heads over repeated K and V.  No split-KV, no atomics.
+#include <cuda.h>
+
 #include <algorithm>
 #include <type_traits>
 
@@ -91,242 +123,6 @@ constexpr int kFT = 128;            // threads per block: 4 warps
 constexpr int kFW = kFT / 32;
 constexpr int BK = 64;              // keys per KV tile (fixed)
 constexpr float kNegInf = -1e30f;   // the reference's mask value
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-template <typename T>
-__device__ __forceinline__ void load_vec_shared(const T* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < kVec<T>; ++i) out[i] = to_f32(e[i]);
-}
-
-struct Mask {
-  int skv, causal, has_window, window;
-  __device__ __forceinline__ bool visible(int kpos, int qpos) const {
-    return kpos < skv && (!causal || kpos <= qpos) &&
-           (!has_window || kpos > qpos - window);
-  }
-};
-
-// rows [r0, r0 + BK) of a (rows, D) matrix into shared memory, row pitch
-// D + kVec<T>; rows at or past ``rows`` are zero
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
-                                          int rows, int D) {
-  constexpr int V = kVec<T>;
-  const int nv = D / V;
-  const int pitch = D + V;
-  for (int e = threadIdx.x; e < BK * nv; e += kFT) {
-    const int r = e / nv, c = e - r * nv;
-    const bool valid = r0 + r < rows;
-    const T* g = valid ? src + (size_t)(r0 + r) * D + c * V : src;
-    cp_async16(dst + r * pitch + c * V, g, valid);
-  }
-}
-
-template <typename T, int BQ>
-size_t smem_bytes(int Dk, int Dv) {
-  constexpr int V = kVec<T>;
-  return (size_t)BK * (Dk + V) * sizeof(T) + (size_t)BK * (Dv + V) * sizeof(T)
-         + (size_t)BQ * Dk * 4 + (size_t)BQ * BK * 4 + 3 * BQ * 4;
-}
-
-// RC: output columns per thread (Dv <= 128 * RC)
-template <typename T, int BQ, int RC>
-__global__ void __launch_bounds__(kFT)
-    flash_kernel(const T* __restrict__ Q, const T* __restrict__ K,
-                 const T* __restrict__ Vg, T* __restrict__ O,
-                 const int* __restrict__ q_offset, int Hq, int Hkv, int Sq,
-                 int Skv, int Dk, int Dv, float scale, int causal,
-                 int has_window, int window) {
-  constexpr int V = kVec<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int kp = Dk + V, vp = Dv + V;
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BK * kp;
-  float* Qs = reinterpret_cast<float*>(Vs + BK * vp);
-  float* Ss = Qs + BQ * Dk;        // scores, then probabilities
-  float* Ms = Ss + BQ * BK;        // running max per row
-  float* Ls = Ms + BQ;             // running sum per row
-  float* As = Ls + BQ;             // this tile's rescale per row
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * BQ;
-  const int rows = min(BQ, Sq - q0);
-  const int off = q_offset != nullptr ? *q_offset : 0;
-  const Mask mask{Skv, causal, has_window, window};
-
-  const T* q = Q + ((size_t)(b * Hq + h) * Sq + q0) * Dk;
-  const T* k = K + (size_t)(b * Hkv + hk) * Skv * Dk;
-  const T* v = Vg + (size_t)(b * Hkv + hk) * Skv * Dv;
-  T* o = O + ((size_t)(b * Hq + h) * Sq + q0) * Dv;
-
-  for (int e = threadIdx.x; e < BQ * Dk; e += kFT)
-    Qs[e] = e / Dk < rows ? to_f32(q[e]) : 0.f;
-  if (threadIdx.x < BQ) {
-    Ms[threadIdx.x] = kNegInf;
-    Ls[threadIdx.x] = 0.f;
-  }
-
-  // the KV tiles that can hold a key some row of this block sees
-  const int q_first = q0 + off, q_last = q0 + rows - 1 + off;
-  const int n_tiles = (Skv + BK - 1) / BK;
-  int t_end = n_tiles;
-  if (causal) t_end = q_last < 0 ? 0 : min(n_tiles, q_last / BK + 1);
-  const int t_begin = has_window ? max(0, q_first - window + 1) / BK : 0;
-
-  float acc[BQ][RC];
-#pragma unroll
-  for (int i = 0; i < BQ; ++i)
-#pragma unroll
-    for (int r = 0; r < RC; ++r) acc[i][r] = 0.f;
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK;
-    load_tile(Ks, k, k0, Skv, Dk);
-    load_tile(Vs, v, k0, Skv, Dv);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // scores: one (row, key) pair per thread, the dot product in
-    // ascending d
-    for (int e = threadIdx.x; e < BQ * BK; e += kFT) {
-      const int i = e / BK, j = e - i * BK;
-      const float* qi = Qs + i * Dk;
-      const T* kj = Ks + j * kp;
-      float s = 0.f;
-      for (int d = 0; d < Dk; d += V) {
-        float kv[V];
-        load_vec_shared(kj + d, kv);
-#pragma unroll
-        for (int x = 0; x < V; ++x) s = fmaf(qi[d + x], kv[x], s);
-      }
-      Ss[e] = mask.visible(k0 + j, q0 + i + off) ? s * scale : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per row, lanes over the tile's keys
-    for (int i = warp; i < BQ; i += kFW) {
-      float* si = Ss + i * BK;
-      const int qpos = q0 + i + off;
-      float mc = kNegInf;
-      for (int j = lane; j < BK; j += 32) mc = fmaxf(mc, si[j]);
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
-        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, w));
-      const float mp = Ms[i];
-      const float mn = fmaxf(mp, mc);
-      // a row that has seen no key yet: exp(-1e30 - -1e30) = 1 would
-      // pollute the sum, so rescale with 0 instead
-      const bool dead = mn <= kNegInf * 0.5f;
-      const float msafe = dead ? 0.f : mn;
-      float rs = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float p = mask.visible(k0 + j, qpos) ? expf(si[j] - msafe) : 0.f;
-        si[j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, w);
-      if (lane == 0) {
-        const float alpha = expf(dead ? 0.f : mp - mn);
-        As[i] = alpha;
-        Ls[i] = alpha * Ls[i] + rs;
-        Ms[i] = mn;
-      }
-    }
-    __syncthreads();
-
-    // p.V in f32: thread t owns columns t, t + 128, summed over the
-    // tile's keys in ascending order
-    float pv[BQ][RC];
-#pragma unroll
-    for (int i = 0; i < BQ; ++i)
-#pragma unroll
-      for (int r = 0; r < RC; ++r) pv[i][r] = 0.f;
-    for (int j = 0; j < BK; ++j) {
-      float vj[RC];
-#pragma unroll
-      for (int r = 0; r < RC; ++r) {
-        const int c = threadIdx.x + r * kFT;
-        vj[r] = c < Dv ? to_f32(Vs[j * vp + c]) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < BQ; ++i) {
-        const float p = Ss[i * BK + j];
-#pragma unroll
-        for (int r = 0; r < RC; ++r) pv[i][r] = fmaf(p, vj[r], pv[i][r]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < BQ; ++i) {
-      const float a = As[i];
-#pragma unroll
-      for (int r = 0; r < RC; ++r) acc[i][r] = fmaf(acc[i][r], a, pv[i][r]);
-    }
-    __syncthreads();   // the next tile overwrites Ks, Vs and Ss
-  }
-
-#pragma unroll
-  for (int i = 0; i < BQ; ++i) {
-    if (i >= rows) break;
-    const float l = Ls[i];
-    const float safe_l = l == 0.f ? 1.f : l;
-#pragma unroll
-    for (int r = 0; r < RC; ++r) {
-      const int c = threadIdx.x + r * kFT;
-      if (c < Dv) o[(size_t)i * Dv + c] = from_f32<T>(acc[i][r] / safe_l);
-    }
-  }
-}
-
-template <typename T, int BQ, int RC>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int* off, int B, int Hq, int Hkv, int Sq, int Skv,
-                   int Dk, int Dv, float scale, int causal, int has_window,
-                   int window, cudaStream_t s) {
-  const size_t smem = smem_bytes<T, BQ>(Dk, Dv);
-  // raise the instantiation's dynamic shared memory limit once per
-  // device, to the most any call can need (Dk = Dv = 256)
-  static PerDevice limit_set;
-  const cudaError_t limit = once_per_device(limit_set, [] {
-    return cudaFuncSetAttribute(
-        flash_kernel<T, BQ, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<T, BQ>(2 * kFT, 2 * kFT));
-  });
-  if (limit != cudaSuccess) return limit;
-  const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)Hq, (unsigned)B);
-  flash_kernel<T, BQ, RC><<<grid, kFT, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), off, Hq, Hkv, Sq, Skv,
-      Dk, Dv, scale, causal, has_window, window);
-  return cudaSuccess;
-}
-
-template <typename T, int BQ>
-cudaError_t launch_rc(const void* q, const void* k, const void* v, void* o,
-                      const int* off, int B, int Hq, int Hkv, int Sq,
-                      int Skv, int Dk, int Dv, float scale, int causal,
-                      int has_window, int window, cudaStream_t s) {
-  if (Dv <= kFT)
-    return launch<T, BQ, 1>(q, k, v, o, off, B, Hq, Hkv, Sq, Skv, Dk, Dv,
-                            scale, causal, has_window, window, s);
-  return launch<T, BQ, 2>(q, k, v, o, off, B, Hq, Hkv, Sq, Skv, Dk, Dv,
-                          scale, causal, has_window, window, s);
-}
-
-// query rows per block of the f32 route, mirrored by
-// kernels/ops.py:flash_plan
-inline int pick_bq(int sq) { return sq <= 1 ? 1 : (sq <= 4 ? 4 : 16); }
 
 // -- bf16, f16: tensor cores and a K/V copy ring -----------------------------
 //
@@ -772,6 +568,557 @@ cudaError_t launch_16bit(const void* q, const void* k, const void* v,
                                 scale, causal, has_window, window, s);
 }
 
+// -- f32: the CUDA cores, a warp a few rows, lanes over keys -----------------
+//
+// A block is 4 warps; warp w owns block rows [w * R, w * R + R).  Shared
+// memory: one mbarrier per copy group of each stage, the block's Q rows,
+// then (at a 1024-byte boundary) the ring.  A stage holds a 64-key tile of
+// K and of V as 32-key halves, each half a row of boxes of 32 keys x 32
+// floats (4 KB) that the TMA unit copies from a tensor map with the
+// 128-byte swizzle: 16-byte chunk x of key row r lands at chunk x ^ (r %
+// 8), so the 8 lanes that read one chunk of 8 rows hit 8 distinct bank
+// quads, and the rows need no padding.  The last warp issues a stage in
+// four groups -- K's keys 0-31, K's 32-63, V's 0-31, V's 32-63 -- each
+// completing its own mbarrier, so a warp waits for exactly the keys it is
+// about to read and no block barrier stands between a copy landing and
+// its use.  Keys past Skv and columns past the head width are outside the
+// tensor map and land as zeros.  Mirrored by kernels/ops.py:flash_plan.
+constexpr int kHalf = BK / 2;          // keys of one copy group
+constexpr int kBox = 32;               // floats of a box row: 128 bytes
+constexpr int kBoxFloats = kHalf * kBox;
+constexpr int kF32Groups = 4;          // copy groups a stage
+constexpr int kF32MaxStages = 4;
+constexpr int kF32Bars = 128;          // bytes of mbarriers before Q
+constexpr int kSwizzleAlign = 1024;    // the 128-byte swizzle's period
+constexpr int kSMs = 132;              // the H100's SMs
+constexpr int kSmemPerSM = 233472;     // shared memory of one SM (228 KB)
+constexpr int kSmemPerBlock = 1024;    // reserved by the system per block
+
+// boxes across a head width
+__host__ __device__ __forceinline__ int f32_boxes(int d) {
+  return (d + kBox - 1) / kBox;
+}
+
+__host__ __device__ __forceinline__ size_t f32_stage_bytes(int dk, int dv) {
+  return (size_t)2 * (f32_boxes(dk) + f32_boxes(dv)) * kBoxFloats * 4;
+}
+
+// float index of chunk (row r, column c) in a run of boxes
+__device__ __forceinline__ int f32_swz(int r, int c) {
+  return ((c >> 5) * kBoxFloats) + r * kBox + ((c & 28) ^ ((r & 7) << 2));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   tc::smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          tc::smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = tc::smem_u32(bar);
+  unsigned ok = 0;
+  while (!ok)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+// ``bytes`` (a multiple of 16) from global to shared memory by the TMA
+// unit, completing on ``bar``
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(tc::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(tc::smem_u32(bar))
+      : "memory");
+}
+// box (x, y, z) of a 3-D tensor map into shared memory, completing on
+// ``bar``, with an L2 cache policy for the source
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int x, int y, int z, uint64_t* bar,
+                                        uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(tc::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+      "r"(tc::smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// the producer warp's copies of one stage: keys [k0, k0 + 64) of K and V
+// (slice ``bh`` of the maps) into ``ks``, a box a lane, in four groups,
+// each announcing its bytes on its mbarrier first; the first ``qrows`` Q
+// rows (lane i's at ``qrow``) join the first group.  K and V carry L2's
+// evict-first policy: each is read once a call, and decode at position
+// 255 measured 6% faster with it than with the normal policy.
+__device__ __forceinline__ void f32_load_stage(
+    float* ks, uint64_t* bars, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, int bh, int k0, int Skv, int nbk, int nbv,
+    int Dk, int qrows, const float* qrow, float* Qs) {
+  const int lane = threadIdx.x & 31;
+  const uint64_t policy = tc::l2_policy_evict_first();
+  float* vs = ks + 2 * nbk * kBoxFloats;
+#pragma unroll
+  for (int g = 0; g < kF32Groups; ++g) {
+    const int h = g & 1, r0 = k0 + h * kHalf;
+    const bool any = r0 < Skv;
+    const int nb = g < 2 ? nbk : nbv;
+    const int qb = g == 0 ? qrows * Dk * 4 : 0;
+    if (lane == 0)
+      mbar_expect_tx(bars + g,
+                     (unsigned)((any ? nb * kBoxFloats * 4 : 0) + qb));
+    __syncwarp();
+    if (any && lane < nb) {
+      if (g < 2)
+        tma_box(ks + (h * nbk + lane) * kBoxFloats, kmap, lane * kBox, r0,
+                bh, bars + g, policy);
+      else
+        tma_box(vs + (h * nbv + lane) * kBoxFloats, vmap, lane * kBox, r0,
+                bh, bars + g, policy);
+    }
+    if (g == 0 && lane < qrows) bulk_copy(Qs + lane * Dk, qrow, Dk * 4, bars);
+  }
+}
+
+// R: rows a warp; NC: float4 column groups a lane (Dv <= 128 * NC)
+template <int R, int NC>
+__global__ void __launch_bounds__(kFT, 1)
+    flash_f32_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const float* __restrict__ Q, float* __restrict__ O,
+                     const int* __restrict__ q_offset, int Hq, int Hkv,
+                     int Sq, int Skv, int Dk, int Dv, float scale, int causal,
+                     int has_window, int window, int ns) {
+  constexpr int BQ = kFW * R;
+  // p.V's keys a batch (shuffles and V loads issued ahead of the FMAs),
+  // and the score loop's unrolling: as many as the registers allow
+  constexpr int PB = R * NC >= 4 ? 4 : 8;
+  constexpr int DU = R == 1 ? 8 : (R == 2 ? 4 : 2);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);   // [stage][group]
+  float* Qs = reinterpret_cast<float*>(smem + kF32Bars);
+  float* ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(Qs + BQ * Dk) + kSwizzleAlign - 1) &
+      ~static_cast<uintptr_t>(kSwizzleAlign - 1));
+  const int nbk = f32_boxes(Dk), nbv = f32_boxes(Dv);
+  const int stage = 2 * (nbk + nbv) * kBoxFloats;
+
+  // Sq == 1 (decode): the block's rows are the rep query heads that share
+  // kv head blockIdx.y; else they are query rows of head blockIdx.y
+  const int rep = Hq / Hkv;
+  const bool packed = Sq == 1;
+  const int b = blockIdx.z, hy = blockIdx.y;
+  const int hk = packed ? hy : hy / rep;
+  const int bh = b * Hkv + hk;   // the maps' slice
+  const int R0 = blockIdx.x * BQ;
+  const int rows = min(BQ, (packed ? rep : Sq) - R0);
+  // (b, head, query) row of block row r
+  auto grow = [&](int r) -> size_t {
+    return packed ? (size_t)b * Hq + hy * rep + R0 + r
+                  : ((size_t)b * Hq + hy) * Sq + R0 + r;
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool producer = warp == kFW - 1;
+  if (threadIdx.x < kF32Groups * ns) mbar_init(bars + threadIdx.x, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  // the producer warp: every stage of the ring in flight from the start,
+  // the Q rows joining stage 0's first group.  Without a window the first
+  // tile any row can need is tile 0, so stage 0 goes out before the
+  // offset is read (the block waits for it even if no row sees a key)
+  const float* qrow = Q + grow(min(lane, rows - 1)) * Dk;
+  const bool early = !has_window;
+  if (producer && early)
+    f32_load_stage(ring, bars, &kmap, &vmap, bh, 0, Skv, nbk, nbv, Dk, rows,
+                   qrow, Qs);
+
+  const int off = q_offset != nullptr ? *q_offset : 0;
+  auto qpos = [&](int r) { return packed ? off : R0 + r + off; };
+  // the KV tiles that can hold a key some row of this block sees
+  const int q_first = qpos(0), q_last = qpos(rows - 1);
+  const int n_tiles = (Skv + BK - 1) / BK;
+  int t_end = n_tiles;
+  if (causal) t_end = q_last < 0 ? 0 : min(n_tiles, q_last / BK + 1);
+  const int t_begin = has_window ? max(0, q_first - window + 1) / BK : 0;
+  const int nt = max(0, t_end - t_begin);
+  // the stages issued: at least stage 0 where it went out early
+  const int issued = early ? max(1, min(ns, nt)) : min(ns, nt);
+
+  if (producer) {
+    for (int j = early ? 1 : 0; j < issued; ++j)
+      f32_load_stage(ring + j * stage, bars + j * kF32Groups, &kmap, &vmap,
+                     bh, (t_begin + j) * BK, Skv, nbk, nbv, Dk,
+                     j == 0 ? rows : 0, qrow, Qs);
+  }
+
+  const int wr0 = warp * R;                     // the warp's first block row
+  const int nr = max(0, min(R, rows - wr0));    // its rows that exist
+  const int w_first = qpos(wr0), w_last = qpos(wr0 + max(nr, 1) - 1);
+  const float scale2 = scale * 1.44269504088896341f;   // log2(e)
+  // each row sees keys [lo, hi] (the causal, window and length limits as
+  // one range); rows that do not exist see none
+  int lo[R], hi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = qpos(wr0 + r);
+    lo[r] = r < nr ? (has_window ? max(0, p - window + 1) : 0) : 1;
+    hi[r] = r < nr ? (causal ? min(p, Skv - 1) : Skv - 1) : 0;
+  }
+  // the lane's output columns; a lane past Dv reads column 0 and never
+  // stores
+  int col[NC];
+#pragma unroll
+  for (int g = 0; g < NC; ++g)
+    col[g] = g * 128 + lane * 4 < Dv ? g * 128 + lane * 4 : 0;
+
+  float m[R], l[R], acc[R][NC][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int g = 0; g < NC; ++g)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[r][g][x] = 0.f;
+  }
+  // the lane's two scores per row (log2 units), then its two p
+  float s[R][2];
+
+  // the Q rows land with the first tile's first group
+  if (nr > 0 && nt > 0) mbar_wait(bars, 0);
+  int slot = 0;
+  unsigned phase = 0;
+  for (int j = 0; j < nt; ++j) {
+    if (j > 0) {
+      // tile j - 1 is done with: its slot takes tile j - 1 + ns, once
+      // every group of it has landed (a group no warp read was never
+      // waited for)
+      if (j - 1 + ns < nt) {
+        __syncthreads();
+        if (producer) {
+#pragma unroll
+          for (int g = 0; g < kF32Groups; ++g)
+            mbar_wait(bars + slot * kF32Groups + g, phase);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          f32_load_stage(ring + slot * stage, bars + slot * kF32Groups,
+                         &kmap, &vmap, bh, (t_begin + j - 1 + ns) * BK, Skv,
+                         nbk, nbv, Dk, 0, qrow, Qs);
+        }
+      }
+      if (++slot == ns) {
+        slot = 0;
+        phase ^= 1u;
+      }
+    }
+    const int k0 = (t_begin + j) * BK;
+    // the halves some row of this warp can see: a half (or a tile) the
+    // mask hides from all of them is skipped, which is exactly what
+    // running it would do for each row (alpha 1, p 0)
+    bool run[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int a = k0 + h * kHalf;
+      run[h] = nr > 0 && a < Skv && (!causal || a <= w_last) &&
+               (!has_window || a + kHalf - 1 > w_first - window);
+    }
+    if (!run[0] && !run[1]) continue;
+    const float* ks = ring + slot * stage;
+    const float* vs = ks + 2 * nbk * kBoxFloats;
+    uint64_t* bar = bars + slot * kF32Groups;
+
+    // scores of keys lane and lane + 32: four chains over d, d = c mod 4
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!run[h]) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r][h] = kNegInf;
+        continue;
+      }
+      mbar_wait(bar + h, phase);
+      const float* kr = ks + h * nbk * kBoxFloats;
+      float c[R][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) c[r][x] = 0.f;
+#pragma unroll DU
+      for (int d = 0; d < Dk; d += 4) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(kr + f32_swz(lane, d));
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(Qs + (wr0 + r) * Dk + d);
+          c[r][0] = fmaf(qv.x, kv.x, c[r][0]);
+          c[r][1] = fmaf(qv.y, kv.y, c[r][1]);
+          c[r][2] = fmaf(qv.z, kv.z, c[r][2]);
+          c[r][3] = fmaf(qv.w, kv.w, c[r][3]);
+        }
+      }
+      const int key = k0 + h * kHalf + lane;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float dot = __fadd_rn(__fadd_rn(c[r][0], c[r][1]),
+                                    __fadd_rn(c[r][2], c[r][3]));
+        s[r][h] = key >= lo[r] && key <= hi[r] ? __fmul_rn(dot, scale2)
+                                               : kNegInf;
+      }
+    }
+
+    // the online softmax, as the Pallas kernel: a row that has seen no
+    // key yet subtracts 0 (exp(-1e30 - -1e30) = 1 would pollute it), and
+    // a max that did not move rescales by exactly 1; masked scores give
+    // exp2(-1e30 - m) = 0
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = fmaxf(s[r][0], s[r][1]);
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float mn = fmaxf(m[r], mx);
+      const float ms = mn <= kNegInf * 0.5f ? 0.f : mn;
+      const float al = m[r] == mn ? 1.f : ex2(__fsub_rn(m[r], mn));
+      s[r][0] = ex2(__fsub_rn(s[r][0], ms));
+      s[r][1] = ex2(__fsub_rn(s[r][1], ms));
+      float rs = __fadd_rn(s[r][0], s[r][1]);
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1)
+        rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, w));
+      l[r] = __fadd_rn(__fmul_rn(al, l[r]), rs);
+      m[r] = mn;
+#pragma unroll
+      for (int g = 0; g < NC; ++g)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[r][g][x] = __fmul_rn(acc[r][g][x], al);
+    }
+
+    // acc += p V over each half's keys in ascending order, p from the
+    // lane that holds it (keys past Skv: zero rows, p 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!run[h]) continue;
+      mbar_wait(bar + 2 + h, phase);
+      const float* vr = vs + h * nbv * kBoxFloats;
+      // 8 keys a step: key j0 + u's row of the lane's boxes, at swizzled
+      // chunk (column / 4) ^ u
+#pragma unroll 1
+      for (int j0 = 0; j0 < kHalf; j0 += 8) {
+#pragma unroll
+        for (int u0 = 0; u0 < 8; u0 += PB) {
+          float pj[PB][R];
+          float4 vv[PB][NC];
+#pragma unroll
+          for (int u = 0; u < PB; ++u) {
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              pj[u][r] = __shfl_sync(0xffffffffu, s[r][h], j0 + u0 + u);
+#pragma unroll
+            for (int g = 0; g < NC; ++g)
+              vv[u][g] = *reinterpret_cast<const float4*>(
+                  vr + j0 * kBox + f32_swz(u0 + u, col[g]));
+          }
+#pragma unroll
+          for (int u = 0; u < PB; ++u)
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+#pragma unroll
+              for (int g = 0; g < NC; ++g) {
+                acc[r][g][0] = fmaf(pj[u][r], vv[u][g].x, acc[r][g][0]);
+                acc[r][g][1] = fmaf(pj[u][r], vv[u][g].y, acc[r][g][1]);
+                acc[r][g][2] = fmaf(pj[u][r], vv[u][g].z, acc[r][g][2]);
+                acc[r][g][3] = fmaf(pj[u][r], vv[u][g].w, acc[r][g][3]);
+              }
+        }
+      }
+    }
+  }
+
+  // no copy may still be writing to shared memory when the block exits
+  if (producer) {
+    for (int j = max(0, max(nt, issued) - ns); j < max(nt, issued); ++j)
+#pragma unroll
+      for (int g = 0; g < kF32Groups; ++g)
+        mbar_wait(bars + (j % ns) * kF32Groups + g, (unsigned)(j / ns) & 1u);
+  }
+
+  // out = acc / l (a row that saw no key: 0 / 1 = 0)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= nr) break;
+    const float dl = l[r] == 0.f ? 1.f : l[r];
+    float* o = O + grow(wr0 + r) * Dv;
+#pragma unroll
+    for (int g = 0; g < NC; ++g) {
+      if (g * 128 + lane * 4 >= Dv) continue;
+      *reinterpret_cast<float4*>(o + col[g]) = make_float4(
+          __fdiv_rn(acc[r][g][0], dl), __fdiv_rn(acc[r][g][1], dl),
+          __fdiv_rn(acc[r][g][2], dl), __fdiv_rn(acc[r][g][3], dl));
+    }
+  }
+}
+
+// The f32 launch, mirrored by kernels/ops.py:flash_plan: the most rows a
+// warp (4, then 2) that a block's rows do not outnumber and that leaves
+// at least a block an SM; else 1.  Stages: as many as fit the SM's
+// shared memory split between the blocks it will run (1 to 3), 1 to 4,
+// at most the cache's tiles.  Shared memory: the mbarriers and Q, the
+// ring's alignment slack, the ring.
+struct F32Launch {
+  int r, nc, ns;
+  dim3 grid;
+  size_t smem;
+};
+
+inline F32Launch f32_launch(int B, int Hq, int Hkv, int Sq, int Skv, int Dk,
+                            int Dv) {
+  const bool packed = Sq == 1;
+  const long nrows = packed ? Hq / Hkv : Sq;
+  const long heads = packed ? Hkv : Hq;
+  auto blocks = [&](int r) {
+    return (nrows + kFW * r - 1) / (kFW * r) * heads * B;
+  };
+  int r = 1;
+  for (int c : {4, 2})
+    if (kFW * c <= nrows && blocks(c) >= kSMs) {
+      r = c;
+      break;
+    }
+  const size_t head = kF32Bars + (size_t)kFW * r * Dk * 4 + kSwizzleAlign;
+  const size_t st = f32_stage_bytes(Dk, Dv);
+  const long per_sm =
+      std::min<long>(3, std::max<long>(1, (blocks(r) + kSMs - 1) / kSMs));
+  const long budget = kSmemPerSM / per_sm - kSmemPerBlock - (long)head;
+  int ns = (int)std::max<long>(1, std::min<long>(kF32MaxStages,
+                                                 budget / (long)st));
+  ns = std::min(ns, (Skv + BK - 1) / BK);
+  while (ns > 1 && head + ns * st > (size_t)kMaxDynamicSmem) --ns;
+  const dim3 grid((unsigned)((nrows + kFW * r - 1) / (kFW * r)),
+                  (unsigned)heads, (unsigned)B);
+  return {r, Dv <= 128 ? 1 : 2, ns, grid, head + ns * st};
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime's
+// entry-point table (the library links no libcuda); null where missing
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the 3-D map (column, key, b * Hkv + h) of a (B, Hkv, Skv, d) f32
+// operand: boxes of 32 keys x 32 floats with the 128-byte swizzle; what
+// lies outside it lands as zeros.  A host-side encoding: no device work,
+// so a CUDA-graph capture may run it.
+cudaError_t f32_map(CUtensorMap* map, const void* base, int d, int skv,
+                    int bh) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)skv, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4,
+                                 (cuuint64_t)skv * (cuuint64_t)d * 4};
+  const cuuint32_t box[3] = {kBox, kHalf, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int R, int NC>
+cudaError_t launch_f32_rc(const CUtensorMap& km, const CUtensorMap& vm,
+                          const void* q, void* o, const int* off,
+                          const F32Launch& p, int Hq, int Hkv, int Sq,
+                          int Skv, int Dk, int Dv, float scale, int causal,
+                          int has_window, int window, cudaStream_t s) {
+  // raise the instantiation's dynamic shared memory limit once per
+  // device, to the most a block may use, and ask for the largest shared
+  // memory carveout, so that several blocks share an SM
+  static PerDevice limit_set;
+  const cudaError_t limit = once_per_device(limit_set, [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_f32_kernel<R, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxDynamicSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(flash_f32_kernel<R, NC>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  });
+  if (limit != cudaSuccess) return limit;
+  flash_f32_kernel<R, NC><<<p.grid, kFT, p.smem, s>>>(
+      km, vm, static_cast<const float*>(q), static_cast<float*>(o), off, Hq,
+      Hkv, Sq, Skv, Dk, Dv, scale, causal, has_window, window, p.ns);
+  return cudaSuccess;
+}
+
+template <int R>
+cudaError_t launch_f32_r(const CUtensorMap& km, const CUtensorMap& vm,
+                         const void* q, void* o, const int* off,
+                         const F32Launch& p, int Hq, int Hkv, int Sq, int Skv,
+                         int Dk, int Dv, float scale, int causal,
+                         int has_window, int window, cudaStream_t s) {
+  if (p.nc == 1)
+    return launch_f32_rc<R, 1>(km, vm, q, o, off, p, Hq, Hkv, Sq, Skv, Dk, Dv,
+                               scale, causal, has_window, window, s);
+  return launch_f32_rc<R, 2>(km, vm, q, o, off, p, Hq, Hkv, Sq, Skv, Dk, Dv,
+                             scale, causal, has_window, window, s);
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       const int* off, int B, int Hq, int Hkv, int Sq,
+                       int Skv, int Dk, int Dv, float scale, int causal,
+                       int has_window, int window, cudaStream_t s) {
+  const F32Launch p = f32_launch(B, Hq, Hkv, Sq, Skv, Dk, Dv);
+  CUtensorMap km, vm;
+  cudaError_t e = f32_map(&km, k, Dk, Skv, B * Hkv);
+  if (e == cudaSuccess) e = f32_map(&vm, v, Dv, Skv, B * Hkv);
+  if (e != cudaSuccess) return e;
+  switch (p.r) {
+    case 4:
+      return launch_f32_r<4>(km, vm, q, o, off, p, Hq, Hkv, Sq, Skv, Dk, Dv,
+                             scale, causal, has_window, window, s);
+    case 2:
+      return launch_f32_r<2>(km, vm, q, o, off, p, Hq, Hkv, Sq, Skv, Dk, Dv,
+                             scale, causal, has_window, window, s);
+    default:
+      return launch_f32_r<1>(km, vm, q, o, off, p, Hq, Hkv, Sq, Skv, Dk, Dv,
+                             scale, causal, has_window, window, s);
+  }
+}
+
 }  // namespace
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -788,23 +1135,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaError_t err = cudaSuccess;
   switch (dtype) {
     case kF32:
-      if (Dk % kVec<float> || Dv % kVec<float>)
-        return (int)cudaErrorInvalidValue;
-      switch (pick_bq(Sq)) {
-        case 1:
-          err = launch_rc<float, 1>(q, k, v, o, off, B, Hq, Hkv, Sq, Skv, Dk,
-                                    Dv, scale, causal, has_window, window, s);
-          break;
-        case 4:
-          err = launch_rc<float, 4>(q, k, v, o, off, B, Hq, Hkv, Sq, Skv, Dk,
-                                    Dv, scale, causal, has_window, window, s);
-          break;
-        default:
-          err = launch_rc<float, 16>(q, k, v, o, off, B, Hq, Hkv, Sq, Skv,
-                                     Dk, Dv, scale, causal, has_window,
-                                     window, s);
-          break;
-      }
+      if (Dk % 4 || Dv % 4) return (int)cudaErrorInvalidValue;
+      err = launch_f32(q, k, v, o, off, B, Hq, Hkv, Sq, Skv, Dk, Dv, scale,
+                       causal, has_window, window, s);
       break;
     case kBF16:
     case kF16:

@@ -24,9 +24,16 @@ fragment, so K and V are read once for all of them).  The loop is
 bounded by the causal and window limits, so decode at position p reads
 only the first p + 1 rows of the cache.  A row's reduction order
 depends only on Dk, Dv, Skv and the mask: decode at p gives row p of
-the causal prefill bit for bit.  f32 stays on the CUDA cores.  The
-offset is a device pointer: in the fused decode chunk the position is a
-carry on the card, and reading it on the host would stall every step.
+the causal prefill bit for bit.  f32 runs on the CUDA cores in f32
+FMAs (no TF32): a warp owns 1, 2 or 4 query rows (at decode the query
+heads of a kv head), its lanes hold a 64-key tile's scores in registers
+(two keys a lane) and then the output columns (four a lane) for p.V, p
+passed by shuffles; the TMA unit copies each tile in four groups (K's
+and V's two 32-key halves) into a ring of up to 4 tiles, so a decode
+block computes on its first keys while the rest land.
+``ops.flash_f32_order`` states its order.  The offset is a device
+pointer: in the fused decode chunk the position is a carry on the card,
+and reading it on the host would stall every step.
 ``ops.flash_plan`` mirrors the launch.
 """
 from __future__ import annotations

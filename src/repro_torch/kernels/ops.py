@@ -350,44 +350,105 @@ def rmsnorm_supported(shape: Sequence[int], dtype: torch.dtype,
 FLASH_BK = 64
 FLASH_MAX_D = 256
 FLASH_WARPS = 4
+# the f32 route (CUDA cores): a warp owns 1, 2 or 4 consecutive block rows
+# -- the most of FLASH_F32_WARP_ROWS that the call's rows fill and that
+# leaves at least FLASH_F32_FILL blocks (one an SM of the H100's
+# FLASH_SMS), else 1.  A stage is a 64-key K and V tile, each 32-key half
+# a row of boxes of 32 keys x FLASH_F32_BOX floats (the TMA unit's copies,
+# 128-byte swizzle), copied in FLASH_F32_GROUPS groups (K's keys 0-31, K's
+# 32-63, V's 0-31, V's 32-63); as many stages as fit the SM's shared
+# memory split between the blocks it will run (ceil(blocks / FLASH_SMS),
+# at most 3), 1 to FLASH_F32_STAGES, at most the cache's tiles.  Before
+# the ring: the mbarriers, Q, and FLASH_F32_ALIGN bytes of slack for the
+# ring's alignment.
+FLASH_SMS = 132
+FLASH_F32_FILL = FLASH_SMS
+FLASH_F32_WARP_ROWS = (4, 2)
+FLASH_F32_STAGES = 4
+FLASH_F32_GROUPS = 4
+FLASH_F32_BARS = 128   # bytes of mbarriers (one a copy group) before Q
+FLASH_F32_BOX = 32     # floats of a box row (128 bytes)
+FLASH_F32_ALIGN = 1024   # the 128-byte swizzle's period
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024
+# the f32 order (flash_f32_order): partial dot products a score (d mod 4),
+# the lanes a tile's keys lie on, the shuffle-xor distances of a row's sum
+FLASH_F32_CHAINS = 4
+FLASH_F32_LANES = 32
+FLASH_F32_TREE = (16, 8, 4, 2, 1)
 
 
 class FlashPlan(NamedTuple):
     route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
     bq: int           # query rows per block
-    row_frags: int    # 16-row mma fragments per block (0: CUDA cores)
+    row_frags: int    # 16-row mma fragments per block (0: f32)
     col_groups: int   # warps that split one fragment's output columns
-    width: int        # head-width class sizing the registers (0: f32)
+    # (f32: 1, every warp computes all of its rows' columns)
+    width: int        # head-width class sizing the registers (f32: the
+    # output columns a warp holds per row, 128 or 256)
     grid: Tuple[int, int, int]   # (row tiles, heads, batch)
     stages: int       # K/V tiles in the cp.async ring
     smem: int         # dynamic shared-memory bytes per block
     packed: bool      # decode: the rows are the query heads of a kv head
+    warp_rows: int = 0       # f32: block rows a warp owns
+    copy_groups: int = 1     # cp.async groups a stage (f32: K, V halves)
 
 
 def _round16(d: int) -> int:
     return -(-int(d) // 16) * 16
 
 
+def flash_f32_boxes(d: int) -> int:
+    """Boxes of FLASH_F32_BOX floats across a head width on the f32 route
+    (columns past ``d`` land as zeros)."""
+    return -(-int(d) // FLASH_F32_BOX)
+
+
+def _flash_f32_plan(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, Dk: int,
+                    Dv: int) -> FlashPlan:
+    packed = Sq == 1
+    nrows, heads = (Hq // Hkv, Hkv) if packed else (Sq, Hq)
+
+    def blocks(r):
+        return -(-nrows // (FLASH_WARPS * r)) * heads * B
+
+    r = next((c for c in FLASH_F32_WARP_ROWS
+              if FLASH_WARPS * c <= nrows and blocks(c) >= FLASH_F32_FILL),
+             1)
+    bq = FLASH_WARPS * r
+    head = FLASH_F32_BARS + bq * Dk * 4 + FLASH_F32_ALIGN
+    stage = (FLASH_BK * (flash_f32_boxes(Dk) + flash_f32_boxes(Dv))
+             * FLASH_F32_BOX * 4)
+    per_sm = min(3, max(1, -(-blocks(r) // FLASH_SMS)))
+    budget = _SM_SMEM // per_sm - _BLOCK_RESERVED - head
+    ns = max(1, min(FLASH_F32_STAGES, budget // stage))
+    ns = min(ns, -(-Skv // FLASH_BK))
+    while ns > 1 and head + ns * stage > _SMEM:
+        ns -= 1
+    return FlashPlan("cuda_core", bq, 0, 1, 128 if Dv <= 128 else 256,
+                     (-(-nrows // bq), heads, B), ns, head + ns * stage,
+                     packed, r, FLASH_F32_GROUPS)
+
+
 def flash_plan(q_shape: Sequence[int], k_shape: Sequence[int],
                v_shape: Sequence[int], dtype: torch.dtype) -> FlashPlan:
     """How csrc/flash_attention.cu launches BHSD operands of these shapes.
+    At decode (Sq 1) a block's rows are the query heads that share a kv
+    head (``packed``), so K and V are read once for all of them.
     bf16/f16: tensor cores, 4 warps of 16 query rows (2 row fragments
     and 2 column halves past width 128), or -- for at most 16 rows --
-    one fragment whose output columns the 4 warps split; at decode
-    (Sq 1) the rows are the query heads that share a kv head.  A ring of
-    up to 4 64-key K/V stages (3 past width 128, and for one fragment at
+    one fragment whose output columns the 4 warps split.  A ring of up
+    to 4 64-key K/V stages (3 past width 128, and for one fragment at
     width 128), all in flight at once, never more than the cache has
-    tiles.  f32: the CUDA-core kernel with
-    1, 4 or 16 rows a block and one K/V tile at a time."""
+    tiles.  f32: the CUDA cores, 4 warps of ``warp_rows`` rows (1, 2 or
+    4: as many as still fill the card), lanes over a tile's keys for the
+    scores and over the output columns for p.V, in the order
+    :func:`flash_f32_order` states; a ring of 1-4 stages, each in
+    ``copy_groups`` copy groups waited for one at a time."""
     B, Hq, Sq, Dk = (int(d) for d in q_shape)
     Hkv, Skv, Dv = int(k_shape[1]), int(k_shape[2]), int(v_shape[3])
     tiles = -(-Skv // FLASH_BK)
     if dtype == torch.float32:
-        bq, pad = (1 if Sq <= 1 else (4 if Sq <= 4 else 16)), vec(dtype)
-        smem = (FLASH_BK * (Dk + pad) * 4 + FLASH_BK * (Dv + pad) * 4
-                + bq * Dk * 4 + bq * FLASH_BK * 4 + 3 * bq * 4)
-        return FlashPlan("cuda_core", bq, 0, 0, 0, (-(-Sq // bq), Hq, B), 1,
-                         smem, False)
+        return _flash_f32_plan(B, Hq, Hkv, Sq, Skv, Dk, Dv)
     dkp, dvp = _round16(Dk), _round16(Dv)
     w = max(dkp, dvp)
     width = 64 if w <= 64 else (128 if w <= 128 else 256)
@@ -402,6 +463,44 @@ def flash_plan(q_shape: Sequence[int], k_shape: Sequence[int],
     return FlashPlan("tensor_core", bq, frags, FLASH_WARPS // frags, width,
                      (-(-nrows // bq), Hkv if packed else Hq, B), ns, smem,
                      packed)
+
+
+class FlashF32Order(NamedTuple):
+    score_chains: Tuple[Tuple[int, ...], ...]   # each chain's d, in order
+    tiles: Tuple[Tuple[int, int], ...]   # [first, end) keys of each tile
+    lane_keys: Tuple[Tuple[int, int], ...]   # a lane's two keys in a tile
+    tree: Tuple[int, ...]   # shuffle-xor distances of a row's sum, in order
+    pv_keys: Tuple[int, ...]   # a tile's keys in p.V's fmaf order
+
+
+def flash_f32_order(dk: int, skv: int) -> FlashF32Order:
+    """The f32 route's reduction order for one query row, a function of
+    Dk and Skv (and the mask, which only zeroes terms), never of B, Sq,
+    the query tile, the row's place in it, GQA packing, the grid or the
+    run.  Per row, with s in log2 units:
+
+    - score of key j: one fmaf chain from +0 per tuple of
+      ``score_chains`` (d = c mod 4, ascending), added as (c0 + c1) + (c2
+      + c3), then times scale * log2(e) (masked: -1e30);
+    - per tile in ``tiles`` order: mx = the tile's max; mn = max(m, mx);
+      alpha = 1 where mn == m, else 2^(m - mn); p = 2^(s - ms) (ms = mn,
+      or 0 while the row has seen no key); the tile's sum is each lane's
+      p(a) + p(b) (``lane_keys``), then at each distance of ``tree`` in
+      order the lane's sum plus its partner's; l = alpha * l + sum (a
+      product, then an add); acc = acc * alpha, then fmaf(p_j, v_j, acc)
+      for the keys of ``pv_keys`` in order;
+    - out = acc / l (0 where l is 0).
+
+    A tile, or a half of one, that the mask hides from the row is an
+    exact no-op for it (alpha 1, p 0), whether it runs or is skipped."""
+    half = FLASH_BK // 2
+    return FlashF32Order(
+        tuple(tuple(range(c, int(dk), FLASH_F32_CHAINS))
+              for c in range(FLASH_F32_CHAINS)),
+        tuple((t, min(t + FLASH_BK, int(skv)))
+              for t in range(0, int(skv), FLASH_BK)),
+        tuple((ln, ln + half) for ln in range(FLASH_F32_LANES)),
+        FLASH_F32_TREE, tuple(range(FLASH_BK)))
 
 
 def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],

@@ -177,13 +177,23 @@ def test_flash_predicate_takes_what_the_kernel_can_read():
     assert not ok((1, 2, 4, 64), (2, 2, 4, 64), (2, 2, 4, 64))
     assert not ok((1, 2, 4, 64), (1, 2, 4, 64), (1, 2, 5, 64))
     assert not ok((1, 1, 1 << 24, 256), (1, 1, 8, 256), (1, 1, 8, 256))
-    # the f32 route's query tile follows Sq: 1, 4 or 16 rows
-    assert kops.flash_plan((1, 2, 1, 64), (1, 2, 8, 64), (1, 2, 8, 64),
-                           f32).bq == 1
-    assert kops.flash_plan((1, 2, 3, 64), (1, 2, 8, 64), (1, 2, 8, 64),
-                           f32).bq == 4
-    assert kops.flash_plan((1, 2, 100, 64), (1, 2, 100, 64),
-                           (1, 2, 100, 64), f32).bq == 16
+    # the f32 route: 4 warps of 1, 2 or 4 rows, the most that the call's
+    # rows fill and that leave a block an SM (decode: the query heads
+    # of a kv head; phase 14's 32-token prompts of 1 and 4 slots; a
+    # 128-token prefill of 4)
+    p = kops.flash_plan((4, 32, 1, 128), (4, 32, 256, 128),
+                        (4, 32, 256, 128), f32)
+    assert (p.bq, p.warp_rows, p.grid, p.stages, p.packed) == \
+        (4, 1, (1, 32, 4), 3, True)
+    p = kops.flash_plan((1, 32, 32, 128), (1, 32, 32, 128),
+                        (1, 32, 32, 128), f32)
+    assert (p.bq, p.warp_rows, p.grid, p.stages) == (4, 1, (8, 32, 1), 1)
+    p = kops.flash_plan((4, 32, 32, 128), (4, 32, 32, 128),
+                        (4, 32, 32, 128), f32)
+    assert (p.bq, p.warp_rows, p.grid) == (16, 4, (2, 32, 4))
+    p = kops.flash_plan((4, 32, 128, 128), (4, 32, 128, 128),
+                        (4, 32, 128, 128), f32)
+    assert (p.bq, p.warp_rows, p.grid) == (16, 4, (8, 32, 4))
     # the f32 and 16-bit worst cases still fit one block's shared memory
     for dt in (f32, bf):
         assert kops.flash_plan((1, 2, 128, 256), (1, 2, 128, 256),
@@ -232,12 +242,16 @@ def test_flash_plan_tensor_core_tiles():
                  (1, 2, 70, 128)).width == 256
     p = _plan((1, 2, 17, 40), (1, 2, 64, 40), (1, 2, 64, 40), torch.float16)
     assert p.width == 64 and p.smem == (64 * 56 + 1 * 64 * (56 + 56)) * 2
-    # f32 keeps the CUDA cores
-    assert _plan((4, 32, 1, 128), (4, 32, 256, 128), (4, 32, 256, 128),
-                 torch.float32).route == "cuda_core"
+    # f32 takes the CUDA cores in 4-group stages, GQA packed at decode:
+    # Hq 64 over Hkv 8 in 2 blocks of 4 heads a kv head
+    p = _plan((4, 64, 1, 128), (4, 8, 256, 128), (4, 8, 256, 128),
+              torch.float32)
+    assert p.route == "cuda_core" and p.packed and p.row_frags == 0
+    assert (p.bq, p.grid, p.copy_groups) == (4, (2, 8, 4), 4)
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16,
+                                torch.float32])
 @pytest.mark.parametrize("sq", [1, 3, 16, 17, 64, 100, 128])
 @pytest.mark.parametrize("dk,dv", [(8, 8), (40, 40), (64, 64), (128, 128),
                                    (192, 128), (256, 256), (248, 136)])
@@ -245,7 +259,8 @@ def test_flash_plan_tensor_core_tiles():
 def test_flash_plan_covers_every_row_and_fits(hq, hkv, dk, dv, sq, dt):
     """Every query row lies in exactly one block, the ring holds 1-4
     stages, and the launch fits one block's shared memory, for every
-    width the predicate takes (16-byte vectors up to 256)."""
+    width the predicate takes (16-byte vectors up to 256); at decode (Sq
+    1) the query heads of a kv head are packed into a block's rows."""
     for skv in (1, 64, 65, 256, 4096):
         q, k, v = (2, hq, sq, dk), (2, hkv, skv, dk), (2, hkv, skv, dv)
         assert kops.attention_supported(q, k, v, dt)
@@ -253,6 +268,25 @@ def test_flash_plan_covers_every_row_and_fits(hq, hkv, dk, dv, sq, dt):
         rows = hq // hkv if sq == 1 else sq
         assert p.grid[0] * p.bq >= rows > (p.grid[0] - 1) * p.bq
         assert p.grid[1] == (hkv if sq == 1 else hq) and p.grid[2] == 2
+        assert p.packed == (sq == 1)
+        if dt == torch.float32:
+            # 4 warps of 1, 2 or 4 rows, a block no larger than the call
+            # needs but for 1-row warps; the mbarriers and Q, the ring's
+            # alignment slack, then its K and V tiles in 128-byte boxes
+            assert p.route == "cuda_core" and p.copy_groups == 4
+            assert p.warp_rows in (1, 2, 4)
+            assert p.bq == kops.FLASH_WARPS * p.warp_rows
+            assert p.warp_rows == 1 or p.bq <= rows
+            assert p.width == (128 if dv <= 128 else 256)
+            assert 1 <= p.stages <= min(4, -(-skv // kops.FLASH_BK))
+            boxes = kops.flash_f32_boxes(dk) + kops.flash_f32_boxes(dv)
+            assert boxes * kops.FLASH_F32_BOX >= dk + dv
+            stage = kops.FLASH_BK * boxes * kops.FLASH_F32_BOX * 4
+            assert stage % kops.FLASH_F32_ALIGN == 0
+            assert p.smem == (kops.FLASH_F32_BARS + p.bq * dk * 4
+                              + kops.FLASH_F32_ALIGN + p.stages * stage
+                              ) <= 232448
+            continue
         assert p.row_frags * p.col_groups == kops.FLASH_WARPS
         assert p.bq == 16 * p.row_frags
         assert p.width >= max(dk, dv) and p.width % 64 == 0

@@ -24,7 +24,8 @@ SCRIPTS = [os.path.join(ROOT, "scripts", f"{n}.py")
                      "torch_make_tables", "torch_smoke_all",
                      "torch_bench", "torch_bench_to_json",
                      "torch_prefix_shapes", "torch_phase_times",
-                     "torch_bmm_bits", "torch_train_gaps")]
+                     "torch_bmm_bits", "torch_train_gaps",
+                     "torch_flash_bits")]
 # the examples whose work sits behind ``if __name__ == "__main__"``: the
 # probe imports them; torch_quickstart and torch_bridge_demo run when
 # imported, and tests/test_torch_tooling.py runs them isolated
