@@ -24,7 +24,12 @@ without printing a result:
                  fixed-order batched matmul) from
                  src/repro_torch/kernels/csrc/ (sm_90a) at first use, one
                  process per source, all started together;
-  3. kernels  -- each kernel against its plain PyTorch version at the
+  3. kernels  -- the wgmma probe first (``[wgmma_probe] equal=...``:
+                 wgmma's k16 step bitwise mma.sync's, over 2^27 outputs,
+                 kernels/wgmma_probe.py), and no spill in the wgmma
+                 mainloop (wg_gemm.cuh: matmul above 96 rows, the batched
+                 kernel's training tiles); then each kernel against its
+                 plain PyTorch version at the
                  full-width deepseek-7b shapes of the serving paths,
                  of phase 8's train step and of phase 9's models (bf16,
                  plus one f32 case each), with its time, the plain
@@ -33,13 +38,17 @@ without printing a result:
                  determinism checks: two launches on the same inputs give
                  the same bits, and a probe row gives the same bits alone
                  and inside batches of 4, 64 and 512 rows (matmul,
-                 rmsnorm, norm_matmul, swiglu); the batched matmul (no
+                 rmsnorm, norm_matmul, swiglu), and for matmul in 16-bit
+                 inside 96 to 4,224 rows, across the wgmma route's
+                 threshold (at mixtral's wo too); the batched matmul (no
                  TPU kernel: the emitter's route for every other
                  floating contraction) at the paged decode's attention,
                  a 64-row prefill chunk's, deepseek-v3's expert FFN and
                  phase 8's backward products, with a probe (batch entry,
                  row) bitwise equal in batches of 1, 3, 4 and 32 at M of
-                 1 to 64, and zero-padded K bitwise equal; one f32 order:
+                 1 to 64 (and in 16-bit at 65 to 4,224, the wgmma
+                 mainloop, dX's B as (N, K) and dW's A as (K, M)), and
+                 zero-padded K bitwise equal; one f32 order:
                  f32 matmul == the batched kernel, f32 swiglu == matmul of
                  its h and f32 norm_matmul == matmul of its normalised
                  rows, bitwise; swiglu called on two
@@ -406,6 +415,12 @@ PORTED_KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm",
 ALL_KERNELS = PORTED_KERNELS + ("batched_matmul",)
 # what phases 8 and 12 measured, for phase 13 to read its meter against
 READINGS: dict = {}
+# the wgmma mainloop of matmul (above ops.WG_MIN_ROWS rows) and of the
+# batched kernel's training tiles, and its device kernels' tags
+WG_SOURCE = "src/repro_torch/kernels/csrc/wg_gemm.cuh"
+WG_TAGS = {"matmul": "matmul_wg", "batched_matmul": "bmm_wg"}
+# (kernel, case label) -> "wgmma" for the cases the plans send there
+ROUTE_OF: dict = {}
 
 
 def say(phase: str, **kw) -> None:
@@ -501,7 +516,7 @@ def _case_makers(gen, cases: list):
     from repro_torch.kernels import rmsnorm as kr, swiglu as ks
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import batched_matmul as kb
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     import torch.nn.functional as Fn
     bf, f32 = torch.bfloat16, torch.float32
 
@@ -509,6 +524,8 @@ def _case_makers(gen, cases: list):
         a = _rand((M, K), dt, gen)
         b = _rand((K, N), dt, gen, K ** -0.5)
         s = a.element_size()
+        if ops.matmul_plan(M, K, N, dt).route == "wgmma":
+            ROUTE_OF["matmul", label] = "wgmma"
         cases.append(("matmul", label, lambda: km.matmul(a, b),
                       lambda: ref.matmul_ref(a, b), lambda: torch.matmul(a, b),
                       (M * K + K * N + M * N) * s, 2 * M * K * N, dt))
@@ -588,6 +605,9 @@ def _case_makers(gen, cases: list):
         b = (_rand((batch, N, K), dt, gen, K ** -0.5).transpose(1, 2)
              if b_t else _rand((batch, K, N), dt, gen, K ** -0.5))
         s = a.element_size()
+        if ops.batched_matmul_plan(batch, M, N, K, dt, a_t, b_t).kernel == \
+                "wg_gemm_kernel":
+            ROUTE_OF["batched_matmul", label] = "wgmma"
         cases.append(("batched_matmul", label,
                       lambda: kb.batched_matmul(a, b, out),
                       lambda: ref.batched_matmul_ref(a, b, out),
@@ -636,6 +656,9 @@ def kernel_cases(gen):
     mm("prefill wo (64x4096)@(4096x4096)", CHUNK, D, D, bf)
     mm("prefill unembed (1x4096)@(4096x102400)", 1, D, V, bf)
     mm("dense prefill (512x4096)@(4096x4096)", DENSE, D, D, bf)
+    # the wgmma route's fewest rows (ops.WG_MIN_ROWS + 1)
+    mm("prefill (97x4096)@(4096x4096), the wgmma route's fewest rows", 97,
+       D, D, bf)
     mm("f32 (4x4096)@(4096x4096)", SLOTS, D, D, f32)
     # the f32 route's arrangements: register tiles at a prefill's rows (a
     # 32-token prompt, 4 x 16 and 4 x 32: phase 14's f32 prefill), the
@@ -702,9 +725,12 @@ def kernel_cases(gen):
        dv=256, window=2048)
     fa("GQA decode Hq 64 Hkv 8 (qwen1.5-110b) at pos 255", SLOTS, 64, 8, 1,
        256, 255, bf)
-    # more (slot, kv head) pairs than SMs: 512 decode blocks
+    # more (slot, kv head) pairs than SMs: 512 decode blocks (and the f32
+    # route's 512 slots' heads)
     fa("decode (16x32x1) over 256 keys at pos 255", 16, HEADS, HEADS, 1, 256,
        255, bf)
+    fa("f32 decode (16x32x1) over 256 keys at pos 255", 16, HEADS, HEADS, 1,
+       256, 255, f32)
     # phase 8's train step: 4 x 512 tokens, forward and recompute
     T = TRAIN_BATCH * TRAIN_SEQ
     mm(f"train q/k/v/o ({T}x4096)@(4096x4096)", T, D, D, bf)
@@ -733,6 +759,12 @@ def kernel_cases(gen):
     mm(f"moe router f32 ({MX_LONG}x{mx.d_model})@({mx.d_model}x"
        f"{mx.n_experts}) (mixtral's long prefill)", MX_LONG, mx.d_model,
        mx.n_experts, f32)
+    # mixtral's wo at its 4,224-token prefill (phase 9) and rg's
+    # 2,176-token product (phase 10): the compute-bound 16-bit shapes
+    mm(f"mixtral wo ({MX_LONG}x{mx.d_model})@({mx.d_model}x{mx.d_model}) "
+       f"(mixtral's long prefill)", MX_LONG, mx.d_model, mx.d_model, bf)
+    mm(f"rg ({RG_LONG}x4096)@(4096x4096) (recurrentgemma-9b's long "
+       f"prefill)", RG_LONG, D, D, bf)
     kv_a = v3.kv_lora + v3.d_rope
     mm(f"moe wkv_a ({V3_ROWS}x{v3.d_model})@({v3.d_model}x{kv_a}) "
        f"(deepseek-v3)", V3_ROWS, v3.d_model, kv_a, bf)
@@ -830,12 +862,20 @@ def phase_kernels() -> dict:
             "the build log names no flash_f32_kernel")
     flash_spills = [ln for ln in _spills(log) if "flash_f32_kernel" in ln]
     require(not flash_spills, f"flash_attention f32 spills: {flash_spills}")
+    # nor may the wgmma mainloop (its accumulators live in registers)
+    require(not log or all(t in log for t in WG_TAGS.values()),
+            "the build log names no wgmma mainloop of matmul and the "
+            "batched kernel")
+    wg_spills = [ln for ln in _spills(log)
+                 if "gemm_kernel" in ln or "probe_" in ln]
+    require(not wg_spills, f"wgmma mainloop spills: {wg_spills}")
+    check_wgmma_probe()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
     report = {}
     for case in kernel_cases(gen):
-        name = case[0]
+        name, label = case[0], case[1]
         err, ms, plain_ms, lib_ms, bound_ms, bound_by = _hold(case, flush)
         if name not in report:   # the decode case is the reported one
             report[name] = {
@@ -845,10 +885,37 @@ def phase_kernels() -> dict:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms, "launches_by_phase": {}}
+        if ROUTE_OF.get((name, label)) == "wgmma":
+            # the wgmma route of matmul and of the batched kernel: each
+            # of its cases under the kernel's entry
+            route = report[name].setdefault("routes", {}).setdefault(
+                "wgmma", {"route": "cuda", "source": WG_SOURCE,
+                          "cases": []})
+            route["cases"].append({
+                "case": label, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms})
+    for name in WG_TAGS:
+        require(report[name].get("routes", {}).get("wgmma"),
+                f"{name}: no phase 3 case took the wgmma route")
     del flush
     torch.cuda.empty_cache()
     check_determinism(gen)
     return report
+
+
+def check_wgmma_probe() -> None:
+    """Is wgmma's k16 step bitwise mma.sync's?  The 16-bit K order names
+    mma.sync's chains, and the wgmma mainloop keeps every bit of it only
+    if so (kernels/wgmma_probe.py: 2^27 outputs, bf16 and f16, the
+    mainloop's four operand layouts, inputs drawn to find a
+    difference)."""
+    from repro_torch.kernels import wgmma_probe
+    r = wgmma_probe.probe("cuda")
+    print(wgmma_probe.verdict_line(r), flush=True)
+    require(r["equal"], f"wgmma's k16 step differs from mma.sync's: "
+            f"{json.dumps(r['per'])}")
+    torch.cuda.empty_cache()
 
 
 def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -892,6 +959,23 @@ def check_determinism(gen) -> None:
     dense_pos = {1: 0, SLOTS: 2, CHUNK: 45, DENSE: 300}
     probe_rows("matmul", name(bf), dense_pos,
                lambda a: km.matmul(a, b), lambda m: _rand((m, D), bf, gen))
+    # across the wgmma route's threshold (more than ops.WG_MIN_ROWS = 96
+    # rows): a row alone (the tensor-core tiles) == inside 97 to 4,224
+    # rows (the wgmma mainloop), in bf16 and f16, at deepseek-7b's widths
+    # and at mixtral's wo
+    wg_pos = {1: 0, 96: 50, 97: 3, 128: 77, DENSE: 300, 2048: 1500,
+              MX_LONG: 4000}
+    for dt in (bf, torch.float16):
+        bw = b.to(dt)
+        probe_rows("matmul", f"{name(dt)} across the wgmma threshold",
+                   wg_pos, lambda a: km.matmul(a, bw),
+                   lambda m: _rand((m, D), dt, gen))
+    del bw
+    wo = _rand((6144, 6144), bf, gen, 6144 ** -0.5)
+    probe_rows("matmul", "bfloat16 mixtral wo 6144x6144",
+               {1: 0, 128: 5, MX_LONG: 2222}, lambda a: km.matmul(a, wo),
+               lambda m: _rand((m, 6144), bf, gen))
+    del wo
     # f32: rows that cross every arrangement and tile of the f32 route
     # (F32_PROBE_ROWS), the probe at another place each time
     b = _rand((D, D), f32, gen, D ** -0.5)
@@ -1066,7 +1150,7 @@ def check_f32_one_order(gen) -> None:
 BMM_BATCHES = (1, 3, 4, 32)
 BMM_ROWS = (1, 3, 5, 8, 16, 32, 64)
 BMM_WIDE_BATCHES = (1, 3)
-BMM_WIDE_ROWS = (1, 5, 64, 65, 128, 2048)
+BMM_WIDE_ROWS = (1, 5, 64, 65, 128, DENSE, 2048, MX_LONG)
 # (label, n, k, type, A as (K, M), B as (N, K), batches, rows)
 BMM_PROBES = (
     ("q.k^T", 256, DH, torch.float32, False, True, BMM_BATCHES,
@@ -1082,7 +1166,16 @@ BMM_PROBES = (
     ("K 300", 256, 300, torch.bfloat16, False, True, BMM_WIDE_BATCHES,
      BMM_WIDE_ROWS),
     ("dW K 2048", 128, 2048, torch.bfloat16, True, False, BMM_WIDE_BATCHES,
-     BMM_WIDE_ROWS))
+     BMM_WIDE_ROWS),
+    # phase 8's dX at its widths, B as (N, K): a row alone
+    # (bmm_seq_kernel) == inside 65 to 4,224 rows (the wgmma mainloop)
+    ("dX K 4096", D, D, torch.bfloat16, False, True, (1,), BMM_WIDE_ROWS),
+    ("dX K 4096 f16", D, D, torch.float16, False, True, (1,),
+     BMM_WIDE_ROWS),
+    # scores over 101 keys: f32 rows in no whole 16 bytes, which the
+    # wgmma mainloop stores from registers, not through the TMA unit
+    ("scores N 101", 101, DH, torch.bfloat16, False, True,
+     BMM_WIDE_BATCHES, BMM_WIDE_ROWS))
 
 
 def check_bmm_determinism(gen) -> None:
@@ -1479,7 +1572,7 @@ def _prompts(vocab: int, lengths, shared: int, seed: int = 0):
 # (device kernels, or the tag that names f32_gemm.cuh's f32 matmul
 # kernels for a caller; device kernels per call)
 KERNEL_FUNCS = {
-    "matmul": (("matmul_tc_kernel", "matmul_f32"), 1),
+    "matmul": (("matmul_tc_kernel", "matmul_f32", "matmul_wg"), 1),
     "norm_matmul": (("norm_matmul_inv_kernel", "norm_matmul_tc_kernel",
                      "norm_rows_f32_kernel", "norm_matmul_f32"), 2),
     "swiglu": (("swiglu_gate_up_kernel", "swiglu_down_kernel",
@@ -1488,7 +1581,7 @@ KERNEL_FUNCS = {
     "rmsnorm": (("rmsnorm_kernel",), 1),
     "flash_attention": (("flash_f32_kernel", "flash_tc_kernel"), 1),
     "batched_matmul": (("bmm_seq_kernel", "bmm_f32_kernel",
-                        "bmm_f32_split_kernel"), 1),
+                        "bmm_f32_split_kernel", "bmm_wg"), 1),
 }
 
 
@@ -2543,6 +2636,12 @@ def phase_train(report: dict, smi: str) -> None:
         # where the step's device time goes
         rows, union, ours = _train_profile("train", cf, extra, TRAIN_STEPS,
                                            flat, per_step)
+        # the step's 2048-row products go through the wgmma mainloop
+        for name, tag in WG_TAGS.items():
+            n_wg = _tagged_kernels(rows, tag)
+            require(n_wg > 0, f"train: no {tag} kernel in a replayed step")
+            report[name].setdefault("routes", {}).setdefault(
+                "wgmma", {})["kernels_per_train_step"] = n_wg
         del cf, be, flat
         _free_card()
 
@@ -4537,6 +4636,13 @@ def _tf_config(arch: str) -> tuple:
         del over_limit[:-1]
     raise AssertionError(f"{arch}: no depth under {TF_PEAK_LIMIT_GB} GB: "
                          f"{over_limit}")
+
+
+def _tagged_kernels(rows, tag: str) -> int:
+    """Device kernels of a profile's ``rows`` whose name holds ``tag``."""
+    import re
+    pat = re.compile(rf"(?<![A-Za-z0-9_]){tag}(?![A-Za-z0-9_])")
+    return sum(n for _, n, k in rows if pat.search(k))
 
 
 def _train_profile(label: str, cf, batch, step: int, flat,

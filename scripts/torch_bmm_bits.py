@@ -61,7 +61,24 @@ NAMED = (
      False, "bf16"),
     ("moe expert FFN down (deepseek-v3)", 256, 8, 7168, 2048, "bf16", False,
      False, "bf16"),
-)
+    # rows of C in no whole 16 bytes (the wgmma mainloop's register
+    # epilogue), in both output types
+    ("scores over 101 keys bf16", 3, 200, 101, 128, "bf16", False, True,
+     "bf16"),
+    ("scores over 101 keys f32 out", 3, 200, 101, 128, "bf16", False, True,
+     "f32"),
+    # mixtral's experts at its 4,224-token prefill (phase 9's launched
+    # shapes): 8 experts' 1,320 rows against 201 MB of weights each
+    ("mixtral experts up (8x1320x6144)@(8x6144x16384)", 8, 1320, 16384,
+     6144, "bf16", False, False, "bf16"),
+    ("mixtral experts down (8x1320x16384)@(8x16384x6144)", 8, 1320, 6144,
+     16384, "bf16", False, False, "bf16"),
+) + tuple(
+    # matmul's products as one batch: the batched kernel's training tile
+    # (the wgmma route above 64 rows) beside matmul's route at the same
+    # rows (MATMUL_16_TIMES), which sets matmul's threshold
+    (f"one batch ({m}x4096)@(4096x{n})", 1, m, n, 4096, "bf16", False,
+     False, "bf16") for m in (128, 256) for n in (4096, 11008))
 # the grid: every M and K below, both orientations of each operand, in
 # f32 and bf16 (f32 out: the sums themselves), batch 2, N 72
 GRID_M = (1, 5, 64, 65, 128, 2048)
@@ -100,14 +117,35 @@ KERNEL_TIMES = (
     ("norm_matmul prefill (128x4096)(4096x4096)", "norm_matmul",
      (128, D, D)),
 )
+# matmul's 16-bit products, timed in bf16: the compute-bound shapes
+# (mixtral's wo at its 4,224-token prefill, rg's 2,176-token product,
+# phase 8's 2048-row q/k/v/o, a 512-row dense prefill), the rows on
+# both sides of the wgmma route's threshold at N 4096, 6144 and 11008,
+# and the serving rows (M <= 64), which keep their route
+MATMUL_16_TIMES = tuple(
+    [("matmul mixtral wo (4224x6144)@(6144x6144) bf16", (4224, 6144, 6144)),
+     ("matmul rg (2176x4096)@(4096x4096) bf16", (2176, D, D)),
+     ("matmul train q/k/v/o (2048x4096)@(4096x4096) bf16", (2048, D, D)),
+     ("matmul dense prefill (512x4096)@(4096x4096) bf16", (512, D, D))]
+    + [(f"matmul ({m}x4096)@(4096x{n}) bf16", (m, D, n))
+       for m in (65, 96, 97, 128, 129, 160, 192, 224, 256, 384)
+       for n in (4096, 6144, F)]
+    + [(f"matmul ({m}x4096)@(4096x4096) bf16", (m, D, D))
+       for m in (1, 4, 16, 64)]
+    + [("matmul unembed (1x4096)@(4096x102400) bf16", (1, D, V))])
 # the 16-bit routes of matmul and swiglu, digested in bf16 and f16: rows
-# that take each tensor-core tile, at deepseek-7b's widths and at ragged
-# ones
+# that take each tensor-core tile and each side of the wgmma route's
+# threshold, at deepseek-7b's widths, at the compute-bound shapes and at
+# ragged ones (K under one stage, K not in whole 16-byte vectors, N
+# under one tile)
 BITS_ROWS = (1, 4, 16, 17, 64, 65, 512)
 KERNEL_BITS = tuple(
-    [("matmul", (m, D, D)) for m in BITS_ROWS]
+    [("matmul", (m, D, D)) for m in BITS_ROWS + (128, 129, 256, 2048)]
     + [("matmul", (1, D, V)), ("matmul", (5, 96, 24)),
-       ("matmul", (65, 40, 8)), ("matmul", (3, 44, 16))]
+       ("matmul", (65, 40, 8)), ("matmul", (3, 44, 16)),
+       ("matmul", (4224, 6144, 6144)), ("matmul", (2176, D, D)),
+       ("matmul", (300, 1000, 72)), ("matmul", (200, 44, 16)),
+       ("matmul", (130, 40, 24))]
     + [("swiglu", (m, D, F, D)) for m in BITS_ROWS]
     + [("swiglu", (17, 1000, 200, 24)), ("swiglu", (3, 44, 40, 16))])
 
@@ -272,6 +310,10 @@ def main(argv=None) -> int:
 
     for label, kernel, shape in KERNEL_TIMES if args.time else ():
         times[label] = timed(call(kernel, shape, torch.float32), flush)
+        print(f"[bmm_bits] {label} ms={times[label]:.4f}", flush=True)
+        torch.cuda.empty_cache()
+    for label, shape in MATMUL_16_TIMES if args.time else ():
+        times[label] = timed(call("matmul", shape, torch.bfloat16), flush)
         print(f"[bmm_bits] {label} ms={times[label]:.4f}", flush=True)
         torch.cuda.empty_cache()
     for kernel, shape in KERNEL_BITS:

@@ -53,6 +53,7 @@ SIGNATURES = {
                               _I, _F, _I, _I, _I, _I, _P],
     "repro_batched_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                              _L, _I, _I, _P],
+    "repro_wgmma_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -51,14 +51,15 @@
 //     keep their place from one k-tile to the next, so their sources and
 //     places are worked out once a block.  Stages of four k-tiles put a
 //     barrier every 8 k16 steps.  The training products (hundreds of
-//     flops a byte: the tensor cores bound them) take 128 x 128 tiles, 64
-//     x 32 a warp; up to 64 rows, 64 x 32 tiles (a 64-row prefill chunk
-//     fills 128 blocks); up to 16 rows (decode, the MoE experts' 8 rows,
-//     bound by the bytes of B they stream), 16 x 128.  One lane (K <= 32:
-//     the paged write's one-hot products, K = the slot count, bound by
-//     the bytes of their output) takes 128 x 128 tiles and keeps no
-//     running sum.  The epilogue stages the tile in shared memory and
-//     writes 16-byte rows.
+//     flops a byte: the tensor cores bound them) take the wgmma mainloop
+//     below, or where an operand is copied element by element 128 x 128
+//     tiles, 64 x 32 a warp; up to 64 rows, 64 x 32 tiles (a 64-row
+//     prefill chunk fills 128 blocks); up to 16 rows (decode, the MoE
+//     experts' 8 rows, bound by the bytes of B they stream), 16 x 128.
+//     One lane (K <= 32: the paged write's one-hot products, K = the
+//     slot count, bound by the bytes of their output) takes 128 x 128
+//     tiles and keeps no running sum.  The epilogue stages the tile in
+//     shared memory and writes 16-byte rows.
 //   - f32 on the CUDA cores (bmm_f32_kernel): a register tile sized by M
 //     and N (one row and 64 columns a block at decode, where the f32 cache
 //     read bounds q.k^T and p.V; 128 x 128 with 8 x 8 outputs a thread and
@@ -72,13 +73,23 @@
 //     memory and running one chunk's sub-chains per thread; block 0 of the
 //     cluster adds the chunk sums in chunk order from the others' shared
 //     memory (the sampler's pick of one logit out of the vocabulary).
-// wgmma is not used: nothing documents that its sum within a k16 step is
-// mma.sync's, and the order names mma.sync's chain.
+//   - bf16 / f16 training tiles (more than 64 rows and one lane of k)
+//     where the TMA unit reads both operands: wg_gemm.cuh's wgmma
+//     mainloop (128 x 128 tiles, two lanes' k-tiles a ring stage,
+//     persistent blocks over every batch).  The order names mma.sync's
+//     chain, and one k16 step of wgmma rounds bit for bit as one of
+//     mma.sync (kernels/wgmma_probe.py, on an H100: 2^27 outputs, bf16
+//     and f16, every operand layout, equal), so both kernels give the
+//     same bits.
 #include "f32_gemm.cuh"
+#include "wg_gemm.cuh"
 
 namespace {
 
 using namespace repro;
+
+// names the batched kernel's wgmma mainloop in a profile (wg_gemm.cuh)
+struct bmm_wg {};
 
 // A element (b, m, k) at A[b * sab + m * sam + k * sak]; B element
 // (b, k, n) at B[b * sbb + k * sbk + n * sbn].
@@ -723,6 +734,17 @@ cudaError_t launch_16bit(const void* a, const void* b, void* c, int batch,
   if (M <= 64)
     return launch_seq_tile<T, SeqTile<64, 32, 4, 3, 4>, false>(
         A, B, c, batch, M, N, K, st, a_mode, b_mode, out_f32, s);
+  // the training tiles: the wgmma mainloop where the TMA unit reads both
+  // operands (16-byte vectors along the contiguous index, a batch stride
+  // that is not 0 between several batches)
+  if (a_mode != kElements && b_mode != kElements &&
+      (batch == 1 || (st.sab != 0 && st.sbb != 0)))
+    return wg::gemm<bmm_wg, T>(
+        wg::Operand{A, a_mode == kRows, a_mode == kRows ? st.sam : st.sak,
+                    st.sab},
+        wg::Operand{B, b_mode == kColumns,
+                    b_mode == kColumns ? st.sbn : st.sbk, st.sbb},
+        c, batch, M, N, K, out_f32, s);
   return launch_seq_tile<T, SeqTile<128, 128, 2, 3, 4>, false>(
       A, B, c, batch, M, N, K, st, a_mode, b_mode, out_f32, s);
 }

@@ -107,17 +107,20 @@
 // (alpha 1, p 0), run or skipped.  So decode at position p gives row p of
 // the causal prefill bit for bit, and a packed GQA decode gives the bits
 // of its heads over repeated K and V.  No split-KV, no atomics.
-#include <cuda.h>
-
 #include <algorithm>
 #include <type_traits>
 
-#include "tc_gemm.cuh"
+#include "tma.cuh"
 
 namespace {
 
 using namespace repro;
 using tc::cp_async16;
+using tma::bulk_copy;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::tma_box;
 
 constexpr int kFT = 128;            // threads per block: 4 warps
 constexpr int kFW = kFT / 32;
@@ -608,54 +611,6 @@ __device__ __forceinline__ int f32_swz(int r, int c) {
   return ((c >> 5) * kBoxFloats) + r * kBox + ((c & 28) ^ ((r & 7) << 2));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   tc::smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          tc::smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned a = tc::smem_u32(bar);
-  unsigned ok = 0;
-  while (!ok)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(a), "r"(parity)
-        : "memory");
-}
-// ``bytes`` (a multiple of 16) from global to shared memory by the TMA
-// unit, completing on ``bar``
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(tc::smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(tc::smem_u32(bar))
-      : "memory");
-}
-// box (x, y, z) of a 3-D tensor map into shared memory, completing on
-// ``bar``, with an L2 cache policy for the source
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int x, int y, int z, uint64_t* bar,
-                                        uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(tc::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
-      "r"(tc::smem_u32(bar)), "l"(policy)
-      : "memory");
-}
-
 // the producer warp's copies of one stage: keys [k0, k0 + 64) of K and V
 // (slice ``bh`` of the maps) into ``ks``, a box a lane, in four groups,
 // each announcing its bytes on its mbarrier first; the first ``qrows`` Q
@@ -1010,40 +965,13 @@ inline F32Launch f32_launch(int B, int Hq, int Hkv, int Sq, int Skv, int Dk,
   return {r, Dv <= 128 ? 1 : 2, ns, grid, head + ns * st};
 }
 
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime's
-// entry-point table (the library links no libcuda); null where missing
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // the 3-D map (column, key, b * Hkv + h) of a (B, Hkv, Skv, d) f32
 // operand: boxes of 32 keys x 32 floats with the 128-byte swizzle; what
 // lies outside it lands as zeros.  A host-side encoding: no device work,
 // so a CUDA-graph capture may run it.
 cudaError_t f32_map(CUtensorMap* map, const void* base, int d, int skv,
                     int bh) {
-  const EncodeTiled encode = tensor_map_encoder();
+  const tma::EncodeTiled encode = tma::tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)skv, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 4,

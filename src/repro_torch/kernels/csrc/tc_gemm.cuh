@@ -8,7 +8,12 @@
 // product does at most 64 flops per byte of B, far below the ~295 at which
 // the tensor cores bind, so what has to be fast is the stream of B, not
 // the multiply; m16n8k16 pads decode's rows to 16 instead of wgmma's 64
-// and needs no descriptors.  One instruction shape serves every M.
+// and needs no descriptors.  Where the multiply binds (matmul above 96
+// rows, the batched kernel's training tiles) wg_gemm.cuh runs this same
+// order with wgmma: one k16 step of wgmma m64nNk16 rounds bit for bit as
+// one of mma.sync m16n8k16 (kernels/wgmma_probe.py, on an H100: 2^27
+// outputs, bf16 and f16, every operand layout, equal), so the order's
+// chains are the same sums on either instruction.
 //
 // Layout.  The block is 256 threads (8 warps) and owns a BM x BN output
 // tile (Tile below).  A stage holds kKS = 256 values of k: B[kKS][BN] and
@@ -420,8 +425,10 @@ __device__ __forceinline__ float* gemm_tc(const T* __restrict__ A, int lda,
 inline bool b_evict_first(size_t b_bytes) { return b_bytes <= (256u << 20); }
 
 // matmul's tensor-core tiles for an (M, K) @ (K, N) product, mirrored by
-// kernels/ops.py:tc_tile, and taken by every GEMM that is matmul's
-// launch (norm_matmul.cu's, swiglu.cu's down product).  Up to 16 rows: 32
+// kernels/ops.py:tc_tile: matmul's own up to 96 rows (above them, where
+// A's rows are whole 16-byte vectors, matmul.cu takes wg_gemm.cuh's
+// mainloop), and at every M those of the GEMMs that share its launch
+// (norm_matmul.cu's, swiglu.cu's down product).  Up to 16 rows: 32
 // columns a block (128 blocks at N = 4096), or 128 where N is wide enough
 // (N >= 8192: the unembed, 800 blocks) for 256-byte rows of B to stream
 // faster; up to 64 rows, one 64-row tile of 32 columns; more rows, 64 x 64

@@ -46,17 +46,65 @@ TC_WARP_K = TC_KS // _WARPS
 TC_EVICT_FIRST_BYTES = 256 << 20
 
 
+# mirrors csrc/wg_gemm.cuh (the wgmma route of matmul above WG_MIN_ROWS
+# rows, and the batched kernel's training tiles): 128 x 128 tiles, a
+# producer and two consumer warpgroups, a ring of WG_STAGES stages of
+# WG_STAGE_K k (two lanes' k-tiles of the 16-bit order), each consumer's
+# 64 x 128 outputs staged for the TMA unit (f32 at most), the ring's
+# mbarriers; persistent blocks, at most one an SM
+WG_MIN_ROWS = 96
+WG_BM = WG_BN = 128
+WG_STAGES = 5
+WG_STAGE_K = 2 * TC_WARP_K
+WG_THREADS = 384
+WG_SMS = 132
+WG_SMEM = (1024 + WG_STAGES * (WG_BM + WG_BN) * WG_STAGE_K * 2
+           + 2 * 64 * WG_BN * 4 + 2 * WG_STAGES * 8)
+
+
+def wg_blocks(tiles: int) -> int:
+    """The wgmma route's persistent blocks for ``tiles`` output tiles."""
+    return min(tiles, WG_SMS)
+
+
+def wg_lanes(k: int) -> int:
+    """Lanes of the 16-bit order that hold data at contraction ``k``: all
+    8, but ceil(k / 32) for k under one stage (the others would add +0)."""
+    return -(-k // TC_WARP_K) if k < TC_KS else _WARPS
+
+
+def wg_k_walk(k: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The wgmma mainloop's ring stages over ``k``, in the order its
+    producer copies them and its consumers multiply them
+    (csrc/wg_gemm.cuh): ``(pair p, stage s, k0)`` for the lane pairs in
+    order, each over the stages of the order in order.  A ring stage is k
+    in [k0, k0 + WG_STAGE_K), k0 = s * TC_KS + p * WG_STAGE_K: lane 2p's
+    k-tile [k0, k0 + 32) into its chain ``acc0``, then lane 2p + 1's [k0
+    + 32, k0 + 64) into ``acc1``, each k-tile two k16 steps in ascending
+    k; after the pair's last stage acc0 and then (for a lane that holds
+    data, :func:`wg_lanes`) acc1 are added to the running sum.  k past K
+    reads zeros."""
+    return tuple((p, s, s * TC_KS + p * WG_STAGE_K)
+                 for p in range(-(-wg_lanes(k) // 2))
+                 for s in range(-(-k // TC_KS)))
+
+
 class MatmulPlan(NamedTuple):
-    route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
+    # "tensor_core" (bf16, f16: tc_gemm.cuh), "wgmma" (bf16, f16 above
+    # WG_MIN_ROWS rows: wg_gemm.cuh) or "cuda_core" (f32)
+    route: str
     bm: int           # rows per block
     bn: int           # columns per block
-    grid: Tuple[int, int]   # (column tiles, row tiles); split: (blocks, 1)
-    stages: int       # cp.async ring depth (0: no ring)
-    k_stage: int      # k per stage (f32: the ring's k tile, or a chunk)
+    # (column tiles, row tiles); split and wgmma: (blocks, 1)
+    grid: Tuple[int, int]
+    stages: int       # ring depth (0: no ring)
+    # k per stage of the K order (f32: the ring's k tile, or a chunk)
+    k_stage: int
     smem: int         # dynamic shared-memory bytes per block
     b_evict_first: bool     # B's copies carry L2's evict-first policy
     # f32: "tile" (register tiles), "lanes" (chunks in parallel a block)
-    # or "split" (a cluster per output); the tensor cores: "tile"
+    # or "split" (a cluster per output); the tensor cores: "tile"; wgmma:
+    # "persistent" (each block walks tiles)
     arrangement: str = "tile"
     threads: int = _THREADS   # per block
     cluster: int = 1          # blocks per cluster
@@ -126,11 +174,14 @@ def _f32_mm_tile(m: int, n: int):
 
 def matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
     """How csrc/matmul.cu launches ``(m, k) @ (k, n)``: one kernel a call.
-    The K order of the tensor-core route -- warp ``k // TC_WARP_K % 8`` of
-    stage ``k // TC_KS``, stages in order, then the warps in order -- and
-    of the f32 route -- :func:`f32_k_order`, the batched kernel's f32
-    order (:func:`matmul_k_order`) -- is a function of ``k`` alone; ``m``
-    and ``n`` pick only the arrangement and tile."""
+    16-bit: above WG_MIN_ROWS rows, where A's rows are whole 16-byte
+    vectors for the TMA unit, the wgmma mainloop (csrc/wg_gemm.cuh), else
+    the tensor-core tiles (:func:`tc_matmul_plan`).  The K order of both
+    16-bit routes -- lane ``k // TC_WARP_K % 8`` of stage ``k // TC_KS``,
+    stages in order, then the lanes in order -- and of the f32 route --
+    :func:`f32_k_order`, the batched kernel's f32 order
+    (:func:`matmul_k_order`) -- is a function of ``k`` alone; ``m`` and
+    ``n`` pick only the route, arrangement and tile."""
     if dtype == torch.float32:
         if k >= BMM_SPLIT_MIN_K and m * n <= F32_SPLIT_OUTPUTS:
             return MatmulPlan("cuda_core", 1, 1,
@@ -149,6 +200,20 @@ def matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
             _f32_tile_plan(m, n, _f32_mm_tile(m, n))
         return MatmulPlan("cuda_core", bm, bn, grid, stages, bk, smem, False,
                           "tile", threads, 1, tt, groups)
+    if m > WG_MIN_ROWS and k % 8 == 0:
+        tiles = -(-m // WG_BM) * -(-n // WG_BN)
+        # B's copies evict first at every size (csrc/wg_gemm.cuh)
+        return MatmulPlan("wgmma", WG_BM, WG_BN, (wg_blocks(tiles), 1),
+                          WG_STAGES, TC_KS, WG_SMEM, True, "persistent",
+                          WG_THREADS)
+    return tc_matmul_plan(m, k, n, dtype)
+
+
+def tc_matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
+    """The tensor-core tiles of csrc/tc_gemm.cuh's ``with_matmul_tile`` for
+    a 16-bit ``(m, k) @ (k, n)``: matmul's launch up to WG_MIN_ROWS rows
+    (or where k is not in whole 16-byte vectors), and the product of
+    norm_matmul and of swiglu's down launch at every M."""
     bm, bn, stages = tc_tile(m, n)
     return MatmulPlan("tensor_core", bm, bn, (-(-n // bn), -(-m // bm)),
                       stages, TC_KS, tc_smem_bytes(bm, bn, stages),
@@ -171,11 +236,12 @@ def f32_k_order(k: int) -> Tuple[Tuple[Tuple[int, ...], ...], ...]:
 def matmul_k_order(plan: MatmulPlan, k: int) -> tuple:
     """The order in which matmul's kernel sums one output over ``k``.
     f32: :func:`f32_k_order` (chunks of sub-chains of k) -- the batched
-    kernel's f32 order (:func:`batched_matmul_k_order`).  Tensor cores:
-    one tuple per partial sum, each listing its k in accumulation order,
-    the partials added in tuple order to a sum from +0: warp w takes k in
-    [s * TC_KS + w * TC_WARP_K, + TC_WARP_K) over the stages s in order.
-    Nothing here reads the plan's tile, grid or arrangement."""
+    kernel's f32 order (:func:`batched_matmul_k_order`).  Tensor cores
+    (both 16-bit routes): one tuple per partial sum, each listing its k
+    in accumulation order, the partials added in tuple order to a sum
+    from +0: lane w takes k in [s * TC_KS + w * TC_WARP_K, + TC_WARP_K)
+    over the stages s in order.  Nothing here reads the plan's route
+    (tensor_core or wgmma), tile, grid or arrangement."""
     if plan.route == "cuda_core":
         return f32_k_order(k)
     return tuple(
@@ -195,7 +261,8 @@ class NormMatmulPlan(NamedTuple):
     k_stage: int      # k per stage
     smem: int         # dynamic shared-memory bytes per block
     w_evict_first: bool     # W's copies carry L2's evict-first policy
-    gemm: Optional[MatmulPlan] = None   # the product: matmul's launch
+    # the product: matmul's f32 launch, or the tensor-core tiles
+    gemm: Optional[MatmulPlan] = None
     rows_grid: int = 0   # blocks of the first kernel (a warp a row)
 
 
@@ -206,14 +273,16 @@ def norm_matmul_plan(m: int, d: int, n: int, dtype: torch.dtype,
     n)``: a small kernel with a warp a row (``rows_grid`` blocks), then
     the product as its programmatic dependent.  The 16-bit route's first
     kernel computes the rows' inverse RMS, and its product is matmul's
-    tensor-core launch (``matmul_plan``) with the norm applied to A's
+    tensor-core launch (``tc_matmul_plan``, at every M) with the norm
+    applied to A's
     fragments and g's slice of each stage in the ring beside it
     (``g_dtype``, x's dtype when None).  The f32 route's first kernel
     writes the normalised rows to an (m, d) f32 workspace, and its product
     is matmul's f32 launch on them, in the one f32 order
     (:func:`f32_k_order`).  Either way nothing grows with ``d``, and the
     K order is matmul's, a function of ``d`` alone."""
-    p = matmul_plan(m, d, n, dtype)
+    p = (matmul_plan if dtype == torch.float32 else tc_matmul_plan)(
+        m, d, n, dtype)
     rows = -(-m // _WARPS)
     if dtype == torch.float32:
         return NormMatmulPlan("cuda_core", p.bm, p.bn, p.grid, p.stages,
@@ -238,7 +307,9 @@ class SwigluPlan(NamedTuple):
     k_stage: int      # gate/up: k per stage
     smem: int         # gate/up: dynamic shared-memory bytes per block
     b_evict_first: bool     # gate/up: wg and wu carry L2's evict-first
-    down: MatmulPlan  # the down launch: matmul's, on h (m, f) and wd
+    # the down launch on h (m, f) and wd: matmul's f32 launch, or the
+    # tensor-core tiles
+    down: MatmulPlan
     # f32: the gate/up's arrangement (bn = 2 * bf: [wg | wu] columns)
     gate_up: Optional[MatmulPlan] = None
 
@@ -273,7 +344,8 @@ def swiglu_plan(m: int, d: int, f: int, do: int,
     """How csrc/swiglu.cu launches ``silu(x (m, d) @ wg) * (x @ wu) @ wd
     (f, do)``: a gate/up kernel that writes h (m, f) to a workspace in
     x's dtype, then the down product as its programmatic dependent: matmul's
-    launch, ``matmul_plan(m, f, do)``, in either route.  The gate/up
+    f32 launch (``matmul_plan(m, f, do)``), or in 16-bit the tensor-core
+    tiles at every M (``tc_matmul_plan(m, f, do)``).  The gate/up
     kernel's B tiles hold ``bf`` columns of wg beside the same columns of
     wu, and its grid walks the row tiles fastest, so the row tiles of one
     F tile share that tile's weight columns through L2.  16-bit: matmul's
@@ -281,7 +353,8 @@ def swiglu_plan(m: int, d: int, f: int, do: int,
     for ``d``.  f32: ``gate_up``, f32_gemm.cuh's chunk lanes (at most 4
     rows) or register tiles, so g and u are each summed in the one f32
     order for ``d`` (:func:`f32_k_order`)."""
-    down = matmul_plan(m, f, do, dtype)
+    down = (matmul_plan if dtype == torch.float32 else tc_matmul_plan)(
+        m, f, do, dtype)
     if dtype == torch.float32:
         gu = _f32_gate_up_plan(m, d, f)
         return SwigluPlan("cuda_core", gu.bm, gu.bn // 2, gu.grid, gu.stages,
@@ -535,8 +608,11 @@ def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],
 # cluster of BMM_SPLIT_CLUSTER blocks per output (the chunks in parallel,
 # block 0 adding their sums in order) for at most 8192 outputs over K >=
 # 2048.  bf16/f16: matmul's K order (tc_gemm.cuh), its lanes run in
-# sequence in every warp over 32-deep k-tiles (BMM_SEQ_TILES).  A grid of
-# (output tiles, batch blocks) whose blocks walk the batches past 65535.
+# sequence in every warp over 32-deep k-tiles (BMM_SEQ_TILES), in a grid of
+# (output tiles, batch blocks) whose blocks walk the batches past 65535;
+# the training tiles (the last entry) take the wgmma mainloop where both
+# operands are TMA-readable (:func:`bmm_wgmma`): two lanes a ring stage,
+# persistent blocks over every batch's tiles.
 BMM_CHUNK = 256
 F32_SUB = 32   # k a sub-chain of the f32 order
 # (most rows, (rows, columns, k tile, threads, stages)) in order; the
@@ -624,6 +700,18 @@ def batched_matmul_copy(s_row: int, s_col: int, s_batch: int, n_row: int,
     return "elements"
 
 
+def bmm_wgmma(m: int, k: int, a_copy: str, b_copy: str) -> bool:
+    """Whether the 16-bit batched kernel takes the wgmma mainloop
+    (csrc/wg_gemm.cuh) for the training tiles (more than 64 rows, more
+    than one lane of k): where the TMA unit reads both operands, each in
+    the "rows" or "columns" copy mode (a 16-byte aligned start, strides
+    in whole 16 bytes).  Elsewhere ``bmm_seq_kernel``.  (csrc also keeps
+    ``bmm_seq_kernel`` for several batches 0 apart, which no dense
+    operand is.)"""
+    return (m > BMM_SEQ_TILES[1][0] and k > BMM_SEQ_K
+            and a_copy != "elements" and b_copy != "elements")
+
+
 def batched_matmul_f32_copy(s_x: int, s_k: int, s_batch: int, n_x: int,
                             aligned: bool = True) -> str:
     """How the f32 tiles copy an operand's k tile into ``[k][x]`` (x is
@@ -653,8 +741,10 @@ def batched_matmul_plan(batch: int, m: int, n: int, k: int,
                         b_trans: bool = False,
                         out_f32: bool = True) -> BatchedMatmulPlan:
     """How csrc/batched_matmul.cu launches ``(batch, m, k) @ (batch, k,
-    n)`` on dense operands, A given as (k, m) when ``a_trans`` and B as
-    (n, k) when ``b_trans`` (read through strides, not copied), each
+    n)`` on dense operands (16-bit: ``bmm_seq_kernel``, or the wgmma
+    mainloop ``wg_gemm_kernel`` where :func:`bmm_wgmma` says so), A given
+    as (k, m) when ``a_trans`` and B as (n, k) when ``b_trans`` (read
+    through strides, not copied), each
     16-byte aligned, into an f32 output (else the operands' 16-bit type).
     ``dtype`` is the operands' type (f32 for a mixed pair).  The K order
     (:func:`batched_matmul_k_order`) is a function of ``k`` and the route
@@ -683,6 +773,12 @@ def batched_matmul_plan(batch: int, m: int, n: int, k: int,
                                  m * k, k, m)
     b_copy = batched_matmul_copy(k if b_trans else 1, 1 if b_trans else n,
                                  k * n, n, k)
+    if bmm_wgmma(m, k, a_copy, b_copy):
+        tiles = batch * -(-m // WG_BM) * -(-n // WG_BN)
+        return BatchedMatmulPlan(
+            "tensor_core", WG_BM, WG_BN, (wg_blocks(tiles), 1), WG_STAGES,
+            TC_KS, WG_SMEM, a_copy, b_copy, _WARPS, TC_WARP_K,
+            "wg_gemm_kernel", WG_STAGE_K, WG_THREADS)
     bm, bn, _, stages, kg = BMM_SEQ_ONE if k <= BMM_SEQ_K else next(
         t for most, t in BMM_SEQ_TILES if most is None or m <= most)
     return BatchedMatmulPlan(

@@ -289,12 +289,13 @@ NAMED_PLANS = {
                     ("bmm_seq_kernel", 128, 128, (9 * 32, 1), 2, 32, 256, 1,
                      "columns", "rows")),
     # phase 8's backward: dX against a transposed weight, dW from a
-    # transposed activation
+    # transposed activation -- the wgmma mainloop, persistent blocks one
+    # an SM over the 128 x 128 tiles, stages of two lanes' k-tiles
     "train dX": ((1, 2048, 4096, 4096, torch.bfloat16, False, True),
-                 ("bmm_seq_kernel", 128, 128, (16 * 32, 1), 3, 128, 256, 1,
+                 ("wg_gemm_kernel", 128, 128, (132, 1), 5, 64, 384, 1,
                   "rows", "columns")),
     "train dW": ((1, 4096, 11008, 2048, torch.bfloat16, True, False),
-                 ("bmm_seq_kernel", 128, 128, (32 * 86, 1), 3, 128, 256, 1,
+                 ("wg_gemm_kernel", 128, 128, (132, 1), 5, 64, 384, 1,
                   "columns", "rows")),
     # deepseek-v3's expert FFN at decode: 16-row tiles, stages of four
     # k-tiles
@@ -343,21 +344,28 @@ def test_plan_at_the_main_paths_shapes(name):
     if p.kernel == "bmm_seq_kernel":   # the ring holds 32-deep k-tiles
         assert p.ring_k % 32 == 0
         assert p.k_stage == kops.TC_KS and p.lanes == 8 and p.lane_k == 32
+    if p.kernel == "wg_gemm_kernel":   # two lanes' k-tiles a stage
+        assert p.ring_k == 2 * p.lane_k == kops.WG_STAGE_K
+        assert p.k_stage == kops.TC_KS and p.lanes == 8 and p.smem == \
+            kops.WG_SMEM
 
 
 def test_seq_shared_memory_follows_the_k_tiles_and_the_epilogue():
     """The lanes in sequence take the ring's stages their k-tiles fill
     and at least the staged output tile: the paged write (one k-tile)
-    needs 16 KB of ring but 34 KB of bf16 tile; phase 8's dW the whole
-    3-stage ring of four k-tiles a stage."""
+    needs 16 KB of ring but 34 KB of bf16 tile; phase 8's dW with rows of
+    A in no whole 16 bytes (copied element by element) the whole 3-stage
+    ring of four k-tiles a stage.  (dW itself takes the wgmma mainloop's
+    fixed ring.)"""
     plan = kops.batched_matmul_plan
     bf = torch.bfloat16
     assert plan(1, 1040, 4096, 4, bf, True, False, out_f32=False).smem == \
         128 * (128 * 2 + 16)
     assert plan(1, 1040, 4096, 4, bf, True, False).smem == \
         128 * (128 * 4 + 16)
-    assert plan(1, 4096, 11008, 2048, bf, True, False).smem == \
+    assert plan(1, 4100, 11008, 2048, bf, True, False).smem == \
         3 * 4 * 32 * 256 * 2
+    assert plan(1, 4096, 11008, 2048, bf, True, False).smem == kops.WG_SMEM
     # K 64: two k-tiles, one stage of the 64 x 32 tile's four
     assert plan(8, 40, 256, 64, bf).smem == 4 * 32 * (64 + 32) * 2
 
@@ -398,9 +406,10 @@ def test_k_order_is_the_stated_one_for_every_kernel_and_tile(k, dtype):
         assert {kk for kk, _, _ in kernels} >= {"bmm_f32_kernel"}
         if k >= kops.BMM_SPLIT_MIN_K:
             assert ("bmm_f32_split_kernel", 1, 1) in kernels
-    else:   # one kernel; one lane on one tile, else a tile by M
-        assert {kk for kk, _, _ in kernels} == {"bmm_seq_kernel"}
+    else:   # one lane on one tile, else a tile by M; above 64 rows the
+        # wgmma mainloop where both operands are TMA-readable
         assert kernels == ({("bmm_seq_kernel", 128, 128)} if k <= 32 else
                            {("bmm_seq_kernel", 16, 128),
                             ("bmm_seq_kernel", 64, 32),
-                            ("bmm_seq_kernel", 128, 128)})
+                            ("bmm_seq_kernel", 128, 128),
+                            ("wg_gemm_kernel", 128, 128)})

@@ -180,8 +180,18 @@ def test_predicates_refuse_what_the_kernels_cannot_read():
 @pytest.mark.parametrize("n", [4096, 102400])
 def test_matmul_plan_fits_and_fills_the_card(m, n, dt):
     plan = kops.matmul_plan(m, 4096, n, dt)
-    assert plan.route == "tensor_core"
     assert plan.smem <= 232448
+    if m > kops.WG_MIN_ROWS:
+        # the wgmma route: persistent blocks, at most one an SM, walk the
+        # 128 x 128 tiles; a ring of stages of two lanes' 32-deep k-tiles
+        tiles = -(-m // plan.bm) * -(-n // plan.bn)
+        assert plan.route == "wgmma" and (plan.bm, plan.bn) == (128, 128)
+        assert plan.grid == (min(tiles, kops.WG_SMS), 1)
+        assert plan.threads == kops.WG_THREADS and plan.stages >= 3
+        assert (plan.stages - 1) * kops.WG_STAGE_K * plan.bn * 2 >= 48 * 1024
+        assert plan.grid[0] * plan.grid[1] >= 128
+        return
+    assert plan.route == "tensor_core"
     assert plan.stages >= 3
     # at least 48 KB of B in flight per block while one stage is used
     assert (plan.stages - 1) * plan.k_stage * plan.bn * 2 >= 48 * 1024
@@ -196,13 +206,15 @@ def test_matmul_plan_k_order_does_not_depend_on_m(k):
     each split among the 8 warps in fixed slices: nothing of that may
     change with the row count."""
     plans = [kops.matmul_plan(m, k, 4096, torch.bfloat16)
-             for m in (1, 4, 64, 512)]
-    assert {p.route for p in plans} == {"tensor_core"}
+             for m in (1, 4, 64, 96, 512)]
+    # 512 rows take the wgmma route, in the same order
+    assert [p.route for p in plans] == ["tensor_core"] * 4 + ["wgmma"]
     assert {p.k_stage for p in plans} == {kops.TC_KS}
     assert kops.TC_WARP_K * 8 == kops.TC_KS and kops.TC_WARP_K % 16 == 0
     # the tiles differ; the order they reduce in does not
     assert [(p.bm, p.bn) for p in plans] == [(16, 32), (16, 32), (64, 32),
-                                             (64, 64)]
+                                             (64, 64), (128, 128)]
+    assert len({kops.matmul_k_order(p, k) for p in plans}) == 1
     assert kops.matmul_plan(1, k, 102400, torch.bfloat16).k_stage == \
         kops.TC_KS
 
@@ -243,9 +255,11 @@ def test_matmul_plan_keeps_f32_on_the_cuda_cores():
 def test_norm_matmul_plan_is_the_matmul_launch(m, n, dt):
     """The 16-bit fused norm runs matmul's tensor-core launch: the same
     tile, ring, K order and L2 policy, whatever the width D -- no
-    normalized row is held whole, so M = 64 takes the 64-row tile."""
+    normalized row is held whole, so M = 64 takes the 64-row tile.  It
+    keeps those tiles at every M (``tc_matmul_plan``), also above
+    WG_MIN_ROWS, where matmul itself takes the wgmma route."""
     for d in (40, 1000, 4096, 1 << 16):
-        mm = kops.matmul_plan(m, d, n, dt)
+        mm = kops.tc_matmul_plan(m, d, n, dt)
         for g_dt in (dt, torch.float32):
             plan = kops.norm_matmul_plan(m, d, n, dt, g_dt)
             assert plan.route == "tensor_core"
@@ -292,10 +306,12 @@ def test_norm_matmul_plan_keeps_f32_on_the_cuda_cores(m, d):
                                     (44, 40, 16), (4096, 11008, 102400)])
 def test_swiglu_plan_down_is_the_matmul_launch(m, d, f, do, dt):
     """The 16-bit down product is matmul's tensor-core launch on h (m, f)
-    and wd (f, do): the same tile, ring, K order for f and L2 policy."""
+    and wd (f, do): the same tile, ring, K order for f and L2 policy, at
+    every M (``tc_matmul_plan``: above WG_MIN_ROWS too, where matmul
+    itself takes the wgmma route)."""
     plan = kops.swiglu_plan(m, d, f, do, dt)
     assert plan.route == "tensor_core"
-    assert plan.down == kops.matmul_plan(m, f, do, dt)
+    assert plan.down == kops.tc_matmul_plan(m, f, do, dt)
     assert plan.down.route == "tensor_core"
     assert plan.down.k_stage == kops.TC_KS
 
