@@ -421,6 +421,9 @@ WG_SOURCE = "src/repro_torch/kernels/csrc/wg_gemm.cuh"
 WG_TAGS = {"matmul": "matmul_wg", "batched_matmul": "bmm_wg"}
 # (kernel, case label) -> "wgmma" for the cases the plans send there
 ROUTE_OF: dict = {}
+# flash's wgmma prefill and its split mma.sync launch are in its own source
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH16_FUNCS = ("flash_wg_kernel", "flash_tc_kernel", "flash_combine_kernel")
 
 
 def say(phase: str, **kw) -> None:
@@ -574,6 +577,8 @@ def _case_makers(gen, cases: list):
         pairs = int(vis.sum())
         rows = int(vis.any(0).sum())   # K/V rows some query sees
         s = q.element_size()
+        if ops.flash_plan(q.shape, k.shape, v.shape, dt).route == "wgmma":
+            ROUTE_OF["flash_attention", label] = "wgmma"
         # the one-call yardstick: SDPA over repeated kv heads (repeated
         # here, outside the timed call), is_causal where top-left
         # alignment is the mask, else the boolean mask
@@ -801,6 +806,19 @@ def kernel_cases(gen):
     fa(f"d_head {mc.head_dim} prefill ({SLOTS}x{mc.n_heads}x128) causal "
        f"(minicpm-2b)", SLOTS, mc.n_heads, mc.n_kv_heads, 128, 128, None, bf,
        dk=mc.head_dim, dv=mc.head_dim)
+    # the wgmma route's other head-width classes (64; MLA's 192 / 128),
+    # and ragged edges there: Dk 40, Dk 72 with Dv 56, Skv no multiple of
+    # 64, Sq no multiple of the row tile, rows across chunks
+    fa(f"d_head {mc.head_dim} prefill (2x{mc.n_heads}x300) causal "
+       f"(minicpm-2b, wgmma)", 2, mc.n_heads, mc.n_kv_heads, 300, 300, None,
+       bf, dk=mc.head_dim, dv=mc.head_dim)
+    fa(f"MLA prefill (1x{v3.n_heads}x300) Dk {dk} Dv {v3.d_v} causal "
+       f"(deepseek-v3, wgmma)", 1, v3.n_heads, v3.n_heads, 300, 300, None,
+       bf, dk=dk, dv=v3.d_v)
+    fa("ragged (1x2x300) Dk 40 over 330 keys at pos 30 f16 (wgmma)", 1, 2,
+       2, 300, 330, 30, torch.float16, dk=40, dv=40)
+    fa("ragged (1x2x257) GQA 2:1 Dk 72 Dv 56 over 700 keys at pos 443 "
+       "(wgmma, 2 chunks)", 1, 2, 1, 257, 700, 443, bf, dk=72, dv=56)
     # phase 10's attention: recurrentgemma's MQA 16:1, 256-wide heads,
     # window 2048 (the kernel's 256-wide class)
     rg = get_config("recurrentgemma-9b")
@@ -869,6 +887,14 @@ def phase_kernels() -> dict:
     wg_spills = [ln for ln in _spills(log)
                  if "gemm_kernel" in ln or "probe_" in ln]
     require(not wg_spills, f"wgmma mainloop spills: {wg_spills}")
+    # nor any instantiation of flash's 16-bit routes (the wgmma route's
+    # accumulators and score buffers, the split launch's chunk kernel and
+    # its combine)
+    require(not log or all(f in log for f in FLASH16_FUNCS),
+            f"the build log names no {' / '.join(FLASH16_FUNCS)}")
+    f16_spills = [ln for ln in _spills(log)
+                  if any(f in ln for f in FLASH16_FUNCS)]
+    require(not f16_spills, f"flash_attention 16-bit spills: {f16_spills}")
     check_wgmma_probe()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -889,13 +915,14 @@ def phase_kernels() -> dict:
             # the wgmma route of matmul and of the batched kernel: each
             # of its cases under the kernel's entry
             route = report[name].setdefault("routes", {}).setdefault(
-                "wgmma", {"route": "cuda", "source": WG_SOURCE,
-                          "cases": []})
+                "wgmma", {"route": "cuda",
+                          "source": (FLASH_SOURCE if name == "flash_attention"
+                                     else WG_SOURCE), "cases": []})
             route["cases"].append({
                 "case": label, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms})
-    for name in WG_TAGS:
+    for name in tuple(WG_TAGS) + ("flash_attention",):
         require(report[name].get("routes", {}).get("wgmma"),
                 f"{name}: no phase 3 case took the wgmma route")
     del flush
@@ -1265,7 +1292,10 @@ def check_flash_determinism(gen) -> None:
     launches give the same bits; a probe (slot, head) gives the same bits
     alone and inside 4 slots; decode at position p gives row p of the
     causal dense prefill bit for bit (a row's reduction order depends only
-    on the keys it can see, never on the query tile or the batch).  f32:
+    on the keys it can see, never on the query tile or the batch); and
+    bf16 over 1,100 keys, across the 16-bit order's chunks: the wgmma
+    prefill's rows C - 1, C, 2C and the last against the split decode
+    (eager and replayed), a (slot, head) alone against 4 slots.  f32:
     a packed GQA decode (Hq 64 over Hkv 8, the 8 query heads of a kv head
     in one block) gives the bits of its heads launched over K and V
     repeated to 64 heads (a block per head)."""
@@ -1297,6 +1327,52 @@ def check_flash_determinism(gen) -> None:
             runs="bitwise", slot_alone_vs_batch="bitwise",
             decode_vs_prefill_rows="0,63,64,127",
             decode_vs_prefill="bitwise")
+    # across the 16-bit order's chunks (ops.FLASH_CHUNK keys): a 1,100-key
+    # prefill of deepseek-7b's heads takes the wgmma route and merges the
+    # chunks inside its blocks, decode at p takes the split launch and the
+    # combine; the rows on both sides of each chunk edge and the last give
+    # the same bits, in a CUDA graph too, and a (slot, head) alone gives
+    # its bits inside 4 slots
+    from repro_torch.kernels import ops
+    bf, C, L = torch.bfloat16, ops.FLASH_CHUNK, 1100
+    q, k, v = (_rand((SLOTS, HEADS, L, DH), bf, gen) for _ in range(3))
+    require(ops.flash_plan(q.shape, k.shape, v.shape, bf).route == "wgmma",
+            "flash_attention: the 1,100-key prefill does not take wgmma")
+    full = kf.flash_attention(q, k, v, causal=True)
+    require(_bitwise(full, kf.flash_attention(q, k, v, causal=True)),
+            "flash_attention bfloat16: two launches of the 1,100-key "
+            "prefill differ")
+    alone = kf.flash_attention(q[2:3, 7:8], k[2:3, 7:8], v[2:3, 7:8],
+                               causal=True)
+    require(_bitwise(alone, full[2:3, 7:8]), "flash_attention bfloat16: "
+            "slot 2 head 7 alone differs from it inside 4 slots over "
+            f"{L} keys")
+    rows = (C - 1, C, 2 * C, L - 1)
+    offs = {p: torch.full((1,), p, dtype=torch.int32, device="cuda")
+            for p in rows}
+
+    def decodes():
+        return [kf.flash_attention(q[:, :, p:p + 1], k, v, causal=True,
+                                   q_offset=o) for p, o in offs.items()]
+
+    eager = decodes()
+    graph, outs = _captured(decodes)
+    graph.replay()
+    torch.cuda.synchronize()
+    for p, one, o in zip(rows, eager, outs):
+        row = full[:, :, p:p + 1]
+        require(_bitwise(one, row), f"flash_attention bfloat16: decode at "
+                f"{p} over {L} keys differs from row {p} of the prefill: "
+                f"max |diff| "
+                f"{float((one.double() - row.double()).abs().max())}")
+        require(_bitwise(o, one), f"flash_attention bfloat16: the split "
+                f"decode at {p} replayed differs from the eager launch")
+    say("determinism", kernel="flash_attention", dtype="bfloat16",
+        keys=L, chunk=C, prefill_route="wgmma", runs="bitwise",
+        slot_alone_vs_batch="bitwise",
+        decode_vs_prefill_rows=",".join(map(str, rows)),
+        decode_vs_prefill="bitwise", split_decode_in_graph="bitwise")
+    del q, k, v, full, eager, graph, outs
     f32, rep = torch.float32, 8
     q = _rand((SLOTS, 8 * rep, 1, DH), f32, gen)
     k, v = (_rand((SLOTS, 8, 256, DH), f32, gen) for _ in range(2))
@@ -1579,7 +1655,10 @@ KERNEL_FUNCS = {
                 "swiglu_gate_up_f32_kernel",
                 "swiglu_gate_up_f32_lanes_kernel", "swiglu_down_f32"), 2),
     "rmsnorm": (("rmsnorm_kernel",), 1),
-    "flash_attention": (("flash_f32_kernel", "flash_tc_kernel"), 1),
+    # (a split flash call's combine kernel, its second, is left out: a
+    # call is one chunk kernel whether it splits or not)
+    "flash_attention": (("flash_f32_kernel", "flash_tc_kernel",
+                         "flash_wg_kernel"), 1),
     "batched_matmul": (("bmm_seq_kernel", "bmm_f32_kernel",
                         "bmm_f32_split_kernel", "bmm_wg"), 1),
 }

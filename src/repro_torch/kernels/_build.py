@@ -49,8 +49,8 @@ SIGNATURES = {
     "repro_norm_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "repro_swiglu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
-    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _I, _I, _I, _I, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "repro_batched_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                              _L, _I, _I, _P],
     "repro_wgmma_probe": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -115,6 +115,110 @@ __device__ __forceinline__ void mma_64x128(float (&d)[64], uint64_t da,
 }
 #undef REPRO_WGMMA_64x128
 
+// Flash attention's products (flash_attention.cu's wgmma route).
+// d (64 x 64, f32) += A (64 x 16) @ B (16 x 64), both in shared memory
+// (the scores Q K^T, both K-major); fragment as above for n8 blocks 0-7.
+#define REPRO_WGMMA_64x64(TYPE)                                             \
+  asm volatile(                                                             \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                           \
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"                                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB))
+
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void mma_64x64(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    REPRO_WGMMA_64x64("bf16");
+  else
+    REPRO_WGMMA_64x64("f16");
+}
+#undef REPRO_WGMMA_64x64
+
+// d (64 x N, f32) += A (64 x 16) @ B (16 x N) with A in registers (the
+// register form: p.V, p from the score registers) and B in shared memory
+// (TB: MN-major).  A's fragment is mma.sync m16n8k16's, warp by warp:
+// a[0] rows g, k 2q and 2q + 1; a[1] rows g + 8; a[2], a[3] the same at k
+// + 8 (g = lane / 4, q = lane % 4, rows 16 (warp % 4) + ...).
+#define REPRO_WGMMA_RS_64x64(TYPE)                                          \
+  asm volatile(                                                             \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                           \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),        \
+        "n"(TB))
+
+#define REPRO_WGMMA_RS_64x128(TYPE)                                         \
+  asm volatile(                                                             \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " "      \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                            \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                            \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                            \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                            \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                           \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),    \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),    \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),    \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),    \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),        \
+        "n"(TB))
+
+// N = 64 or 128 columns of B from ``db``
+template <typename T, int N, int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const unsigned (&a)[4], uint64_t db) {
+  static_assert(N == 64 || N == 128, "");
+  if constexpr (N == 64) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      REPRO_WGMMA_RS_64x64("bf16");
+    else
+      REPRO_WGMMA_RS_64x64("f16");
+  } else {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      REPRO_WGMMA_RS_64x128("bf16");
+    else
+      REPRO_WGMMA_RS_64x128("f16");
+  }
+}
+#undef REPRO_WGMMA_RS_64x64
+#undef REPRO_WGMMA_RS_64x128
+
 // -- the mainloop -----------------------------------------------------------
 // C (batch, M, N) = A (batch, M, K) @ B (batch, K, N), each operand read
 // by the TMA unit from a tensor map of its own layout (a K-major or an

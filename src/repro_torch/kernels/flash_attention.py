@@ -9,22 +9,29 @@ source is ``csrc/flash_attention.cu``.  CPU tensors take the plain
 version (:func:`ref.flash_attention_ref`); CUDA tensors launch the
 kernel or raise.
 
-What bounds it on the H100: device-memory bytes at every serving shape.
-Decode (Sq 1) does about one flop per byte of K and V: at deepseek-7b's
-width, 4 slots at position 255 read 16.8 MB of cache, ~5 us at 3.35
-TB/s.  A 128-token prefill of 4 prompts moves 16.8 MB of q, k, v and
-out for 0.54 GFLOP under the causal mask (0.55 us at the bf16 tensor
-rate): the bytes again.  For bf16 and f16 the design keeps the cache
-streaming and the arithmetic off the critical path: a ring of up to 4
-64-key K/V tiles in flight (``cp.async``), scores and p.V on the tensor
-cores (``mma.sync``) with the scores in registers and p kept at f32
-precision as two 16-bit halves, 16 query rows per warp (64 per block in
-prefill; at decode the query heads that share a kv head fill one
-fragment, so K and V are read once for all of them).  The loop is
-bounded by the causal and window limits, so decode at position p reads
-only the first p + 1 rows of the cache.  A row's reduction order
-depends only on Dk, Dv, Skv and the mask: decode at p gives row p of
-the causal prefill bit for bit.  f32 runs on the CUDA cores in f32
+What bounds it on the H100: device-memory bytes at the serving shapes,
+the tensor cores at long prefills.  Decode (Sq 1) does about one flop
+per byte of K and V: at deepseek-7b's width, 4 slots at position 255
+read 16.8 MB of cache, ~5 us at 3.35 TB/s.  A 4,224-token prefill of
+mixtral's 48 heads under its 4,096-token window does ~220 GFLOP of
+scores and p.V, 0.22 ms at the bf16 tensor rate.  bf16 and f16 follow
+one order (``ops.flash_16_order``): a row's keys in chunks of
+``ops.FLASH_CHUNK`` keys by absolute key index, each chunk's tiles in
+the unchunked order, the chunks' states merged in ascending order -- so
+decode at p gives row p of the causal prefill bit for bit, and a row
+that sees one chunk gets the unchunked bits.  Two routes take it
+(``ops.flash_plan`` chooses): from ``ops.FLASH_WG_MIN_SQ`` query rows a
+wgmma prefill (a TMA producer warpgroup and consumer warpgroups of 64
+rows, scores and p.V on ``wgmma``, p from the score registers as two
+16-bit halves, the next tile's scores in flight during this one's
+softmax, the chunks merged inside the block); below it mma.sync (4
+warps of 16 query rows, a ``cp.async`` ring of 64-key K/V tiles; at
+decode the query heads that share a kv head fill one fragment, so K and
+V are read once for all of them), a block per chunk of keys, whose
+states a combine launch merges -- so a one-slot decode over 4,096 keys
+runs 8 blocks a kv head.  The loop is bounded by the causal and window
+limits, so decode at position p reads only the first p + 1 rows of the
+cache.  f32 runs on the CUDA cores in f32
 FMAs (no TF32): a warp owns 1, 2 or 4 query rows (at decode the query
 heads of a kv head), its lanes hold a 64-key tile's scores in registers
 (two keys a lane) and then the output columns (four a lane) for p.V, p
@@ -34,7 +41,8 @@ block computes on its first keys while the rest land.
 ``ops.flash_f32_order`` states its order.  The offset is a device
 pointer: in the fused decode chunk the position is a carry on the card,
 and reading it on the host would stall every step.
-``ops.flash_plan`` mirrors the launch.
+``ops.flash_plan`` mirrors the launch; ``launches`` counts calls (a
+split call launches the chunk kernel and, after it, the combine).
 """
 from __future__ import annotations
 
@@ -96,6 +104,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"{v.dtype}")
     B, Hq, Sq, Dk = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    plan = ops.flash_plan(tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                          q.dtype)
     if scale is None:
         scale = 1.0 / (Dk ** 0.5)
     # RotaryQKV hands over permuted views: the kernel reads dense BHSD
@@ -104,12 +114,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     v = _build.operand(v, "flash_attention", q.device)
     off = _offset(q_offset, q.device)
     out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
+    # the chunk states of a split mma.sync launch, from the caching
+    # allocator (inside a CUDA graph, from its pool)
+    ws = (torch.empty(plan.workspace, dtype=torch.uint8, device=q.device)
+          if plan.workspace else None)
     win = 0 if window is None else min(int(window), _MAX_WINDOW)
     _build.launch(
         "repro_flash_attention", q.device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(),
-        off.data_ptr() if off is not None else None, B, Hq, Hkv, Sq, Skv,
-        Dk, Dv, float(scale), int(bool(causal)), int(window is not None),
-        win, _build.dtype_code(q, "flash_attention"), _build.stream(q))
+        off.data_ptr() if off is not None else None,
+        ws.data_ptr() if ws is not None else None, plan.workspace, B, Hq,
+        Hkv, Sq, Skv, Dk, Dv, float(scale), int(bool(causal)),
+        int(window is not None), win,
+        _build.dtype_code(q, "flash_attention"),
+        ops.FLASH_ROUTES.get(plan.route, 0), _build.stream(q))
     launches += 1
     return out

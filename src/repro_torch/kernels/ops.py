@@ -448,22 +448,47 @@ _SM_SMEM, _BLOCK_RESERVED = 233472, 1024
 FLASH_F32_CHAINS = 4
 FLASH_F32_LANES = 32
 FLASH_F32_TREE = (16, 8, 4, 2, 1)
+# the 16-bit order (flash_16_order): chunks of FLASH_CHUNK keys by
+# absolute key index, merged in ascending order; a tile's row sum is the
+# thread's 16 values, then the quad's shuffle-xor adds at FLASH_16_TREE
+FLASH_CHUNK = 512
+FLASH_16_TREE = (1, 2)
+# the 16-bit routes: their codes in the C entry point
+FLASH_ROUTES = {"tensor_core": 0, "wgmma": 1}
+# the wgmma route (prefills of FLASH_WG_MIN_SQ rows and more): a producer
+# warpgroup and 1-2 consumer warpgroups of 64 query rows; the head-width
+# classes it serves as (boxes of 64 across Dk, across Dv) -> consumers
+FLASH_WG_MIN_SQ = 256
+FLASH_WG_CLASSES = {(1, 1): 2, (2, 1): 2, (2, 2): 2, (3, 2): 2, (4, 4): 1}
+FLASH_WG_BOX = 64                  # elements of a box row (128 bytes)
+FLASH_WG_BOX_BYTES = 64 * 128      # a box: 64 rows of 128 bytes
+FLASH_WG_MAX_STAGES = 4
+FLASH_WG_BARS = 8 * (4 + 2 * FLASH_WG_MAX_STAGES)
 
 
 class FlashPlan(NamedTuple):
-    route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
+    route: str        # "tensor_core" (bf16, f16: mma.sync), "wgmma"
+    # (bf16, f16 prefills of FLASH_WG_MIN_SQ rows and more) or "cuda_core"
+    # (f32)
     bq: int           # query rows per block
-    row_frags: int    # 16-row mma fragments per block (0: f32)
+    row_frags: int    # 16-row mma fragments per block (0: f32; wgmma:
+    # 64-row consumer warpgroups)
     col_groups: int   # warps that split one fragment's output columns
     # (f32: 1, every warp computes all of its rows' columns)
     width: int        # head-width class sizing the registers (f32: the
     # output columns a warp holds per row, 128 or 256)
-    grid: Tuple[int, int, int]   # (row tiles, heads, batch)
+    grid: Tuple[int, int, int]   # (row tiles, heads, batch); the
+    # tensor_core launch's x holds row tiles x ``chunks`` blocks
     stages: int       # K/V tiles in the cp.async ring
     smem: int         # dynamic shared-memory bytes per block
     packed: bool      # decode: the rows are the query heads of a kv head
     warp_rows: int = 0       # f32: block rows a warp owns
     copy_groups: int = 1     # cp.async groups a stage (f32: K, V halves)
+    chunks: int = 1          # tensor_core: the chunks a row tile splits
+    # into (a block each), merged by the combine launch where more than 1
+    workspace: int = 0       # bytes of the chunk states (tensor_core)
+    col_split: int = 1       # tensor_core, one fragment: blocks that split
+    # a tile's output columns (a launch of few blocks)
 
 
 def _round16(d: int) -> int:
@@ -507,14 +532,20 @@ def flash_plan(q_shape: Sequence[int], k_shape: Sequence[int],
     """How csrc/flash_attention.cu launches BHSD operands of these shapes.
     At decode (Sq 1) a block's rows are the query heads that share a kv
     head (``packed``), so K and V are read once for all of them.
-    bf16/f16: tensor cores, 4 warps of 16 query rows (2 row fragments
+    bf16/f16, both routes in the order :func:`flash_16_order` states:
+    from FLASH_WG_MIN_SQ query rows up, where the head widths fall in
+    FLASH_WG_CLASSES, the wgmma route (``row_frags`` consumer warpgroups
+    of 64 rows, a TMA ring of 64-key K/V stages, the chunks merged inside
+    the block); else mma.sync: 4 warps of 16 query rows (2 row fragments
     and 2 column halves past width 128), or -- for at most 16 rows --
-    one fragment whose output columns the 4 warps split.  A ring of up
-    to 4 64-key K/V stages (3 past width 128, and for one fragment at
-    width 128), all in flight at once, never more than the cache has
-    tiles.  f32: the CUDA cores, 4 warps of ``warp_rows`` rows (1, 2 or
-    4: as many as still fill the card), lanes over a tile's keys for the
-    scores and over the output columns for p.V, in the order
+    one fragment whose output columns the 4 warps split, a block per
+    chunk of FLASH_CHUNK keys (``chunks``; their states go to a
+    ``workspace`` and a combine launch merges them where more than one).
+    A ring of up to 4 64-key K/V stages (3 past width 128, and for one
+    fragment at width 128), all in flight at once, never more than the
+    cache has tiles.  f32: the CUDA cores, 4 warps of ``warp_rows`` rows
+    (1, 2 or 4: as many as still fill the card), lanes over a tile's keys
+    for the scores and over the output columns for p.V, in the order
     :func:`flash_f32_order` states; a ring of 1-4 stages, each in
     ``copy_groups`` copy groups waited for one at a time."""
     B, Hq, Sq, Dk = (int(d) for d in q_shape)
@@ -522,6 +553,9 @@ def flash_plan(q_shape: Sequence[int], k_shape: Sequence[int],
     tiles = -(-Skv // FLASH_BK)
     if dtype == torch.float32:
         return _flash_f32_plan(B, Hq, Hkv, Sq, Skv, Dk, Dv)
+    nbk, nbv = -(-Dk // FLASH_WG_BOX), -(-Dv // FLASH_WG_BOX)
+    if Sq >= FLASH_WG_MIN_SQ and (nbk, nbv) in FLASH_WG_CLASSES:
+        return _flash_wg_plan(B, Hq, Sq, Skv, nbk, nbv)
     dkp, dvp = _round16(Dk), _round16(Dv)
     w = max(dkp, dvp)
     width = 64 if w <= 64 else (128 if w <= 128 else 256)
@@ -533,9 +567,37 @@ def flash_plan(q_shape: Sequence[int], k_shape: Sequence[int],
     bq = 16 * frags
     ns = min(stages, tiles)
     smem = (bq * (dkp + 8) + ns * FLASH_BK * (dkp + 8 + dvp + 8)) * 2
+    if frags == 1:   # the fragment's scores, exchanged between the warps
+        smem += 16 * FLASH_BK * 4
+    chunks = -(-Skv // FLASH_CHUNK)
+    work = B * Hq * Sq * chunks * (Dv * 4 + 8) if chunks > 1 else 0
+    heads = Hkv if packed else Hq
+    split = 1
+    if frags == 1:   # few blocks: 2 or 4 split each tile's columns
+        blocks = heads * B * chunks
+        split = (4 if width >= 256 and 4 * blocks <= FLASH_SMS else
+                 2 if width >= 128 and 2 * blocks <= FLASH_SMS else 1)
     return FlashPlan("tensor_core", bq, frags, FLASH_WARPS // frags, width,
-                     (-(-nrows // bq), Hkv if packed else Hq, B), ns, smem,
-                     packed)
+                     (-(-nrows // bq), heads, B), ns, smem, packed,
+                     chunks=chunks, workspace=work, col_split=split)
+
+
+def _flash_wg_plan(B: int, Hq: int, Sq: int, Skv: int, nbk: int,
+                   nbv: int) -> FlashPlan:
+    """The wgmma route's launch (csrc/flash_attention.cu:launch_wg): Q
+    tiles, then as many K/V stages as fit beside them and -- where Skv
+    spans more than one chunk -- the running accumulators."""
+    nc = FLASH_WG_CLASSES[(nbk, nbv)]
+    box = FLASH_WG_BOX_BYTES
+    stage = (nbk + nbv) * box
+    spill = nc * 128 * 32 * nbv * 4 if Skv > FLASH_CHUNK else 0
+    qbuf = 2 if nc > 1 else 1   # persistent blocks: the next item's Q too
+    head = 1024 + qbuf * nc * nbk * box + spill + FLASH_WG_BARS
+    ns = max(1, min(FLASH_WG_MAX_STAGES, -(-Skv // FLASH_BK),
+                    (_SMEM - head) // stage))
+    bq = 64 * nc
+    return FlashPlan("wgmma", bq, nc, 1, FLASH_WG_BOX * nbv,
+                     (-(-Sq // bq), Hq, B), ns, head + ns * stage, False)
 
 
 class FlashF32Order(NamedTuple):
@@ -574,6 +636,56 @@ def flash_f32_order(dk: int, skv: int) -> FlashF32Order:
               for t in range(0, int(skv), FLASH_BK)),
         tuple((ln, ln + half) for ln in range(FLASH_F32_LANES)),
         FLASH_F32_TREE, tuple(range(FLASH_BK)))
+
+
+class Flash16Order(NamedTuple):
+    score_steps: Tuple[Tuple[int, int], ...]   # [first, end) d of each
+    # k16 step of a score, in order
+    chunks: Tuple[Tuple[int, int], ...]   # [first, end) keys of each chunk
+    tiles: Tuple[Tuple[int, int], ...]    # [first, end) keys of each tile
+    thread_keys: Tuple[int, ...]   # a thread's keys in a tile, in its sum's
+    # order (the thread whose first key is 0; others add 2 q)
+    tree: Tuple[int, ...]   # shuffle-xor distances of a row's sum, in order
+    pv_steps: Tuple[Tuple[int, str], ...]   # (first key, "hi" or "lo") of
+    # each k16 step of p.V over a tile, in order
+
+
+def flash_16_order(dk: int, skv: int) -> Flash16Order:
+    """The 16-bit routes' reduction order for one query row, a function
+    of Dk and Skv (and the mask, which only zeroes terms), never of B,
+    Sq, the query tile, the row's place in it, GQA packing, the route,
+    the grid or the run.  Per row, with s in log2 units:
+
+    - score of key j: mma k16 steps over d (``score_steps``, from +0; a
+      route may add steps over zero columns past Dk, which add +0 to a
+      sum that is never -0), times scale * log2(e) (masked: -1e30);
+    - per chunk in ``chunks`` order, from the empty state (m -1e30, l 0,
+      acc 0), per tile of the chunk in ``tiles`` order: mx = the tile's
+      max; mn = max(m, mx); alpha = 1 where mn == m, else 2^(m - mn); p =
+      2^(s - ms) (ms = mn, or 0 while the chunk has seen no key); the
+      tile's sum over ``thread_keys`` in order, then at each distance of
+      ``tree`` the sum plus its partner's; l = alpha * l + sum; acc = acc
+      * alpha, then p.V's k16 steps in ``pv_steps`` order, each with p as
+      hi = T(p) or lo = T(p - hi);
+    - the chunk's (m, l, acc) merges into the running (M, L, A) in chunk
+      order: a chunk with l 0 is a no-op; into L 0 it is a copy; else mn
+      = max(M, m), fa = 2^(M - mn), fb = 2^(m - mn) (1 where the max is
+      theirs), L = L fa + l fb, A = A fa + acc fb (each product rounded,
+      then the sum);
+    - out = A * (1 / L) (0 where L is 0).
+
+    A tile or a chunk that the mask hides from the row is an exact no-op
+    for it, whether it runs or is skipped; a row whose visible keys lie in
+    one chunk gets the unchunked order's bits."""
+    return Flash16Order(
+        tuple((d, min(d + 16, int(dk))) for d in range(0, int(dk), 16)),
+        tuple((c, min(c + FLASH_CHUNK, int(skv)))
+              for c in range(0, int(skv), FLASH_CHUNK)),
+        tuple((t, min(t + FLASH_BK, int(skv)))
+              for t in range(0, int(skv), FLASH_BK)),
+        tuple(8 * n + x for n in range(8) for x in range(2)),
+        FLASH_16_TREE,
+        tuple((k, h) for k in range(0, FLASH_BK, 16) for h in ("hi", "lo")))
 
 
 def attention_supported(q_shape: Sequence[int], k_shape: Sequence[int],

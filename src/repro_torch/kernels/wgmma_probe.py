@@ -6,10 +6,14 @@ one k16 step of ``wgmma.mma_async m64nNk16`` rounds as one of mma.sync
 from the same accumulator.  :func:`probe` runs the same chains both ways
 -- 32 k16 steps from zeroed accumulators, scale-d 1 -- in bf16 and f16,
 with wgmma's operands in each of the mainloop's four shared-memory
-layouts, over inputs drawn to find a difference: normal values, products
-spread over 2^-40 to 2^40 (f16: its range) within one k16 group, a large
+layouts and in flash attention's (``FLASH_MODES``: the scores' m64n64k16
+with Q and K K-major; p.V with A from registers and V MN-major, from
+accumulators loaded from memory, as flash's rescaled ``acc * alpha``),
+over inputs drawn to find a difference: normal values, products spread
+over 2^-40 to 2^40 (f16: its range) within one k16 group, a large
 carried sum against small products, exact cancellation, and subnormal
-values.  Every output bit is compared.
+values (each kind with starting accumulators of its own scale).  Every
+output bit is compared.
 
 ``python -m repro_torch.kernels.wgmma_probe`` prints the verdict line on
 the card.
@@ -29,6 +33,11 @@ K = 512                   # 32 k16 steps
 PROBLEMS = 2048           # 2^24 outputs a layout and type
 LAYOUTS = {0: "A K-major, B MN-major", 1: "A MN-major, B MN-major",
            2: "A K-major, B K-major", 3: "A MN-major, B K-major"}
+# flash attention's products: (mode, from a loaded accumulator) -> name
+FLASH_MODES = {
+    4: (True, "p.V: A registers, B MN-major, n128, from memory"),
+    5: (True, "p.V: A registers, B MN-major, n64 halves, from memory"),
+    6: (False, "scores: A K-major, B K-major, n64 halves")}
 KINDS = ("normal", "spread", "carried", "cancel", "subnormal")
 
 
@@ -42,23 +51,26 @@ def _values(shape, lo: int, hi: int, gen: torch.Generator,
 
 
 def inputs(dtype: torch.dtype, device, seed: int = 0):
-    """(A (P, 64, K), B (P, K, 128), kind of each problem): PROBLEMS / 5
-    problems of each kind in KINDS, in that order."""
+    """(A (P, 64, K), B (P, K, 128), C0 (P, 64, 128) f32, kind of each
+    problem): PROBLEMS / 5 problems of each kind in KINDS, in that order;
+    C0 is the starting accumulator of the modes that load one."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     bf = dtype == torch.bfloat16
     n = PROBLEMS // len(KINDS)
     counts = [n] * (len(KINDS) - 1) + [PROBLEMS - n * (len(KINDS) - 1)]
-    a_parts, b_parts, kinds = [], [], []
+    a_parts, b_parts, c_parts, kinds = [], [], [], []
     for i, (kind, p) in enumerate(zip(KINDS, counts)):
-        sa, sb = (p, PM, K), (p, K, PN)
+        sa, sb, sc = (p, PM, K), (p, K, PN), (p, PM, PN)
         if kind == "normal":
             a = torch.randn(sa, generator=gen, device=device)
             b = torch.randn(sb, generator=gen, device=device)
+            c0 = torch.randn(sc, generator=gen, device=device) * 8
         elif kind == "spread":
             lo, hi = (-20, 20) if bf else (-14, 14)
             a = _values(sa, lo, hi, gen, device)
             b = _values(sb, lo, hi, gen, device)
+            c0 = _values(sc, 2 * lo, 2 * hi, gen, device)
         elif kind == "carried":
             # the first 4 k16 steps large, the rest small: a large sum
             # carried into steps whose products are far below it
@@ -67,6 +79,8 @@ def inputs(dtype: torch.dtype, device, seed: int = 0):
             b = _values(sb, -small - 10, small, gen, device)
             a[:, :, :64] = _values((p, PM, 64), big - 2, big, gen, device)
             b[:, :64, :] = _values((p, 64, PN), big - 2, big, gen, device)
+            # a large carried accumulator from the start
+            c0 = _values(sc, 2 * big, 2 * big + 6, gen, device)
         elif kind == "cancel":
             # k and k + 8 of each k16 group give x and -x: every group
             # sums to exactly 0, and in half the problems one small
@@ -82,6 +96,11 @@ def inputs(dtype: torch.dtype, device, seed: int = 0):
                 (half, PM, K // 16), -12, -6, gen, device)
             # a row of negative zeros: products of -0
             a[half:, ::7, :] = -0.0
+            # accumulators of -0 and +0, and small ones the products cancel
+            # around
+            c0 = _values(sc, -14, -6, gen, device)
+            c0[:, ::3, :] = -0.0
+            c0[:, 1::3, :] = 0.0
         else:   # subnormal values (bf16: subnormal f32 products too)
             lo, hi = (-75, -60) if bf else (-24, -14)
             a = _values(sa, lo, hi, gen, device)
@@ -89,17 +108,25 @@ def inputs(dtype: torch.dtype, device, seed: int = 0):
             if bf:   # some normal operands beside them
                 b[:, ::5, :] = _values((p, (K + 4) // 5, PN), -2, 2, gen,
                                        device)
+            # subnormal f32 accumulators
+            c0 = _values(sc, -140, -127, gen, device)
         a_parts.append(a.to(dtype))
         b_parts.append(b.to(dtype))
+        c_parts.append(c0.float())
         kinds += [i] * p
     return (torch.cat(a_parts).contiguous(), torch.cat(b_parts).contiguous(),
+            torch.cat(c_parts).contiguous(),
             torch.tensor(kinds, device=device))
 
 
-def run(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
-    """C (P, 64, 128) f32 of mode -1 (mma.sync) or 0-3 (wgmma)."""
-    c = torch.empty((a.shape[0], PM, PN), dtype=torch.float32,
-                    device=a.device)
+def run(a: torch.Tensor, b: torch.Tensor, mode: int,
+        c0: torch.Tensor = None) -> torch.Tensor:
+    """C (P, 64, 128) f32 of mode -1 (mma.sync), 0-3 and 6 (wgmma), or,
+    from the accumulators ``c0``, -2 (mma.sync), 4 and 5 (wgmma, A from
+    registers)."""
+    c = (c0.clone() if c0 is not None else
+         torch.empty((a.shape[0], PM, PN), dtype=torch.float32,
+                     device=a.device))
     _build.launch("repro_wgmma_probe", a.device, a.data_ptr(), b.data_ptr(),
                   c.data_ptr(), a.shape[0], K, _build.dtype_code(a, "probe"),
                   mode, _build.stream(a))
@@ -112,12 +139,15 @@ def probe(device="cuda", seed: int = 0) -> Dict:
     layout's mismatches (by kind of input) and largest difference."""
     device = torch.device(device)
     outputs, first, per = 0, None, {}
+    modes = {m: (False, name) for m, name in LAYOUTS.items()}
+    modes.update(FLASH_MODES)
     for dtype in (torch.bfloat16, torch.float16):
-        a, b, kinds = inputs(dtype, device, seed)
-        ref = run(a, b, -1)
-        ref_bits = ref.view(torch.int32)
-        for mode, name in LAYOUTS.items():
-            got = run(a, b, mode)
+        a, b, c0, kinds = inputs(dtype, device, seed)
+        refs = {False: run(a, b, -1), True: run(a, b, -2, c0)}
+        for mode, (loaded, name) in modes.items():
+            ref = refs[loaded]
+            ref_bits = ref.view(torch.int32)
+            got = run(a, b, mode, c0 if loaded else None)
             diff = got.view(torch.int32) != ref_bits
             n = int(diff.sum())
             outputs += diff.numel()
