@@ -415,12 +415,18 @@ PORTED_KERNELS = ("matmul", "norm_matmul", "swiglu", "rmsnorm",
 ALL_KERNELS = PORTED_KERNELS + ("batched_matmul",)
 # what phases 8 and 12 measured, for phase 13 to read its meter against
 READINGS: dict = {}
-# the wgmma mainloop of matmul (above ops.WG_MIN_ROWS rows) and of the
-# batched kernel's training tiles, and its device kernels' tags
+# the wgmma mainloop of matmul, norm_matmul's product and swiglu's two
+# launches (above ops.WG_MIN_ROWS rows) and of the batched kernel's
+# training tiles, and its device kernels' tags
 WG_SOURCE = "src/repro_torch/kernels/csrc/wg_gemm.cuh"
-WG_TAGS = {"matmul": "matmul_wg", "batched_matmul": "bmm_wg"}
+WG_TAGS = {"matmul": ("matmul_wg",), "batched_matmul": ("bmm_wg",),
+           "norm_matmul": ("norm_matmul_wg",),
+           "swiglu": ("swiglu_gate_up_wg", "swiglu_down_wg")}
 # (kernel, case label) -> "wgmma" for the cases the plans send there
 ROUTE_OF: dict = {}
+# (kernel, case label) -> matmul's launches on the same product(s), for
+# norm_matmul's and swiglu's wgmma cases (``matmul_route_ms``)
+MATMUL_ROUTE: dict = {}
 # flash's wgmma prefill and its split mma.sync launch are in its own source
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH16_FUNCS = ("flash_wg_kernel", "flash_tc_kernel", "flash_combine_kernel")
@@ -537,6 +543,9 @@ def _case_makers(gen, cases: list):
         x = _rand((M, K), dt, gen)
         g = (1 + 0.1 * _rand((K,), f32, gen)).to(g_dt)
         w = _rand((K, N), dt, gen, K ** -0.5)
+        if ops.norm_matmul_plan(M, K, N, dt, g_dt).route == "wgmma":
+            ROUTE_OF["norm_matmul", label] = "wgmma"
+            MATMUL_ROUTE["norm_matmul", label] = lambda: km.matmul(x, w)
         cases.append(("norm_matmul", label,
                       lambda: kn.norm_matmul(x, g, w, eps),
                       lambda: ref.norm_matmul_ref(x, g, w, eps), None,
@@ -550,6 +559,11 @@ def _case_makers(gen, cases: list):
         wu = _rand((d, f), dt, gen, d ** -0.5)
         wd = _rand((f, d), dt, gen, f ** -0.5)
         s = x.element_size()
+        if ops.swiglu_plan(M, d, f, d, dt).route == "wgmma":
+            ROUTE_OF["swiglu", label] = "wgmma"
+            h = _rand((M, f), dt, gen)
+            MATMUL_ROUTE["swiglu", label] = lambda: (
+                km.matmul(x, wg), km.matmul(x, wu), km.matmul(h, wd))
         cases.append(("swiglu", label, lambda: ks.swiglu(x, wg, wu, wd),
                       lambda: ref.swiglu_ref(x, wg, wu, wd), None,
                       (M * d + 3 * d * f + M * d) * s,
@@ -837,8 +851,10 @@ def kernel_cases(gen):
 def _hold(case, flush) -> tuple:
     """One case: two launches give the same bits, the kernel agrees with
     its plain version within :data:`TOL`, and its time, its plain
-    version's, the library call's and its bound.  Returns (max |kernel -
-    plain|, ms, plain ms, library ms or None, bound ms, bound by)."""
+    version's, the library call's, its bound, and for norm_matmul's and
+    swiglu's wgmma cases matmul's launches on the same product(s)
+    (:data:`MATMUL_ROUTE`).  Returns (max |kernel - plain|, ms, plain ms,
+    library ms or None, bound ms, bound by, matmul route ms or None)."""
     name, label, kfn, pfn, lfn, nbytes, flops, dt = case
     out = kfn()
     torch.cuda.synchronize()
@@ -860,14 +876,18 @@ def _hold(case, flush) -> tuple:
     ms = _events_ms(kfn, 20, flush)
     plain_ms = _events_ms(pfn, 5, flush)
     lib_ms = _events_ms(lfn, 20, flush) if lfn is not None else None
+    # popped: the closure holds the case's operands
+    mfn = MATMUL_ROUTE.pop((name, label), None)
+    route_ms = _events_ms(mfn, 20, flush) if mfn is not None else None
+    extra = {} if mfn is None else {"matmul_route_ms": f"{route_ms:.4f}"}
     bound_ms, bound_by = _bound(nbytes, flops, dt)
     say("kernel", name=name, case=repr(label), max_abs_err=f"{err:.3e}",
         tol=f"{TOL[dt] * scale:.3e}", kernel_ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}",
         library_ms=f"{lib_ms:.4f}" if lib_ms is not None else None,
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-        bound_share=f"{bound_ms / ms:.3f}")
-    return err, ms, plain_ms, lib_ms, bound_ms, bound_by
+        bound_share=f"{bound_ms / ms:.3f}", **extra)
+    return err, ms, plain_ms, lib_ms, bound_ms, bound_by, route_ms
 
 
 def phase_kernels() -> dict:
@@ -880,12 +900,15 @@ def phase_kernels() -> dict:
             "the build log names no flash_f32_kernel")
     flash_spills = [ln for ln in _spills(log) if "flash_f32_kernel" in ln]
     require(not flash_spills, f"flash_attention f32 spills: {flash_spills}")
-    # nor may the wgmma mainloop (its accumulators live in registers)
-    require(not log or all(t in log for t in WG_TAGS.values()),
-            "the build log names no wgmma mainloop of matmul and the "
-            "batched kernel")
+    # nor may the wgmma mainloop (its accumulators live in registers), nor
+    # norm_matmul's rows kernel before it
+    require(not log or all(t in log for tags in WG_TAGS.values()
+                           for t in tags),
+            "the build log names no wgmma mainloop of matmul, the batched "
+            "kernel, norm_matmul and swiglu")
     wg_spills = [ln for ln in _spills(log)
-                 if "gemm_kernel" in ln or "probe_" in ln]
+                 if "gemm_kernel" in ln or "probe_" in ln
+                 or "norm_matmul_rows_kernel" in ln]
     require(not wg_spills, f"wgmma mainloop spills: {wg_spills}")
     # nor any instantiation of flash's 16-bit routes (the wgmma route's
     # accumulators and score buffers, the split launch's chunk kernel and
@@ -902,7 +925,8 @@ def phase_kernels() -> dict:
     report = {}
     for case in kernel_cases(gen):
         name, label = case[0], case[1]
-        err, ms, plain_ms, lib_ms, bound_ms, bound_by = _hold(case, flush)
+        err, ms, plain_ms, lib_ms, bound_ms, bound_by, route_ms = _hold(
+            case, flush)
         if name not in report:   # the decode case is the reported one
             report[name] = {
                 "name": name, "route": "cuda",
@@ -921,14 +945,56 @@ def phase_kernels() -> dict:
             route["cases"].append({
                 "case": label, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms})
+                "bound_by": bound_by, "library_ms": lib_ms,
+                **({} if route_ms is None
+                   else {"matmul_route_ms": route_ms})})
     for name in tuple(WG_TAGS) + ("flash_attention",):
         require(report[name].get("routes", {}).get("wgmma"),
                 f"{name}: no phase 3 case took the wgmma route")
     del flush
     torch.cuda.empty_cache()
+    check_fused_wg_launches(gen)
     check_determinism(gen)
     return report
+
+
+def check_fused_wg_launches(gen) -> None:
+    """norm_matmul's and swiglu's 16-bit calls above ops.WG_MIN_ROWS rows
+    launch the wgmma mainloop's instantiations (norm_matmul's rows kernel,
+    then ``norm_matmul_wg``; ``swiglu_gate_up_wg``, then
+    ``swiglu_down_wg``), two device kernels a call and none of the
+    tiles', at a dense prefill's 512 rows and phase 8's 2048; at 64 rows
+    they keep the tiles."""
+    from repro_torch.kernels import norm_matmul as kn, ops, swiglu as ks
+    bf = torch.bfloat16
+    w = _rand((D, D), bf, gen, D ** -0.5)
+    g = (1 + 0.1 * _rand((D,), torch.float32, gen)).to(bf)
+    wg, wu = (_rand((D, F), bf, gen, D ** -0.5) for _ in range(2))
+    wd = _rand((F, D), bf, gen, F ** -0.5)
+    want = {"norm_matmul": ("norm_matmul_rows_kernel",
+                            *WG_TAGS["norm_matmul"]),
+            "swiglu": WG_TAGS["swiglu"]}
+    tiles = {"norm_matmul": ("norm_matmul_inv_kernel",
+                             "norm_matmul_tc_kernel"),
+             "swiglu": ("swiglu_gate_up_kernel", "swiglu_down_kernel")}
+    seen = {}
+    for m in (CHUNK, DENSE, TRAIN_BATCH * TRAIN_SEQ):
+        x = _rand((m, D), bf, gen)
+        for name, call in (("norm_matmul", lambda: kn.norm_matmul(x, g, w)),
+                           ("swiglu", lambda: ks.swiglu(x, wg, wu, wd))):
+            call()
+            torch.cuda.synchronize()
+            rows, _, ours, _ = _profile(call)
+            names = {k: _tagged_kernels(rows, k)
+                     for k in want[name] + tiles[name]}
+            expect = tiles[name] if m <= ops.WG_MIN_ROWS else want[name]
+            require(names == {k: int(k in expect) for k in names} and
+                    ours.get(name, [0, 0])[1] == KERNEL_FUNCS[name][1],
+                    f"{name} at {m} rows launched {names} (port kernels "
+                    f"{ours}), not one each of {expect}")
+            seen[f"{name}@{m}"] = "+".join(expect)
+    say("wg_route", kernels=json.dumps(seen), per_call=2)
+
 
 
 def check_wgmma_probe() -> None:
@@ -1017,9 +1083,12 @@ def check_determinism(gen) -> None:
                    lambda m: _rand((m, D), dt, gen))
     w = _rand((D, D), bf, gen, D ** -0.5)
     norm_pos = {1: 0, SLOTS: 1, CHUNK: 33, DENSE: 200}
+    # across the wgmma route's threshold too (norm_matmul and swiglu in
+    # 16-bit above ops.WG_MIN_ROWS rows: the rows, then the mainloop)
+    wg_norm_pos = {**norm_pos, 96: 40, 97: 96, 2048: 1234}
     for g_dt in (bf, f32):
         g = (1 + 0.1 * _rand((D,), f32, gen)).to(g_dt)
-        probe_rows("norm_matmul", f"bfloat16/g {name(g_dt)}", norm_pos,
+        probe_rows("norm_matmul", f"bfloat16/g {name(g_dt)}", wg_norm_pos,
                    lambda x: kn.norm_matmul(x, g, w, 1e-6),
                    lambda m: _rand((m, D), bf, gen))
     w = _rand((D, D), f32, gen, D ** -0.5)
@@ -1033,7 +1102,7 @@ def check_determinism(gen) -> None:
         wu = _rand((D, F), dt, gen, D ** -0.5)
         wd = _rand((F, D), dt, gen, F ** -0.5)
         probe_rows("swiglu", name(dt),
-                   dense_pos if dt == bf
+                   {**dense_pos, 96: 7, 97: 60, 2048: 777} if dt == bf
                    else _f32_probe_sizes(F32_PROBE_ROWS, dense_pos),
                    lambda x: ks.swiglu(x, wg, wu, wd),
                    lambda m: _rand((m, D), dt, gen))
@@ -1078,6 +1147,7 @@ def check_determinism(gen) -> None:
             window_decode_vs_prefill="bitwise")
     check_bmm_determinism(gen)
     check_f32_one_order(gen)
+    check_16_one_order(gen)
     check_in_capture(gen)
     check_fixed_order_scans(gen)
     check_linear_recurrence(gen)
@@ -1164,6 +1234,53 @@ def check_f32_one_order(gen) -> None:
              f"norm_matmul f32 rows at {m} rows")
         del x, out, h, xn
     say("determinism", kernel="swiglu,norm_matmul", dtype="float32",
+        one_order="swiglu == matmul(h, wd), norm_matmul == matmul(rows, w) "
+        "bitwise", rows=",".join(map(str, rows)))
+
+
+def check_16_one_order(gen) -> None:
+    """Above ops.WG_MIN_ROWS rows 16-bit norm_matmul is its rows kernel
+    and then matmul's wgmma launch on the rows: bit for bit ``matmul(rows,
+    w)`` on the rows it wrote (g in x's type and f32), and swiglu bit for
+    bit ``matmul(h, wd)`` on its h (both read through the wrappers'
+    check-only accessors), in bf16 and f16, at the fewest rows of the
+    route, 128, a dense prefill and phase 8's 2048; the rows and h stay
+    within phase 3's limit of their plain versions."""
+    from repro_torch.kernels import matmul as km, norm_matmul as kn
+    from repro_torch.kernels import ref, swiglu as ks
+    rows = (97, 128, DENSE, TRAIN_BATCH * TRAIN_SEQ)
+
+    def near(got, plain, what):
+        p = plain.double()
+        err = float((got.double() - p).abs().max())
+        require(err <= TOL[got.dtype] * max(float(p.abs().max()), 1.0),
+                f"{what}: max |kernel - plain| {err}")
+
+    for dt in (torch.bfloat16, torch.float16):
+        w = _rand((D, D), dt, gen, D ** -0.5)
+        wg, wu = (_rand((D, F), dt, gen, D ** -0.5) for _ in range(2))
+        wd = _rand((F, D), dt, gen, F ** -0.5)
+        for m in rows:
+            x = _rand((m, D), dt, gen)
+            for g_dt in (dt, torch.float32):
+                g = (1 + 0.1 * _rand((D,), torch.float32, gen)).to(g_dt)
+                out, xn = kn.norm_matmul_with_rows(x, g, w, 1e-6)
+                require(_bitwise(out, km.matmul(xn, w)),
+                        f"norm_matmul {dt} g {g_dt} at {m} rows: differs "
+                        f"from matmul(rows, w)")
+                near(xn, ref.rmsnorm_ref(x, g, 1e-6),
+                     f"norm_matmul {dt} rows at {m} rows")
+            out, h = ks.swiglu_with_hidden(x, wg, wu, wd)
+            require(_bitwise(out, km.matmul(h, wd)),
+                    f"swiglu {dt} at {m} rows: differs from matmul(h, wd)")
+            gp = ref.matmul_ref(x, wg)
+            near(h, (gp * torch.reciprocal(torch.exp(-gp) + 1)
+                     * ref.matmul_ref(x, wu)).to(dt),
+                 f"swiglu {dt} h at {m} rows")
+            del x, out, xn, h, gp
+        del w, wg, wu, wd
+        torch.cuda.empty_cache()
+    say("determinism", kernel="swiglu,norm_matmul", dtype="bfloat16,float16",
         one_order="swiglu == matmul(h, wd), norm_matmul == matmul(rows, w) "
         "bitwise", rows=",".join(map(str, rows)))
 
@@ -1265,9 +1382,11 @@ def check_swiglu_alternation(label, wg, wu, wd, gen) -> None:
     each call gives the bits of the first call on its input and stays
     within phase 3's limit of the plain version -- a copy of h issued
     early would read the other input's h, which the allocator tends to
-    hand back at the same address."""
+    hand back at the same address.  In 16-bit also at a dense prefill's
+    rows, where both launches are the wgmma mainloop's."""
     from repro_torch.kernels import ref, swiglu as ks
-    for m in (SLOTS, CHUNK):
+    rows = (SLOTS, CHUNK) + ((DENSE,) if wg.dtype != torch.float32 else ())
+    for m in rows:
         xs = [_rand((m, D), wg.dtype, gen) for _ in range(2)]
         firsts = [ks.swiglu(x, wg, wu, wd) for x in xs]
         for i, x in enumerate(xs):
@@ -1284,7 +1403,7 @@ def check_swiglu_alternation(label, wg, wu, wd, gen) -> None:
                     f"swiglu {label} alternation at {m} rows: call {i} "
                     f"differs from the first call on its input")
     say("determinism", kernel="swiglu", dtype=label,
-        alternating_inputs="bitwise", rows=f"{SLOTS},{CHUNK}")
+        alternating_inputs="bitwise", rows=",".join(map(str, rows)))
 
 
 def check_flash_determinism(gen) -> None:
@@ -1563,8 +1682,9 @@ def _captured(fn):
 def check_in_capture(gen) -> None:
     """The programmatic-dependent launches keep their order inside a CUDA
     graph, and flash attention keeps its bits there: a graph of six
-    calls alternating two inputs (swiglu and norm_matmul, bf16 and f32:
-    each one's second launch is the first one's dependent), replayed
+    calls alternating two inputs (swiglu and norm_matmul, bf16 -- also at
+    a dense prefill's rows, the wgmma mainloop's -- and f32: each one's
+    second launch is the first one's dependent), replayed
     twice, gives each call the bits of the eager first call on its input
     -- a dependent that read its producer's output early would read the
     other input's, from the same pool address; and flash's dense prefill
@@ -1575,10 +1695,12 @@ def check_in_capture(gen) -> None:
     bf, f32 = torch.bfloat16, torch.float32
     for label, dt, m in (("swiglu bfloat16", bf, SLOTS),
                          ("swiglu bfloat16", bf, CHUNK),
+                         ("swiglu bfloat16", bf, DENSE),
                          ("swiglu float32", f32, SLOTS),
                          ("swiglu float32", f32, CHUNK),
                          ("norm_matmul bfloat16", bf, SLOTS),
                          ("norm_matmul bfloat16", bf, CHUNK),
+                         ("norm_matmul bfloat16", bf, DENSE),
                          ("norm_matmul float32", f32, SLOTS),
                          ("norm_matmul float32", f32, CHUNK)):
         xs = [_rand((m, D), dt, gen) for _ in range(2)]
@@ -1650,8 +1772,10 @@ def _prompts(vocab: int, lengths, shared: int, seed: int = 0):
 KERNEL_FUNCS = {
     "matmul": (("matmul_tc_kernel", "matmul_f32", "matmul_wg"), 1),
     "norm_matmul": (("norm_matmul_inv_kernel", "norm_matmul_tc_kernel",
+                     "norm_matmul_rows_kernel", "norm_matmul_wg",
                      "norm_rows_f32_kernel", "norm_matmul_f32"), 2),
     "swiglu": (("swiglu_gate_up_kernel", "swiglu_down_kernel",
+                "swiglu_gate_up_wg", "swiglu_down_wg",
                 "swiglu_gate_up_f32_kernel",
                 "swiglu_gate_up_f32_lanes_kernel", "swiglu_down_f32"), 2),
     "rmsnorm": (("rmsnorm_kernel",), 1),
@@ -2716,9 +2840,10 @@ def phase_train(report: dict, smi: str) -> None:
         rows, union, ours = _train_profile("train", cf, extra, TRAIN_STEPS,
                                            flat, per_step)
         # the step's 2048-row products go through the wgmma mainloop
-        for name, tag in WG_TAGS.items():
-            n_wg = _tagged_kernels(rows, tag)
-            require(n_wg > 0, f"train: no {tag} kernel in a replayed step")
+        for name, tags in WG_TAGS.items():
+            n_wg = {tag: _tagged_kernels(rows, tag) for tag in tags}
+            require(all(n_wg.values()), f"train: no {' or '.join(tags)} "
+                    f"kernel in a replayed step: {n_wg}")
             report[name].setdefault("routes", {}).setdefault(
                 "wgmma", {})["kernels_per_train_step"] = n_wg
         del cf, be, flat

@@ -1,8 +1,8 @@
 """Output bits of the fixed-order batched matmul, and of the 16-bit routes
-of matmul and swiglu, at fixed lists of shapes, as sha256 digests, so
-that two checkouts can be shown to give the same bits on the card; with
-``--time``, the kernels' times at phase 3's shapes, so that one call on
-one card compares two checkouts' kernels.  Kernels come from
+of matmul, swiglu and norm_matmul, at fixed lists of shapes, as sha256
+digests, so that two checkouts can be shown to give the same bits on the
+card; with ``--time``, the kernels' times at phase 3's shapes, so that
+one call on one card compares two checkouts' kernels.  Kernels come from
 ``repro_torch.kernels`` of the tree ``--src`` names (the parent unpacked
 into a git-ignored directory):
 
@@ -21,8 +21,13 @@ swiglu's operands are drawn on the card from ``--seed``.  A time is
 ``chip_smoke.py``'s phase 3 measure: the median of 20 launches, each
 timed with CUDA events after a 512 MB write that flushes L2 and keeps
 the card busy while the host enqueues; the timed shapes are the batched
-kernel's named ones and the f32 routes of matmul, swiglu and norm_matmul
-(whose f32 bits are not digested: an order may change them by design).
+kernel's named ones, the f32 routes of matmul, swiglu and norm_matmul
+(whose f32 bits are not digested: an order may change them by design),
+matmul's 16-bit shapes, and the 16-bit shapes of swiglu and norm_matmul
+(FUSED_16_TIMES), each beside matmul's time on the same product(s) in
+the same process and its bound (each input read once, the output written
+once, or the operations at the tensor cores' 989 TFLOP/s, whichever is
+longer).
 ``--compare`` prints each timed shape side by side and exits 1 when a
 digest differs or a shape is missing; with ``--f32-may-move K0`` an f32
 digest of a contraction longer than K0 may differ (a change of the f32
@@ -133,11 +138,33 @@ MATMUL_16_TIMES = tuple(
     + [(f"matmul ({m}x4096)@(4096x4096) bf16", (m, D, D))
        for m in (1, 4, 16, 64)]
     + [("matmul unembed (1x4096)@(4096x102400) bf16", (1, D, V))])
-# the 16-bit routes of matmul and swiglu, digested in bf16 and f16: rows
-# that take each tensor-core tile and each side of the wgmma route's
-# threshold, at deepseek-7b's widths, at the compute-bound shapes and at
-# ragged ones (K under one stage, K not in whole 16-byte vectors, N
-# under one tile)
+# swiglu's and norm_matmul's 16-bit shapes, timed in bf16 (label,
+# kernel, shape: swiglu (M, D, F, Do), norm_matmul (M, D, N), its g in
+# x's type but at the unembed, whose g is f32 as the final norm's): the
+# wgmma route's rows (its fewest, 128, a dense prefill, phase 8's 2048,
+# rg's 2,176, the train step's final norm + unembed), and the rows on
+# both sides of its threshold at N (F) 4096, 6144 and 11008
+FUSED_ROWS = (65, 96, 97, 128, 129, 160, 192, 224, 256, 384)
+FUSED_16_TIMES = tuple(
+    [(f"swiglu ({m}x4096) F=11008 bf16", "swiglu", (m, D, F, D))
+     for m in (97, 128, 512, 2048, 2176)]
+    + [(f"norm_matmul ({m}x4096)(4096x4096) bf16", "norm_matmul_gx",
+        (m, D, D)) for m in (97, 128, 512, 2048, 2176)]
+    + [("norm_matmul train final+unembed (2048x4096)(4096x102400) g f32 "
+        "bf16", "norm_matmul", (2048, D, V))]
+    + [(f"norm_matmul ({m}x4096)(4096x{n}) bf16", "norm_matmul_gx",
+        (m, D, n)) for m in FUSED_ROWS for n in (6144, F)]
+    + [(f"norm_matmul ({m}x4096)(4096x4096) bf16", "norm_matmul_gx",
+        (m, D, D)) for m in FUSED_ROWS if m not in (97, 128)]
+    + [(f"swiglu ({m}x4096) F={f} bf16", "swiglu", (m, D, f, D))
+       for m in FUSED_ROWS for f in (4096, 6144)]
+    + [(f"swiglu ({m}x4096) F=11008 bf16", "swiglu", (m, D, F, D))
+       for m in FUSED_ROWS if m not in (97, 128)])
+# the 16-bit routes of matmul, swiglu and norm_matmul (its g in x's type,
+# "norm_matmul_gx", and in f32), digested in bf16 and f16: rows that take
+# each tensor-core tile and each side of the wgmma route's threshold, at
+# deepseek-7b's widths, at the compute-bound shapes and at ragged ones (K
+# under one stage, K not in whole 16-byte vectors, N under one tile)
 BITS_ROWS = (1, 4, 16, 17, 64, 65, 512)
 KERNEL_BITS = tuple(
     [("matmul", (m, D, D)) for m in BITS_ROWS + (128, 129, 256, 2048)]
@@ -146,8 +173,15 @@ KERNEL_BITS = tuple(
        ("matmul", (4224, 6144, 6144)), ("matmul", (2176, D, D)),
        ("matmul", (300, 1000, 72)), ("matmul", (200, 44, 16)),
        ("matmul", (130, 40, 24))]
-    + [("swiglu", (m, D, F, D)) for m in BITS_ROWS]
-    + [("swiglu", (17, 1000, 200, 24)), ("swiglu", (3, 44, 40, 16))])
+    + [("swiglu", (m, D, F, D)) for m in BITS_ROWS + (96, 97, 128, 2048,
+                                                     2176)]
+    + [("swiglu", (17, 1000, 200, 24)), ("swiglu", (3, 44, 40, 16)),
+       ("swiglu", (130, 1000, 200, 24)), ("swiglu", (200, 44, 40, 16))]
+    + [(k, (m, D, D)) for k in ("norm_matmul_gx", "norm_matmul")
+       for m in BITS_ROWS + (96, 97, 128, 2048)]
+    + [(k, (2048, D, V)) for k in ("norm_matmul_gx", "norm_matmul")]
+    + [(k, (130, 1000, 72)) for k in ("norm_matmul_gx", "norm_matmul")]
+    + [(k, (200, 44, 16)) for k in ("norm_matmul_gx", "norm_matmul")])
 
 
 def shapes():
@@ -306,7 +340,28 @@ def main(argv=None) -> int:
         m, d, n = shape
         x, w = r((m, d), dt), r((d, n), dt, d ** -0.5)
         g = 1 + 0.1 * r((d,), torch.float32)
+        if kernel == "norm_matmul_gx":   # g in x's type
+            g = g.to(dt)
         return lambda: kn.norm_matmul(x, g, w, 1e-6)
+
+    def matmul_route(kernel, shape, dt):
+        # matmul's launches on the same product(s) (swiglu: x @ wg, x @
+        # wu and h @ wd), and the kernel's bound
+        s = torch.empty((), dtype=dt).element_size()
+        if kernel == "swiglu":
+            m, d, f, do = shape
+            x, h = r((m, d), dt), r((m, f), dt)
+            wg, wu = r((d, f), dt, d ** -0.5), r((d, f), dt, d ** -0.5)
+            wd = r((f, do), dt, f ** -0.5)
+            nbytes = (m * d + 2 * d * f + f * do + m * do) * s
+            flops = 2 * m * d * f * 2 + 2 * m * f * do
+            return (lambda: (km.matmul(x, wg), km.matmul(x, wu),
+                             km.matmul(h, wd))), nbytes, flops
+        m, d, n = shape
+        x, w = r((m, d), dt), r((d, n), dt, d ** -0.5)
+        g_size = 2 if kernel == "norm_matmul_gx" else 4
+        return ((lambda: km.matmul(x, w)),
+                (m * d + d * n + m * n) * s + d * g_size, 2 * m * d * n)
 
     for label, kernel, shape in KERNEL_TIMES if args.time else ():
         times[label] = timed(call(kernel, shape, torch.float32), flush)
@@ -315,6 +370,21 @@ def main(argv=None) -> int:
     for label, shape in MATMUL_16_TIMES if args.time else ():
         times[label] = timed(call("matmul", shape, torch.bfloat16), flush)
         print(f"[bmm_bits] {label} ms={times[label]:.4f}", flush=True)
+        torch.cuda.empty_cache()
+    bounds = {}
+    for label, kernel, shape in FUSED_16_TIMES if args.time else ():
+        times[label] = timed(call(kernel, shape, torch.bfloat16), flush)
+        torch.cuda.empty_cache()
+        mm, nbytes, flops = matmul_route(kernel, shape, torch.bfloat16)
+        times[f"{label} [matmul route]"] = timed(mm, flush)
+        del mm
+        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, flops / 989e12 * 1e3
+        bounds[label] = max(t_bytes, t_ops)
+        print(f"[bmm_bits] {label} ms={times[label]:.4f} matmul_route_ms="
+              f"{times[label + ' [matmul route]']:.4f} bound_ms="
+              f"{bounds[label]:.4f} "
+              f"({'operations' if t_ops > t_bytes else 'bytes'})",
+              flush=True)
         torch.cuda.empty_cache()
     for kernel, shape in KERNEL_BITS:
         for dt in (torch.bfloat16, torch.float16):
@@ -334,8 +404,7 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump({"src": os.path.abspath(args.src), "seed": args.seed,
                        "card": card, "digests": digests, "meta": meta,
-                       "ms": times}, f,
-                      indent=1)
+                       "ms": times, "bound_ms": bounds}, f, indent=1)
     print(f"[bmm_bits] {len(digests)} shapes", flush=True)
     return 0
 

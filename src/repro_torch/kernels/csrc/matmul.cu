@@ -12,13 +12,13 @@
 // on every SM to hide DRAM latency.  The dense prefill (M = 512) does
 // 17 GFLOP for 40 MB: there the tensor-core rate (989 TFLOP/s) bounds it.
 //
-// Design, bf16 and f16, above kWgMinRows rows (a dense prefill, a train
+// Design, bf16 and f16, above wg::kMinRows rows (a dense prefill, a train
 // step's 2048 rows, mixtral's 4,224-token prefill): wg_gemm.cuh's wgmma
 // mainloop -- 128 x 128 tiles, A and B by the TMA unit into a ring of
 // 64-deep stages, two consumer warpgroups, persistent blocks -- in the
 // same K order, so its bits are those of the tiles below at every M.
 //
-// Design, bf16 and f16, up to kWgMinRows rows (and where A's rows are not
+// Design, bf16 and f16, up to wg::kMinRows rows (and where A's rows are not
 // whole 16-byte vectors): the tensor-core mainloop of tc_gemm.cuh.  A block
 // owns a tile of 16 rows (M <= 16), 64 rows (M <= 64) or 64 x 64 (more
 // rows), 32 columns wide, or 128 at decode when N >= 8192, and its whole K
@@ -76,15 +76,6 @@ struct matmul_f32 {};
 // names matmul's wgmma mainloop in a profile (wg_gemm.cuh)
 struct matmul_wg {};
 
-// Rows above which the 16-bit route takes wg_gemm.cuh's mainloop, where
-// A's rows are 16-byte aligned for the TMA unit (K % 8 == 0); mirrored by
-// kernels/ops.py:WG_MIN_ROWS.  The bits are gemm_tc's either way, so the
-// threshold is a matter of time alone: on an H100 at K 4096 and N 4096,
-// 6144 and 11008 the mainloop was the faster from 128 rows up
-// (scripts/torch_bmm_bits.py --time), and from 97 rows it runs the one
-// tile row of 128 that it runs at 128.
-constexpr int kWgMinRows = 96;
-
 template <typename T, class TL>
 __global__ void __launch_bounds__(kThreads)
     matmul_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
@@ -125,7 +116,8 @@ cudaError_t launch_tc(const T* A, const T* B, T* C, int M, int K, int N,
   return cudaSuccess;
 }
 
-// above kWgMinRows rows the wgmma mainloop, else the tensor-core tiles of
+// above wg::kMinRows rows (where A's rows are 16-byte vectors for the
+// TMA unit, K % 8 == 0) the wgmma mainloop, else the tensor-core tiles of
 // tc_gemm.cuh's with_matmul_tile (ops.py:matmul_plan, tc_tile)
 template <typename T>
 cudaError_t launch_16bit(const void* a, const void* b, void* c, int M, int K,
@@ -133,7 +125,7 @@ cudaError_t launch_16bit(const void* a, const void* b, void* c, int M, int K,
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
   T* C = static_cast<T*>(c);
-  if (M > kWgMinRows && K % 8 == 0)
+  if (M > wg::kMinRows && K % 8 == 0)
     return wg::gemm_as<matmul_wg, T, false, false>(
         wg::Operand{A, true, K, (long long)M * K},
         wg::Operand{B, false, N, (long long)K * N}, C, 1, M, N, K, false, s);

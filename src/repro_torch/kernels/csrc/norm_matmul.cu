@@ -14,7 +14,24 @@
 // bounds it, exactly like the plain matmul.  x is 32-512 KB and stays in
 // L2.
 //
-// Design, bf16 and f16: two kernels, the second launched as a
+// Design, bf16 and f16, above wg::kMinRows rows where D % 8 == 0 (a dense
+// prefill, a train step's 2048 rows, the rows of a long prompt): there
+// the tensor cores bind, so the product is matmul's -- wg_gemm.cuh's
+// wgmma + TMA mainloop -- on the normalised rows, and the norm is a pass
+// of its own before it, as in the f32 route below.
+// norm_matmul_rows_kernel gives each row a block of 4 warps: its inverse
+// RMS in norm_matmul_inv_kernel's order, then the row as (x * inv) * g
+// rounded to x's dtype, in NormA's multiply order, into an (M, D)
+// workspace of x's dtype (16 MB at 2048 rows: it stays in L2).  The
+// product (norm_matmul_wg) is the mainloop's programmatic dependent
+// (wg::WaitA): it copies W's first stages before it waits for the rows
+// kernel, and the rows only after.  So the rows are bit for bit what
+// NormA feeds the fragments below, and 16-bit norm_matmul there is bit
+// for bit matmul(rows, W) -- and, the mainloop's k16 step rounding as
+// mma.sync's, the tiles' bits at every M.
+//
+// Design, bf16 and f16, up to wg::kMinRows rows (decode, a prefill
+// chunk): two kernels, the second launched as a
 // programmatic dependent of the first.  norm_matmul_inv_kernel computes
 // each row's inverse RMS once per call (M floats).  The GEMM is the
 // tensor-core mainloop of tc_gemm.cuh with the norm as its A transform,
@@ -51,6 +68,7 @@
 // reads the rows only after griddepcontrol.wait: f32 norm_matmul is bit
 // for bit f32 matmul(normalised rows, W), and nothing of it grows with D.
 #include "f32_gemm.cuh"
+#include "wg_gemm.cuh"
 
 namespace {
 
@@ -149,6 +167,116 @@ __global__ void __launch_bounds__(kThreads)
     ss = row_sumsq(row, D);
   }
   if (lane == 0) inv[m] = 1.f / sqrtf(ss / (float)D + eps);
+}
+
+// vector ``v`` (8 elements of x from element 8 c) as (x * inv) * g
+// rounded to T: NormA::norm2's order and rounding
+template <typename T>
+__device__ __forceinline__ uint4 norm8(uint4 v, const float (&g)[8],
+                                       float inv) {
+  const T* e = reinterpret_cast<const T*>(&v);
+  uint4 o;
+  unsigned* op = reinterpret_cast<unsigned*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    op[i] = pack2<T>(to_f32(e[2 * i]) * inv * g[2 * i],
+                     to_f32(e[2 * i + 1]) * inv * g[2 * i + 1]);
+  return o;
+}
+
+// g[8 c, 8 c + 8) in f32
+template <typename TG>
+__device__ __forceinline__ void load_g8(float (&g)[8],
+                                        const TG* __restrict__ G, int c) {
+  if constexpr (sizeof(TG) == 4) {
+    const float4 g0 = __ldg(reinterpret_cast<const float4*>(G) + 2 * c);
+    const float4 g1 = __ldg(reinterpret_cast<const float4*>(G) + 2 * c + 1);
+    g[0] = g0.x, g[1] = g0.y, g[2] = g0.z, g[3] = g0.w;
+    g[4] = g1.x, g[5] = g1.y, g[6] = g1.z, g[7] = g1.w;
+  } else {
+    const uint4 gv = __ldg(reinterpret_cast<const uint4*>(G) + c);
+    const TG* ge = reinterpret_cast<const TG*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) g[i] = to_f32(ge[i]);
+  }
+}
+
+// The wgmma route's rows kernel: a block of kRowWarps warps a row (D %
+// 8 == 0), the row to XN as (x * inv) * g rounded to T, with inv in
+// norm_matmul_inv_kernel's order.  There lane l's chain runs over the
+// row's vectors l + 32 u, u ascending, then a butterfly; here u =
+// kRowGroup r + kRowVecs w + j is warp w's j-th vector of round r, so the
+// chain passes from warp to warp through shared memory (a barrier each),
+// the last warp takes the butterfly, and every warp then normalises the
+// vectors it holds -- the loads of a round (x and g) all in flight at
+// once across the row's warps, as rmsnorm.cu's block a row has them (a
+// warp a row measured slower on an H100).  Rows past one round (D >
+// 4096) read x again for the write.  The product launches as its
+// programmatic dependent once every block has written its row (letting
+// it launch on entry measured slower on an H100: its blocks take the SMs
+// one by one as the rows end).
+constexpr int kRowWarps = 4, kRowVecs = 4;
+constexpr int kRowGroup = kRowWarps * kRowVecs;   // vectors a lane, a round
+
+template <typename T, typename TG>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    norm_matmul_rows_kernel(const T* __restrict__ X, const TG* __restrict__ G,
+                            T* __restrict__ XN, int D, float eps) {
+  __shared__ float chain[32];
+  __shared__ float inv_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint4* row =
+      reinterpret_cast<const uint4*>(X + (size_t)blockIdx.x * D);
+  uint4* out = reinterpret_cast<uint4*>(XN + (size_t)blockIdx.x * D);
+  const int nv = D / 8;
+  const int rounds = (nv + 32 * kRowGroup - 1) / (32 * kRowGroup);
+  uint4 x[kRowVecs];
+  auto vec = [&](int r, int j) {   // this lane's j-th vector of round r
+    return lane + 32 * (kRowGroup * r + kRowVecs * warp + j);
+  };
+  float ss = 0.f;
+  for (int r = 0; r < rounds; ++r) {
+#pragma unroll
+    for (int j = 0; j < kRowVecs; ++j)
+      if (vec(r, j) < nv) x[j] = __ldg(row + vec(r, j));
+    for (int w = 0; w < kRowWarps; ++w) {
+      if (warp == w) {
+        if (r + w > 0) ss = chain[lane];
+#pragma unroll
+        for (int j = 0; j < kRowVecs; ++j)
+          if (vec(r, j) < nv) {
+            const T* e = reinterpret_cast<const T*>(&x[j]);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float v = to_f32(e[i]);
+              ss = fmaf(v, v, ss);
+            }
+          }
+        chain[lane] = ss;
+      }
+      __syncthreads();
+    }
+  }
+  if (warp == kRowWarps - 1) {   // norm_matmul_inv_kernel's butterfly
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (lane == 0) inv_s = 1.f / sqrtf(ss / (float)D + eps);
+  }
+  __syncthreads();
+  const float inv = inv_s;
+  for (int r = rounds - 1; r >= 0; --r) {   // the last round is in registers
+#pragma unroll
+    for (int j = 0; j < kRowVecs; ++j) {
+      const int c = vec(r, j);
+      if (c < nv) {
+        float g[8];
+        load_g8(g, G, c);
+        out[c] = norm8<T>(r == rounds - 1 ? x[j] : __ldg(row + c), g, inv);
+      }
+    }
+  }
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // The A transform of tc_gemm.cuh: row m of the block's tile times its
@@ -262,11 +390,27 @@ int launch_tc(const T* X, const TG* G, const T* W, T* C, float* inv, int M,
       tc::b_evict_first((size_t)D * N * sizeof(T)));
 }
 
-// matmul.cu's tiles (tc_gemm.cuh's with_matmul_tile), mirrored by
-// kernels/ops.py:norm_matmul_plan
+// names the wgmma route's product in a profile (wg_gemm.cuh)
+struct norm_matmul_wg {};
+
+// above wg::kMinRows rows where D % 8 == 0 the rows kernel, then the wgmma
+// mainloop on the rows (``ws``: (M, D) of T); else the inverse RMS (``ws``:
+// M floats), then matmul.cu's tiles (tc_gemm.cuh's with_matmul_tile);
+// mirrored by kernels/ops.py:norm_matmul_plan
 template <typename T, typename TG>
-int launch_16bit(const T* X, const TG* G, const T* W, T* C, float* inv,
-                 int M, int D, int N, float eps, cudaStream_t s) {
+int launch_16bit(const T* X, const TG* G, const T* W, T* C, void* ws, int M,
+                 int D, int N, float eps, cudaStream_t s) {
+  if (M > wg::kMinRows && D % 8 == 0) {
+    T* rows = static_cast<T*>(ws);
+    norm_matmul_rows_kernel<T, TG>
+        <<<M, kRowWarps * 32, 0, s>>>(X, G, rows, D, eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)wg::gemm_as<norm_matmul_wg, T, false, false, wg::WaitA>(
+        wg::Operand{rows, true, D, (long long)M * D},
+        wg::Operand{W, false, N, (long long)D * N}, C, 1, M, N, D, false, s);
+  }
+  float* inv = static_cast<float*>(ws);
   return tc::with_matmul_tile(M, N, [&](auto tile) {
     return launch_tc<T, TG, decltype(tile)>(X, G, W, C, inv, M, D, N, eps, s);
   });
@@ -274,8 +418,9 @@ int launch_16bit(const T* X, const TG* G, const T* W, T* C, float* inv,
 
 }  // namespace
 
-// ``ws`` is a workspace: the 16-bit route's M floats (the rows'
-// inverse RMS), the f32 route's (M, D) floats (the normalised rows).
+// ``ws`` is a workspace: the 16-bit tiles' M floats (the rows' inverse
+// RMS), the 16-bit wgmma route's (M, D) of x's dtype and the f32 route's
+// (M, D) floats (the normalised rows).
 extern "C" int repro_norm_matmul(const void* x, const void* g, const void* w,
                                  void* c, void* ws, int M, int D, int N,
                                  float eps, int dtype, int g_dtype,
@@ -296,13 +441,13 @@ extern "C" int repro_norm_matmul(const void* x, const void* g, const void* w,
         rc = launch_16bit<__nv_bfloat16, TG>(
             static_cast<const __nv_bfloat16*>(x), G,
             static_cast<const __nv_bfloat16*>(w),
-            static_cast<__nv_bfloat16*>(c), work, M, D, N, eps, s);
+            static_cast<__nv_bfloat16*>(c), ws, M, D, N, eps, s);
         break;
       case kF16:
         rc = launch_16bit<__half, TG>(static_cast<const __half*>(x), G,
                                       static_cast<const __half*>(w),
-                                      static_cast<__half*>(c), work, M, D,
-                                      N, eps, s);
+                                      static_cast<__half*>(c), ws, M, D, N,
+                                      eps, s);
         break;
       default:
         return (int)cudaErrorInvalidValue;

@@ -15,7 +15,23 @@
 // for 279 MB, about 500 flops per byte: there the tensor-core rate
 // bounds it.
 //
-// Design, bf16 and f16: two kernels, the second launched as a
+// Design, bf16 and f16, above wg::kMinRows rows where D % 8 == 0 (a dense
+// prefill, a train step's 2048 rows): the tensor cores bind, so both
+// launches are wg_gemm.cuh's wgmma + TMA mainloop.  The gate/up launch
+// (swiglu_gate_up_wg) reads x and a paired B: each stage's two 64-column
+// boxes come from wg's and wu's tensor maps at the same F columns, so a
+// 128-wide tile is 64 F columns of each, and the thread holding g at n8
+// block j holds u at block j + 8 -- h forms in registers (GateUp: the
+// same silu_mul as below) and leaves through one TMA box a consumer.  It
+// lets the down launch start at once.  The down launch (swiglu_down_wg)
+// is the mainloop on (h, wd) as its programmatic dependent (wg::WaitA:
+// wd's first stages copied, then griddepcontrol.wait, then h).  g and u
+// are each reduced in matmul's order for K = D, the down product in its
+// order for K = F, the mainloop's k16 step rounding as mma.sync's: every
+// bit is the tiles'.
+//
+// Design, bf16 and f16, up to wg::kMinRows rows (decode, a prefill chunk):
+// two kernels, the second launched as a
 // programmatic dependent of the first.
 //   swiglu_gate_up_kernel is the tensor-core mainloop of tc_gemm.cuh on
 //   A = x with a paired B: a block's BN-wide B tile holds BN/2 columns of
@@ -62,13 +78,15 @@
 // in the f32 order for K = F.  Neither depends on M, the row's position
 // or the run: no split of K across blocks, no atomics.
 #include "f32_gemm.cuh"
+#include "wg_gemm.cuh"
 
 namespace {
 
 using namespace repro;
 
 // h = round(silu(g) * u) from the f32 sums of g and u, rounded op by op as
-// XLA computes jax.nn.silu (expf and an IEEE division, as the reference)
+// XLA computes jax.nn.silu (expf and an IEEE division, as the reference);
+// every route's h comes from here
 template <typename T>
 __device__ __forceinline__ float silu_mul(float g_sum, float u_sum) {
   const float g = round_to<T>(g_sum);
@@ -288,14 +306,46 @@ cudaError_t launch_down(const T* H, const T* WD, T* C, int M, int F, int Do,
                           tc::b_evict_first((size_t)F * Do * sizeof(T)));
 }
 
+// names the wgmma route's launches in a profile (wg_gemm.cuh)
+struct swiglu_gate_up_wg {};
+struct swiglu_down_wg {};
+
+// the wgmma gate/up's paired B and its epilogue: h from g and u
+struct GateUp {
+  static constexpr bool kWaitA = false, kPairB = true;
+  template <typename T>
+  static __device__ __forceinline__ float pair(float g, float u) {
+    return silu_mul<T>(g, u);
+  }
+};
+
+// above wg::kMinRows rows where D % 8 == 0 the wgmma mainloop for both
+// launches, else the tensor-core tiles; mirrored by
+// kernels/ops.py:swiglu_plan
 template <typename T>
-cudaError_t launch_16bit(const void* x, const void* wg, const void* wu,
-                         const void* wd, void* h, void* c, int M, int D,
-                         int F, int Do, cudaStream_t s) {
+cudaError_t launch_16bit(const void* x, const void* w_gate,
+                         const void* w_up, const void* w_down, void* h,
+                         void* c, int M, int D, int F, int Do,
+                         cudaStream_t s) {
   const T* X = static_cast<const T*>(x);
-  const T* WG = static_cast<const T*>(wg);
-  const T* WU = static_cast<const T*>(wu);
+  const T* WG = static_cast<const T*>(w_gate);
+  const T* WU = static_cast<const T*>(w_up);
+  const T* WD = static_cast<const T*>(w_down);
   T* H = static_cast<T*>(h);
+  T* C = static_cast<T*>(c);
+  if (M > wg::kMinRows && D % 8 == 0) {
+    const wg::Operand wu_op{WU, false, F, (long long)D * F};
+    const cudaError_t err = wg::gemm_as<swiglu_gate_up_wg, T, false, false,
+                                        GateUp>(
+        wg::Operand{X, true, D, (long long)M * D},
+        wg::Operand{WG, false, F, (long long)D * F}, H, 1, M, F, D, false, s,
+        &wu_op);
+    if (err != cudaSuccess) return err;
+    return wg::gemm_as<swiglu_down_wg, T, false, false, wg::WaitA>(
+        wg::Operand{H, true, F, (long long)M * F},
+        wg::Operand{WD, false, Do, (long long)F * Do}, C, 1, M, Do, F, false,
+        s);
+  }
   // the gate/up tiles, mirrored by kernels/ops.py:swiglu_tile: BN/2 F
   // columns of each of wg and wu
   auto gate_up = [&](auto tile) {
@@ -304,8 +354,6 @@ cudaError_t launch_16bit(const void* x, const void* wg, const void* wu,
   const cudaError_t err = M <= 16 ? gate_up(tc::Tile<16, 128, 3>())
                                   : gate_up(tc::Tile<64, 64, 3>());
   if (err != cudaSuccess) return err;
-  const T* WD = static_cast<const T*>(wd);
-  T* C = static_cast<T*>(c);
   return tc::with_matmul_tile(M, Do, [&](auto tile) {
     return launch_down<T, decltype(tile)>(H, WD, C, M, F, Do, s);
   });

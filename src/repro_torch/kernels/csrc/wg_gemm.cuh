@@ -271,15 +271,48 @@ constexpr int kSmem =
     1024 + kStages * kStageBytes + 2 * kEpiBytes + 2 * kStages * 8;
 static_assert(kSmem <= kMaxDynamicSmem, "ring");
 constexpr int kWgLanes = tc::kKS / kTileK;        // 8
+// Rows above which a 16-bit product takes the mainloop (matmul.cu, and
+// the products of norm_matmul.cu and swiglu.cu), where the TMA unit can
+// read its operands (rows in whole 16-byte vectors); mirrored by
+// kernels/ops.py:WG_MIN_ROWS.  The bits are the tensor-core tiles' either
+// way, so the threshold is a matter of time alone: on an H100 at K 4096
+// and N 4096, 6144 and 11008 the mainloop was the faster from 128 rows up
+// (scripts/torch_bmm_bits.py --time), and from 97 rows it runs the one
+// tile row of 128 that it runs at 128.
+constexpr int kMinRows = 96;
+
+// What an instantiation adds to the plain product (matmul's and the
+// batched kernel's are Plain).
+struct Plain {
+  static constexpr bool kWaitA = false, kPairB = false;
+};
+// The programmatic dependent of the kernel before it on the stream, which
+// writes A (norm_matmul's product on the normalised rows, swiglu's down
+// product on h; launched by launch_pdl).  The producer thread copies B's
+// boxes of the ring's first stages (the stages' expect_tx counting both
+// operands), executes griddepcontrol.wait, and only then copies A.  No
+// other thread reads what the primary wrote: the consumers read the ring.
+struct WaitA {
+  static constexpr bool kWaitA = true, kPairB = false;
+};
+// A paired B (swiglu's gate/up: an Opt with kPairB and a ``pair``): a
+// stage's two MN-major B boxes come from two tensor maps at the same
+// columns [n0, n0 + 64), so a 128-wide tile covers 64 columns of each;
+// under the m64n128 fragment the thread that holds the first's column at
+// n8 block j (j < 8) holds the second's at block j + 8, in the same row
+// and place, and the epilogue writes Opt::pair<T>(first, second) rounded
+// to T, 64 columns a consumer through one TMA box.  Such a kernel lets
+// its programmatic dependent launch on entry
+// (griddepcontrol.launch_dependents).
 
 struct TileIndex {
   int b, m0, n0;
 };
 
 // tile ``t`` of the grid: batch-major, then row groups of kGroupM tile
-// rows, the rows of a group fastest
+// rows, the rows of a group fastest; tiles ``bn`` columns wide
 __device__ __forceinline__ TileIndex tile_at(long long t, int tiles_m,
-                                             int tiles_n) {
+                                             int tiles_n, int bn = kBN) {
   const long long per = (long long)tiles_m * tiles_n;
   const int b = (int)(t / per);
   const int r = (int)(t % per);
@@ -287,7 +320,7 @@ __device__ __forceinline__ TileIndex tile_at(long long t, int tiles_m,
   const int first = (r / group) * kGroupM;
   const int rows = min(tiles_m - first, kGroupM);
   const int in = r % group;
-  return {b, (first + in % rows) * kBM, (in / rows) * kBN};
+  return {b, (first + in % rows) * kBM, (in / rows) * bn};
 }
 
 __device__ __forceinline__ void zero(float (&d)[64]) {
@@ -295,14 +328,22 @@ __device__ __forceinline__ void zero(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
 }
 
-// A_MN: A is MN-major (read as (K, M)); B_K: B is K-major (read as (N, K))
-template <class Tag, typename T, bool A_MN, bool B_K>
+// A_MN: A is MN-major (read as (K, M)); B_K: B is K-major (read as (N, K));
+// Opt: Plain, WaitA or a paired B (above).  b2map is read only where
+// Opt::kPairB.
+template <class Tag, typename T, bool A_MN, bool B_K, class Opt = Plain>
 __global__ void __launch_bounds__(kWgThreads, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap amap,
                 const __grid_constant__ CUtensorMap bmap,
+                const __grid_constant__ CUtensorMap b2map,
                 const __grid_constant__ CUtensorMap cmap,
                 void* __restrict__ C, int batch, int M, int N, int K,
                 int out_f32, int c_tma) {
+  static_assert(!Opt::kPairB || (!A_MN && !B_K), "a paired B is MN-major");
+  if constexpr (Opt::kPairB)
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // a paired tile covers kBoxMN columns of each of B's two maps
+  constexpr int kTileN = Opt::kPairB ? kBoxMN : kBN;
   extern __shared__ __align__(1024) unsigned char raw[];
   unsigned char* ring =
       raw + ((1024u - (tc::smem_u32(raw) & 1023u)) & 1023u);
@@ -317,7 +358,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     tma::mbar_init_fence();
   }
   __syncthreads();
-  const int tiles_m = (M + kBM - 1) / kBM, tiles_n = (N + kBN - 1) / kBN;
+  const int tiles_m = (M + kBM - 1) / kBM;
+  const int tiles_n = (N + kTileN - 1) / kTileN;
   const long long tiles = (long long)batch * tiles_m * tiles_n;
   const int nst = (K + tc::kKS - 1) / tc::kKS;
   const int live = K < tc::kKS ? (K + kTileK - 1) / kTileK : kWgLanes;
@@ -330,30 +372,63 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // slower on an H100
       const uint64_t a_pol = tc::l2_policy_evict_normal();
       const uint64_t b_pol = tc::l2_policy_evict_first();
-      int slot = 0;
+      auto load_a = [&](unsigned char* st, const TileIndex& ti, int k0,
+                        uint64_t* bar) {
+        if constexpr (A_MN) {
+          tma::tma_box(st, &amap, ti.m0, k0, ti.b, bar, a_pol);
+          tma::tma_box(st + kBoxBytes, &amap, ti.m0 + kBoxMN, k0, ti.b, bar,
+                       a_pol);
+        } else {
+          tma::tma_box(st, &amap, k0, ti.m0, ti.b, bar, a_pol);
+        }
+      };
+      auto load_b = [&](unsigned char* st, const TileIndex& ti, int k0,
+                        uint64_t* bar) {
+        unsigned char* bs = st + kATile;
+        if constexpr (B_K) {
+          tma::tma_box(bs, &bmap, k0, ti.n0, ti.b, bar, b_pol);
+        } else if constexpr (Opt::kPairB) {
+          tma::tma_box(bs, &bmap, ti.n0, k0, ti.b, bar, b_pol);
+          tma::tma_box(bs + kBoxBytes, &b2map, ti.n0, k0, ti.b, bar, b_pol);
+        } else {
+          tma::tma_box(bs, &bmap, ti.n0, k0, ti.b, bar, b_pol);
+          tma::tma_box(bs + kBoxBytes, &bmap, ti.n0 + kBoxMN, k0, ti.b, bar,
+                       b_pol);
+        }
+      };
+      // a dependent's first stages (the first tile's, at most the ring):
+      // B's boxes, the wait, then their A
+      int early = 0;
+      if constexpr (Opt::kWaitA) {
+        const TileIndex ti = tile_at(blockIdx.x, tiles_m, tiles_n, kTileN);
+        if (blockIdx.x < tiles) early = min(kStages, pairs * nst);
+        for (int i = 0; i < early; ++i) {
+          const int k0 = (i % nst) * tc::kKS + (i / nst) * kStageK;
+          tma::mbar_expect_tx(full + i, kStageBytes);
+          load_b(ring + i * kStageBytes, ti, k0, full + i);
+        }
+        asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        for (int i = 0; i < early; ++i) {
+          const int k0 = (i % nst) * tc::kKS + (i / nst) * kStageK;
+          load_a(ring + i * kStageBytes, ti, k0, full + i);
+        }
+      }
+      int slot = 0, walked = 0;
       unsigned phase = 0;
       for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const TileIndex ti = tile_at(t, tiles_m, tiles_n);
+        const TileIndex ti = tile_at(t, tiles_m, tiles_n, kTileN);
         for (int p = 0; p < pairs; ++p)
           for (int s = 0; s < nst; ++s) {
             const int k0 = s * tc::kKS + p * kStageK;
-            tma::mbar_wait(empty + slot, phase ^ 1u);
-            unsigned char* st = ring + slot * kStageBytes;
-            uint64_t* bar = full + slot;
-            tma::mbar_expect_tx(bar, kStageBytes);
-            if constexpr (A_MN) {
-              tma::tma_box(st, &amap, ti.m0, k0, ti.b, bar, a_pol);
-              tma::tma_box(st + kBoxBytes, &amap, ti.m0 + kBoxMN, k0, ti.b,
-                           bar, a_pol);
+            if (walked < early) {   // copied above
+              ++walked;
             } else {
-              tma::tma_box(st, &amap, k0, ti.m0, ti.b, bar, a_pol);
-            }
-            if constexpr (B_K) {
-              tma::tma_box(st + kATile, &bmap, k0, ti.n0, ti.b, bar, b_pol);
-            } else {
-              tma::tma_box(st + kATile, &bmap, ti.n0, k0, ti.b, bar, b_pol);
-              tma::tma_box(st + kATile + kBoxBytes, &bmap, ti.n0 + kBoxMN,
-                           k0, ti.b, bar, b_pol);
+              tma::mbar_wait(empty + slot, phase ^ 1u);
+              unsigned char* st = ring + slot * kStageBytes;
+              uint64_t* bar = full + slot;
+              tma::mbar_expect_tx(bar, kStageBytes);
+              load_a(st, ti, k0, bar);
+              load_b(st, ti, k0, bar);
             }
             if (++slot == kStages) {
               slot = 0;
@@ -371,7 +446,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     unsigned phase = 0;
     float acc0[64], acc1[64], tot[64];
     for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const TileIndex ti = tile_at(t, tiles_m, tiles_n);
+      const TileIndex ti = tile_at(t, tiles_m, tiles_n, kTileN);
       zero(tot);
       for (int p = 0; p < pairs; ++p) {
         zero(acc0);
@@ -427,60 +502,78 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         unsigned char* my = epi + c * kEpiBytes;
         if (lead) tma::bulk_wait_read();   // the last tile's boxes are out
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+        if constexpr (Opt::kPairB) {
+          // column n of the first map at block j, of the second at j + 8
 #pragma unroll
-        for (int j = 0; j < kBN / 8; ++j)
+          for (int j = 0; j < kBoxMN / 8; ++j)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int rr = r + 8 * h, n = 8 * j + q;
-            const float v0 = tot[4 * j + 2 * h], v1 = tot[4 * j + 2 * h + 1];
-            unsigned char* d = my + (n / per) * kBoxBytes;
-            if (out_f32)
-              *reinterpret_cast<float2*>(d + swz128(rr * 128 + (n % 32) * 4)) =
-                  make_float2(v0, v1);
-            else
-              *reinterpret_cast<unsigned*>(
-                  d + swz128(rr * 128 + (n % 64) * 2)) = pack2<T>(v0, v1);
-          }
+            for (int h = 0; h < 2; ++h) {
+              const int rr = r + 8 * h, n = 8 * j + q;
+              const int i = 4 * j + 2 * h, i2 = 4 * (j + kBoxMN / 8) + 2 * h;
+              *reinterpret_cast<unsigned*>(my + swz128(rr * 128 + n * 2)) =
+                  pack2<T>(Opt::template pair<T>(tot[i], tot[i2]),
+                           Opt::template pair<T>(tot[i + 1], tot[i2 + 1]));
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int rr = r + 8 * h, n = 8 * j + q;
+              const float v0 = tot[4 * j + 2 * h],
+                          v1 = tot[4 * j + 2 * h + 1];
+              unsigned char* d = my + (n / per) * kBoxBytes;
+              if (out_f32)
+                *reinterpret_cast<float2*>(
+                    d + swz128(rr * 128 + (n % 32) * 4)) =
+                    make_float2(v0, v1);
+              else
+                *reinterpret_cast<unsigned*>(
+                    d + swz128(rr * 128 + (n % 64) * 2)) = pack2<T>(v0, v1);
+            }
+        }
         tma::fence_async_shared();
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
         if (lead) {
-          for (int bx = 0; bx < kBN / per; ++bx)
+          for (int bx = 0; bx < kTileN / per; ++bx)
             tma::tma_store_box(&cmap, my + bx * kBoxBytes,
                                ti.n0 + bx * per, ti.m0 + 64 * c, ti.b);
           tma::bulk_commit();
         }
         continue;
       }
-      // C's rows not in whole 16 bytes: from registers, two values a
-      // store where N is even
-      const bool two = (N & 1) == 0;
-      const size_t row0 = (size_t)ti.b * M;
+      if constexpr (!Opt::kPairB) {
+        // C's rows not in whole 16 bytes: from registers, two values a
+        // store where N is even
+        const bool two = (N & 1) == 0;
+        const size_t row0 = (size_t)ti.b * M;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
+        for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = ti.m0 + 64 * c + r + 8 * h, n = ti.n0 + q + 8 * j;
-          if (m >= M || n >= N) continue;
-          const float v0 = tot[4 * j + 2 * h], v1 = tot[4 * j + 2 * h + 1];
-          const size_t o = (row0 + m) * N + n;
-          if (out_f32) {
-            float* d = static_cast<float*>(C) + o;
-            if (two) {
-              *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+          for (int h = 0; h < 2; ++h) {
+            const int m = ti.m0 + 64 * c + r + 8 * h, n = ti.n0 + q + 8 * j;
+            if (m >= M || n >= N) continue;
+            const float v0 = tot[4 * j + 2 * h], v1 = tot[4 * j + 2 * h + 1];
+            const size_t o = (row0 + m) * N + n;
+            if (out_f32) {
+              float* d = static_cast<float*>(C) + o;
+              if (two) {
+                *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+              } else {
+                d[0] = v0;
+                if (n + 1 < N) d[1] = v1;
+              }
             } else {
-              d[0] = v0;
-              if (n + 1 < N) d[1] = v1;
-            }
-          } else {
-            T* d = static_cast<T*>(C) + o;
-            if (two) {
-              *reinterpret_cast<unsigned*>(d) = pack2<T>(v0, v1);
-            } else {
-              d[0] = from_f32<T>(v0);
-              if (n + 1 < N) d[1] = from_f32<T>(v1);
+              T* d = static_cast<T*>(C) + o;
+              if (two) {
+                *reinterpret_cast<unsigned*>(d) = pack2<T>(v0, v1);
+              } else {
+                d[0] = from_f32<T>(v0);
+                if (n + 1 < N) d[1] = from_f32<T>(v1);
+              }
             }
           }
-        }
+      }
     }
     if (lead) tma::bulk_wait();   // every box is written
   }
@@ -558,51 +651,65 @@ cudaError_t output_map(CUtensorMap* map, void* C, bool out_f32, int M,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <class Tag, typename T, bool A_MN, bool B_K>
+template <class Tag, typename T, bool A_MN, bool B_K, class Opt>
 cudaError_t launch_gemm(const CUtensorMap& am, const CUtensorMap& bm,
-                        const CUtensorMap& cm, bool c_tma, void* C,
-                        int batch, int M, int N, int K, bool out_f32,
-                        cudaStream_t s) {
+                        const CUtensorMap& b2m, const CUtensorMap& cm,
+                        bool c_tma, void* C, int batch, int M, int N, int K,
+                        bool out_f32, cudaStream_t s) {
   static PerDevice limit_set;
   static int sms[kMaxDevices];
   int dev = 0;
+  const auto kern = gemm_kernel<Tag, T, A_MN, B_K, Opt>;
   const cudaError_t limit = once_per_device(limit_set, [&] {
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
                                  dev);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(gemm_kernel<Tag, T, A_MN, B_K>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kSmem);
+    return cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   });
   if (limit != cudaSuccess) return limit;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
+  const int tn = Opt::kPairB ? kBoxMN : kBN;
   const long long tiles = (long long)batch * ((M + kBM - 1) / kBM) *
-                          ((N + kBN - 1) / kBN);
+                          ((N + tn - 1) / tn);
   const unsigned grid = (unsigned)(tiles < sms[dev] ? tiles : sms[dev]);
-  gemm_kernel<Tag, T, A_MN, B_K><<<grid, kWgThreads, kSmem, s>>>(
-      am, bm, cm, C, batch, M, N, K, out_f32 ? 1 : 0, c_tma ? 1 : 0);
+  if constexpr (Opt::kWaitA)
+    return launch_pdl(kern, dim3(grid), dim3(kWgThreads), kSmem, s, am, bm,
+                      b2m, cm, C, batch, M, N, K, out_f32 ? 1 : 0,
+                      c_tma ? 1 : 0);
+  kern<<<grid, kWgThreads, kSmem, s>>>(am, bm, b2m, cm, C, batch, M, N, K,
+                                       out_f32 ? 1 : 0, c_tma ? 1 : 0);
   return cudaSuccess;
 }
 
 // C (batch, M, N) = A @ B by the mainloop, A MN-major where A_MN and B
 // K-major where B_K (the operands' own flags must agree).  Tag names the
-// instantiation in a profile.
-template <class Tag, typename T, bool A_MN, bool B_K>
+// instantiation in a profile; Opt (above) may make it a programmatic
+// dependent (WaitA) or pair B with ``b2`` (C then holds N columns, each
+// the pair of B's and b2's, in the operands' type through the TMA unit).
+template <class Tag, typename T, bool A_MN, bool B_K, class Opt = Plain>
 cudaError_t gemm_as(const Operand& a, const Operand& b, void* C, int batch,
-                    int M, int N, int K, bool out_f32, cudaStream_t s) {
+                    int M, int N, int K, bool out_f32, cudaStream_t s,
+                    const Operand* b2 = nullptr) {
   if (a.k_major == A_MN || b.k_major != B_K) return cudaErrorInvalidValue;
-  CUtensorMap am, bm, cm = {};
+  if (Opt::kPairB && (b2 == nullptr || b2->k_major || out_f32))
+    return cudaErrorInvalidValue;
+  CUtensorMap am, bm, b2m, cm = {};
   bool c_tma = false;
   cudaError_t e = operand_map<T>(&am, a, M, K, batch);
   if (e == cudaSuccess) e = operand_map<T>(&bm, b, N, K, batch);
+  b2m = bm;   // read only where paired
+  if (e == cudaSuccess && Opt::kPairB)
+    e = operand_map<T>(&b2m, *b2, N, K, batch);
   if (e == cudaSuccess)
     e = output_map<T>(&cm, C, out_f32, M, N, batch, &c_tma);
   if (e != cudaSuccess) return e;
-  return launch_gemm<Tag, T, A_MN, B_K>(am, bm, cm, c_tma, C, batch, M, N, K,
-                                        out_f32, s);
+  if (Opt::kPairB && !c_tma) return cudaErrorInvalidValue;
+  return launch_gemm<Tag, T, A_MN, B_K, Opt>(am, bm, b2m, cm, c_tma, C, batch,
+                                             M, N, K, out_f32, s);
 }
 
 // the same, in the layouts the operands name

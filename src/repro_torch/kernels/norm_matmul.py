@@ -9,7 +9,8 @@ Pallas TPU kernel behind ``norm_matmul``); the CUDA source is
 
 What bounds it on the H100: the bytes of w, read once (a 32 MB
 projection or the 839 MB unembed) for 2 * M flops per element, far
-below the tensor cores' rate at M = 4 or 64.  For bf16 and f16 a small
+below the tensor cores' rate at M = 4 or 64.  For bf16 and f16 up to
+``ops.WG_MIN_ROWS`` rows (decode, a prefill chunk) a small
 kernel computes each row's inverse RMS once (one order fixed by D), and
 the GEMM -- matmul's tensor-core mainloop (``csrc/tc_gemm.cuh``: a ring
 of ``cp.async`` stages, ``mma.sync`` into f32) with the norm as its A
@@ -17,14 +18,19 @@ transform -- launches as its programmatic dependent: it streams its
 first stages of w while the first kernel runs and waits for it only to
 read inv; each warp then normalises the A fragments of x it reads, in
 registers, so no normalised row is held whole and M = 64 takes matmul's
-64-row tile.  The wrapper counts the pair as one launch.  Each output is
-reduced in matmul's K order, fixed by D alone, so a row gives the same
-bits alone or in any batch.  For f32 the small kernel writes the
-normalised rows (its inverse RMS in the order of ``common.cuh``'s
-``row_sumsq``) to an (M, D) f32 workspace, and matmul's f32 launch -- the
-port's one f32 order, ``ops.f32_k_order`` -- is its programmatic
-dependent on them: f32 norm_matmul is bit for bit f32 ``matmul`` of its
-normalised rows, at any D (``ops.norm_matmul_plan``).
+64-row tile.  Above the threshold (a dense prefill, a train step's 2048
+rows), where the tensor cores bind, the small kernel writes each row
+normalised and rounded to x's dtype -- what those fragments hold -- to
+an (M, D) workspace, and matmul's wgmma launch (``csrc/wg_gemm.cuh``) is
+its programmatic dependent on those rows: 16-bit norm_matmul there is
+bit for bit ``matmul(rows, w)``.  The wrapper counts the pair as one
+launch.  Each output is reduced in matmul's K order, fixed by D alone,
+so a row gives the same bits alone or in any batch.  For f32 the small
+kernel writes the normalised rows (its inverse RMS in the order of
+``common.cuh``'s ``row_sumsq``) to an (M, D) f32 workspace, and matmul's
+f32 launch -- the port's one f32 order, ``ops.f32_k_order`` -- is its
+programmatic dependent on them: f32 norm_matmul is bit for bit f32
+``matmul`` of its normalised rows, at any D (``ops.norm_matmul_plan``).
 """
 from __future__ import annotations
 
@@ -55,12 +61,17 @@ def norm_matmul(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
 
 def norm_matmul_with_rows(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
                           eps: float = 1e-6):
-    """(out, rows): f32 :func:`norm_matmul` on CUDA tensors, and the
-    normalised rows its first kernel wrote, to check the product against
+    """(out, rows): :func:`norm_matmul` on CUDA tensors, and the
+    normalised rows its first kernel wrote (f32, or 16-bit on the wgmma
+    route, ``ops.norm_matmul_plan``), to check the product against
     ``matmul(rows, w)``.  For checks only; no path of the port calls
     it."""
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise ValueError("norm_matmul_with_rows: f32 CUDA tensors only")
+    if x.device.type != "cuda" or ops.norm_matmul_plan(
+            x.shape[0], x.shape[1], w.shape[1], x.dtype,
+            g.dtype).route == "tensor_core":
+        raise ValueError("norm_matmul_with_rows: CUDA tensors of a route "
+                         "that writes the rows (f32, or 16-bit above "
+                         f"{ops.WG_MIN_ROWS} rows where D % 8 == 0)")
     return _launch(x, g, w, eps)
 
 
@@ -79,10 +90,10 @@ def _launch(x, g, w, eps):
     g = _build.operand(g, "norm_matmul", x.device)
     w = _build.operand(w, "norm_matmul", x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    # between the two kernels: the normalised rows (f32), or the rows'
-    # inverse RMS (bf16, f16)
-    ws = torch.empty((M, D) if x.dtype == torch.float32 else (M,),
-                     dtype=torch.float32, device=x.device)
+    # between the two kernels: the normalised rows (f32; 16-bit above the
+    # wgmma threshold), or the rows' inverse RMS (the 16-bit tiles)
+    plan = ops.norm_matmul_plan(M, D, N, x.dtype, g.dtype)
+    ws = torch.empty(plan.ws_shape, dtype=plan.ws_dtype, device=x.device)
     _build.launch(
         "repro_norm_matmul", x.device, x.data_ptr(), g.data_ptr(),
         w.data_ptr(), out.data_ptr(), ws.data_ptr(), M, D, N, float(eps),

@@ -46,14 +46,17 @@ TC_WARP_K = TC_KS // _WARPS
 TC_EVICT_FIRST_BYTES = 256 << 20
 
 
-# mirrors csrc/wg_gemm.cuh (the wgmma route of matmul above WG_MIN_ROWS
-# rows, and the batched kernel's training tiles): 128 x 128 tiles, a
+# mirrors csrc/wg_gemm.cuh (the wgmma route of matmul, norm_matmul's
+# product and swiglu's two launches above WG_MIN_ROWS rows, and the
+# batched kernel's training tiles): 128 x 128 tiles (a paired B's: 64
+# columns of each of two matrices, WG_BOX_MN), a
 # producer and two consumer warpgroups, a ring of WG_STAGES stages of
 # WG_STAGE_K k (two lanes' k-tiles of the 16-bit order), each consumer's
 # 64 x 128 outputs staged for the TMA unit (f32 at most), the ring's
 # mbarriers; persistent blocks, at most one an SM
 WG_MIN_ROWS = 96
 WG_BM = WG_BN = 128
+WG_BOX_MN = 64
 WG_STAGES = 5
 WG_STAGE_K = 2 * TC_WARP_K
 WG_THREADS = 384
@@ -211,9 +214,9 @@ def matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
 
 def tc_matmul_plan(m: int, k: int, n: int, dtype: torch.dtype) -> MatmulPlan:
     """The tensor-core tiles of csrc/tc_gemm.cuh's ``with_matmul_tile`` for
-    a 16-bit ``(m, k) @ (k, n)``: matmul's launch up to WG_MIN_ROWS rows
-    (or where k is not in whole 16-byte vectors), and the product of
-    norm_matmul and of swiglu's down launch at every M."""
+    a 16-bit ``(m, k) @ (k, n)``: the launch of matmul, of norm_matmul's
+    product and of swiglu's down product up to WG_MIN_ROWS rows (or where
+    k is not in whole 16-byte vectors)."""
     bm, bn, stages = tc_tile(m, n)
     return MatmulPlan("tensor_core", bm, bn, (-(-n // bn), -(-m // bm)),
                       stages, TC_KS, tc_smem_bytes(bm, bn, stages),
@@ -253,44 +256,63 @@ def matmul_k_order(plan: MatmulPlan, k: int) -> tuple:
 
 # -- fused norm + matmul ----------------------------------------------------------
 class NormMatmulPlan(NamedTuple):
-    route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
+    # "tensor_core" (bf16, f16), "wgmma" (bf16, f16 above WG_MIN_ROWS rows
+    # where d % 8 == 0) or "cuda_core" (f32)
+    route: str
     bm: int           # rows per block
     bn: int           # columns per block
-    grid: Tuple[int, int]   # (column tiles, row tiles)
-    stages: int       # cp.async ring depth (0: no ring)
+    # (column tiles, row tiles); wgmma: (blocks, 1)
+    grid: Tuple[int, int]
+    stages: int       # ring depth (0: no ring)
     k_stage: int      # k per stage
     smem: int         # dynamic shared-memory bytes per block
     w_evict_first: bool     # W's copies carry L2's evict-first policy
-    # the product: matmul's f32 launch, or the tensor-core tiles
+    # the product: matmul's f32 launch, its tensor-core tiles, or its
+    # wgmma mainloop
     gemm: Optional[MatmulPlan] = None
-    rows_grid: int = 0   # blocks of the first kernel (a warp a row)
+    # blocks of the first kernel: a warp a row, or (wgmma) a block of
+    # four warps a row
+    rows_grid: int = 0
+    # the workspace between the two kernels: the tiles' inverse RMS (m,)
+    # f32, or the normalised rows (m, d) in x's dtype (wgmma) or f32
+    ws_shape: Tuple[int, ...] = ()
+    ws_dtype: Optional[torch.dtype] = None
 
 
 def norm_matmul_plan(m: int, d: int, n: int, dtype: torch.dtype,
                      g_dtype: Optional[torch.dtype] = None
                      ) -> NormMatmulPlan:
     """How csrc/norm_matmul.cu launches ``rmsnorm(x (m, d), g) @ w (d,
-    n)``: a small kernel with a warp a row (``rows_grid`` blocks), then
-    the product as its programmatic dependent.  The 16-bit route's first
-    kernel computes the rows' inverse RMS, and its product is matmul's
-    tensor-core launch (``tc_matmul_plan``, at every M) with the norm
-    applied to A's
+    n)``: a small kernel over the rows (``rows_grid`` blocks), then the
+    product as its programmatic dependent.  16-bit, up to WG_MIN_ROWS
+    rows (or where d is not in whole 16-byte vectors): the first kernel
+    computes the rows' inverse RMS, and the product is matmul's
+    tensor-core launch (``tc_matmul_plan``) with the norm applied to A's
     fragments and g's slice of each stage in the ring beside it
-    (``g_dtype``, x's dtype when None).  The f32 route's first kernel
-    writes the normalised rows to an (m, d) f32 workspace, and its product
-    is matmul's f32 launch on them, in the one f32 order
+    (``g_dtype``, x's dtype when None).  16-bit above WG_MIN_ROWS rows:
+    the first kernel writes the normalised rows, rounded to x's dtype, to
+    an (m, d) workspace, and the product is matmul's wgmma launch on them
+    (``matmul_plan``): bit for bit ``matmul(rows, w)``.  f32: the first
+    kernel writes the normalised rows to an (m, d) f32 workspace, and the
+    product is matmul's f32 launch on them, in the one f32 order
     (:func:`f32_k_order`).  Either way nothing grows with ``d``, and the
     K order is matmul's, a function of ``d`` alone."""
-    p = (matmul_plan if dtype == torch.float32 else tc_matmul_plan)(
-        m, d, n, dtype)
     rows = -(-m // _WARPS)
     if dtype == torch.float32:
+        p = matmul_plan(m, d, n, dtype)
         return NormMatmulPlan("cuda_core", p.bm, p.bn, p.grid, p.stages,
-                              p.k_stage, p.smem, False, p, rows)
+                              p.k_stage, p.smem, False, p, rows, (m, d),
+                              torch.float32)
+    p = matmul_plan(m, d, n, dtype)
+    if p.route == "wgmma":
+        return NormMatmulPlan("wgmma", p.bm, p.bn, p.grid, p.stages,
+                              p.k_stage, p.smem, p.b_evict_first, p, m,
+                              (m, d), dtype)
+    p = tc_matmul_plan(m, d, n, dtype)
     g_size = (g_dtype or dtype).itemsize
     return NormMatmulPlan("tensor_core", p.bm, p.bn, p.grid, p.stages,
                           p.k_stage, p.smem + p.stages * TC_KS * g_size,
-                          p.b_evict_first, p, rows)
+                          p.b_evict_first, p, rows, (m,), torch.float32)
 
 
 def norm_matmul_supported(m: int, d: int, n: int, dtype: torch.dtype) -> bool:
@@ -299,18 +321,22 @@ def norm_matmul_supported(m: int, d: int, n: int, dtype: torch.dtype) -> bool:
 
 # -- fused swiglu -----------------------------------------------------------------
 class SwigluPlan(NamedTuple):
-    route: str        # "tensor_core" (bf16, f16) or "cuda_core" (f32)
-    bm: int           # gate/up: rows per block
+    # "tensor_core" (bf16, f16), "wgmma" (bf16, f16 above WG_MIN_ROWS rows
+    # where d % 8 == 0) or "cuda_core" (f32)
+    route: str
+    bm: int           # gate/up: rows per block (wgmma: per tile)
     bf: int           # gate/up: F columns per block, of each of wg and wu
-    grid: Tuple[int, int]   # gate/up: (row tiles, F tiles), rows fastest
-    stages: int       # gate/up: cp.async ring depth (0: no ring)
+    # gate/up: (row tiles, F tiles), rows fastest; wgmma: (blocks, 1)
+    grid: Tuple[int, int]
+    stages: int       # gate/up: ring depth (0: no ring)
     k_stage: int      # gate/up: k per stage
     smem: int         # gate/up: dynamic shared-memory bytes per block
     b_evict_first: bool     # gate/up: wg and wu carry L2's evict-first
-    # the down launch on h (m, f) and wd: matmul's f32 launch, or the
-    # tensor-core tiles
+    # the down launch on h (m, f) and wd: matmul's f32 launch, its
+    # tensor-core tiles, or its wgmma mainloop
     down: MatmulPlan
-    # f32: the gate/up's arrangement (bn = 2 * bf: [wg | wu] columns)
+    # f32 and wgmma: the gate/up's arrangement (bn = 2 * bf: [wg | wu]
+    # columns)
     gate_up: Optional[MatmulPlan] = None
 
 
@@ -343,28 +369,41 @@ def swiglu_plan(m: int, d: int, f: int, do: int,
                 dtype: torch.dtype) -> SwigluPlan:
     """How csrc/swiglu.cu launches ``silu(x (m, d) @ wg) * (x @ wu) @ wd
     (f, do)``: a gate/up kernel that writes h (m, f) to a workspace in
-    x's dtype, then the down product as its programmatic dependent: matmul's
-    f32 launch (``matmul_plan(m, f, do)``), or in 16-bit the tensor-core
-    tiles at every M (``tc_matmul_plan(m, f, do)``).  The gate/up
-    kernel's B tiles hold ``bf`` columns of wg beside the same columns of
-    wu, and its grid walks the row tiles fastest, so the row tiles of one
-    F tile share that tile's weight columns through L2.  16-bit: matmul's
-    tensor-core mainloop, so g and u are each reduced in matmul's K order
-    for ``d``.  f32: ``gate_up``, f32_gemm.cuh's chunk lanes (at most 4
-    rows) or register tiles, so g and u are each summed in the one f32
-    order for ``d`` (:func:`f32_k_order`)."""
-    down = (matmul_plan if dtype == torch.float32 else tc_matmul_plan)(
-        m, f, do, dtype)
+    x's dtype, then the down product as its programmatic dependent.  The
+    gate/up kernel's B tiles hold ``bf`` columns of wg beside the same
+    columns of wu.  16-bit up to WG_MIN_ROWS rows (or where d is not in
+    whole 16-byte vectors): matmul's tensor-core mainloop, its grid
+    walking the row tiles fastest, so the row tiles of one F tile share
+    that tile's weight columns through L2, and the down product on the
+    tensor-core tiles (``tc_matmul_plan(m, f, do)``).  16-bit above
+    WG_MIN_ROWS rows: both launches on the wgmma mainloop, the gate/up's
+    tile 64 F columns of each (``gate_up``, persistent blocks) and the
+    down product matmul's wgmma launch (``matmul_plan(m, f, do)``).
+    Either way g and u are each reduced in matmul's K order for ``d``.
+    f32: ``gate_up``, f32_gemm.cuh's chunk lanes (at most 4 rows) or
+    register tiles, so g and u are each summed in the one f32 order for
+    ``d`` (:func:`f32_k_order`), and the down product matmul's f32 launch
+    (``matmul_plan(m, f, do)``)."""
     if dtype == torch.float32:
+        down = matmul_plan(m, f, do, dtype)
         gu = _f32_gate_up_plan(m, d, f)
         return SwigluPlan("cuda_core", gu.bm, gu.bn // 2, gu.grid, gu.stages,
                           gu.k_stage, gu.smem, False, down, gu)
+    if m > WG_MIN_ROWS and d % 8 == 0:
+        tiles = -(-m // WG_BM) * -(-f // WG_BOX_MN)
+        # wg and wu evict first at every size, as matmul's B
+        gu = MatmulPlan("wgmma", WG_BM, WG_BN, (wg_blocks(tiles), 1),
+                        WG_STAGES, TC_KS, WG_SMEM, True, "persistent",
+                        WG_THREADS)
+        return SwigluPlan("wgmma", WG_BM, WG_BOX_MN, gu.grid, WG_STAGES,
+                          TC_KS, WG_SMEM, True, matmul_plan(m, f, do, dtype),
+                          gu)
     bm, bn, stages = swiglu_tile(m)
     bf = bn // 2
     return SwigluPlan("tensor_core", bm, bf, (-(-m // bm), -(-f // bf)),
                       stages, TC_KS, tc_smem_bytes(bm, bn, stages),
                       2 * d * f * dtype.itemsize <= TC_EVICT_FIRST_BYTES,
-                      down)
+                      tc_matmul_plan(m, f, do, dtype))
 
 
 def swiglu_supported(m: int, d: int, f: int, do: int,

@@ -4,7 +4,11 @@ down projection accumulated in f32).  Two kernels: gate and up in one
 pass that writes the (M, F) hidden activation h to a workspace small
 enough to stay in L2, then the down product -- matmul's launch -- as its
 programmatic dependent (``ops.swiglu_plan``).  bf16 and f16 run on the
-tensor cores; f32 on the CUDA cores in the port's one f32 order
+tensor cores: up to ``ops.WG_MIN_ROWS`` rows on ``mma.sync`` tiles, above
+them (a dense prefill, a train step's 2048 rows) both launches on the
+wgmma mainloop (``csrc/wg_gemm.cuh``: the gate/up's B boxes paired from
+wg and wu, h formed in registers), in the same K orders, so with the same
+bits.  f32 on the CUDA cores in the port's one f32 order
 (``ops.f32_k_order``: chunks of 256 k, each in sub-chains of 32), so f32
 swiglu's output is bit for bit f32 ``matmul(h, wd)``.
 

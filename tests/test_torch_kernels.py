@@ -253,26 +253,41 @@ def test_matmul_plan_keeps_f32_on_the_cuda_cores():
 @pytest.mark.parametrize("m", [1, 3, 4, 17, 64, 512])
 @pytest.mark.parametrize("n", [8, 200, 4096, 102400])
 def test_norm_matmul_plan_is_the_matmul_launch(m, n, dt):
-    """The 16-bit fused norm runs matmul's tensor-core launch: the same
-    tile, ring, K order and L2 policy, whatever the width D -- no
-    normalized row is held whole, so M = 64 takes the 64-row tile.  It
-    keeps those tiles at every M (``tc_matmul_plan``), also above
-    WG_MIN_ROWS, where matmul itself takes the wgmma route."""
+    """The 16-bit fused norm runs matmul's launch.  Up to WG_MIN_ROWS
+    rows (or where d is not in whole 16-byte vectors) its tensor-core
+    tiles: the same tile, ring, K order and L2 policy, whatever the width
+    D -- no normalized row is held whole, so M = 64 takes the 64-row
+    tile.  Above, where matmul itself takes the wgmma route, its wgmma
+    launch on the normalised rows, which the first kernel writes to an
+    (m, d) workspace in x's type."""
     for d in (40, 1000, 4096, 1 << 16):
-        mm = kops.tc_matmul_plan(m, d, n, dt)
+        wg = m > kops.WG_MIN_ROWS and d % 8 == 0
+        mm = (kops.matmul_plan if wg else kops.tc_matmul_plan)(m, d, n, dt)
+        assert mm.route == ("wgmma" if wg else "tensor_core")
         for g_dt in (dt, torch.float32):
             plan = kops.norm_matmul_plan(m, d, n, dt, g_dt)
-            assert plan.route == "tensor_core"
+            assert plan.route == mm.route and plan.gemm == mm
             assert (plan.bm, plan.bn, plan.grid, plan.stages,
                     plan.k_stage) == (mm.bm, mm.bn, mm.grid, mm.stages,
                                       mm.k_stage)
+            assert plan.w_evict_first == mm.b_evict_first
+            if wg:
+                # the rows in the workspace; no g in the ring
+                assert plan.smem == mm.smem <= 232448
+                assert (plan.ws_shape, plan.ws_dtype) == ((m, d), dt)
+                continue
             # the ring's stages of W and x, and g's slice of each stage
             assert plan.smem == mm.smem + plan.stages * kops.TC_KS * \
                 g_dt.itemsize
-            assert plan.w_evict_first == mm.b_evict_first
             # with the norm's 64-row inverse RMS in static shared memory
             assert plan.smem + 64 * 4 <= 232448 and plan.stages >= 3
-        assert plan.grid[1] * plan.bm >= m and plan.grid[0] * plan.bn >= n
+            assert (plan.ws_shape, plan.ws_dtype) == ((m,), torch.float32)
+        if wg:
+            assert plan.grid == (kops.wg_blocks(-(-m // 128) * -(-n // 128)),
+                                 1)
+        else:
+            assert plan.grid[1] * plan.bm >= m and \
+                plan.grid[0] * plan.bn >= n
     # the final norm + unembed streams evict-normal in 128-column tiles,
     # the qkv projections evict-first
     unembed = kops.norm_matmul_plan(4, 4096, 102400, dt)
@@ -305,51 +320,67 @@ def test_norm_matmul_plan_keeps_f32_on_the_cuda_cores(m, d):
 @pytest.mark.parametrize("d,f,do", [(4096, 11008, 4096), (1000, 200, 24),
                                     (44, 40, 16), (4096, 11008, 102400)])
 def test_swiglu_plan_down_is_the_matmul_launch(m, d, f, do, dt):
-    """The 16-bit down product is matmul's tensor-core launch on h (m, f)
-    and wd (f, do): the same tile, ring, K order for f and L2 policy, at
-    every M (``tc_matmul_plan``: above WG_MIN_ROWS too, where matmul
-    itself takes the wgmma route)."""
+    """The 16-bit down product is matmul's launch on h (m, f) and wd (f,
+    do): up to WG_MIN_ROWS rows (or where d is not in whole 16-byte
+    vectors, which keeps the gate/up on the tiles) its tensor-core tiles
+    (``tc_matmul_plan``), above them its wgmma launch (``matmul_plan``)
+    -- the same K order for f either way."""
     plan = kops.swiglu_plan(m, d, f, do, dt)
-    assert plan.route == "tensor_core"
-    assert plan.down == kops.tc_matmul_plan(m, f, do, dt)
-    assert plan.down.route == "tensor_core"
+    wg = m > kops.WG_MIN_ROWS and d % 8 == 0
+    assert plan.route == ("wgmma" if wg else "tensor_core")
+    assert plan.down == (kops.matmul_plan if wg else kops.tc_matmul_plan)(
+        m, f, do, dt)
+    assert plan.down.route == plan.route
     assert plan.down.k_stage == kops.TC_KS
 
 
 @pytest.mark.parametrize("d", [40, 1000, 4096, 11008])
 def test_swiglu_plan_gate_up_k_order_does_not_depend_on_m(d):
     """g and u are reduced in matmul's K order for d: stages of TC_KS, each
-    split among the 8 warps in fixed slices, whatever the row count picks
-    for the tile."""
+    split among the 8 lanes of the order in fixed slices, whatever the
+    row count picks for the route and tile."""
+    rows = (1, 4, 16, 17, 64, 512)
     plans = [kops.swiglu_plan(m, d, 11008, 4096, torch.bfloat16)
-             for m in (1, 4, 16, 17, 64, 512)]
-    assert {p.route for p in plans} == {"tensor_core"}
+             for m in rows]
+    # 512 rows take the wgmma mainloop (d % 8 == 0 at every d here)
+    assert [p.route for p in plans] == ["tensor_core"] * 5 + ["wgmma"]
     assert {p.k_stage for p in plans} == {kops.TC_KS}
     assert kops.TC_WARP_K * 8 == kops.TC_KS
     # the tiles differ; the order they reduce in does not
-    assert [(p.bm, p.bf) for p in plans] == [(16, 64)] * 3 + [(64, 32)] * 3
+    assert [(p.bm, p.bf) for p in plans] == \
+        [(16, 64)] * 3 + [(64, 32)] * 2 + [(128, 64)]
     # the same K order as matmul's for (m, d) @ (d, f)
     assert all(p.k_stage == kops.matmul_plan(m, d, 11008, torch.bfloat16)
-               .k_stage for p, m in zip(plans, (1, 4, 16, 17, 64, 512)))
+               .k_stage for p, m in zip(plans, rows))
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 65, 512, 1000])
 @pytest.mark.parametrize("f", [8, 40, 200, 1000, 11008])
 def test_swiglu_plan_fits_and_covers(m, f, dt):
-    """The gate/up block fits one SM's shared memory (its ring of x and of
-    wg + wu stages, or the epilogue's warp partials), keeps at least 48 KB
+    """The gate/up block fits one SM's shared memory, keeps at least 48 KB
     of B in flight, and the grid covers every (row, F column); its B
-    tile is bf columns of wg beside bf of wu."""
+    tile is bf columns of wg beside bf of wu.  Tiles (up to WG_MIN_ROWS
+    rows): a ring of x and of wg + wu stages, or the epilogue's warp
+    partials, the row tiles fastest.  wgmma (above): matmul's ring of
+    64-deep stages, 128-row tiles of 64 F columns each walked by at most
+    one persistent block an SM."""
     plan = kops.swiglu_plan(m, 4096, f, 4096, dt)
     bn = 2 * plan.bf
-    assert plan.smem == kops.tc_smem_bytes(plan.bm, bn, plan.stages)
     assert plan.smem <= 232448 and plan.down.smem <= 232448
     assert plan.stages >= 3 and plan.bm % 16 == 0
-    assert (plan.stages - 1) * plan.k_stage * bn * 2 >= 48 * 1024
-    # row tiles fastest: the row tiles of one F tile run together
-    assert plan.grid[0] * plan.bm >= m > (plan.grid[0] - 1) * plan.bm
-    assert plan.grid[1] * plan.bf >= f > (plan.grid[1] - 1) * plan.bf
+    if m > kops.WG_MIN_ROWS:
+        assert plan.route == "wgmma" and plan.smem == kops.WG_SMEM
+        assert (plan.bm, bn) == (kops.WG_BM, kops.WG_BN)
+        assert (plan.stages - 1) * kops.WG_STAGE_K * bn * 2 >= 48 * 1024
+        tiles = -(-m // plan.bm) * -(-f // plan.bf)
+        assert plan.grid == (kops.wg_blocks(tiles), 1)
+    else:
+        assert plan.smem == kops.tc_smem_bytes(plan.bm, bn, plan.stages)
+        assert (plan.stages - 1) * plan.k_stage * bn * 2 >= 48 * 1024
+        # row tiles fastest: the row tiles of one F tile run together
+        assert plan.grid[0] * plan.bm >= m > (plan.grid[0] - 1) * plan.bm
+        assert plan.grid[1] * plan.bf >= f > (plan.grid[1] - 1) * plan.bf
     # wg + wu (2 x 4096 x f) stream evict-first, as matmul's B up to 256 MB
     assert plan.b_evict_first
 
@@ -357,15 +388,17 @@ def test_swiglu_plan_fits_and_covers(m, f, dt):
 def test_swiglu_plan_at_deepseek_widths():
     """At deepseek-7b's widths the decode gate/up launch has 172 blocks of
     16 rows, each with 128 KB of wg + wu in flight, and the down launch is
-    matmul's 128 blocks; the dense prefill's gate/up grid walks its 8 row
-    tiles fastest."""
+    matmul's 128 blocks; the dense prefill (512 rows) takes the wgmma
+    mainloop for both: 4 x 172 tiles of 64 F columns on 132 persistent
+    blocks, then matmul's 4 x 32 tiles on 128."""
     plan = kops.swiglu_plan(4, 4096, 11008, 4096, torch.bfloat16)
     assert (plan.bm, plan.bf, plan.stages) == (16, 64, 3)
     assert (plan.stages - 1) * plan.k_stage * 2 * plan.bf * 2 == 128 << 10
     assert plan.grid == (1, 172)
     assert plan.down.grid == (128, 1)
     dense = kops.swiglu_plan(512, 4096, 11008, 4096, torch.bfloat16)
-    assert dense.grid == (8, 344) and dense.down.grid == (64, 8)
+    assert dense.route == dense.down.route == "wgmma"
+    assert dense.grid == (132, 1) and dense.down.grid == (128, 1)
 
 
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 64, 512])
